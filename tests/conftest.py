@@ -51,3 +51,9 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 assert jax.default_backend() == "cpu", jax.default_backend()
 assert jax.device_count() == 8, jax.device_count()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's "
+        "CUDA kernels); skips without one")
