@@ -18,6 +18,7 @@
 // multiple of 16 bytes.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -44,7 +45,93 @@ __global__ void kv_write_kernel(uint4* __restrict__ k_cache,
   }
 }
 
+// K4: decode-step int8 quantize + write, codes and slot-major scales.
+//
+// Replaces llm_inference_tpu/ops/pallas/kv_write.py:quantize_write_token
+// (_qkernel): per (sequence, kv-head) row of the new K and V,
+//   scale = max(max|x| / 127, 1e-8),  code = clip(rint(x / scale), -128, 127)
+// (quantization.quantize_kv), codes to [b, h, min(off, S-1), :] of the
+// layer's [B, Hkv, S, D] int8 cache and the scale to [b, min(off, S-1), h]
+// of its slot-major [B, S, Hkv] float32 scales. The division is IEEE
+// float32 and rintf rounds half to even, as the TPU kernel and the plain
+// version do, so codes and scales are bit-exact (the build uses no fast
+// math). The TPU kernel's identity dot at HIGHEST precision only moves a
+// scale column into a lane row; nothing here needs it.
+//
+// Design: one block per (kv-head, sequence), warp 0 quantizes the K row and
+// warp 1 the V row; the lanes split D and reduce max|x| with shuffles. Bound
+// as K3: a few hundred bytes per row, launch-bound. The new rows are read
+// through their strides (they are column slices of the fused qkv output),
+// so no copy precedes the launch.
+constexpr int kMaxPerLane = 8;   // D <= 256
+
+__global__ void kv_quant_write_kernel(
+    int8_t* __restrict__ k_cache, int8_t* __restrict__ v_cache,
+    float* __restrict__ k_scale, float* __restrict__ v_scale,
+    const void* __restrict__ k_new, const void* __restrict__ v_new,
+    const int* __restrict__ offsets, int Hkv, int S, int D, int k_sb,
+    int k_sh, int v_sb, int v_sh, int in_f32) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int s = offsets[b];
+  s = s < S - 1 ? s : S - 1;
+  s = s > 0 ? s : 0;
+  const size_t src = warp ? (size_t)b * v_sb + (size_t)h * v_sh
+                          : (size_t)b * k_sb + (size_t)h * k_sh;
+  const void* row = warp ? v_new : k_new;
+  float x[kMaxPerLane];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMaxPerLane; ++i) {
+    const int d = lane + 32 * i;
+    x[i] = 0.f;
+    if (d < D) {
+      x[i] = in_f32 ? static_cast<const float*>(row)[src + d]
+                    : __bfloat162float(
+                          static_cast<const __nv_bfloat16*>(row)[src + d]);
+      amax = fmaxf(amax, fabsf(x[i]));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float scale = fmaxf(amax / 127.0f, 1e-8f);
+  int8_t* dst = (warp ? v_cache : k_cache) +
+                (((size_t)b * Hkv + h) * S + s) * D;
+#pragma unroll
+  for (int i = 0; i < kMaxPerLane; ++i) {
+    const int d = lane + 32 * i;
+    if (d < D) {
+      const float q = fminf(fmaxf(rintf(x[i] / scale), -128.f), 127.f);
+      dst[d] = (int8_t)q;
+    }
+  }
+  if (lane == 0) (warp ? v_scale : k_scale)[((size_t)b * S + s) * Hkv + h] =
+      scale;
+}
+
 }  // namespace
+
+// K4. k_cache/v_cache point at one layer [B, Hkv, S, D] int8 and
+// k_scale/v_scale at its [B, S, Hkv] float32 scales; k_new/v_new hold
+// row (b, h) at element b * sb + h * sh (D contiguous), bf16, or float32
+// when in_f32; offsets int32 [B] on the device. D % 32 == 0, D <= 256.
+extern "C" int kv_quant_write_launch(void* k_cache, void* v_cache,
+                                     void* k_scale, void* v_scale,
+                                     const void* k_new, const void* v_new,
+                                     const void* offsets, int B, int Hkv,
+                                     int S, int D, int k_sb, int k_sh,
+                                     int v_sb, int v_sh, int in_f32,
+                                     void* stream) {
+  if (D % 32 != 0 || D > 32 * kMaxPerLane) return (int)cudaErrorInvalidValue;
+  dim3 grid(Hkv, B);
+  kv_quant_write_kernel<<<grid, 64, 0, (cudaStream_t)stream>>>(
+      (int8_t*)k_cache, (int8_t*)v_cache, (float*)k_scale, (float*)v_scale,
+      k_new, v_new, (const int*)offsets, Hkv, S, D, k_sb, k_sh, v_sb, v_sh,
+      in_f32);
+  return (int)cudaGetLastError();
+}
 
 // k_cache/v_cache point at one layer [B, Hkv, S, row_bytes]; k_new/v_new
 // are [B, Hkv, row_bytes]; offsets is int32 [B] on the device.

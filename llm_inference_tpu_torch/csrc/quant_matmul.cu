@@ -1,4 +1,5 @@
-// K1: int8 weight-only matmul with the fused residual + RMSNorm prologue.
+// K1: int8 / int4 weight-only matmul with the fused residual + RMSNorm
+// prologue.
 //
 // Replaces llm_inference_tpu/ops/pallas/quant_matmul.py:_quant_matmul_blocked
 // (_kernel), int8 per-channel symmetric weights. Same function and the
@@ -35,11 +36,22 @@
 // bound is full-width coalesced 16-byte loads, several in flight per lane,
 // and enough blocks (N / 32) to cover the SMs; it does not yet use TMA or
 // split K for the narrow (N = 4096) weights.
+//
+// The int4 branch (qmm4_launch) replaces the same TPU kernel's N-pair
+// int4 branch (grouped symmetric scales, g = 128): codes [N, K/2] with two
+// K-adjacent nibbles per byte, float32 scales [N, G]. Its rounding points
+// differ from int8's: the normed rows stay float32 (the TPU branch dots
+// float32 rows) and each group's scale hits its partial dot. M <= 8 runs
+// qmm4_gemv on the shared int4 core (int4_gemv.cuh, also K6's); larger M
+// runs qmm4_mma. At M = 1 the bound is half of int8's: LLaMA-2-7B wqkv
+// 25.2 MB codes + 1.6 MB scales -> 8.0 us, lm_head 65.5 + 4.1 MB -> 21 us.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "int4_gemv.cuh"
 
 namespace {
 
@@ -320,6 +332,198 @@ int launch_gemv(const void* x, const void* res, const void* gamma,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ int4 GEMV
+// As qmm_gemv, but the rows stay float32 in shared memory (the TPU
+// kernel's N-pair branch dots float32 normed rows) and the int4 core
+// (int4_gemv.cuh) applies each group's scale to its partial dot.
+template <int MT>
+__global__ void __launch_bounds__(kThreads)
+qmm4_gemv(const __nv_bfloat16* __restrict__ x,      // [M, K]
+          const __nv_bfloat16* __restrict__ res,    // [M, K] or null
+          const __nv_bfloat16* __restrict__ gamma,  // [K] or null
+          const uint8_t* __restrict__ w,            // [N, K/2] (this layer)
+          const float* __restrict__ scale,          // [N, G]
+          __nv_bfloat16* __restrict__ out,          // [M, N]
+          __nv_bfloat16* __restrict__ xout,         // [M, K] or null
+          int M, int K, int N, int G, float eps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(smem_raw);    // [M][K], swizzled
+  __shared__ float red[kWarps];
+
+  for (int m = 0; m < M; ++m) {
+    const __nv_bfloat16* xr = x + (size_t)m * K;
+    const __nv_bfloat16* rr = res ? res + (size_t)m * K : nullptr;
+    float rstd = 1.f;
+    if (gamma || res || xout) {
+      const float ss = row_prologue(xr, rr, xout ? xout + (size_t)m * K
+                                                  : nullptr,
+                                    blockIdx.x == 0, K, red);
+      if (gamma) rstd = rsqrtf(ss / (float)K + eps);
+    }
+    for (int k = threadIdx.x; k < K; k += kThreads) {
+      float v = bf(xr[k]);
+      if (rr) v += bf(rr[k]);
+      if (gamma) v = v * rstd * bf(gamma[k]);
+      xs[(size_t)m * K + int4g::swz(k)] = v;
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n0 = blockIdx.x * kColsPerBlock + warp * int4g::kCols;
+  float acc[int4g::kCols][MT];
+#pragma unroll
+  for (int c = 0; c < int4g::kCols; ++c)
+#pragma unroll
+    for (int m = 0; m < MT; ++m) acc[c][m] = 0.f;
+  int4g::gemv_cols<MT>(xs, K, M, w, scale, K, G, n0, lane, acc);
+#pragma unroll
+  for (int c = 0; c < int4g::kCols; ++c) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (m < M) {
+        const float tot = int4g::warp_sum(acc[c][m]);
+        if (lane == 0) out[(size_t)m * N + n0 + c] = __float2bfloat16(tot);
+      }
+    }
+  }
+}
+
+template <int MT>
+int launch_gemv4(const void* x, const void* res, const void* gamma,
+                 const void* w, const void* scale, void* out, void* xout,
+                 int M, int K, int N, int G, float eps, cudaStream_t stream) {
+  const size_t smem = (size_t)M * K * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        qmm4_gemv<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  qmm4_gemv<MT><<<N / kColsPerBlock, kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)res,
+      (const __nv_bfloat16*)gamma, (const uint8_t*)w, (const float*)scale,
+      (__nv_bfloat16*)out, (__nv_bfloat16*)xout, M, K, N, G, eps);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------- int4 MMA
+// 8 < M <= 128: as qmm_mma, with the codes widened to bf16 tiles (exact)
+// and the group scales applied output-side. A wmma accumulator fragment
+// has no documented element -> column map, so each group's product goes
+// through shared memory: the block computes the group's 128 x 64 tile in
+// fresh fragments, stores it over the (then idle) staging tiles, and each
+// thread folds its 32 elements times their column's scale (the group's
+// 64 column scales staged in shared memory once) into its own float32
+// accumulators. The rows enter as bf16 (the prologue pre-pass
+// rounds the normed rows), where the TPU kernel dots float32 rows: the
+// difference is one bf16 rounding of each input, stated with the
+// tolerance in chip_smoke.py.
+constexpr int kAccPerThread = BM * BN / kThreads;   // 32
+
+__global__ void __launch_bounds__(kThreads)
+qmm4_mma(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
+         const uint8_t* __restrict__ w, const float* __restrict__ scale,
+         __nv_bfloat16* __restrict__ out, int M, int K, int N, int G) {
+  using namespace nvcuda;
+  __shared__ __align__(128) unsigned char smem_raw[kMmaSmem];
+  __shared__ float s_group[BN];             // this group's column scales
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Bs = As + BM * LDA;
+  float* Cs = reinterpret_cast<float*>(smem_raw);
+
+  const int warp = threadIdx.x / 32;
+  const int wm = warp & 3, wn = warp >> 2;  // 4 x 2 warps, 32 x 32 each
+  const int n0 = blockIdx.x * BN;
+  const int gsize = K / G;
+  const size_t row_bytes = (size_t)K / 2;
+  float acc[kAccPerThread];
+#pragma unroll
+  for (int i = 0; i < kAccPerThread; ++i) acc[i] = 0.f;
+
+  for (int g = 0; g < G; ++g) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
+    for (int k0 = g * gsize; k0 < (g + 1) * gsize; k0 += BK) {
+      for (int i = threadIdx.x; i < BM * (BK / 8); i += kThreads) {
+        const int r = i / (BK / 8), c8 = (i % (BK / 8)) * 8;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (r < M)
+          v = *reinterpret_cast<const uint4*>(a + (size_t)r * K + k0 + c8);
+        *reinterpret_cast<uint4*>(As + r * LDA + c8) = v;
+      }
+      // weight tile [BN, BK]: 32 codes per 16-byte load, widened to bf16
+      for (int i = threadIdx.x; i < BN * (BK / 32); i += kThreads) {
+        const int n = i / (BK / 32), c32 = (i % (BK / 32)) * 32;
+        const uint4 wv = __ldg(reinterpret_cast<const uint4*>(
+            w + (size_t)(n0 + n) * row_bytes + (k0 + c32) / 2));
+        const uint32_t words[4] = {wv.x, wv.y, wv.z, wv.w};
+        uint4* dst = reinterpret_cast<uint4*>(Bs + n * LDB + c32);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float cf[8];
+          int4g::unpack8(words[q], cf);
+          uint32_t packed[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)     // codes are exact in bf16
+            packed[j] = (__float_as_uint(cf[2 * j]) >> 16) |
+                        (__float_as_uint(cf[2 * j + 1]) & 0xffff0000u);
+          dst[q] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> af[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major> bfr[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(af[i], As + (wm * 32 + i * 16) * LDA + kk,
+                                 LDA);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(bfr[j], Bs + (wn * 32 + j * 16) * LDB + kk,
+                                 LDB);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wmma::mma_sync(c[i][j], af[i], bfr[j], c[i][j]);
+      }
+      __syncthreads();
+    }
+    // the group's tile through shared memory, scaled per column
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::store_matrix_sync(
+            Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, c[i][j], LDC,
+            wmma::mem_row_major);
+    if (threadIdx.x < BN)
+      s_group[threadIdx.x] = __ldg(scale + (size_t)(n0 + threadIdx.x) * G + g);
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < kAccPerThread; ++t) {
+      const int e = threadIdx.x + t * kThreads;
+      const int r = e / BN, cc = e % BN;
+      if (r < M) acc[t] = fmaf(Cs[r * LDC + cc], s_group[cc], acc[t]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int t = 0; t < kAccPerThread; ++t) {
+    const int e = threadIdx.x + t * kThreads;
+    const int r = e / BN, cc = e % BN;
+    if (r < M) out[(size_t)r * N + n0 + cc] = __float2bfloat16(acc[t]);
+  }
+}
+
 }  // namespace
 
 // Largest M * K * 2 bytes of activations the GEMV keeps in shared memory.
@@ -364,5 +568,46 @@ extern "C" int qmm_launch(const void* x, const void* res, const void* gamma,
   qmm_mma<<<N / BN, kThreads, 0, st>>>(
       (const __nv_bfloat16*)a, (const int8_t*)w, (const float*)scale,
       (__nv_bfloat16*)out, M, K, N);
+  return (int)cudaGetLastError();
+}
+
+// The int4 branch: w packed int4 [N, K/2] and scale f32 [N, G] of ONE
+// layer (ops/quantization.py); the other arguments as qmm_launch. The
+// GEMV path (M <= 8, M * K * 4 <= QMM_GEMV_MAX_SMEM) keeps float32 rows.
+// Requires K % 64 == 0, N % 64 == 0, (K / G) % 64 == 0, 1 <= M <= 128.
+extern "C" int qmm4_launch(const void* x, const void* res, const void* gamma,
+                           const void* w, const void* scale, void* out,
+                           void* xout, void* xn, int M, int K, int N, int G,
+                           float eps, void* stream) {
+  if (M < 1 || M > BM || K % BK != 0 || N % BN != 0 || G < 1 || K % G != 0
+      || (K / G) % BK != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t gemv_smem = (size_t)M * K * sizeof(float);
+  if (M <= 8 && gemv_smem <= QMM_GEMV_MAX_SMEM) {
+    if (M == 1)
+      return launch_gemv4<1>(x, res, gamma, w, scale, out, xout, M, K, N, G,
+                             eps, st);
+    if (M == 2)
+      return launch_gemv4<2>(x, res, gamma, w, scale, out, xout, M, K, N, G,
+                             eps, st);
+    if (M <= 4)
+      return launch_gemv4<4>(x, res, gamma, w, scale, out, xout, M, K, N, G,
+                             eps, st);
+    return launch_gemv4<8>(x, res, gamma, w, scale, out, xout, M, K, N, G,
+                           eps, st);
+  }
+  const void* a = x;
+  if (gamma || res || xout) {
+    if (!xn) return (int)cudaErrorInvalidValue;
+    qmm_rows_prologue<<<M, kThreads, 0, st>>>(
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)res,
+        (const __nv_bfloat16*)gamma, (__nv_bfloat16*)xn,
+        (__nv_bfloat16*)xout, K, eps);
+    a = xn;
+  }
+  qmm4_mma<<<N / BN, kThreads, 0, st>>>(
+      (const __nv_bfloat16*)a, (const uint8_t*)w, (const float*)scale,
+      (__nv_bfloat16*)out, M, K, N, G);
   return (int)cudaGetLastError();
 }

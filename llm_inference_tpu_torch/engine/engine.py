@@ -4,7 +4,9 @@
 Decode runs `engine_cfg.decode_chunk` steps on the device between two
 host syncs, as the JAX engine's scan does: each step's sampled token stays
 on the device and feeds the next step; the host reads the chunk's tokens
-once. There is no LoRA, mesh or paged backend in this slice.
+once. `cache_dtype` is a float dtype (bf16 cache) or torch.int8 / "int8"
+(int8 codes with slot-major float32 scales); "int4" is not ported yet.
+There is no LoRA, mesh or paged backend in this slice.
 """
 
 from __future__ import annotations

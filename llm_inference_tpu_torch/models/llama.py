@@ -9,8 +9,14 @@ runs the JAX package's pair-carry protocol (llama.py:930-953): each
 layer's down-projection delta folds into the next layer's qkv prologue,
 so every layer is
 
-    K1 wqkv (norm + residual fused) → RoPE → K3 KV write → K2 attention
-    → K1 wo → K1 gate-up (norm + residual fused) → SwiGLU → K1 down
+    K1 wqkv (norm + residual fused) → RoPE → KV write → K2 attention
+    → layer tail
+
+The KV write is K3 (bf16 cache) or K4 (int8 cache, quantizing) at decode.
+The layer tail is K6, one launch, for grouped int4 weights at M ≤ 32 rows
+(llama.py:802-816), else the K1 chain
+
+    K1 wo → K1 gate-up (norm + residual fused) → SwiGLU → K1 down
 
 Weight dict layout (dense tensors or QTensor):
   embed [V, H]; final_norm [H]; lm_head [H, V] (absent if tied);
@@ -31,8 +37,11 @@ from llm_inference_tpu_torch.config import ModelConfig, QuantConfig
 from llm_inference_tpu_torch.ops import activations, attention, embedding
 from llm_inference_tpu_torch.ops import kvcache, norms, rope
 from llm_inference_tpu_torch.ops.kernels import decode_attention
+from llm_inference_tpu_torch.ops.kernels import quant_matmul as qm
 from llm_inference_tpu_torch.ops.linear import matmul, norm_matmul
-from llm_inference_tpu_torch.ops.quantization import QTensor, quantize
+from llm_inference_tpu_torch.ops.quantization import (QTensor, cat_columns,
+                                                      from_split_half,
+                                                      quantize)
 
 Params = Dict[str, Any]
 
@@ -84,7 +93,7 @@ def _stack_quantize(w: torch.Tensor, qcfg: QuantConfig) -> QTensor:
     bits = {"int8": 8, "int4": 4}[qcfg.weights]
     qts = [quantize(m, bits, qcfg.group_size, qcfg.asymmetric) for m in w]
     return QTensor(q=torch.stack([t.q for t in qts]),
-                   scale=torch.stack([t.scale for t in qts]))
+                   scale=torch.stack([t.scale for t in qts]), bits=bits)
 
 
 def quantize_params(params: Params, qcfg: QuantConfig) -> Params:
@@ -109,27 +118,34 @@ def quantize_params(params: Params, qcfg: QuantConfig) -> Params:
 
 def init_params_quantized(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
                           dtype=None, device=None) -> Params:
-    """Random int8 weights drawn directly as codes on the device — a
-    dense copy of the model never exists. Codes are uniform in
-    [-128, 127] with scale 0.02/127, as the JAX package's dummy weights."""
+    """Random quantized weights drawn directly as codes on the device — a
+    dense copy of the model never exists. As the JAX package's dummy
+    weights: random bytes, so int8 codes are uniform in [-128, 127] and
+    int4 codes (two nibbles per byte) in [-8, 7], every scale 0.02/qmax
+    (per column, or per group and column for grouped int4)."""
     if not qcfg.enabled:
         return init_params(cfg, seed, dtype, device)
-    if qcfg.weights != "int8" or qcfg.group_size > 0 or qcfg.asymmetric:
-        raise NotImplementedError("only int8 per-channel weights are ported")
+    bits = {"int8": 8, "int4": 4}[qcfg.weights]
+    if qcfg.asymmetric or (bits == 8 and qcfg.group_size > 0):
+        raise NotImplementedError("only symmetric int8 per-channel and int4 "
+                                  "weights are ported")
     device = resolve_device(device)
     dtype = dtype or act_dtype(cfg)
     g = _generator(seed, device)
     H, L = cfg.hidden_size, cfg.num_layers
     I, V = cfg.intermediate_size, cfg.vocab_size
     D, Hq, Hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    scale_val = 0.02 / 127
+    scale_val = 0.02 / (2 ** (bits - 1) - 1)
 
     def qrnd(K, N, lead=(L,)):
-        q = torch.randint(-128, 128, (*lead, N, K), generator=g,
+        q = torch.randint(-128, 128, (*lead, N, K * bits // 8), generator=g,
                           dtype=torch.int8, device=device)
-        scale = torch.full((*lead, 1, N), scale_val, dtype=torch.float32,
+        gs = qcfg.group_size
+        groups = K // gs if 0 < gs < K else 1
+        sshape = (*lead, 1, N) if bits == 8 else (*lead, N, groups)
+        scale = torch.full(sshape, scale_val, dtype=torch.float32,
                            device=device)
-        return QTensor(q=q, scale=scale)
+        return QTensor(q=q, scale=scale, bits=bits)
 
     layers = {
         "attn_norm": torch.ones((L, H), dtype=dtype, device=device),
@@ -159,10 +175,7 @@ def fuse_params(params: Params) -> Params:
     def fuse(keys, out_key):
         ws = [layers.pop(k) for k in keys]
         if isinstance(ws[0], QTensor):
-            # codes are [.., N, K]: output columns are the rows
-            layers[out_key] = QTensor(
-                q=torch.cat([w.q for w in ws], dim=-2),
-                scale=torch.cat([w.scale for w in ws], dim=-1))
+            layers[out_key] = cat_columns(ws)
         else:
             layers[out_key] = torch.cat(ws, dim=-1)
 
@@ -205,21 +218,28 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Params:
     """The weight bridge: the JAX package's parameters as nested dicts of
     numpy arrays → the port's parameters on `device`.
 
-    A quantized weight is a dict {"q": int8 [..., K, N] row-major codes,
-    "scale": float32 [..., 1, N]} (the JAX QTensor after
-    quantization.from_blocked), whose codes are stored transposed here;
-    every other leaf is an array. Fused keys (wqkv, w_gateup) pass through
-    as they are. Call prepare_params on the result before serving."""
+    A quantized weight is a dict {"q", "scale", "bits"} (the JAX QTensor
+    after quantization.from_blocked): int8 codes [..., K, N] row-major
+    with float32 scales [..., 1, N], or (bits 4) split-half packed int4
+    codes [..., K/2, N] (row r in the low nibble, row r + K/2 in the high
+    one) with float32 scales [..., G, N]. The codes are re-laid into the
+    port's transposed layouts (ops/quantization.py); every other leaf is
+    an array. Fused keys (wqkv, w_gateup) pass through as they are. Call
+    prepare_params on the result before serving."""
     device = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict) and "q" in node and "scale" in node:
             q = _from_numpy(node["q"], device).to(torch.int8)
             scale = _from_numpy(node["scale"], device).to(torch.float32)
-            if scale.shape[-2:] != (1, q.shape[-1]):
+            bits = int(node.get("bits", 8))
+            if bits == 4:
+                return from_split_half(q, scale)
+            if bits != 8 or scale.shape[-2:] != (1, q.shape[-1]):
                 raise NotImplementedError(
-                    f"scales {tuple(scale.shape)} for codes "
-                    f"{tuple(q.shape)}: only int8 per-channel is ported")
+                    f"bits {bits}, scales {tuple(scale.shape)} for codes "
+                    f"{tuple(q.shape)}: only int8 per-channel and int4 are "
+                    "ported")
             return QTensor(q=q.transpose(-1, -2).contiguous(), scale=scale)
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
@@ -240,15 +260,20 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Params:
 def cached_attention(cfg: ModelConfig, q, k, v, cache: kvcache.KVCache,
                      layer: int, positions, write_offsets, mask):
     """Write this layer's K/V into the dense cache, then attend: K2 for a
-    decode step (mask None), the plain `attend` over `mask` otherwise.
-    q/k/v: [B, T, H*, D] (post-RoPE). Returns [B, T, Hq, D]."""
+    decode step (mask None), the plain `attend` over `mask` otherwise,
+    either with an int8 cache's scales. q/k/v: [B, T, H*, D] (post-RoPE).
+    Returns [B, T, Hq, D]."""
     kvcache.update_cache_layer(cache, layer, k, v, write_offsets)
     if mask is None:
         return decode_attention.decode_attention(
             q, cache.k, cache.v, layer, positions[:, -1],
-            logit_softcap=cfg.attn_logit_softcap, window=cfg.sliding_window)
+            logit_softcap=cfg.attn_logit_softcap, window=cfg.sliding_window,
+            k_scale=cache.k_scale, v_scale=cache.v_scale)
+    ks, vs = cache.k_scale, cache.v_scale
     return attention.attend(q, cache.k[layer], cache.v[layer], mask,
-                            logit_softcap=cfg.attn_logit_softcap)
+                            logit_softcap=cfg.attn_logit_softcap,
+                            k_scale=None if ks is None else ks[layer],
+                            v_scale=None if vs is None else vs[layer])
 
 
 def _rope_heads(cfg: ModelConfig, layers, l, q, k, cos, sin):
@@ -292,7 +317,7 @@ def _layer_pair(cfg, layers, l, h, d, cache, positions, write_offsets, mask,
                 cos, sin):
     """Pair-carry layer: returns (h2, delta) with the residual stream
     h2 and this layer's down-projection output, which the next layer's
-    wqkv prologue adds."""
+    wqkv prologue adds. The tail is K6 where it takes the case."""
     B, T, _ = h.shape
     eps = cfg.rms_norm_eps
     bqkv = layers.get("bqkv")
@@ -302,6 +327,12 @@ def _layer_pair(cfg, layers, l, h, d, cache, positions, write_offsets, mask,
     q, k, v = _fused_qkv_heads(cfg, layers, l, qkv, cos, sin)
     attn2d = _attend_block(cfg, l, q, k, v, cache, positions, write_offsets,
                            mask)
+    tail = qm.layer_tail_fused(h, attn2d, layers["wo"], layers["w_gateup"],
+                               layers["w_down"], layers["ffn_norm"][l], eps,
+                               l)
+    if tail is not None:
+        down_out, h2 = tail
+        return h2, down_out
     attn_out = matmul(attn2d, layers["wo"], layer=l)
     gateup, h2 = norm_matmul(h, layers["w_gateup"], layers["ffn_norm"][l],
                              eps, residual=attn_out, layer=l,

@@ -2,7 +2,8 @@
 `llm_inference_tpu/ops/attention.py`): the prefill path and the numerical
 oracle. Keys and values come from the cache [B, Hkv, S, D]; the mask
 `slot <= query position` covers causal prefill and decode alike. Softmax
-runs in float32."""
+runs in float32. An int8 cache passes its codes with their slot-major
+scales, which fold exactly into the score and probability columns."""
 
 from __future__ import annotations
 
@@ -32,11 +33,20 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B, T, Hq, D], k/v [B, Hkv, S, D], mask [B, 1, T, S] →
     [B, T, Hq, D] in q.dtype. Products of q.dtype values accumulate in
-    float32, as the JAX einsums do with preferred_element_type."""
-    if k_scale is not None or v_scale is not None or not (
-            k.is_floating_point() and v.is_floating_point()):
-        raise NotImplementedError("int8/int4 KV caches are not ported yet")
+    float32, as the JAX einsums do with preferred_element_type.
+
+    int8 codes in k/v come with k_scale/v_scale [B, S, Hkv]: the scores
+    take k_scale[slot] after the score scale, and the probabilities
+    v_scale[slot] (zeroed on slots no query attends) before they are
+    rounded to q.dtype for the product with the codes."""
     B, T, Hq, D = q.shape
+    quantized = not (k.is_floating_point() and v.is_floating_point())
+    if quantized and k.shape[-1] != D:
+        raise NotImplementedError("int4-packed KV caches are not ported yet")
+    if quantized != (k_scale is not None) or (k_scale is None) != (
+            v_scale is None):
+        raise ValueError("int8 codes need k_scale and v_scale, float "
+                         "caches none")
     Hkv = k.shape[1]
     G = Hq // Hkv
     if scale is None:
@@ -45,15 +55,22 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.permute(0, 2, 1, 3).reshape(B, Hkv, G, T, D).to(f32)
     kf = k.to(q.dtype).to(f32)
     scores = torch.einsum("bhgtd,bhsd->bhgts", qg, kf) * scale
+    if k_scale is not None:     # [B, S, Hkv] slot-major → [B, Hkv, 1, 1, S]
+        scores = scores * k_scale.transpose(1, 2)[:, :, None, None, :]
     if logit_softcap > 0.0:
         scores = torch.tanh(scores / logit_softcap) * logit_softcap
     scores = torch.where(mask[:, :, None, :, :], scores,
                          torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     # zero V on slots no query may attend: their probabilities are 0, but
-    # 0 × NaN is NaN, and a retired slot may hold NaN K/V
-    attendable = mask.any(dim=2)[:, :, :, None]              # [B, 1, S, 1]
-    vq = torch.where(attendable, v.to(q.dtype),
+    # 0 × NaN is NaN, and a retired slot may hold NaN K/V (or an inf scale)
+    any_query = mask.any(dim=2)                              # [B, 1, S]
+    if v_scale is not None:
+        vs = v_scale.transpose(1, 2)[:, :, None, None, :]
+        probs = probs * torch.where(any_query[:, :, None, None, :], vs,
+                                    torch.zeros((), dtype=vs.dtype,
+                                                device=vs.device))
+    vq = torch.where(any_query[..., None], v.to(q.dtype),
                      torch.zeros((), dtype=q.dtype, device=v.device))
     out = torch.einsum("bhgts,bhsd->bhgtd", probs.to(q.dtype).to(f32),
                        vq.to(f32))

@@ -3,8 +3,9 @@
 At first use every `csrc/*.cu` is compiled by its own `nvcc` process (all
 started together) for `sm_90a`, the objects are linked into one shared
 library with a plain C interface, and the library is loaded with ctypes.
-The library's name carries a hash of the sources and flags, so an edited
-source is never served by a stale build. The build directory is
+The library's name carries a hash of the sources, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is never served by a
+stale build. The build directory is
 `build/kernels/` at the repository root (listed in .gitignore).
 
 Importing this module builds nothing; `lib()` does.
@@ -32,9 +33,11 @@ _F = ctypes.c_float
 # C entry points: (name, argtypes); every one returns cudaError_t as int
 SIGNATURES = {
     "qmm_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "decode_attn_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                           _I, _P],
+    "qmm4_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "layer_tail_launch": [_P] * 13 + [_I] * 7 + [_F, _P],
+    "decode_attn_launch": [_P] * 7 + [_I] * 5 + [_F, _F, _I, _P],
     "kv_write_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "kv_quant_write_launch": [_P] * 7 + [_I] * 9 + [_P],
 }
 
 _lib = None
@@ -89,7 +92,8 @@ def lib() -> ctypes.CDLL:
         return _lib
     sources = sorted(CSRC_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(ARCH_FLAGS + CFLAGS).encode())
-    for src in sources:
+    # the shared headers take part in the hash, not in the source list
+    for src in sorted(sources + list(CSRC_DIR.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"libllmi_kernels_{h.hexdigest()[:16]}.so"

@@ -1,5 +1,6 @@
-"""K2: single-token GQA attention over the stacked dense cache
-(counterpart of `llm_inference_tpu/ops/pallas/decode_attention.py`).
+"""K2: single-token GQA attention over the stacked dense cache, bf16 or
+int8 codes with slot-major scales (counterpart of
+`llm_inference_tpu/ops/pallas/decode_attention.py`, `_decode_attn`).
 
 CUDA tensors go through `csrc/decode_attention.cu`; CPU tensors through
 `decode_attention_ref`, its plain PyTorch version.
@@ -26,11 +27,14 @@ def supports(q_shape, S: int) -> bool:
 
 def decode_attention_ref(q, k_all, v_all, layer: int, positions,
                          scale: float, logit_softcap: float = 0.0,
-                         window: int = 0):
-    """Plain version: bf16 q, K and V, float32 softmax, p rounded to bf16
-    before the P.V product, bf16 output [B, Hkv, G, D]. Slots outside
-    (pos - window, pos] are masked and their V zeroed (a kernel never
-    reads them, so NaN there must not leak)."""
+                         window: int = 0, k_scale=None, v_scale=None):
+    """Plain version: bf16 q, K and V (or int8 codes), float32 softmax,
+    bf16 output [B, Hkv, G, D]. With an int8 cache the scores take
+    k_scale[slot] after the score scale, l sums p before the V scale, and
+    p · v_scale[slot] is rounded to bf16 before the product with the codes
+    (decode_attention.py:259-263, 280-292); without, p itself is rounded.
+    Slots outside (pos - window, pos] are masked and their V (and V scale)
+    zeroed (a kernel never reads them, so NaN there must not leak)."""
     B, _, Hq, D = q.shape
     Hkv, S = k_all.shape[2], k_all.shape[3]
     G = Hq // Hkv
@@ -45,24 +49,30 @@ def decode_attention_ref(q, k_all, v_all, layer: int, positions,
         ok &= slot > pos - window
     ok = ok[:, None, None, :]                                # [B, 1, 1, S]
     scores = torch.einsum("bhgd,bhsd->bhgs", qg, k) * scale
+    if k_scale is not None:     # [L, B, S, Hkv] slot-major → [B, Hkv, 1, S]
+        scores = scores * k_scale[layer].transpose(1, 2)[:, :, None, :]
     if logit_softcap > 0.0:
         scores = torch.tanh(scores / logit_softcap) * logit_softcap
     scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True)
-    v = torch.where(ok[:, :, 0, :, None], v, torch.zeros((), dtype=f32,
-                                                         device=v.device))
+    zero = torch.zeros((), dtype=f32, device=q.device)
+    if v_scale is not None:
+        vs = v_scale[layer].transpose(1, 2)[:, :, None, :]
+        p = p * torch.where(ok, vs, zero)
+    v = torch.where(ok[:, :, 0, :, None], v, zero)
     acc = torch.einsum("bhgs,bhsd->bhgd", p.to(bf16).to(f32), v)
     return (acc / l).to(bf16)
 
 
 def decode_attention(q, k_all, v_all, layer: int, positions,
                      scale: float | None = None, logit_softcap: float = 0.0,
-                     window: int = 0):
+                     window: int = 0, k_scale=None, v_scale=None):
     """q [B, 1, Hq, D]; k_all/v_all [L, B, Hkv, S, D] with this step's
-    token already written; positions [B] (or [B, 1]) absolute position of
-    the token. Returns [B, 1, Hq, D] in q.dtype. Callers check
+    token already written (bf16, or int8 codes with k_scale/v_scale
+    [L, B, S, Hkv] float32); positions [B] (or [B, 1]) absolute position
+    of the token. Returns [B, 1, Hq, D] in q.dtype. Callers check
     `supports` first."""
     B, T, Hq, D = q.shape
     if T != 1:
@@ -72,27 +82,41 @@ def decode_attention(q, k_all, v_all, layer: int, positions,
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     window = int(window or 0)
+    quantized = not k_all.is_floating_point()
+    if quantized and (k_scale is None or v_scale is None):
+        raise ValueError("an int8 KV cache needs its k_scale and v_scale")
     if not k_all.is_cuda:
         out = decode_attention_ref(q, k_all, v_all, layer, positions, scale,
-                                   logit_softcap, window)
+                                   logit_softcap, window, k_scale, v_scale)
         return out.reshape(B, 1, Hq, D).to(q.dtype)
     global launches
     from llm_inference_tpu_torch.ops.kernels import _build
-    if k_all.dtype != torch.bfloat16 or v_all.dtype != torch.bfloat16:
+    code_dtype = torch.int8 if quantized else torch.bfloat16
+    if k_all.dtype != code_dtype or v_all.dtype != code_dtype:
         raise NotImplementedError(
-            f"K2 takes a bf16 cache, got {k_all.dtype}; int8/int4 caches "
-            "are not ported yet")
+            f"K2 takes a bf16 or int8 cache, got {k_all.dtype}/"
+            f"{v_all.dtype}; int4 caches are not ported yet")
     if not (supports(q.shape, S) and G <= _MAX_G and k_all.is_contiguous()
             and v_all.is_contiguous()):
         raise ValueError(f"K2 does not take q {tuple(q.shape)} over a "
                          f"cache {tuple(k_all.shape)}")
+    ks = vs = None
+    if quantized:
+        if not (k_scale.dtype == v_scale.dtype == torch.float32
+                and k_scale.shape == v_scale.shape == (L, B, S, Hkv)
+                and k_scale.is_contiguous() and v_scale.is_contiguous()):
+            raise ValueError("K2 takes contiguous float32 scales "
+                             f"[L, B, S, Hkv] = {(L, B, S, Hkv)}")
+        scale_bytes = B * S * Hkv * 4
+        ks = k_scale.data_ptr() + layer * scale_bytes
+        vs = v_scale.data_ptr() + layer * scale_bytes
     qg = q.to(torch.bfloat16).reshape(B, Hkv, G, D).contiguous()
     pos = positions.reshape(B).to(torch.int32).contiguous()
     out = torch.empty((B, Hkv, G, D), dtype=torch.bfloat16, device=q.device)
-    layer_bytes = B * Hkv * S * D * 2
+    layer_bytes = B * Hkv * S * D * k_all.element_size()
     code = _build.lib().decode_attn_launch(
         qg.data_ptr(), k_all.data_ptr() + layer * layer_bytes,
-        v_all.data_ptr() + layer * layer_bytes, pos.data_ptr(),
+        v_all.data_ptr() + layer * layer_bytes, ks, vs, pos.data_ptr(),
         out.data_ptr(), B, Hkv, G, S, D, float(scale), float(logit_softcap),
         window, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "decode_attention")

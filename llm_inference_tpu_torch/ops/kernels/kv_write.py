@@ -1,18 +1,26 @@
-"""K3: decode-step KV-cache write (counterpart of
-`llm_inference_tpu/ops/pallas/kv_write.py:write_token`).
+"""K3: decode-step KV-cache write, and K4: its int8 quantize-and-write
+(counterparts of `llm_inference_tpu/ops/pallas/kv_write.py:write_token`
+and `quantize_write_token`).
 
 `write_token` writes one new K and V row per sequence into the stacked
-cache [L, B, Hkv, S, D] at slot min(offsets[b], S-1), in place. CUDA
-tensors go through the kernel `csrc/kv_write.cu`; CPU tensors through
-`write_token_ref`, its plain PyTorch version.
+cache [L, B, Hkv, S, D] at slot min(offsets[b], S-1), in place.
+`quantize_write_token` quantizes the rows to int8 first (per (sequence,
+head) scales over D, quantization.quantize_kv) and writes the codes and
+both slot-major scale rows [L, B, S, Hkv], in place, in one launch. CUDA
+tensors go through the kernels of `csrc/kv_write.cu`; CPU tensors through
+`write_token_ref` and `quantize_write_token_ref`, their plain versions.
 """
 
 from __future__ import annotations
 
 import torch
 
-# kernel launches made by write_token (the plain version is not counted)
+from llm_inference_tpu_torch.ops.quantization import quantize_kv
+
+# kernel launches made by write_token / quantize_write_token (the plain
+# versions are not counted)
 launches = 0
+quant_launches = 0
 
 
 def write_token_ref(k_all, v_all, layer: int, k_new, v_new, offsets):
@@ -52,3 +60,67 @@ def write_token(k_all, v_all, layer: int, k_new, v_new, offsets):
     _build.check(code, "kv_write")
     launches += 1
     return k_all, v_all
+
+
+def quantize_write_token_ref(k_all, v_all, ks_all, vs_all, layer: int,
+                             k_new, v_new, offsets):
+    """Plain version of `quantize_write_token` (same arguments)."""
+    B = k_new.shape[0]
+    S = k_all.shape[3]
+    off = torch.clamp(offsets.reshape(B).long(), 0, S - 1)
+    rows = torch.arange(B, device=k_all.device)
+    for codes_all, scales_all, new in ((k_all, ks_all, k_new),
+                                       (v_all, vs_all, v_new)):
+        q, s = quantize_kv(new[:, :, 0])            # [B, Hkv, D], [B, Hkv, 1]
+        codes_all[layer][rows, :, off] = q
+        scales_all[layer][rows, off] = s[..., 0]
+    return k_all, v_all, ks_all, vs_all
+
+
+def quantize_write_token(k_all, v_all, ks_all, vs_all, layer: int,
+                         k_new, v_new, offsets):
+    """Quantize ONE new token per sequence (k_new/v_new [B, Hkv, 1, D],
+    bf16 or float32) and write its int8 codes into [L, B, Hkv, S, D] and
+    its scales into slot-major [L, B, S, Hkv] float32 caches at slot
+    min(offsets[b], S-1), in place; returns the four cache tensors."""
+    if not k_all.is_cuda:
+        return quantize_write_token_ref(k_all, v_all, ks_all, vs_all, layer,
+                                        k_new, v_new, offsets)
+    global quant_launches
+    from llm_inference_tpu_torch.ops.kernels import _build
+    L, B, Hkv, S, D = k_all.shape
+    caches_ok = (all(t.is_contiguous() for t in (k_all, v_all, ks_all,
+                                                 vs_all))
+                 and k_all.dtype == v_all.dtype == torch.int8
+                 and v_all.shape == k_all.shape
+                 and ks_all.dtype == vs_all.dtype == torch.float32
+                 and ks_all.shape == vs_all.shape == (L, B, S, Hkv))
+    if not caches_ok:
+        raise ValueError("K4 needs contiguous int8 caches [L, B, Hkv, S, D] "
+                         "and float32 scales [L, B, S, Hkv]")
+    if D % 32 or D > 256:
+        raise ValueError(f"K4 takes D % 32 == 0 and D <= 256, got {D}")
+    dtype = k_new.dtype
+    if dtype not in (torch.bfloat16, torch.float32) or v_new.dtype != dtype:
+        raise TypeError(f"K4 takes bf16 or float32 rows, got {dtype}")
+    strides = []
+    for t in (k_new, v_new):
+        if t.shape != (B, Hkv, 1, D) or t.stride(3) != 1:
+            raise ValueError(f"K4 takes [B, Hkv, 1, D] rows with D "
+                             f"contiguous, got {tuple(t.shape)} "
+                             f"strides {t.stride()}")
+        strides += [t.stride(0), t.stride(1)]
+    off = offsets.reshape(B).to(torch.int32).contiguous()
+    code_bytes = B * Hkv * S * D
+    scale_bytes = B * S * Hkv * 4
+    code = _build.lib().kv_quant_write_launch(
+        k_all.data_ptr() + layer * code_bytes,
+        v_all.data_ptr() + layer * code_bytes,
+        ks_all.data_ptr() + layer * scale_bytes,
+        vs_all.data_ptr() + layer * scale_bytes,
+        k_new.data_ptr(), v_new.data_ptr(), off.data_ptr(), B, Hkv, S, D,
+        *strides, int(dtype == torch.float32),
+        torch.cuda.current_stream(k_all.device).cuda_stream)
+    _build.check(code, "kv_quant_write")
+    quant_launches += 1
+    return k_all, v_all, ks_all, vs_all

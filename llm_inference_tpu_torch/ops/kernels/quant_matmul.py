@@ -1,32 +1,55 @@
-"""K1: int8 weight-only matmul with the fused residual + RMSNorm prologue
-(counterpart of `llm_inference_tpu/ops/pallas/quant_matmul.py:quant_matmul`
-and its blocked GEMV kernel, int8 per-channel).
+"""K1: weight-only matmul with the fused residual + RMSNorm prologue, and
+K6: the fused decode layer tail (counterparts of
+`llm_inference_tpu/ops/pallas/quant_matmul.py:quant_matmul`, its blocked
+GEMV kernel, int8 per-channel and int4 N-pair grouped branches, and
+`layer_tail_fused`).
 
-    y = rms_norm(x (+ residual), gamma, eps) @ dequant(W[layer])
+K1:  y = rms_norm(x (+ residual), gamma, eps) @ dequant(W[layer])
 
-with the kernel's rounding points: x enters as bf16, the prologue runs in
-float32, x_out = x + residual is stored as bf16, the normed rows are
-rounded to bf16 for the dot, codes multiply in float32, the per-column
-scale hits the float32 sum, and y is bf16 (then the caller's dtype).
+with the TPU kernel's rounding points: x enters as bf16, the prologue runs
+in float32 and x_out = x + residual is stored as bf16. int8: the normed
+rows are rounded to bf16 for the dot and the per-column scale hits the
+float32 sum. int4: the normed rows stay float32 (the N-pair branch's dot
+is a float32 dot, quant_matmul.py:183, 251) and each group's scale hits
+that group's partial dot, y = Σ_g s[n, g] · (x_g · codes_g)_n. y is bf16
+(then the caller's dtype). Above 128 rows the TPU package's tiled prefill
+path (K8) normalises outside the kernel in the caller's dtype and dots
+bf16 rows.
 
-CUDA tensors go through `csrc/quant_matmul.cu`; CPU tensors through
-`quant_matmul_ref`, its plain version.
+K6:  (down_out, h2) = layer_tail_fused(h, attn, wo, w_gateup, w_down, ...)
+
+    wo_out = attn · wo          (float32, grouped int4)
+    h2     = bf16(h + wo_out)
+    xn     = rms_norm(h + wo_out) · gamma               (float32)
+    act    = silu(xn · w_gate) · (xn · w_up)           (float32)
+    y      = bf16(act · w_down)
+
+nothing rounded between the phases. It takes M ≤ 32 rows and stacked
+grouped int4 weights, else returns None and the caller runs the K1 chain.
+
+CUDA tensors go through `csrc/quant_matmul.cu` and `csrc/layer_tail.cu`;
+CPU tensors through `quant_matmul_ref` and `layer_tail_fused_ref`, their
+plain versions.
 """
 
 from __future__ import annotations
 
 import torch
 
-from llm_inference_tpu_torch.ops.quantization import QTensor
+from llm_inference_tpu_torch.ops.quantization import QTensor, codes
 
 _MAX_M = 128      # above this the TPU package runs its tiled kernel (K8)
-# the CUDA kernel's GEMV takes up to 8 rows whose bf16 activations fit in
-# 200 KiB of shared memory (csrc/quant_matmul.cu); larger M runs the MMA path
+# the CUDA kernels' GEMV takes up to 8 rows whose activations (bf16 for
+# int8, float32 for int4) fit in 200 KiB of shared memory
+# (csrc/quant_matmul.cu); larger M runs the MMA path
 _GEMV_MAX_M = 8
 _GEMV_MAX_SMEM = 200 * 1024
+_TAIL_MAX_M = 32  # layer_tail_fused's row limit (quant_matmul.py:710)
 
-# kernel launches made by quant_matmul (the plain version is not counted)
+# kernel launches made by quant_matmul and layer_tail_fused (the plain
+# versions are not counted)
 launches = 0
+tail_launches = 0
 
 
 def _rows(x):
@@ -37,11 +60,19 @@ def _rows(x):
     return lead, M, K
 
 
-def _codes(qt: QTensor, layer):
-    """float32 [K, N] codes and [N] scales of one layer."""
-    if qt.stacked:
-        qt = qt.layer(0 if layer is None else layer)
-    return qt.q.to(torch.float32).T, qt.scale.reshape(-1)
+def _layer(qt: QTensor, layer) -> QTensor:
+    return qt.layer(0 if layer is None else layer) if qt.stacked else qt
+
+
+def _grouped_dot(x32, qt: QTensor):
+    """Σ_g s[n, g] · (x_g · codes_g)_n in float32, one (unstacked) int4
+    weight: x32 [M, K] float32 → [M, N] float32."""
+    c = codes(qt).to(torch.float32)                              # [N, K]
+    N, K = c.shape
+    G = qt.groups
+    xg = x32.reshape(-1, G, K // G)
+    partial = torch.einsum("mgk,ngk->mgn", xg, c.reshape(N, G, K // G))
+    return (partial * qt.scale.T).sum(dim=1)
 
 
 def quant_matmul_ref(x, qt: QTensor, layer=None, *, norm_gamma=None,
@@ -74,17 +105,29 @@ def quant_matmul_ref(x, qt: QTensor, layer=None, *, norm_gamma=None,
                 var = torch.mean(x32 * x32, dim=-1, keepdim=True)
                 x32 = x32 * torch.rsqrt(var + norm_eps)
                 x32 = x32 * norm_gamma.to(f32)
-            xn = x32.to(bf16)
+            # int8 dots bf16 rows; the int4 branch keeps them float32
+            xn = x32 if qt.bits == 4 else x32.to(bf16)
         else:
             xn = x2
-    w, s = _codes(qt, layer)
-    y = ((xn.to(f32) @ w) * s).to(bf16)
+    w = _layer(qt, layer)
+    if qt.bits == 4:
+        y = _grouped_dot(xn.to(f32), w).to(bf16)
+    else:
+        y = ((xn.to(f32) @ w.q.to(f32).T) * w.scale.reshape(-1)).to(bf16)
     y = y.reshape(*lead, -1).to(x.dtype)
     if not want_x_out:
         return y
     if x_full is None:
         x_full = x.reshape(M, K)
     return y, x_full.reshape(*lead, K).to(x.dtype)
+
+
+def _check_weight(qt: QTensor, what: str):
+    if (qt.q.dtype != torch.int8 or not qt.q.is_contiguous()
+            or qt.scale.dtype != torch.float32
+            or not qt.scale.is_contiguous()):
+        raise ValueError(f"{what} takes contiguous int8 codes [.., N, K'] "
+                         "and float32 scales (models.llama.prepare_params)")
 
 
 def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
@@ -106,14 +149,12 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
     if M > _MAX_M:
         raise NotImplementedError(
             f"M={M} > {_MAX_M}: the tiled prefill GEMM (K8) is not yet ported")
-    if (qt.q.dtype != torch.int8 or not qt.q.is_contiguous()
-            or qt.scale.dtype != torch.float32
-            or not qt.scale.is_contiguous()):
-        raise ValueError("K1 takes contiguous int8 codes [.., N, K] and "
-                         "float32 scales (models.llama.prepare_params)")
-    if K % 64 or N % 64:
-        raise ValueError(f"K1 needs K % 64 == 0 and N % 64 == 0, got "
-                         f"K={K} N={N}")
+    _check_weight(qt, "K1")
+    int4 = qt.bits == 4
+    if K % 64 or N % 64 or (int4 and qt.group_size % 64):
+        raise ValueError(f"K1 needs K % 64 == 0, N % 64 == 0 and int4 groups "
+                         f"of a multiple of 64, got K={K} N={N} bits="
+                         f"{qt.bits} group_size={qt.group_size}")
     bf16 = torch.bfloat16
     for name, t in (("residual", residual), ("norm_gamma", norm_gamma)):
         if t is not None and t.dtype != bf16:
@@ -127,19 +168,28 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
              if want_x_out and fused else None)
     # the MMA path normalises the rows once into this scratch; the GEMV
     # normalises in shared memory and takes none
-    mma = M > _GEMV_MAX_M or M * K * 2 > _GEMV_MAX_SMEM
+    mma = M > _GEMV_MAX_M or M * K * (4 if int4 else 2) > _GEMV_MAX_SMEM
     xn = (torch.empty((M, K), dtype=bf16, device=x.device)
           if fused and mma else None)
     li = 0 if layer is None else int(layer)
     if not qt.stacked and li:
         raise ValueError("layer given for an unstacked weight")
-    code = _build.lib().qmm_launch(
-        x2.data_ptr(), None if res is None else res.data_ptr(),
-        None if gam is None else gam.data_ptr(),
-        qt.q.data_ptr() + li * N * K, qt.scale.data_ptr() + li * N * 4,
-        out.data_ptr(), None if x_out is None else x_out.data_ptr(),
-        None if xn is None else xn.data_ptr(), M, K, N, float(norm_eps),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x2.data_ptr(), None if res is None else res.data_ptr(),
+            None if gam is None else gam.data_ptr())
+    outs = (out.data_ptr(), None if x_out is None else x_out.data_ptr(),
+            None if xn is None else xn.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if int4:
+        G = qt.groups
+        code = _build.lib().qmm4_launch(
+            *ptrs, qt.q.data_ptr() + li * N * K // 2,
+            qt.scale.data_ptr() + li * N * G * 4, *outs, M, K, N, G,
+            float(norm_eps), stream)
+    else:
+        code = _build.lib().qmm_launch(
+            *ptrs, qt.q.data_ptr() + li * N * K,
+            qt.scale.data_ptr() + li * N * 4, *outs, M, K, N,
+            float(norm_eps), stream)
     _build.check(code, "quant_matmul")
     launches += 1
     y = out.reshape(*lead, N).to(x.dtype)
@@ -148,3 +198,103 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
     if x_out is None:
         return y, x
     return y, x_out.reshape(*lead, K).to(x.dtype)
+
+
+# ------------------------------------------------------------------- K6
+
+def _tail_ok(qt, K: int) -> bool:
+    """The TPU package's _npair_ok_for_fuse (quant_matmul.py:692-696):
+    stacked grouped symmetric int4 with K input rows."""
+    return (isinstance(qt, QTensor) and qt.bits == 4 and qt.stacked
+            and qt.groups > 1 and qt.in_features == K)
+
+
+def _tail_shapes(h, attn2d, wo, gu, dn):
+    """(M, H, Ko, I) when K6 takes the case, else None (the JAX package's
+    acceptance conditions, quant_matmul.py:705-729)."""
+    _, M, H = _rows(h)
+    Ko = attn2d.shape[-1]
+    if M > _TAIL_MAX_M:
+        return None
+    if not (_tail_ok(wo, Ko) and _tail_ok(gu, H)):
+        return None
+    if wo.out_features != H or gu.out_features % 2:
+        return None
+    I = gu.out_features // 2
+    if not _tail_ok(dn, I):
+        return None
+    if min(wo.group_size, gu.group_size, dn.group_size) < 8:
+        return None
+    return M, H, Ko, I
+
+
+def layer_tail_fused_ref(h, attn2d, wo: QTensor, gu: QTensor, dn: QTensor,
+                         gamma, eps: float, layer: int):
+    """Plain version of `layer_tail_fused` for a case it takes."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    *lead, H = h.shape
+    M = h.numel() // H
+    a = attn2d.reshape(M, -1).to(bf16).to(f32)
+    wo_out = _grouped_dot(a, wo.layer(layer))
+    x32 = h.reshape(M, H).to(bf16).to(f32) + wo_out
+    h2 = x32.to(bf16)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    xn = x32 * torch.rsqrt(var + eps) * gamma.to(f32)
+    gate, up = torch.chunk(_grouped_dot(xn, gu.layer(layer)), 2, dim=-1)
+    act = gate * torch.sigmoid(gate) * up
+    y = _grouped_dot(act, dn.layer(layer)).to(bf16)
+    return (y.reshape(*lead, -1).to(h.dtype),
+            h2.reshape(*lead, H).to(h.dtype))
+
+
+def layer_tail_fused(h, attn2d, wo: QTensor, gu: QTensor, dn: QTensor,
+                     gamma, eps: float, layer: int):
+    """wo → (+h, RMSNorm) → gate-up → SwiGLU → down in one launch.
+
+    h [..., H] is the residual stream, attn2d [..., Hq·D] the attention
+    output, gamma [H] the FFN norm, wo/gu/dn stacked QTensors indexed by
+    `layer`. Returns (down_out, h2 = h + wo_out) in h.dtype, or None when
+    the case is not K6's (the caller runs the K1 chain)."""
+    shapes = _tail_shapes(h, attn2d, wo, gu, dn)
+    if shapes is None:
+        return None
+    if not h.is_cuda:
+        return layer_tail_fused_ref(h, attn2d, wo, gu, dn, gamma, eps, layer)
+    global tail_launches
+    from llm_inference_tpu_torch.ops.kernels import _build
+    M, H, Ko, I = shapes
+    for qt in (wo, gu, dn):
+        _check_weight(qt, "K6")
+        if qt.group_size % 32:
+            raise ValueError(f"K6 needs int4 groups of a multiple of 32, "
+                             f"got {qt.group_size}")
+    if H % 32 or Ko % 32 or I % 32:
+        raise ValueError(f"K6 needs widths that are multiples of 32, got "
+                         f"H={H} Ko={Ko} I={I}")
+    bf16, f32 = torch.bfloat16, torch.float32
+    if gamma.dtype != bf16:
+        raise TypeError(f"K6 takes a bf16 gamma, got {gamma.dtype}")
+    dev = h.device
+    h2d = h.reshape(M, H).to(bf16).contiguous()
+    a2d = attn2d.reshape(M, Ko).to(bf16).contiguous()
+    gam = gamma.reshape(H).contiguous()
+    y = torch.empty((M, H), dtype=bf16, device=dev)
+    h2 = torch.empty((M, H), dtype=bf16, device=dev)
+    wo_out = torch.empty((M, H), dtype=f32, device=dev)      # scratch
+    act = torch.empty((M, I), dtype=f32, device=dev)         # scratch
+    li = int(layer)
+
+    def w(qt):
+        N, G = qt.out_features, qt.groups
+        return (qt.q.data_ptr() + li * N * qt.in_features // 2,
+                qt.scale.data_ptr() + li * N * G * 4)
+
+    code = _build.lib().layer_tail_launch(
+        h2d.data_ptr(), a2d.data_ptr(), gam.data_ptr(), *w(wo), *w(gu),
+        *w(dn), wo_out.data_ptr(), act.data_ptr(), h2.data_ptr(),
+        y.data_ptr(), M, H, Ko, I, wo.groups, gu.groups, dn.groups,
+        float(eps), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "layer_tail_fused")
+    tail_launches += 1
+    *lead, _ = h.shape
+    return (y.reshape(*lead, H).to(h.dtype), h2.reshape(*lead, H).to(h.dtype))

@@ -1,38 +1,62 @@
 """Dense KV cache: layout, init and in-place update (counterpart of
 `llm_inference_tpu/ops/kvcache.py`).
 
-Both caches are [layers, batch, kv_heads, max_seq, head_dim]. Where the JAX
-package threads the cache functionally and relies on buffer donation, the
-port writes the tensors in place: a decode step (T == 1) is one K3 launch
-for the whole batch; a prefill write (T > 1) is one in-place slice write
-per sequence. Offsets are per sequence.
+Both caches are [layers, batch, kv_heads, max_seq, head_dim]. An int8
+cache holds codes there and per-(slot, head) float32 scales SLOT-MAJOR,
+[layers, batch, max_seq, kv_heads], as the JAX package does, so the two
+compare element for element. Where the JAX package threads the cache
+functionally and relies on buffer donation, the port writes the tensors in
+place: a decode step (T == 1) is one launch for the whole batch (K3, or K4
+which quantizes too); a prefill write (T > 1) is one in-place slice write
+per sequence, of codes and scales after the plain `quantize_kv` for an
+int8 cache. Offsets are per sequence.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from llm_inference_tpu_torch.ops.kernels import kv_write
+from llm_inference_tpu_torch.ops.quantization import quantize_kv
 
 
 @dataclasses.dataclass
 class KVCache:
-    """k, v: [layers, batch, kv_heads, max_seq, head_dim]."""
+    """k, v: [layers, batch, kv_heads, max_seq, head_dim]; an int8 cache
+    (bits 8) adds k_scale, v_scale [layers, batch, max_seq, kv_heads]."""
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+    bits: int = 16
 
     @property
     def max_seq_len(self) -> int:
         return self.k.shape[3]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
 
 def init_cache(num_layers: int, batch: int, num_kv_heads: int, max_seq: int,
                head_dim: int, dtype=torch.bfloat16, device=None) -> KVCache:
-    if dtype in (torch.int8, "int8", "int4"):
-        raise NotImplementedError("int8/int4 KV caches are not ported yet")
+    """A zeroed cache; dtype is a float dtype, or torch.int8 / "int8" for
+    int8 codes with float32 scales."""
+    if dtype == "int4":
+        raise NotImplementedError("int4 KV caches are not ported yet")
     shape = (num_layers, batch, num_kv_heads, max_seq, head_dim)
+    if dtype in (torch.int8, "int8"):
+        sshape = (num_layers, batch, max_seq, num_kv_heads)
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+            v_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
+            bits=8)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -43,18 +67,29 @@ def update_cache_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
     ONE layer of the stacked cache at offsets[b], in place."""
     B, T = k_new.shape[:2]
     if T == 1:
-        kv_write.write_token(cache.k, cache.v, layer,
-                             k_new.transpose(1, 2), v_new.transpose(1, 2),
-                             offsets)
+        kt, vt = k_new.transpose(1, 2), v_new.transpose(1, 2)
+        if cache.quantized:
+            kv_write.quantize_write_token(cache.k, cache.v, cache.k_scale,
+                                          cache.v_scale, layer, kt, vt,
+                                          offsets)
+        else:
+            kv_write.write_token(cache.k, cache.v, layer, kt, vt, offsets)
         return cache
     S = cache.max_seq_len
     # dynamic_update_slice semantics: the window start clamps to [0, S - T]
     start = torch.clamp(offsets.reshape(B).long(), 0, S - T)
     steps = torch.arange(T, device=offsets.device)
-    kn = k_new.transpose(1, 2).to(cache.k.dtype)             # [B, Hkv, T, D]
-    vn = v_new.transpose(1, 2).to(cache.v.dtype)
-    for b in range(B):
-        idx = start[b] + steps
-        cache.k[layer, b].index_copy_(1, idx, kn[b])
-        cache.v[layer, b].index_copy_(1, idx, vn[b])
+    kn = k_new.transpose(1, 2)                                # [B, Hkv, T, D]
+    vn = v_new.transpose(1, 2)
+    if cache.quantized:
+        (kn, ks), (vn, vs) = quantize_kv(kn), quantize_kv(vn)
+        # scales [B, Hkv, T, 1] → slot-major [B, T, Hkv]
+        for s_all, s_new in ((cache.k_scale, ks), (cache.v_scale, vs)):
+            s_new = s_new[..., 0].transpose(1, 2)
+            for b in range(B):
+                s_all[layer, b].index_copy_(0, start[b] + steps, s_new[b])
+    for c_all, new in ((cache.k, kn), (cache.v, vn)):
+        new = new.to(c_all.dtype)
+        for b in range(B):
+            c_all[layer, b].index_copy_(1, start[b] + steps, new[b])
     return cache

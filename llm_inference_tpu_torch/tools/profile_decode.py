@@ -1,12 +1,15 @@
 """Where a decode step's time goes, on the card.
 
     python -m llm_inference_tpu_torch.tools.profile_decode [--steps 8]
-        [--batch 1] [--prompt N] [--seed 0]
+        [--batch 1] [--prompt N] [--seed 0] [--weights int8|int4]
+        [--kv bf16|int8]
 
-Builds LLaMA-2-7B with random int8 weights and lm_head on the GPU,
-prefills `--batch` prompts of `--prompt` tokens (default 128 // batch, so
-the prefill's batch x prompt rows stay within K1's 128), then runs `--steps` decode steps (greedy, the engine's
-forward) three ways:
+Builds LLaMA-2-7B with random weights and lm_head on the GPU (`--weights`:
+int8 per-channel, or int4 with groups of 128), over a bf16 or int8 KV
+cache (`--kv`), prefills `--batch` prompts of `--prompt` tokens (default
+128 // batch, so the prefill's batch x prompt rows stay within K1's 128),
+then runs `--steps` decode steps (greedy, the engine's forward) three
+ways:
   1. wall time per step (host clock, synchronised);
   2. the same steps under torch.profiler (CPU + CUDA activities): device
      busy time per step (union of kernel intervals), idle share, kernel
@@ -50,6 +53,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--prompt", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--weights", choices=("int8", "int4"), default="int8")
+    ap.add_argument("--kv", choices=("bf16", "int8"), default="bf16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
@@ -59,13 +64,15 @@ def main(argv=None):
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}", flush=True)
     cfg = llama2_7b()
+    qcfg = QuantConfig(weights=args.weights, quantize_embedding=True,
+                       group_size=128 if args.weights == "int4" else 0)
     params = llama.prepare_params(llama.init_params_quantized(
-        cfg, QuantConfig(weights="int8", quantize_embedding=True),
-        seed=args.seed, device=dev))
+        cfg, qcfg, seed=args.seed, device=dev))
     B, S = args.batch, 512
     T = args.prompt or max(1, 128 // B)
-    cache = kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads, S,
-                               cfg.head_dim, torch.bfloat16, device=dev)
+    cache = kvcache.init_cache(
+        cfg.num_layers, B, cfg.num_kv_heads, S, cfg.head_dim,
+        torch.int8 if args.kv == "int8" else torch.bfloat16, device=dev)
     rope = llama.rope_table(cfg, S, dev)
     g = torch.Generator(device=dev).manual_seed(args.seed)
     ids = torch.randint(1, cfg.vocab_size, (B, T), generator=g, device=dev,
@@ -143,7 +150,8 @@ def main(argv=None):
     for k in sorted(avg, key=lambda k: -k.self_cpu_time_total)[:12]:
         print(f"  {k.self_cpu_time_total / 1e3 / args.steps:8.3f} ms  "
               f"{k.count / args.steps:6.1f}x  {k.key[:90]}")
-    print(json.dumps({"card": smi, "batch": B, "wall_ms": wall_ms,
+    print(json.dumps({"card": smi, "batch": B, "weights": args.weights,
+                      "kv": args.kv, "wall_ms": wall_ms,
                       "device_busy_ms": busy_ms,
                       "idle_share": 1 - busy_ms / wall_ms,
                       "host_syncs_per_step": len(syncs),

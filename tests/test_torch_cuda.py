@@ -107,3 +107,143 @@ def test_k1_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         t_qm.quant_matmul(x[:1], QTensor(q=qt.q[:, :, ::2],
                                          scale=qt.scale), 0)
+
+
+def _int4_weight(g, L, N, K, gsize=128):
+    """Random stacked int4 weight: random bytes (codes uniform in [-8, 7]),
+    scales of the right order for a unit-variance output."""
+    return QTensor(q=torch.randint(-128, 128, (L, N, K // 2), generator=g,
+                                   dtype=torch.int8),
+                   scale=torch.rand((L, N, K // gsize), generator=g)
+                   * 0.02 / 7 + 1e-4, bits=4)
+
+
+def _to(kw, dev):
+    return {k: (v.to(dev) if torch.is_tensor(v) else v)
+            for k, v in kw.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", [(1, 4096), (4, 4096), (4, 11008),
+                                 (8, 4096), (32, 4096), (128, 4096),
+                                 (128, 11008)])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_k1_int4_cuda_matches_plain(cuda, M, K, prologue):
+    # M <= 8 (and M * K * 4 <= 200 KiB) runs the float32-row GEMV, the
+    # rest the MMA path, whose rows enter as bf16
+    g = torch.Generator().manual_seed(M + K)
+    N = 1024
+    qt = _int4_weight(g, 2, N, K)
+    x = torch.randn((M, K), generator=g).to(BF16)
+    kw = {}
+    if prologue:
+        kw = dict(norm_gamma=(1 + 0.1 * torch.randn((K,), generator=g)
+                              ).to(BF16),
+                  residual=torch.randn((M, K), generator=g).to(BF16),
+                  want_x_out=True)
+    want = t_qm.quant_matmul(x, qt, 1, **kw)
+    got = t_qm.quant_matmul(x.to(cuda), qt.to(cuda), 1, **_to(kw, cuda))
+    torch.cuda.synchronize()
+    if prologue:
+        (want, want_x), (got, got_x) = want, got
+        assert torch.equal(got_x.cpu(), want_x)
+    # float32 sums in another order (the GEMV), or rows rounded to bf16
+    # (the MMA path, a 2^-9 relative error per input that averages out
+    # over K): one bf16 step of the largest output (2^-7 of it)
+    err = (got.cpu().float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dtype", [BF16, torch.float32])
+def test_k4_cuda_matches_plain_exactly(cuda, in_dtype):
+    g = torch.Generator().manual_seed(4)
+    L, B, Hkv, S, D = 2, 4, 8, 64, 128
+    k = torch.randint(-128, 128, (L, B, Hkv, S, D), generator=g,
+                      dtype=torch.int8)
+    v = torch.randint(-128, 128, (L, B, Hkv, S, D), generator=g,
+                      dtype=torch.int8)
+    ks = torch.rand((L, B, S, Hkv), generator=g)
+    vs = torch.rand((L, B, S, Hkv), generator=g)
+    # the new rows as the model hands them over: head slices of a wider
+    # [B, 1, 3 * Hkv, D] projection (strided, not contiguous)
+    qkv = (torch.randn((B, 1, 3 * Hkv, D), generator=g) * 3).to(in_dtype)
+    qkv[1, 0, Hkv + 2] = 0.0                       # an all-zero row
+    kn = qkv[:, :, Hkv:2 * Hkv].transpose(1, 2)
+    vn = qkv[:, :, 2 * Hkv:].transpose(1, 2)
+    off = torch.tensor([0, 9, S - 1, S + 3], dtype=torch.int32)
+    dev = [t.to(cuda) for t in (k, v, ks, vs)]
+    dev_plain = [t.clone() for t in dev]
+    t_kvw.quantize_write_token(k, v, ks, vs, 1, kn, vn, off)
+    t_kvw.quantize_write_token(*dev, 1, kn.to(cuda), vn.to(cuda),
+                               off.to(cuda))
+    # the plain version on the card too: its divisions must be IEEE ones
+    t_kvw.quantize_write_token_ref(*dev_plain, 1, kn.to(cuda), vn.to(cuda),
+                                   off.to(cuda))
+    torch.cuda.synchronize()
+    for a, p, b in zip(dev, dev_plain, (k, v, ks, vs)):
+        assert torch.equal(a.cpu(), b) and torch.equal(p.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,window,softcap", [(1, 0, 0.0), (4, 64, 0.0),
+                                              (2, 0, 30.0)])
+def test_k2_int8_cuda_matches_plain(cuda, G, window, softcap):
+    g = torch.Generator().manual_seed(10 + G)
+    L, B, Hkv, S, D = 2, 4, 8, 512, 128
+    q = torch.randn((B, 1, Hkv * G, D), generator=g).to(BF16)
+    k = torch.randint(-128, 128, (L, B, Hkv, S, D), generator=g,
+                      dtype=torch.int8)
+    v = torch.randint(-128, 128, (L, B, Hkv, S, D), generator=g,
+                      dtype=torch.int8)
+    ks = torch.rand((L, B, S, Hkv), generator=g) * 0.02
+    vs = torch.rand((L, B, S, Hkv), generator=g) * 0.02
+    pos = torch.tensor([0, 100, 300, S - 1], dtype=torch.int32)
+    want = t_dec.decode_attention(q, k, v, 1, pos, logit_softcap=softcap,
+                                  window=window, k_scale=ks, v_scale=vs)
+    got = t_dec.decode_attention(q.to(cuda), k.to(cuda), v.to(cuda), 1,
+                                 pos.to(cuda), logit_softcap=softcap,
+                                 window=window, k_scale=ks.to(cuda),
+                                 v_scale=vs.to(cuda))
+    torch.cuda.synchronize()
+    # as the bf16 cache: p · v_scale rounds to bf16 against another
+    # running max, a few bf16 steps of the largest output
+    tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+    assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 2, 4, 7, 32])
+def test_k6_cuda_matches_plain(cuda, M):
+    # LLaMA-2-7B widths, one layer; M = 7 and 32 take several row passes
+    g = torch.Generator().manual_seed(60 + M)
+    H, I = 4096, 11008
+    wo = _int4_weight(g, 1, H, H)
+    gu = _int4_weight(g, 1, 2 * I, H)
+    dn = _int4_weight(g, 1, H, I)
+    h = torch.randn((M, H), generator=g).to(BF16)
+    attn = torch.randn((M, H), generator=g).to(BF16)
+    gamma = (1 + 0.1 * torch.randn((H,), generator=g)).to(BF16)
+    want_y, want_h2 = t_qm.layer_tail_fused(h, attn, wo, gu, dn, gamma,
+                                            1e-5, 0)
+    before = t_qm.tail_launches
+    got_y, got_h2 = t_qm.layer_tail_fused(
+        h.to(cuda), attn.to(cuda), wo.to(cuda), gu.to(cuda), dn.to(cuda),
+        gamma.to(cuda), 1e-5, 0)
+    torch.cuda.synchronize()
+    assert t_qm.tail_launches == before + 1
+    # float32 sums in another order through three products: one bf16
+    # step of the largest output (h2 is h + wo_out rounded once)
+    for got, want in ((got_y, want_y), (got_h2, want_h2)):
+        err = (got.cpu().float() - want.float()).abs().max().item()
+        assert err <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_k6_failed_launch_raises(cuda):
+    from llm_inference_tpu_torch.ops.kernels import _build
+    # M = 0 is refused by the C entry point; the wrapper's check raises
+    code = _build.lib().layer_tail_launch(*([None] * 13), 0, 4096, 4096,
+                                          11008, 32, 32, 86, 1e-5, None)
+    with pytest.raises(RuntimeError, match="layer_tail"):
+        _build.check(code, "layer_tail_fused")

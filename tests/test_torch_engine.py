@@ -1,6 +1,7 @@
 """The port's InferenceEngine.generate against the JAX package's, on the
-CPU: greedy token streams of the slice's configuration at tiny width
-(int8 weights and lm_head, head_dim 64, a 128-slot bf16 cache)."""
+CPU: greedy token streams of the port's configurations at tiny width
+(int8 weights and lm_head over a 128-slot bf16 cache; int4 g=128 weights
+and lm_head over a 256-slot int8 cache)."""
 
 import numpy as np
 import jax
@@ -51,7 +52,7 @@ def setup():
     return jcfg, jprep, jeng, teng
 
 
-def _jax_gaps(jcfg, jprep, prompts, streams):
+def _jax_gaps(jcfg, jprep, prompts, streams, S=S, cache_dtype=jnp.bfloat16):
     """JAX top-2 logit gap before each token of JAX's greedy streams."""
     B = len(prompts)
     T = max(BUCKETS)
@@ -61,7 +62,7 @@ def _jax_gaps(jcfg, jprep, prompts, streams):
     pos = np.tile(np.arange(T, dtype=np.int32), (B, 1))
     last = np.array([len(p) - 1 for p in prompts], np.int32)
     cache = j_kv.init_cache(jcfg.num_layers, B, jcfg.num_kv_heads, S,
-                            jcfg.head_dim, jnp.bfloat16)
+                            jcfg.head_dim, cache_dtype)
     logits, cache = j_llama.forward(jcfg, jprep, jnp.asarray(ids),
                                     jnp.asarray(pos), cache,
                                     last_idx=jnp.asarray(last))
@@ -79,17 +80,14 @@ def _jax_gaps(jcfg, jprep, prompts, streams):
     return np.stack(gaps, 1)                               # [B, NEW]
 
 
-@pytest.mark.parametrize("req", range(len(REQUESTS)))
-def test_greedy_streams_match_jax(setup, req):
-    jcfg, jprep, jeng, teng = setup
-    prompts = REQUESTS[req]
+def _check_streams(jcfg, jprep, jeng, teng, prompts, **cache):
     want = [r.token_ids for r in jeng.generate(
         prompts, JGenerationConfig(max_new_tokens=NEW, greedy=True,
                                    eos_token_ids=()))]
     got = teng.generate(prompts, GenerationConfig(
         max_new_tokens=NEW, greedy=True, eos_token_ids=()))
     assert all(len(w) == NEW for w in want)
-    gaps = _jax_gaps(jcfg, jprep, prompts, want)
+    gaps = _jax_gaps(jcfg, jprep, prompts, want, **cache)
     compared = 0
     for i, r in enumerate(got):
         assert len(r.token_ids) == NEW and not r.finished
@@ -100,6 +98,41 @@ def test_greedy_streams_match_jax(setup, req):
             assert r.token_ids[j] == want[i][j], (i, j, r.token_ids, want[i])
             compared += 1
     assert compared >= NEW * len(prompts) // 2, gaps
+
+
+@pytest.mark.parametrize("req", range(len(REQUESTS)))
+def test_greedy_streams_match_jax(setup, req):
+    _check_streams(*setup, REQUESTS[req])
+
+
+S4 = 256
+TINY4 = dict(hidden_size=256, intermediate_size=512, num_heads=4,
+             num_kv_heads=2, head_dim=64, vocab_size=320, dtype="bfloat16")
+
+
+@pytest.fixture(scope="module")
+def setup4():
+    """int4 g=128 weights and lm_head, int8 KV cache: decode runs K1 int4,
+    K4, K2 int8 and K6 (and their TPU kernels on the JAX side)."""
+    jcfg, cfg = j_tiny_llama(**TINY4), tiny_llama(**TINY4)
+    qp = j_llama.init_params_quantized(
+        jcfg, jax.random.PRNGKey(6), JQuantConfig(
+            weights="int4", group_size=128, quantize_embedding=True))
+    jprep = j_llama.prepare_params(qp, donate=False)
+    tprep = llama.prepare_params(llama.params_from_numpy(
+        to_numpy_tree(jprep), cfg, device="cpu"))
+    ecfg = dict(max_seq_len=S4, decode_chunk=4, prefill_buckets=BUCKETS)
+    jeng = JEngine(jcfg, jprep, engine_cfg=JEngineConfig(**ecfg),
+                   cache_dtype="int8")
+    teng = InferenceEngine(cfg, tprep, engine_cfg=EngineConfig(**ecfg),
+                           cache_dtype="int8", device="cpu")
+    return jcfg, jprep, jeng, teng
+
+
+@pytest.mark.parametrize("req", range(len(REQUESTS)))
+def test_greedy_streams_int4_int8kv_match_jax(setup4, req):
+    _check_streams(*setup4, REQUESTS[req], S=S4, cache_dtype="int8")
+    assert setup4[3].new_cache(1).k.dtype == torch.int8
 
 
 def test_buckets_match_jax(setup):

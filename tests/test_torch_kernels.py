@@ -1,8 +1,9 @@
-"""The port's three kernels — K1 int8 fused-norm matmul, K2 decode
-attention, K3 KV write — against the JAX package's Pallas kernels (run in
-interpret mode, as the JAX tests run them on the CPU), through the plain
-PyTorch versions that CPU tensors take. tests/test_torch_cuda.py holds
-the CUDA kernels to those plain versions on a card."""
+"""The port's kernels — K1 fused-norm matmul (int8 and int4), K2 decode
+attention (bf16 and int8 cache), K3 KV write, K4 int8 quantize-write, K6
+layer tail — against the JAX package's Pallas kernels (run in interpret
+mode, as the JAX tests run them on the CPU), through the plain PyTorch
+versions that CPU tensors take. tests/test_torch_cuda.py holds the CUDA
+kernels to those plain versions on a card."""
 
 import numpy as np
 import jax
@@ -18,7 +19,7 @@ from llm_inference_tpu.ops.pallas import quant_matmul as j_qm
 from llm_inference_tpu_torch.ops.kernels import decode_attention as t_dec
 from llm_inference_tpu_torch.ops.kernels import kv_write as t_kvw
 from llm_inference_tpu_torch.ops.kernels import quant_matmul as t_qm
-from llm_inference_tpu_torch.ops.quantization import QTensor
+from llm_inference_tpu_torch.ops.quantization import QTensor, from_split_half
 
 from torch_bridge import to_numpy, to_torch, to_numpy_tree
 
@@ -147,3 +148,185 @@ def test_k3_plain_matches_jax_kernel(dtype):
     assert ok is tk and ov is tv                        # in place
     np.testing.assert_array_equal(to_numpy(tk), np.asarray(jk, np.float32))
     np.testing.assert_array_equal(to_numpy(tv), np.asarray(jv, np.float32))
+
+
+# ------------------------------------------------- int4 weights (K1, K6)
+
+def _int4_weights(L=2, K=256, N=512, gsize=128, seed=0):
+    """JAX int4 weights in the TPU serving layout (grouped, N-pair
+    blocked, as prepare_params lays them) and the same weights in the
+    port's layout, through the test bridge."""
+    w = np.random.default_rng(seed).standard_normal((L, K, N)) * 0.05
+    qt = jax.vmap(lambda m: j_quant.quantize(m, 4, gsize))(
+        jnp.asarray(w, jnp.float32))
+    bn = j_quant.choose_block_n(K // 2, N, (3 << 20) // 2, quantum=256)
+    jqt = j_quant.to_blocked_npair(qt, bn)
+    tree = to_numpy_tree(jqt)
+    return jqt, from_split_half(to_torch(tree["q"]), to_torch(tree["scale"]))
+
+
+def _assert_bf16_close(got, want):
+    """Within one bf16 step of each value (the same products summed in
+    float32 in another order, then one rounding), plus 2^-16 of the
+    largest: the TPU kernel's difference of dots d_lo = d1 - 16 d_hi -
+    8 xsum cancels terms up to 16x the result in float32."""
+    want = np.asarray(want, np.float32)
+    err = np.abs(np.asarray(got, np.float32) - want)
+    assert (err <= 2.0 ** -7 * np.abs(want)
+            + 2.0 ** -16 * np.abs(want).max()).all(), err.max()
+
+
+@pytest.mark.parametrize("M", [1, 4, 128])
+@pytest.mark.parametrize("prologue", ["none", "norm", "norm_res_xout"])
+def test_k1_int4_plain_matches_jax_kernel(prologue, M):
+    rng = np.random.default_rng(40 + M)
+    K, N = 256, 512
+    jqt, tqt = _int4_weights(K=K, N=N)
+    x = jnp.asarray(rng.standard_normal((M, K)), jnp.bfloat16)
+    kw = {}
+    if "norm" in prologue:
+        kw["norm_gamma"] = jnp.asarray(1 + 0.1 * rng.standard_normal(K),
+                                       jnp.bfloat16)
+    if "res" in prologue:
+        kw["residual"] = jnp.asarray(rng.standard_normal((M, K)),
+                                     jnp.bfloat16)
+    want_x_out = "xout" in prologue
+    want = j_qm.quant_matmul(x, jqt, layer=1, norm_eps=1e-5,
+                             want_x_out=want_x_out, **kw)
+    got = t_qm.quant_matmul(to_torch(x), tqt, 1, norm_eps=1e-5,
+                            want_x_out=want_x_out,
+                            **{k: to_torch(v) for k, v in kw.items()})
+    if want_x_out:
+        (want, want_x), (got, got_x) = want, got
+        np.testing.assert_array_equal(to_numpy(got_x),
+                                      np.asarray(want_x, np.float32))
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    _assert_bf16_close(to_numpy(got), want)
+
+
+def test_k1_int4_plain_prefill_path_matches_jax():
+    """M > 128 follows the TPU package's tiled kernel (K8): prologue
+    outside, in the caller's dtype, then bf16 rows."""
+    rng = np.random.default_rng(41)
+    K, N, M = 256, 512, 136
+    jqt, tqt = _int4_weights(K=K, N=N, seed=1)
+    x = jnp.asarray(rng.standard_normal((M, K)), jnp.bfloat16)
+    res = jnp.asarray(rng.standard_normal((M, K)), jnp.bfloat16)
+    g = jnp.asarray(1 + 0.1 * rng.standard_normal(K), jnp.bfloat16)
+    want, want_x = j_qm.quant_matmul(x, jqt, layer=0, norm_gamma=g,
+                                     residual=res, want_x_out=True)
+    got, got_x = t_qm.quant_matmul(to_torch(x), tqt, 0,
+                                   norm_gamma=to_torch(g),
+                                   residual=to_torch(res), want_x_out=True)
+    np.testing.assert_array_equal(to_numpy(got_x),
+                                  np.asarray(want_x, np.float32))
+    _assert_bf16_close(to_numpy(got), want)
+
+
+def _tail_weights(H=256, I=512, seed=3):
+    wo = _int4_weights(K=H, N=H, seed=seed)
+    gu = _int4_weights(K=H, N=2 * I, seed=seed + 1)   # [gate | up] columns
+    dn = _int4_weights(K=I, N=H, seed=seed + 2)
+    return [w[0] for w in (wo, gu, dn)], [w[1] for w in (wo, gu, dn)]
+
+
+@pytest.mark.parametrize("M", [1, 4, 32])
+def test_k6_plain_matches_jax_kernel(M):
+    rng = np.random.default_rng(60 + M)
+    H = 256
+    jw, tw = _tail_weights()
+    h = jnp.asarray(rng.standard_normal((M, H)), jnp.bfloat16)
+    attn = jnp.asarray(rng.standard_normal((M, H)), jnp.bfloat16)
+    gamma = jnp.asarray(1 + 0.1 * rng.standard_normal(H), jnp.bfloat16)
+    want_y, want_h2 = j_qm.layer_tail_fused(h, attn, *jw, gamma, 1e-5,
+                                            jnp.int32(1))
+    got_y, got_h2 = t_qm.layer_tail_fused(to_torch(h), to_torch(attn), *tw,
+                                          to_torch(gamma), 1e-5, 1)
+    assert got_y.dtype == torch.bfloat16 and got_y.shape == want_y.shape
+    # h2 = bf16(h + wo_out) and y: float32 sums in another order before
+    # one bf16 rounding each (the float32 intermediates are not rounded)
+    _assert_bf16_close(to_numpy(got_h2), want_h2)
+    _assert_bf16_close(to_numpy(got_y), want_y)
+
+
+def test_k6_declines_what_jax_declines():
+    """More than 32 rows, or weights that are not grouped int4, go to the
+    K1 chain in both packages."""
+    jw, tw = _tail_weights()
+    h = jnp.zeros((33, 256), jnp.bfloat16)
+    g = jnp.ones((256,), jnp.bfloat16)
+    assert j_qm.layer_tail_fused(h, h, *jw, g, 1e-5, 0) is None
+    assert t_qm.layer_tail_fused(to_torch(h), to_torch(h), *tw,
+                                 to_torch(g), 1e-5, 0) is None
+    _, int8_wo = _weights(K=256, N=256)
+    assert t_qm.layer_tail_fused(to_torch(h[:4]), to_torch(h[:4]), int8_wo,
+                                 *tw[1:], to_torch(g), 1e-5, 0) is None
+
+
+# --------------------------------------------------- int8 KV cache (K4, K2)
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_k4_plain_matches_jax_kernel(dtype):
+    rng = np.random.default_rng(4)
+    L, B, Hkv, S, D = 2, 4, 2, 16, 64
+    k_all = jnp.asarray(rng.integers(-128, 128, (L, B, Hkv, S, D)), jnp.int8)
+    v_all = jnp.asarray(rng.integers(-128, 128, (L, B, Hkv, S, D)), jnp.int8)
+    ks_all = jnp.asarray(rng.random((L, B, S, Hkv)), jnp.float32)
+    vs_all = jnp.asarray(rng.random((L, B, S, Hkv)), jnp.float32)
+    kn = jnp.asarray(rng.standard_normal((B, Hkv, 1, D)) * 3, dtype)
+    vn = jnp.asarray(rng.standard_normal((B, Hkv, 1, D)), dtype)
+    kn = kn.at[2, 1].set(0.0)                           # scale 1e-8
+    off = np.array([0, 5, S - 1, S + 7], np.int32)      # the last clamps
+    want = j_kvw.quantize_write_token(k_all, v_all, ks_all, vs_all,
+                                      jnp.int32(1), kn, vn, jnp.asarray(off))
+    tc = [to_torch(a) for a in (k_all, v_all, ks_all, vs_all)]
+    got = t_kvw.quantize_write_token(*tc, 1, to_torch(kn), to_torch(vn),
+                                     torch.from_numpy(off))
+    assert all(g is t for g, t in zip(got, tc))         # in place
+    np.testing.assert_array_equal(tc[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(tc[1].numpy(), np.asarray(want[1]))
+    # scales: bit for bit the JAX package's quantize_kv of the same rows;
+    # the Pallas kernel's identity dot (a lane relayout) rounds its copy by
+    # up to one float32 ulp in interpret mode
+    rows = np.arange(B)
+    slot = np.minimum(off, S - 1)
+    for new, scales, jax_scales in ((kn, tc[2], want[2]),
+                                    (vn, tc[3], want[3])):
+        _, s = j_quant.quantize_kv(new[:, :, 0])
+        np.testing.assert_array_equal(scales.numpy()[1, rows, slot],
+                                      np.asarray(s[..., 0]))
+        np.testing.assert_array_max_ulp(scales.numpy(),
+                                        np.asarray(jax_scales), maxulp=1)
+
+
+@pytest.mark.parametrize("S,Hkv,G,window,softcap", [
+    (128, 2, 2, 0, 0.0),      # GQA
+    (128, 4, 1, 16, 0.0),     # sliding window
+    (128, 2, 2, 0, 30.0),     # logit softcap
+    (256, 2, 4, 0, 0.0),      # two slot blocks in the TPU kernel
+])
+def test_k2_int8_plain_matches_jax_kernel(S, Hkv, G, window, softcap):
+    rng = np.random.default_rng(S + G + 7)
+    L, B, D = 2, 3, 64
+    q = jnp.asarray(rng.standard_normal((B, 1, Hkv * G, D)), jnp.bfloat16)
+    k = jnp.asarray(rng.integers(-128, 128, (L, B, Hkv, S, D)), jnp.int8)
+    v = jnp.asarray(rng.integers(-128, 128, (L, B, Hkv, S, D)), jnp.int8)
+    ks = jnp.asarray(rng.random((L, B, S, Hkv)) * 0.03, jnp.float32)
+    vs = jnp.asarray(rng.random((L, B, S, Hkv)) * 0.03, jnp.float32)
+    pos = np.array([0, 77, S - 1], np.int32)
+    want = j_dec.decode_attention(q, k, v, jnp.int32(1), jnp.asarray(pos),
+                                  logit_softcap=softcap, k_scale=ks,
+                                  v_scale=vs, window=window)
+    vst = to_torch(vs)
+    vst[1, 1, 78:] = float("inf")          # beyond pos: never read
+    got = t_dec.decode_attention(to_torch(q), to_torch(k), to_torch(v), 1,
+                                 torch.from_numpy(pos),
+                                 logit_softcap=softcap, window=window,
+                                 k_scale=to_torch(ks), v_scale=vst)
+    assert got.shape == (B, 1, Hkv * G, D) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got).all()
+    # as the bf16 cache: bf16 output, p · v_scale rounded to bf16 against
+    # each slot block's running max on the TPU, the row max here: a few
+    # bf16 steps of |out| <= ~3
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want, np.float32),
+                               atol=2e-2, rtol=0)

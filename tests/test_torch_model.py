@@ -1,7 +1,9 @@
-"""The port's LLaMA forward against the JAX package's, on the CPU: the
-slice's configuration at tiny width (int8 weights with an int8 lm_head,
-head_dim 64 and a 128-slot bf16 cache, so the JAX side runs its K1-K3
-Pallas kernels in interpret mode and the port its plain versions)."""
+"""The port's LLaMA forward against the JAX package's, on the CPU, in the
+port's two configurations at tiny width: int8 weights with an int8
+lm_head over a 128-slot bf16 cache (K1-K3), and int4 g=128 weights with
+an int4 lm_head over a 256-slot int8 cache (K1 int4, K4, K2 int8, K6).
+The JAX side runs its Pallas kernels in interpret mode and the port its
+plain versions."""
 
 import dataclasses
 
@@ -147,9 +149,9 @@ def test_init_params_quantized_serves(models):
     logits, _ = llama.forward(cfg, prep, ids, ids, c)
     assert logits.shape == (1, cfg.vocab_size)
     assert torch.isfinite(logits).all()
-    with pytest.raises(NotImplementedError):
-        llama.init_params_quantized(cfg, QuantConfig(weights="int4"),
-                                    device="cpu")
+    with pytest.raises(NotImplementedError):       # asymmetric: not ported
+        llama.init_params_quantized(cfg, QuantConfig(
+            weights="int4", group_size=128, asymmetric=True), device="cpu")
 
 
 def test_params_from_numpy_bf16_bits():
@@ -210,3 +212,104 @@ def test_config_variants_match_jax(variant):
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
                                    atol=LOGIT_ATOL, rtol=0)
         tok = np.argmax(np.asarray(jlog), -1).astype(np.int32)
+
+
+# ------------------------------------- int4 g=128 weights + int8 KV cache
+
+S4 = 256
+# every kernel of the path engages on the JAX side at this size: K = 256
+# gives two scale groups (w_down four), the N-pair blocks need multiples
+# of 256 columns, vocab 320 takes the lm_head pad, head_dim 64 over a
+# 128-multiple cache takes the decode kernel
+TINY4 = dict(hidden_size=256, intermediate_size=512, num_heads=4,
+             num_kv_heads=2, head_dim=64, vocab_size=320, dtype="bfloat16")
+QCFG4 = dict(weights="int4", group_size=128, quantize_embedding=True)
+
+
+@pytest.fixture(scope="module")
+def models4():
+    jcfg, cfg = j_tiny_llama(**TINY4), tiny_llama(**TINY4)
+    qp = j_llama.init_params_quantized(jcfg, jax.random.PRNGKey(5),
+                                       JQuantConfig(**QCFG4))
+    jprep = j_llama.prepare_params(qp, donate=False)
+    tprep = llama.prepare_params(llama.params_from_numpy(
+        to_numpy_tree(jprep), cfg, device="cpu"))
+    return jcfg, cfg, jprep, tprep
+
+
+@pytest.mark.parametrize("T", [16, 64], ids=["tail_kernel", "k1_chain"])
+def test_int4_int8kv_prefill_and_decode_match_jax(models4, T):
+    """B = 2 prompts of T tokens: 32 rows take the layer-tail kernel (K6)
+    at prefill, 128 rows the K1 chain; then 8 teacher-forced decode steps
+    (K1 int4, K4, K2 int8, K6) at per-row positions."""
+    jcfg, cfg, jprep, tprep = models4
+    ids, pos, last = _inputs(cfg, B=2, T=T, seed=7)
+    B = 2
+    jc = j_kv.init_cache(cfg.num_layers, B, cfg.num_kv_heads, S4,
+                         cfg.head_dim, "int8")
+    tc = kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads, S4,
+                            cfg.head_dim, "int8")
+    jlog, jc = j_llama.forward(jcfg, jprep, jnp.asarray(ids),
+                               jnp.asarray(pos), jc,
+                               last_idx=jnp.asarray(last))
+    tlog, tc = llama.forward(cfg, tprep, torch.from_numpy(ids),
+                             torch.from_numpy(pos), tc,
+                             last_idx=torch.from_numpy(last))
+    assert tlog.shape == (B, cfg.vocab_size) and tlog.dtype == torch.float32
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
+                               atol=LOGIT_ATOL, rtol=0)
+    # int8 codes of bf16 K rows that may differ by a rounding step: the
+    # element (≤ 2^-8 of 127 steps) and the row's absmax (the scale) each
+    # move a code by at most half a step, so with rounding by at most two
+    assert np.abs(tc.k.numpy().astype(np.int32)
+                  - np.asarray(jc.k, np.int32)).max() <= 2
+    tok = np.argmax(np.asarray(jlog), -1).astype(np.int32)
+    nxt = (last + 1).astype(np.int32)
+    for _ in range(8):
+        jlog, jc = j_llama.forward(jcfg, jprep, jnp.asarray(tok[:, None]),
+                                   jnp.asarray(nxt[:, None]), jc)
+        tlog, tc = llama.forward(cfg, tprep, torch.from_numpy(tok[:, None]),
+                                 torch.from_numpy(nxt[:, None]), tc)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
+                                   atol=LOGIT_ATOL, rtol=0)
+        tok = np.argmax(np.asarray(jlog), -1).astype(np.int32)
+        nxt = nxt + 1
+
+
+def test_quantize_params_int4_matches_jax():
+    """int4 g=128 quantize_params + prepare_params give the JAX package's
+    codes and scales, fused columns [q|k|v] and [gate|up] included."""
+    jcfg, cfg = j_tiny_llama(**TINY4), tiny_llama(**TINY4)
+    dense = j_llama.init_params(jcfg, jax.random.PRNGKey(6))
+    jprep = j_llama.prepare_params(j_llama.quantize_params(
+        dense, JQuantConfig(**QCFG4)), donate=False)
+    tprep = llama.prepare_params(llama.quantize_params(
+        llama.params_from_numpy(to_numpy_tree(dense), cfg, "cpu"),
+        QuantConfig(**QCFG4)))
+    want = llama.params_from_numpy(to_numpy_tree(jprep), cfg, "cpu")
+    for got, exp in [(tprep["layers"][n], want["layers"][n])
+                     for n in ("wqkv", "wo", "w_gateup", "w_down")] + [
+                         (tprep["lm_head"], want["lm_head"])]:
+        assert got.bits == exp.bits == 4
+        # JAX pads lm_head's columns (32-multiple → 512) for its N-pair
+        # blocks; the padded columns are zero codes
+        n = got.out_features
+        assert torch.equal(got.q, exp.q[..., :n, :])
+        assert torch.equal(got.scale, exp.scale[..., :n, :])
+        assert not exp.q[..., n:, :].any()
+
+
+def test_init_params_quantized_int4_serves():
+    cfg = tiny_llama(**TINY4)
+    p = llama.prepare_params(llama.init_params_quantized(
+        cfg, QuantConfig(**QCFG4), seed=3, device="cpu"))
+    w = p["layers"]["w_down"]
+    assert w.bits == 4 and w.q.shape == (cfg.num_layers, 256, 256)
+    assert w.scale.shape == (cfg.num_layers, 256, 4) and w.group_size == 128
+    assert p["lm_head"].shape == (cfg.hidden_size, cfg.vocab_size)
+    c = kvcache.init_cache(cfg.num_layers, 1, cfg.num_kv_heads, S4,
+                           cfg.head_dim, torch.int8)
+    ids = torch.arange(5, dtype=torch.int32)[None]
+    logits, _ = llama.forward(cfg, p, ids, ids, c)
+    assert logits.shape == (1, cfg.vocab_size)
+    assert torch.isfinite(logits).all() and c.k_scale[:, 0, :5].all()

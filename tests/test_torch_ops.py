@@ -72,7 +72,54 @@ def test_qmatmul_ref_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("kw", [dict(bits=4), dict(group_size=32),
+@pytest.mark.parametrize("shape,group_size,spread", [
+    ((256, 64), 128, 0.02), ((256, 96), 32, 1.0), ((128, 48), 0, 30.0),
+    ((512, 32), 256, 0.05)])
+def test_quantize_int4_bit_identical(shape, group_size, spread):
+    w = (_rng(21).standard_normal(shape) * spread).astype(np.float32)
+    w[:group_size or shape[0], 5] = 0.0          # an all-zero group → 1e-8
+    w[7, :] = 0.0
+    jq = j_quant.quantize(jnp.asarray(w), 4, group_size)
+    tq = quantization.quantize(torch.from_numpy(w), 4, group_size)
+    # the port packs K-adjacent codes of a column ([N, K/2]); JAX packs
+    # split halves of a column block ([K/2, N]): compare the codes
+    assert tq.bits == 4 and tq.q.shape == (shape[1], shape[0] // 2)
+    np.testing.assert_array_equal(
+        np.asarray(j_quant._unpack_int4(jq.q, jq.block_rows)),
+        quantization.unpack_int4(tq.q).T.numpy())
+    np.testing.assert_array_equal(np.asarray(jq.scale), tq.scale.T.numpy())
+    assert tq.group_size == (group_size or shape[0])
+
+
+def test_int4_pack_round_trip():
+    codes = torch.from_numpy(
+        _rng(22).integers(-8, 8, (3, 64)).astype(np.int8))
+    packed = quantization.pack_int4(codes)
+    assert packed.dtype == torch.int8 and packed.shape == (3, 32)
+    assert torch.equal(quantization.unpack_int4(packed), codes)
+    # code 2j in the low nibble, 2j+1 in the high nibble
+    assert int(packed[0, 0]) & 0xF == int(codes[0, 0]) & 0xF
+
+
+@pytest.mark.parametrize("group_size", [0, 64])
+def test_int4_dequantize_and_qmatmul_ref_match_jax(group_size):
+    rng = _rng(23)
+    w = rng.standard_normal((128, 64)).astype(np.float32)
+    x = rng.standard_normal((5, 128)).astype(np.float32)
+    jq = j_quant.quantize(jnp.asarray(w), 4, group_size)
+    tq = quantization.quantize(torch.from_numpy(w), 4, group_size)
+    np.testing.assert_array_equal(
+        np.asarray(j_quant.dequantize(jq, jnp.float32)),
+        quantization.dequantize(tq).numpy())
+    want = np.asarray(j_quant.qmatmul_ref(jnp.asarray(x), jq))
+    got = quantization.qmatmul_ref(torch.from_numpy(x), tq).numpy()
+    # the same products (bf16 x per-channel, float32 x grouped); only the
+    # float32 summation order differs
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("kw", [dict(bits=4, asymmetric=True),
+                                dict(group_size=32),
                                 dict(asymmetric=True)])
 def test_quantize_unported_formats_raise(kw):
     w = torch.zeros((64, 16))
@@ -163,12 +210,54 @@ def test_attend_matches_jax(window, softcap, G):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def test_quantize_kv_bit_identical():
+    x = (_rng(24).standard_normal((2, 5, 3, 64)) * 4).astype(np.float32)
+    x[0, 1, 2] = 0.0                                  # scale 1e-8, codes 0
+    x[1, 0, 0, :4] = [127.0, 0.5, 1.5, -2.5]          # ties round to even
+    jq, js = j_quant.quantize_kv(jnp.asarray(x))
+    tq, ts = quantization.quantize_kv(torch.from_numpy(x))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        quantization.dequantize_kv(tq, ts, torch.float32).numpy(),
+        np.asarray(j_quant.dequantize_kv(jq, js, jnp.float32)))
+
+
+@pytest.mark.parametrize("window,softcap,G", [(0, 0.0, 2), (6, 0.0, 1),
+                                              (0, 20.0, 4)])
+def test_attend_int8_cache_matches_jax(window, softcap, G):
+    rng = _rng(25)
+    B, T, Hkv, S, D = 2, 5, 2, 24, 16
+    q = jnp.asarray(rng.standard_normal((B, T, Hkv * G, D)), jnp.bfloat16)
+    kq, ks = j_quant.quantize_kv(jnp.asarray(
+        rng.standard_normal((B, S, Hkv, D)), jnp.float32))
+    vq, vs = j_quant.quantize_kv(jnp.asarray(
+        rng.standard_normal((B, S, Hkv, D)), jnp.float32))
+    k, v = kq.transpose(0, 2, 1, 3), vq.transpose(0, 2, 1, 3)
+    ks, vs = ks[..., 0], vs[..., 0]                   # [B, S, Hkv]
+    vs = vs.at[:, -3:].set(jnp.inf)                   # never attendable
+    pos = np.stack([np.arange(T) + 3, np.arange(T) + 10]).astype(np.int32)
+    mask = j_attention.make_attention_mask(jnp.asarray(pos), S, window)
+    want = j_attention.attend(q, k, v, mask, logit_softcap=softcap,
+                              k_scale=ks, v_scale=vs)
+    got = attention.attend(to_torch(q), to_torch(k), to_torch(v),
+                           to_torch(mask), logit_softcap=softcap,
+                           k_scale=to_torch(ks), v_scale=to_torch(vs))
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    # bf16 output of the same products; float32 sums in another order may
+    # move a result by one bf16 step (2^-8 of |out| <= ~2)
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want, np.float32),
+                               atol=1e-2, rtol=0)
+
+
 def test_attend_quantized_cache_raises():
+    # an int4-packed cache (two dims per byte) is not ported yet
     q = torch.zeros((1, 1, 2, 16))
-    k = torch.zeros((1, 2, 8, 16), dtype=torch.int8)
+    k = torch.zeros((1, 2, 8, 8), dtype=torch.int8)
+    s = torch.ones((1, 8, 2))
     mask = torch.ones((1, 1, 1, 8), dtype=torch.bool)
     with pytest.raises(NotImplementedError):
-        attention.attend(q, k, k, mask)
+        attention.attend(q, k, k, mask, k_scale=s, v_scale=s)
 
 
 # ------------------------------------------------- activations, embedding
@@ -265,6 +354,37 @@ def test_prefill_cache_write_matches_jax():
     np.testing.assert_array_equal(tc.v.numpy(), np.asarray(jc.v))
 
 
+@pytest.mark.parametrize("T", [5, 1])
+def test_int8_cache_write_matches_jax(T):
+    """Prefill (T > 1: plain quantize_kv and slice writes) and decode
+    (T = 1: K4's plain version) into an int8 cache give the JAX package's
+    codes and slot-major scales."""
+    rng = _rng(26)
+    L, B, Hkv, S, D = 2, 3, 2, 16, 64
+    kn = (rng.standard_normal((B, T, Hkv, D)) * 2).astype(np.float32)
+    vn = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    off = np.array([0, 4, 14], np.int32)     # the last clamps
+    jc = j_kv.init_cache(L, B, Hkv, S, D, "int8")
+    jc = j_kv.update_cache_layer(jc, jnp.int32(1), jnp.asarray(kn),
+                                 jnp.asarray(vn), jnp.asarray(off))
+    tc = kvcache.init_cache(L, B, Hkv, S, D, torch.int8)
+    assert tc.quantized and tc.bits == 8 and tc.k.dtype == torch.int8
+    kvcache.update_cache_layer(tc, 1, torch.from_numpy(kn),
+                               torch.from_numpy(vn), torch.from_numpy(off))
+    for name in ("k", "v"):
+        np.testing.assert_array_equal(getattr(tc, name).numpy(),
+                                      np.asarray(getattr(jc, name)))
+    for name in ("k_scale", "v_scale"):
+        # bit for bit at T > 1 (quantize_kv on both sides); at T = 1 JAX
+        # runs its Pallas kernel, whose identity dot that moves the scale
+        # column into a lane row rounds it by up to one float32 ulp in
+        # interpret mode (the codes are computed before it, and agree)
+        np.testing.assert_array_max_ulp(getattr(tc, name).numpy(),
+                                        np.asarray(getattr(jc, name)),
+                                        maxulp=0 if T > 1 else 1)
+
+
 def test_quantized_cache_raises():
+    # int8 caches are ported; int4-packed ones are not yet
     with pytest.raises(NotImplementedError):
-        kvcache.init_cache(1, 1, 1, 8, 8, "int8")
+        kvcache.init_cache(1, 1, 1, 8, 8, "int4")

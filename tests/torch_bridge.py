@@ -1,9 +1,11 @@
 """Test helper (not collected): hands the JAX package's parameters and
 arrays to the PyTorch port through numpy.
 
-JAX QTensors become {"q": row-major int8 codes [..., K, N], "scale":
-float32 [..., 1, N]} (un-blocked with quantization.from_blocked), the
-form `llm_inference_tpu_torch.models.llama.params_from_numpy` takes.
+JAX QTensors become {"q", "scale", "bits"} (un-blocked with
+quantization.from_blocked): int8 row-major codes [..., K, N] with float32
+scales [..., 1, N], or split-half packed int4 codes [..., K/2, N] (one
+pack block) with float32 scales [..., G, N] — the form
+`llm_inference_tpu_torch.models.llama.params_from_numpy` takes.
 """
 
 from __future__ import annotations
@@ -18,10 +20,14 @@ def to_numpy_tree(params):
     """JAX params pytree → nested dicts of numpy arrays."""
     if isinstance(params, QTensor):
         qt = from_blocked(params)
-        if qt.bits != 8 or qt.zbias is not None or qt.scale.shape[-2] != 1:
-            raise NotImplementedError("the port takes int8 per-channel "
-                                      "symmetric weights")
-        return {"q": np.asarray(qt.q), "scale": np.asarray(qt.scale)}
+        int8_ok = qt.bits == 8 and qt.scale.shape[-2] == 1
+        int4_ok = (qt.bits == 4 and (qt.block_rows or qt.q.shape[-2]) * 2
+                   == qt.in_features)
+        if qt.zbias is not None or not (int8_ok or int4_ok):
+            raise NotImplementedError("the port takes symmetric int8 "
+                                      "per-channel and int4 weights")
+        return {"q": np.asarray(qt.q), "scale": np.asarray(qt.scale),
+                "bits": qt.bits}
     if isinstance(params, dict):
         return {k: to_numpy_tree(v) for k, v in params.items()}
     return np.asarray(params)
