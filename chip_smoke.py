@@ -4,23 +4,29 @@
 
 Builds the CUDA kernels from `llm_inference_tpu_torch/csrc/`, prints the
 card (nvidia-smi name and power limit), torch/CUDA versions and the build
-time, then runs the port's two serving paths in turn, each through:
+time, then runs the port's three serving paths in turn, each through:
   2. its kernels held against their plain PyTorch versions on the card at
-     LLaMA-2-7B shapes, and timed beside the plain version and a library
+     LLaMA-2-7B shapes (decode, and 2048-row prefill chunks over a
+     4096-slot cache), and timed beside the plain version and a library
      call;
   3. a 2-layer LLaMA-2-7B-width model through `forward` on the CPU (plain
-     versions) and on the card (kernels): the logits of a prefill and 8
-     teacher-forced decode steps;
-  4. three requests served by `InferenceEngine.generate` on full-depth
-     LLaMA-2-7B (random weights from a seed), max_seq_len 512, greedy:
-     timed passes on the engine as shipped (launch counts against the
-     configuration's, TTFT, tokens/s), then an untimed pass that checks
-     every logit is finite and the tokens repeat.
-The paths: int8 per-channel weights and lm_head over a bf16 KV cache
-(K1 int8, K2 bf16, K3), then int4 g=128 weights and lm_head over an int8
-KV cache (K1 int4, K2 int8, K4, K6). Every check raises on failure. The
-line before the last is a JSON object with one entry per kernel; the last
-is {"ok": true, "device": {...}}. Imports nothing of JAX or the JAX
+     versions) and on the card (kernels): the logits of a 128-row prefill
+     and 8 teacher-forced decode steps over 512 slots, then of two 512-row
+     prefill chunks over 2048 slots (the tiled GEMM and flash attention);
+  4. requests served by `InferenceEngine.generate` on full-depth
+     LLaMA-2-7B (random weights from a seed), greedy: a 3000-token prompt
+     (two prefill chunks) and a batch of 1500 and 700 tokens over 4096
+     slots with the default prefill buckets, and three short requests over
+     512 slots; timed passes on the engine as shipped (launch counts
+     against the configuration's, TTFT, tokens/s and their spread), then an
+     untimed pass that checks every logit is finite and the tokens repeat.
+The paths: (i) int8 per-channel weights and lm_head over a bf16 KV cache
+(K1, K8 int8, K9 bf16, K2 bf16, K3), (ii) int4 g=128 weights and lm_head
+over an int8 KV cache (K1, K8 int4, K9 int8, K2 int8, K4, K6), (iii) the
+same weights over an int4 KV cache (K1, K8 int4, K9 int4, K5, K3 on packed
+rows and the scale write, K6). Every check raises on failure. The line
+before the last is a JSON object with one entry per kernel and path; the
+last is {"ok": true, "device": {...}}. Imports nothing of JAX or the JAX
 package.
 """
 
@@ -45,9 +51,10 @@ from llm_inference_tpu_torch.models import llama
 from llm_inference_tpu_torch.ops import kvcache
 from llm_inference_tpu_torch.ops.kernels import _build
 from llm_inference_tpu_torch.ops.kernels import decode_attention as k2
+from llm_inference_tpu_torch.ops.kernels import flash_attention as k9
 from llm_inference_tpu_torch.ops.kernels import kv_write as k3
 from llm_inference_tpu_torch.ops.kernels import quant_matmul as k1
-from llm_inference_tpu_torch.ops.quantization import dequantize
+from llm_inference_tpu_torch.ops.quantization import dequantize, unpack_kv4
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
@@ -58,9 +65,12 @@ SEED = 0
 CFG = llama2_7b()
 QCFG8 = QuantConfig(weights="int8", quantize_embedding=True)
 QCFG4 = QuantConfig(weights="int4", group_size=128, quantize_embedding=True)
-MAX_SEQ = 512
+MAX_SEQ = 512                       # the short requests' cache
+LONG_SEQ = 4096                     # the long requests' cache
+CHUNK = 2048                        # the largest default prefill bucket
 L = CFG.num_layers
 TAIL_MAX_ROWS = 32                  # K6 takes up to 32 rows (else K1 chain)
+K1_MAX_ROWS = 128                   # above, the projections run K8
 
 
 def say(*a):
@@ -204,12 +214,16 @@ def k1_cases(params, gen, names):
 
 
 def k2_cases(gen, int8_cache):
-    """K2 over [L, B, Hkv, 512, 128] caches (bf16, or int8 codes with
-    scales): B = 1 at pos 191, B = 4 at mixed positions, GQA G = 4."""
-    Hkv, D, S = CFG.num_kv_heads, CFG.head_dim, MAX_SEQ
+    """K2 over [L, B, Hkv, S, 128] caches (bf16, or int8 codes with
+    scales): B = 1 at pos 191, B = 4 at mixed positions and GQA G = 4 over
+    512 slots, then B = 1 at pos 3060 over 4096 slots (the long request's
+    decode, each head's slots split over 8 blocks)."""
+    Hkv, D = CFG.num_kv_heads, CFG.head_dim
     err_max, first = 0.0, None
-    for B, G, positions in ((1, 1, [191]), (4, 1, [0, 77, 300, S - 1]),
-                            (4, 4, [5, 128, 256, 400])):
+    for B, G, positions, S in (
+            (1, 1, [191], MAX_SEQ), (4, 1, [0, 77, 300, MAX_SEQ - 1], MAX_SEQ),
+            (4, 4, [5, 128, 256, 400], MAX_SEQ), (1, 1, [3060], LONG_SEQ)):
+        positions = [min(p, S - 1) for p in positions]
         Hk = Hkv // G                       # GQA case: 8 kv heads of 4
         shape = (L, B, Hk, S, D)
         if int8_cache:
@@ -270,8 +284,8 @@ def k2_cases(gen, int8_cache):
         nbytes = sum(2 * Hk * n * row for n in live) + 2 * q.numel() * 2
         flops = sum(4 * Hk * G * n * D for n in live)
         bnd, by = bound_ms(nbytes, flops)
-        say(f"  K2 {kind} B={B} G={G} pos={positions} err {err:.3g} (tol "
-            f"{tol:.3g})  kernel {ms:.4f} ms  bound {bnd:.5f} ms ({by})  "
+        say(f"  K2 {kind} B={B} G={G} S={S} pos={positions} err {err:.3g} "
+            f"(tol {tol:.3g})  kernel {ms:.4f} ms  bound {bnd:.5f} ms ({by})  "
             f"plain {plain:.3f} ms  sdpa {lib:.4f} ms")
         if first is None:
             first = dict(ms=ms, plain=plain, lib=lib, bound=bnd, by=by)
@@ -420,6 +434,258 @@ def k6_cases(params, gen):
     return first, err_max
 
 
+PROLOGUE = {"wqkv": True, "wo": False, "w_gateup": True, "w_down": False}
+
+
+def k8_cases(params, gen, M=CHUNK):
+    """K8 on the four layer weights at M rows (one 2048-row prefill chunk)
+    with the main path's prologue choice. The plain version and
+    torch.matmul (bf16 dequantized) run on the same rows."""
+    lay = params["layers"]
+    res, err_max = {}, 0.0
+    for name, pro in PROLOGUE.items():
+        qt = lay[name]
+        K, N = qt.in_features, qt.out_features
+        x = torch.randn((M, K), generator=gen, device=DEV).to(BF16)
+        kw = {}
+        if pro:
+            kw = dict(norm_gamma=(1 + 0.1 * torch.randn(
+                (K,), generator=gen, device=DEV)).to(BF16),
+                residual=torch.randn((M, K), generator=gen,
+                                     device=DEV).to(BF16), want_x_out=True)
+        got = k1.quant_matmul(x, qt, 1, **kw)
+        want = k1.quant_matmul_ref(x, qt, 1, **kw)
+        torch.cuda.synchronize()
+        if pro:
+            (got, got_x), (want, want_x) = got, want
+            check(torch.equal(got_x, want_x), f"K8 {name}: x_out differs")
+        err = max_err(got, want)
+        # the same bf16 products, float32 sums in another order, and the
+        # prologue's rsqrt may move a row by one bf16 rounding: one bf16
+        # step of the largest output
+        tol = 2.0 ** -7 * want.float().abs().max().item()
+        check(err <= tol, f"K8 {name} M={M}: max err {err} > {tol}")
+        err_max = max(err_max, err)
+        del got, want
+        ms = time_ms(lambda i: k1.quant_matmul(x, qt, i % L, **kw), reps=10)
+        plain = plain_ms(lambda i: k1.quant_matmul_ref(x, qt, i % L, **kw))
+        deq = [dequantize(qt.layer(i), BF16) for i in range(2)]
+        lib = time_ms(lambda i: torch.matmul(x, deq[i % 2]), reps=10)
+        del deq
+        nbytes = qbytes(qt) + M * K * 2 + M * N * 2
+        if pro:
+            nbytes += 2 * M * K * 2 + K * 2
+        bnd, by = bound_ms(nbytes, 2 * M * K * N)
+        say(f"  K8 int{qt.bits} {name:8s} M={M} "
+            f"{'norm+res' if pro else 'plain   '} err {err:.3g} (tol "
+            f"{tol:.3g})  kernel {ms:.4f} ms  bound {bnd:.4f} ms ({by})  "
+            f"plain {plain:.3f} ms  torch.matmul(bf16) {lib:.4f} ms "
+            f"({2 * M * K * N / ms / 1e9:.0f} TFLOP/s)")
+        res[name] = dict(ms=ms, plain=plain, lib=lib, bound=bnd, by=by)
+    total = {k: L * sum(r[k] for r in res.values())
+             for k in ("ms", "plain", "lib", "bound")}
+    total["by"] = "operations"
+    return total, err_max
+
+
+def random_cache(gen, kind, L_, B, S):
+    """A random [L_, B, Hkv, S, Dc] cache of `kind` ("bf16", "int8",
+    "int4"; every int8 byte is a valid packed int4 pair), with scales."""
+    Hkv, D = CFG.num_kv_heads, CFG.head_dim
+    Dc = D // 2 if kind == "int4" else D
+    shape = (L_, B, Hkv, S, Dc)
+    if kind == "bf16":
+        return (torch.randn(shape, generator=gen, device=DEV).to(BF16),
+                torch.randn(shape, generator=gen, device=DEV).to(BF16),
+                None, None)
+    codes = [torch.randint(-128, 128, shape, generator=gen, device=DEV,
+                           dtype=torch.int8) for _ in range(2)]
+    qmax = 7.0 if kind == "int4" else 127.0
+    scales = [torch.rand((L_, B, S, Hkv), generator=gen, device=DEV)
+              * 2.0 / qmax + 1e-3 for _ in range(2)]
+    return codes[0], codes[1], scales[0], scales[1]
+
+
+def dequant_layer(c, s, layer, kind):
+    """One layer's K or V as bf16 [B, Hkv, S, D] (the library yardstick's
+    input)."""
+    if s is None:
+        return c[layer]
+    vals = unpack_kv4(c[layer]) if kind == "int4" else c[layer]
+    return (vals.float() * s[layer].transpose(1, 2)[..., None]).to(BF16)
+
+
+def attn_bytes(kind, Hkv, live):
+    """Bytes of the K and V rows (and scales) of `live` slots."""
+    D = CFG.head_dim
+    row = {"bf16": 2 * D, "int8": D + 4, "int4": D // 2 + 4}[kind]
+    return 2 * Hkv * live * row
+
+
+def k9_cases(gen, kind):
+    """K9 over a 4096-slot cache of `kind`: a first 2048-row chunk
+    (positions 0-2047) and a second 1024-row chunk at positions 2048-3071
+    over the first's slots. Library yardstick: scaled_dot_product_attention
+    over the dequantized K and V (is_causal for the first chunk, a mask for
+    the second)."""
+    S, Hq, Hkv, D = LONG_SEQ, CFG.num_heads, CFG.num_kv_heads, CFG.head_dim
+    L_ = 4
+    kc, vc, ks, vs = random_cache(gen, kind, L_, 1, S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    first, err_max = None, 0.0
+    for T, start in ((CHUNK, 0), (CHUNK // 2, CHUNK)):
+        q = torch.randn((1, T, Hq, D), generator=gen, device=DEV).to(BF16)
+        pos = (start + torch.arange(T, device=DEV, dtype=torch.int32))[None]
+        sc = dict(k_scale=ks, v_scale=vs)
+        got = k9.flash_attention(q, kc, vc, 1, pos, **sc)
+        want = k9.flash_attention_ref(q, kc, vc, 1, pos, D ** -0.5, **sc)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        # bf16 output; the same 64-slot blocks and rounding points, float32
+        # sums in another order (int4: p in two bf16 parts): a few bf16
+        # steps (2^-8 relative) of the largest output
+        tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+        check(err <= tol, f"K9 {kind} T={T} start={start}: max err {err} "
+              f"> {tol}")
+        err_max = max(err_max, err)
+        del got, want
+        ms = time_ms(lambda i: k9.flash_attention(q, kc, vc, i % L_, pos,
+                                                  **sc), reps=10)
+        plain = plain_ms(lambda i: k9.flash_attention_ref(
+            q, kc, vc, i % L_, pos, D ** -0.5, **sc))
+        live = start + T
+        kd = [dequant_layer(kc, ks, i, kind)[:, :, :live] for i in range(2)]
+        vd = [dequant_layer(vc, vs, i, kind)[:, :, :live] for i in range(2)]
+        qt = q.transpose(1, 2)
+        gqa = {"enable_gqa": True} if Hq != Hkv else {}
+        if start == 0:
+            lib = time_ms(lambda i: sdpa(qt, kd[i % 2], vd[i % 2],
+                                         is_causal=True, **gqa), reps=10)
+        else:
+            mask = (torch.arange(live, device=DEV)[None, :]
+                    <= pos[0, :, None].long())
+            lib = time_ms(lambda i: sdpa(qt, kd[i % 2], vd[i % 2],
+                                         attn_mask=mask, **gqa), reps=10)
+        del kd, vd
+        pairs = sum(range(start + 1, start + T + 1))     # visible (row, slot)
+        nbytes = attn_bytes(kind, Hkv, live) + 2 * q.numel() * 2 + T * 4
+        bnd, by = bound_ms(nbytes, 4 * Hq * D * pairs)
+        say(f"  K9 {kind} T={T} positions {start}-{start + T - 1} err "
+            f"{err:.3g} (tol {tol:.3g})  kernel {ms:.4f} ms  bound "
+            f"{bnd:.4f} ms ({by})  plain {plain:.3f} ms  sdpa {lib:.4f} ms "
+            f"({4 * Hq * D * pairs / ms / 1e9:.0f} TFLOP/s)")
+        if first is None:
+            first = dict(ms=ms, plain=plain, lib=lib, bound=bnd, by=by)
+    del kc, vc, ks, vs
+    return first, err_max
+
+
+def k5_cases(gen):
+    """K5 over a 4096-slot int4 cache: B = 1 at pos 3060 (the 3000-token
+    request's decode) and B = 2 at 1530 and 730 (the batch request's)."""
+    S, Hkv, D = LONG_SEQ, CFG.num_kv_heads, CFG.head_dim
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    first, err_max = None, 0.0
+    for B, positions in ((1, [3060]), (2, [1530, 730])):
+        positions = [min(p, S - 1) for p in positions]
+        kc, vc, ks, vs = random_cache(gen, "int4", L, B, S)
+        q = torch.randn((B, 1, CFG.num_heads, D), generator=gen,
+                        device=DEV).to(BF16)
+        pos = torch.tensor(positions, dtype=torch.int32, device=DEV)
+        sc = dict(k_scale=ks, v_scale=vs)
+        got = k2.decode_attention(q, kc, vc, 1, pos, **sc)
+        want = k2.decode_attention_ref(q, kc, vc, 1, pos, D ** -0.5, **sc)
+        want = want.reshape(got.shape)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        # float32 p on both sides, float32 sums in another order, one bf16
+        # rounding: a few bf16 steps of the largest output
+        tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+        check(err <= tol, f"K5 B={B}: max err {err} > {tol}")
+        err_max = max(err_max, err)
+        ms = time_ms(lambda i: k2.decode_attention(q, kc, vc, i % L, pos,
+                                                   **sc))
+        plain = plain_ms(lambda i: k2.decode_attention_ref(
+            q, kc, vc, i % L, pos, D ** -0.5, **sc))
+        live = max(positions) + 1
+        kd = [dequant_layer(kc, ks, i, "int4")[:, :, :live] for i in range(2)]
+        vd = [dequant_layer(vc, vs, i, "int4")[:, :, :live] for i in range(2)]
+        mask = (torch.arange(live, device=DEV)[None, :]
+                <= pos[:, None].long())[:, None, None, :]
+        gqa = {"enable_gqa": True} if CFG.num_heads != Hkv else {}
+        lib = time_ms(lambda i: sdpa(q.transpose(1, 2), kd[i % 2],
+                                     vd[i % 2], attn_mask=mask, **gqa))
+        nbytes = (sum(attn_bytes("int4", Hkv, p + 1) for p in positions)
+                  + 2 * q.numel() * 2)
+        flops = sum(4 * CFG.num_heads * (p + 1) * D for p in positions)
+        bnd, by = bound_ms(nbytes, flops)
+        say(f"  K5 int4 B={B} pos={positions} err {err:.3g} (tol "
+            f"{tol:.3g})  kernel {ms:.4f} ms  bound {bnd:.5f} ms ({by})  "
+            f"plain {plain:.3f} ms  sdpa {lib:.4f} ms")
+        if first is None:
+            first = dict(ms=ms, plain=plain, lib=lib, bound=bnd, by=by)
+        del kc, vc, ks, vs, kd, vd
+    return first, err_max
+
+
+def int4_write_cases(gen):
+    """The int4 cache's decode write: K3 on the packed 64-byte rows and the
+    scale write, B = 1 and B = 2 with one offset past the end; both exact
+    against their plain versions."""
+    Hkv, D, S = CFG.num_kv_heads, CFG.head_dim, LONG_SEQ
+    out = {}
+    for B, offs in ((1, [3000]), (2, [1500, S + 9])):
+        kc, vc, ks, vs = random_cache(gen, "int4", 4, B, S)
+        ref = [t.clone() for t in (kc, vc, ks, vs)]
+        kn = torch.randint(-128, 128, (B, Hkv, 1, D // 2), generator=gen,
+                           device=DEV, dtype=torch.int8)
+        vn = torch.randint(-128, 128, (B, Hkv, 1, D // 2), generator=gen,
+                           device=DEV, dtype=torch.int8)
+        ksn = torch.rand((B, 1, Hkv), generator=gen, device=DEV)
+        vsn = torch.rand((B, 1, Hkv), generator=gen, device=DEV)
+        off = torch.tensor(offs, dtype=torch.int32, device=DEV)
+        k3.write_token(kc, vc, 2, kn, vn, off)
+        k3.write_token_ref(ref[0], ref[1], 2, kn, vn, off)
+        k3.write_token_scales(ks, vs, 2, ksn, vsn, off)
+        k3.write_token_scales_ref(ref[2], ref[3], 2, ksn, vsn, off)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((kc, vc, ks, vs), ref)),
+              f"int4 cache write B={B}: differs from the plain version")
+        rows = torch.arange(B, device=DEV)
+        offl = torch.clamp(off.long(), 0, S - 1)
+        for name, kern, plain_fn, lib_fn, nbytes in (
+                ("K3 packed rows",
+                 lambda i: k3.write_token(kc, vc, i % 4, kn, vn, off),
+                 lambda i: k3.write_token_ref(ref[0], ref[1], i % 4, kn, vn,
+                                              off),
+                 lambda i: (ref[0][i % 4].__setitem__((rows, slice(None),
+                                                       offl), kn[:, :, 0]),
+                            ref[1][i % 4].__setitem__((rows, slice(None),
+                                                       offl), vn[:, :, 0])),
+                 2 * 2 * B * Hkv * D // 2 + B * 4),
+                ("scale write",
+                 lambda i: k3.write_token_scales(ks, vs, i % 4, ksn, vsn,
+                                                 off),
+                 lambda i: k3.write_token_scales_ref(ref[2], ref[3], i % 4,
+                                                     ksn, vsn, off),
+                 lambda i: (ref[2][i % 4].__setitem__((rows, offl),
+                                                      ksn[:, 0]),
+                            ref[3][i % 4].__setitem__((rows, offl),
+                                                      vsn[:, 0])),
+                 2 * 2 * B * Hkv * 4 + B * 4)):
+            ms = time_ms(kern)
+            plain = time_ms(plain_fn)
+            lib = time_ms(lib_fn)
+            bnd, by = bound_ms(nbytes, 0)
+            say(f"  {name} B={B} offsets={offs} exact  kernel {ms:.4f} ms  "
+                f"bound {bnd:.6f} ms ({by})  plain {plain:.4f} ms  "
+                f"index_put {lib:.4f} ms")
+            out.setdefault(name, dict(ms=ms, plain=plain, lib=lib,
+                                      bound=bnd, by=by))
+        del kc, vc, ks, vs, ref
+    return out
+
+
 # ------------------------------------------------------------------ phase 3
 
 def phase_parity(qcfg, cache_dtype):
@@ -438,11 +704,10 @@ def phase_parity(qcfg, cache_dtype):
     pos = torch.arange(T, dtype=torch.int32)[None].repeat(B, 1)
     last = torch.tensor([n - 1 for n in lengths])
 
-    def run(dev, p):
-        c = kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads, MAX_SEQ,
-                               cfg.head_dim, cache_dtype, device=dev)
-        return c, llama.forward(cfg, p, ids.to(dev), pos.to(dev), c,
-                                last_idx=last.to(dev))[0]
+    def new_cache(dev, batch, slots):
+        return kvcache.init_cache(cfg.num_layers, batch, cfg.num_kv_heads,
+                                  slots, cfg.head_dim, cache_dtype,
+                                  device=dev)
 
     finite = []
 
@@ -452,8 +717,10 @@ def phase_parity(qcfg, cache_dtype):
         return (l_gpu.cpu() - l_cpu).abs().max().item()
 
     with torch.no_grad():
-        c_cpu, l_cpu = run(cpu, p_cpu)
-        c_gpu, l_gpu = run(DEV, p_gpu)
+        c_cpu, c_gpu = new_cache(cpu, B, MAX_SEQ), new_cache(DEV, B, MAX_SEQ)
+        l_cpu = llama.forward(cfg, p_cpu, ids, pos, c_cpu, last_idx=last)[0]
+        l_gpu = llama.forward(cfg, p_gpu, ids.to(DEV), pos.to(DEV), c_gpu,
+                              last_idx=last.to(DEV))[0]
         errs = [compare(l_cpu, l_gpu)]
         scale = l_cpu.abs().max().item()
         nxt = torch.tensor(lengths, dtype=torch.int32)[:, None]
@@ -465,82 +732,154 @@ def phase_parity(qcfg, cache_dtype):
             errs.append(compare(l_cpu, l_gpu))
             scale = max(scale, l_cpu.abs().max().item())
             nxt = nxt + 1
+        del c_cpu, c_gpu
+        # two 512-row chunks over 2048 slots (T·S = 2^20): the projections
+        # take K8 and attention K9 on the card, the second chunk over the
+        # first's slots
+        S2, T2 = 2048, 512
+        check(llama.attention_route((1, T2, cfg.num_heads, cfg.head_dim),
+                                    S2, cache_dtype != BF16) == "flash",
+              "phase 3: a 512-row chunk over 2048 slots must take K9")
+        ids2 = torch.randint(1, cfg.vocab_size, (1, 2 * T2), generator=gen,
+                             dtype=torch.int32)
+        c_cpu, c_gpu = new_cache(cpu, 1, S2), new_cache(DEV, 1, S2)
+        before = (k1.tiled_launches, k9.launches)
+        for o in (0, T2):
+            pos2 = (o + torch.arange(T2, dtype=torch.int32))[None]
+            l_cpu = llama.forward(cfg, p_cpu, ids2[:, o:o + T2], pos2,
+                                  c_cpu)[0]
+            l_gpu = llama.forward(cfg, p_gpu, ids2[:, o:o + T2].to(DEV),
+                                  pos2.to(DEV), c_gpu)[0]
+            errs.append(compare(l_cpu, l_gpu))
+            scale = max(scale, l_cpu.abs().max().item())
+        check(k1.tiled_launches - before[0] == 2 * 4 * cfg.num_layers
+              and k9.launches - before[1] == 2 * cfg.num_layers,
+              "phase 3: the long chunks did not run K8 and K9")
     # bf16 activations through 2 layers: kernel and plain sums differ in
     # order, a bf16 rounding step upstream moves a logit by a few bf16
     # steps of |logit| (2^-8 relative); 4 such steps of the largest logit
     tol = 4 * 2.0 ** -8 * scale
-    say(f"  logits max err per step {['%.4f' % e for e in errs]} "
-        f"(tol {tol:.4f}, max |logit| {scale:.3f})")
+    say(f"  logits max err per step (prefill, 8 decode steps, 2 long "
+        f"chunks) {['%.4f' % e for e in errs]} (tol {tol:.4f}, max |logit| "
+        f"{scale:.3f})")
     check(all(finite), "2-layer parity: non-finite logits")
     check(max(errs) <= tol, f"2-layer parity: {max(errs)} > {tol}")
 
 
 # ------------------------------------------------------------------ phase 4
 
-REQUESTS = (  # (name, prompt lengths, max_new_tokens)
-    ("bench: 128-token prompt, 64 new", [128], 64),
-    ("100-token prompt, 32 new", [100], 32),
-    ("batch of 4 prompts <= 32 tokens, 16 new", [32, 17, 25, 9], 16),
+REQUESTS = (  # (name, prompt lengths, max_new_tokens, long engine)
+    ("3000-token prompt, 64 new", [3000], 64, True),
+    ("batch of 1500 + 700 tokens, 32 new", [1500, 700], 32, True),
+    ("bench: 128-token prompt, 64 new", [128], 64, False),
+    ("100-token prompt, 32 new", [100], 32, False),
+    ("batch of 4 prompts <= 32 tokens, 16 new", [32, 17, 25, 9], 16, False),
 )
-REPEATS = 3       # timed passes over the three requests
-BUCKETS = (32, 128)
-COUNTERS = ("K1", "K2", "K3", "K4", "K6")
+REPEATS = 3       # timed passes over the requests
+BUCKETS = (32, 128)                 # the short requests' engine
+COUNTERS = ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "K9", "KS")
 
 
 def counts():
     return dict(K1=k1.launches, K2=k2.launches, K3=k3.launches,
-                K4=k3.quant_launches, K6=k1.tail_launches)
+                K4=k3.quant_launches, K5=k2.int4_launches,
+                K6=k1.tail_launches, K8=k1.tiled_launches, K9=k9.launches,
+                KS=k3.scale_launches)
 
 
 def zero_counts():
-    k1.launches = k1.tail_launches = k2.launches = 0
-    k3.launches = k3.quant_launches = 0
+    k1.launches = k1.tail_launches = k1.tiled_launches = 0
+    k2.launches = k2.int4_launches = k9.launches = 0
+    k3.launches = k3.quant_launches = k3.scale_launches = 0
 
 
-def expected_launches(weights, cache_dtype, prefill_rows, steps):
-    """Kernel launches of one generate call: a prefill forward over
-    `prefill_rows` rows (batch x bucket), then `steps` decode forwards.
-    Per forward, K1 runs wqkv in every layer and lm_head once; the layer
-    tail is K6 for int4 weights at <= 32 rows, else K1 wo, gate-up and
-    down. Decode steps also write the cache (K4 int8, K3 bf16) and attend
-    with K2; prefill writes and attends in plain PyTorch."""
-    def forward(rows):
-        tail = weights == "int4" and rows <= TAIL_MAX_ROWS
-        return dict(K1=(1 if tail else 4) * L + 1, K6=L if tail else 0)
-    pre, dec = forward(prefill_rows), forward(1)
+def prefill_chunks(eng, lens):
+    """(batch, rows) of each prefill forward the engine runs for prompts
+    of these lengths (engine.prefill's chunking)."""
+    ecfg = eng.engine_cfg
+    chunk = max(b for b in ecfg.prefill_buckets if b <= ecfg.max_seq_len)
+    out = []
+    for o in range(0, max(lens), chunk):
+        need = max(max(min(n - o, chunk), 0) for n in lens)
+        out.append((len(lens), min(eng._bucket(max(need, 1)),
+                                    ecfg.max_seq_len - o)))
+    return out
+
+
+def expected_launches(weights, cache_dtype, chunks, S, steps):
+    """Kernel launches of one generate call over an S-slot cache: prefill
+    forwards of (batch, rows) `chunks`, then `steps` decode forwards.
+    Per forward over M = batch x rows, the projections run K8 above 128
+    rows and K1 below: wqkv in every layer, and wo, gate-up, down unless
+    the layer tail is K6 (int4 weights, <= 32 rows); lm_head is K1 on the
+    batch's last rows; attention is K9, K2 or K5 where
+    llama.attention_route says (plain otherwise). Decode steps also write
+    the cache: K3 (bf16), K4 (int8), or K3 on packed rows and the scale
+    write (int4); prefill writes in plain PyTorch."""
     want = {c: 0 for c in COUNTERS}
-    for c in ("K1", "K6"):
-        want[c] = pre[c] + steps * dec[c]
-    want["K2"] = L * steps
-    want["K4" if cache_dtype == "int8" else "K3"] = L * steps
+    quantized = cache_dtype != BF16
+
+    def forward(batch, rows):
+        M = batch * rows
+        tail = weights == "int4" and M <= TAIL_MAX_ROWS
+        want["K8" if M > K1_MAX_ROWS else "K1"] += (1 if tail else 4) * L
+        want["K6"] += L if tail else 0
+        want["K1"] += 1
+        route = llama.attention_route(
+            (batch, rows, CFG.num_heads, CFG.head_dim), S, quantized)
+        if route == "flash":
+            want["K9"] += L
+        elif route == "decode":
+            want["K5" if cache_dtype == "int4" else "K2"] += L
+    for batch, rows in chunks:
+        forward(batch, rows)
+    batch = chunks[0][0]
+    for _ in range(steps):
+        forward(batch, 1)
+    writes = {BF16: ("K3",), "int8": ("K4",), "int4": ("K3", "KS")}
+    for c in writes[cache_dtype]:
+        want[c] += L * steps
     return want
+
+
+def spread(xs):
+    xs = sorted(xs)
+    return f"{xs[0]:.2f} / {xs[len(xs) // 2]:.2f} / {xs[-1]:.2f}"
 
 
 def phase_main_path(params, weights, cache_dtype):
     say(f"phase 4: InferenceEngine.generate, LLaMA-2-7B {weights}, "
         f"{cache_dtype} cache")
-    ecfg = EngineConfig(max_seq_len=MAX_SEQ, prefill_buckets=BUCKETS,
-                        decode_chunk=8)
-    eng = InferenceEngine(CFG, params, engine_cfg=ecfg,
-                          cache_dtype=cache_dtype, device=DEV)
+    engines = {
+        False: InferenceEngine(CFG, params, engine_cfg=EngineConfig(
+            max_seq_len=MAX_SEQ, prefill_buckets=BUCKETS, decode_chunk=8),
+            cache_dtype=cache_dtype, device=DEV),
+        True: InferenceEngine(CFG, params, engine_cfg=EngineConfig(
+            max_seq_len=LONG_SEQ, decode_chunk=8), cache_dtype=cache_dtype,
+            device=DEV)}
+    check(max(engines[True].engine_cfg.prefill_buckets) == CHUNK,
+          "the long engine's largest bucket is 2048")
     gen = torch.Generator().manual_seed(SEED + 4)
     prompts = [[torch.randint(1, CFG.vocab_size, (n,), generator=gen
                               ).tolist() for n in lens]
-               for _, lens, _ in REQUESTS]
+               for _, lens, _, _ in REQUESTS]
 
-    def serve(batch, new):
+    def serve(eng, batch, new):
         return eng.generate(batch, GenerationConfig(
             max_new_tokens=new, greedy=True, eos_token_ids=()))
-    # warm-up (allocator, first launches) outside the counts
-    serve([prompts[0][0][:8]], 2)
+    # warm-up (allocator, first launches) outside the counts: a short
+    # prompt on each engine, a 300-token one (K8, K9) on the long one
+    serve(engines[False], [prompts[2][0][:8]], 2)
+    serve(engines[True], [prompts[0][0][:300]], 2)
     torch.cuda.synchronize()
     # timed passes on the engine as shipped
     zero_counts()
-    tokens = {}
+    tokens, ttft, tps = {}, {}, {}
     for rep in range(REPEATS):
-        for (name, lens, new), batch in zip(REQUESTS, prompts):
+        for (name, lens, new, long), batch in zip(REQUESTS, prompts):
+            eng = engines[long]
             before = counts()
-            res = serve(batch, new)
+            res = serve(eng, batch, new)
             torch.cuda.synchronize()
             d = {c: n - before[c] for c, n in counts().items()}
             steps = new - 1                  # the first token is prefill's
@@ -548,45 +887,53 @@ def phase_main_path(params, weights, cache_dtype):
                   f"{name}: length")
             check(all(0 <= t < CFG.vocab_size for r in res
                       for t in r.token_ids), f"{name}: token outside vocab")
-            rows = len(batch) * eng._bucket(max(len(p) for p in batch))
-            want = expected_launches(weights, cache_dtype, rows, steps)
+            want = expected_launches(weights, cache_dtype,
+                                     prefill_chunks(eng, lens),
+                                     eng.engine_cfg.max_seq_len, steps)
             check(d == want, f"{name}: launches {d} != expected {want}")
             ids = [r.token_ids for r in res]
             check(tokens.setdefault(name, ids) == ids,
                   f"{name}: greedy tokens differ between passes")
             r0 = res[0]
+            ttft.setdefault(name, []).append(r0.ttft_s * 1e3)
+            tps.setdefault(name, []).append(r0.decode_tokens_per_s)
             say(f"  pass {rep}: {name}: TTFT {r0.ttft_s * 1e3:.2f} ms, "
                 f"decode {r0.decode_tokens_per_s:.2f} tok/s (all rows), "
                 f"launches {d}; tokens {r0.token_ids[:8]}...")
     total = counts()
-    used = [c for c, n in expected_launches(weights, cache_dtype, 128,
-                                            1).items() if n]
+    for name, *_ in REQUESTS:
+        say(f"  {name}: TTFT min/median/max {spread(ttft[name])} ms, "
+            f"decode {spread(tps[name])} tok/s over {REPEATS} passes")
+    used = [c for c, n in expected_launches(
+        weights, cache_dtype, prefill_chunks(engines[True], [3000]),
+        LONG_SEQ, 1).items() if n]
     check(all(total[c] > 0 for c in used), f"a kernel never ran: {total}")
 
     # untimed pass: every logit of every forward is finite, and the
     # tokens repeat those of the timed passes
     finite = torch.ones((), dtype=torch.bool, device=DEV)
-    fwd = eng._forward
+    for eng in engines.values():
+        fwd = eng._forward
 
-    def checked_forward(*args):
-        logits, cache = fwd(*args)
-        finite.logical_and_(torch.isfinite(logits).all())
-        return logits, cache
-    eng._forward = checked_forward
-    for (name, lens, new), batch in zip(REQUESTS, prompts):
-        ids = [r.token_ids for r in serve(batch, new)]
+        def checked_forward(*args, _fwd=fwd):
+            logits, cache = _fwd(*args)
+            finite.logical_and_(torch.isfinite(logits).all())
+            return logits, cache
+        eng._forward = checked_forward
+    for (name, lens, new, long), batch in zip(REQUESTS, prompts):
+        ids = [r.token_ids for r in serve(engines[long], batch, new)]
         check(ids == tokens[name], f"{name}: checked pass tokens differ")
-    eng._forward = fwd
     check(bool(finite.item()), "a forward produced non-finite logits")
     say("  checked pass: all logits finite, tokens equal to the timed passes")
+    del engines
     return total
 
 
 # -------------------------------------------------------------------- paths
 
 def entry(name, source, replaces, launches, err, r, per_step, work):
-    """One kernel of the JSON line: per-call numbers times the calls of
-    one decode step at B = 1."""
+    """One kernel of the JSON line: per-call numbers times `per_step`
+    calls of the unit `work` names."""
     return dict(name=name, route="cuda",
                 source=f"llm_inference_tpu_torch/csrc/{source}",
                 replaces=f"llm_inference_tpu/ops/pallas/{replaces}",
@@ -609,15 +956,36 @@ def k1_entry(bits, launches, err, step, names):
                  f"{L} x ({per_layer}) + lm_head, M=1")
 
 
-def path_int8(gen):
-    say(f"building LLaMA-2-7B int8 weights on the card (seed {SEED})")
+def k8_entry(bits, launches, err, r):
+    return entry(f"K8 quant_matmul tiled prefill GEMM (int{bits})",
+                 "quant_matmul_tiled.cu", "quant_matmul.py:379", launches,
+                 err, r, 1, f"one 2048-row prefill chunk of LLaMA-2-7B "
+                 f"int{bits}: {L} x (wqkv, wo, w_gateup, w_down), M=2048")
+
+
+def k9_entry(kind, launches, err, r):
+    return entry(f"K9 flash_attention ({kind} cache)", "flash_attention.cu",
+                 "flash_attention.py:251", launches, err, r, L,
+                 f"32 layers of the first 2048-row causal prefill chunk "
+                 f"over a 4096-slot {kind} cache, B=1")
+
+
+def build_params(qcfg):
     params = llama.prepare_params(llama.init_params_quantized(
-        CFG, QCFG8, seed=SEED, device=DEV))
+        CFG, qcfg, seed=SEED, device=DEV))
     torch.cuda.synchronize()
+    return params
+
+
+def path_int8(gen):
+    say(f"path (i): LLaMA-2-7B int8 weights, bf16 cache (seed {SEED})")
+    params = build_params(QCFG8)
     say("phase 2 (int8 weights, bf16 cache): kernels vs plain versions on "
         "the card, LLaMA-2-7B shapes")
     names = ("wqkv", "wo", "w_gateup", "w_down", "lm_head")
     step, k1_err = k1_cases(params, gen, names)
+    k8_r, k8_err = k8_cases(params, gen)
+    k9_r, k9_err = k9_cases(gen, "bf16")
     k2_step, k2_err = k2_cases(gen, int8_cache=False)
     k3_step, k3_err = k3_cases(gen)
     phase_parity(QCFG8, BF16)
@@ -625,6 +993,8 @@ def path_int8(gen):
     del params
     return [
         k1_entry(8, total["K1"], k1_err, step, names),
+        k8_entry(8, total["K8"], k8_err, k8_r),
+        k9_entry("bf16", total["K9"], k9_err, k9_r),
         entry("K2 decode_attention (bf16 cache)", "decode_attention.cu",
               "decode_attention.py:489", total["K2"], k2_err, k2_step, L,
               "32 layers of one decode step at B=1, pos 191, S=512"),
@@ -634,24 +1004,28 @@ def path_int8(gen):
 
 
 def path_int4(gen):
-    say(f"building LLaMA-2-7B int4 g=128 weights on the card (seed {SEED})")
-    params = llama.prepare_params(llama.init_params_quantized(
-        CFG, QCFG4, seed=SEED, device=DEV))
-    torch.cuda.synchronize()
+    say(f"path (ii): LLaMA-2-7B int4 g=128 weights, int8 cache (seed "
+        f"{SEED})")
+    params = build_params(QCFG4)
     say("phase 2 (int4 g=128 weights, int8 cache): kernels vs plain "
         "versions on the card, LLaMA-2-7B shapes")
     # decode runs K1 on wqkv and lm_head (the tail is K6); the prefill
-    # chain (M > 32 rows) also runs wo, w_gateup and w_down through K1
+    # chain (32 < M <= 128 rows) also runs wo, w_gateup and w_down
     step, k1_err = k1_cases(params, gen, ("wqkv", "wo", "w_gateup",
                                           "w_down", "lm_head"))
+    k8_r, k8_err = k8_cases(params, gen)
+    k9_r, k9_err = k9_cases(gen, "int8")
     k2_step, k2_err = k2_cases(gen, int8_cache=True)
     k4_step, k4_err = k4_cases(gen)
     k6_step, k6_err = k6_cases(params, gen)
     phase_parity(QCFG4, "int8")
     total = phase_main_path(params, "int4", "int8")
-    del params
+    shared = dict(params=params, step=step, k1_err=k1_err, k8_r=k8_r,
+                  k8_err=k8_err, k6_step=k6_step, k6_err=k6_err)
     return [
         k1_entry(4, total["K1"], k1_err, step, ("wqkv", "lm_head")),
+        k8_entry(4, total["K8"], k8_err, k8_r),
+        k9_entry("int8", total["K9"], k9_err, k9_r),
         entry("K2 decode_attention (int8 cache)", "decode_attention.cu",
               "decode_attention.py:489", total["K2"], k2_err, k2_step, L,
               "32 layers of one decode step at B=1, pos 191, S=512"),
@@ -661,6 +1035,41 @@ def path_int4(gen):
         entry("K6 layer_tail_fused (int4 wo, gate-up, SwiGLU, down)",
               "layer_tail.cu", "quant_matmul.py:699", total["K6"], k6_err,
               k6_step, L, "32 layers of one decode step at B=1, M=1"),
+    ], shared
+
+
+def path_int4_kv4(gen, shared):
+    """Path (iii): the int4 weights of path (ii) (their K1, K8 and K6 cases
+    ran there) over an int4 cache."""
+    say("path (iii): LLaMA-2-7B int4 g=128 weights, int4 cache (the weights "
+        "of path (ii))")
+    params = shared["params"]
+    say("phase 2 (int4 cache): kernels vs plain versions on the card, "
+        "LLaMA-2-7B shapes")
+    k9_r, k9_err = k9_cases(gen, "int4")
+    k5_r, k5_err = k5_cases(gen)
+    writes = int4_write_cases(gen)
+    phase_parity(QCFG4, "int4")
+    total = phase_main_path(params, "int4", "int4")
+    del params
+    return [
+        k1_entry(4, total["K1"], shared["k1_err"], shared["step"],
+                 ("wqkv", "lm_head")),
+        k8_entry(4, total["K8"], shared["k8_err"], shared["k8_r"]),
+        k9_entry("int4", total["K9"], k9_err, k9_r),
+        entry("K5 decode_attention (int4 cache)", "decode_attention.cu",
+              "decode_attention.py:424", total["K5"], k5_err, k5_r, L,
+              "32 layers of one decode step at B=1, pos 3060, S=4096"),
+        entry("K3 kv_write (int4 packed rows)", "kv_write.cu",
+              "kv_write.py:72", total["K3"], 0.0, writes["K3 packed rows"],
+              L, "32 layers of one decode step at B=1"),
+        entry("write_token_scales (int4 cache scale write)", "kv_write.cu",
+              "kv_write.py:343", total["KS"], 0.0, writes["scale write"], L,
+              "32 layers of one decode step at B=1"),
+        entry("K6 layer_tail_fused (int4 wo, gate-up, SwiGLU, down)",
+              "layer_tail.cu", "quant_matmul.py:699", total["K6"],
+              shared["k6_err"], shared["k6_step"], L,
+              "32 layers of one decode step at B=1, M=1"),
     ]
 
 
@@ -670,7 +1079,12 @@ def main():
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
     kernels = path_int8(gen)
     torch.cuda.empty_cache()
-    kernels += path_int4(gen)
+    say(f"path (i) done at {time.perf_counter() - t_start:.1f} s")
+    more, shared = path_int4(gen)
+    kernels += more
+    say(f"path (ii) done at {time.perf_counter() - t_start:.1f} s")
+    kernels += path_int4_kv4(gen, shared)
+    del shared
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

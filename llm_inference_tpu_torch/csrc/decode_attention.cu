@@ -1,5 +1,6 @@
 // K2: single-token (decode) GQA attention over the dense KV cache, bf16
-// or int8 codes with per-(slot, head) float32 scales.
+// or int8 codes with per-(slot, head) float32 scales, and K5: the same
+// over an int4 cache's packed codes.
 //
 // Replaces llm_inference_tpu/ops/pallas/decode_attention.py:_decode_attn
 // (_kernel). Same function: for each sequence b and kv-head h, the G query
@@ -11,27 +12,43 @@
 // decode_attention.py:219-237, 259-263, 283-287) holds codes and slot-major
 // scales [B, S, Hkv]: scores = (q . codes) * scale * k_scale[slot], l sums
 // p BEFORE the V scale, and p * v_scale[slot] is rounded to bf16 before it
-// multiplies the codes. The kernel is templated on the code type; the int8
+// multiplies the codes. The kernel is templated on the cache kind; the int8
 // rows are a quarter of a lane's bf16 row (4 bytes at D = 128).
 //
-// Design. One block per (kv-head, sequence): the block reads pos[b]
-// itself and loops only over the live slots, which replaces the TPU
-// kernel's dynamic grid (_dynamic_grid) and its index-map clamp. Eight
-// warps split the live slots; a warp takes UNROLL slots at a time, one
+// K5 replaces decode_attention.py:_decode_attn4 (_kernel4): the int4 cache
+// (quantization.quantize_kv4) holds rows of D/2 bytes, byte d carrying dim
+// d in its low nibble as lo + 8 and dim d + D/2 in its high nibble as a
+// signed value (the byte is 16 hi + lo + 8). The TPU kernel folds the -8 of
+// the low half into one row-sum term of the score and of the output; here
+// each lane unpacks its dims to their signed values directly (low-half
+// lanes take (byte & 15) - 8, high-half lanes byte >> 4, arithmetic), which
+// is the same sum. Scales fold as for int8, but p * v_scale stays float32
+// (the TPU kernel's PV product is a float32 dot, decode_attention.py:409).
+//
+// Design. NSPLIT blocks per (kv-head, sequence): each block reads pos[b]
+// itself and takes one NSPLIT-th of the live slots, which replaces the
+// TPU kernel's dynamic grid (_dynamic_grid) and its index-map clamp. Eight
+// warps split a block's slots; a warp takes UNROLL slots at a time, one
 // slot row per lane-strided load (each lane holds D/32 contiguous
-// elements), reduces q.k with shuffles and keeps its own running max,
-// sum and accumulator for each of the G heads. The warps' partial
-// softmax states merge once, through shared memory, at the end.
+// dims, of a packed int4 row the bytes of its half), reduces q.k with
+// shuffles and keeps its own running max, sum and accumulator for each of
+// the G heads. The warps' partial softmax states merge through shared
+// memory; with NSPLIT > 1 each block then leaves its merged state in a
+// scratch buffer and the last block of the head to finish (an atomic
+// count, reset by that block) merges the NSPLIT states into the output,
+// so the whole step stays one launch. The wrapper takes NSPLIT from the
+// cache length: one block a head per 512 slots, at most 16.
 //
 // Bound on the H100 SXM (3.35 TB/s): the kernel must read the live K and
 // V rows once. At LLaMA-2-7B (Hkv = 32, D = 128, bf16), B = 1 and
 // pos = 192 that is 2 x 32 x 193 x 256 bytes = 3.2 MB per layer, about
 // 0.95 us; the flops (4 x 32 x 193 x 128) are negligible. An int8 cache
 // halves the rows and adds 2 x 4 bytes of scales per slot and head: 1.6 MB,
-// 0.48 us. Known weakness:
-// at B = 1 the grid has 32 blocks, so 32 of the 132 SMs stream, each
-// with one block's loads in flight; splitting the slots of a head over
-// several blocks (a second merge pass) is later work.
+// 0.48 us; an int4 cache at pos 3060 reads 2 x 32 x 3061 x (64 + 4) bytes
+// = 13.3 MB, 4.0 us. Each slot costs a warp a chain of shuffles and
+// exponentials, so a block's time follows its slot count: with one block
+// a head, K5 took 0.25 ms at pos 3060 (32 of 132 SMs busy); the split
+// spreads a long context over NSPLIT times as many blocks.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -40,6 +57,7 @@
 namespace {
 
 constexpr int kWarps = 8;
+constexpr int kBf16 = 0, kInt8 = 1, kInt4 = 2;   // cache kinds
 constexpr int kMaxG = 8;
 constexpr int kUnroll = 4;
 constexpr float kNegInf = -1e30f;
@@ -85,25 +103,62 @@ __device__ __forceinline__ void load_row(const int8_t* p,
   }
 }
 
+// PER_LANE signed int4 values of one packed row (offset-lo split halves):
+// lanes 0-15 hold dims of the low half (low nibbles minus 8), lanes 16-31
+// those of the high half (high nibbles), from the same PER_LANE bytes
+template <int PER_LANE>
+__device__ __forceinline__ void load_row4(const uint8_t* p, bool high,
+                                          float (&out)[PER_LANE]) {
+  uint32_t w[(PER_LANE + 3) / 4];
+  if constexpr (PER_LANE == 2) {
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
+  } else {
+#pragma unroll
+    for (int c = 0; c < PER_LANE / 4; ++c)
+      w[c] = reinterpret_cast<const uint32_t*>(p)[c];
+  }
+#pragma unroll
+  for (int j = 0; j < PER_LANE; ++j) {
+    const int byte = (int)(int8_t)(w[j / 4] >> (8 * (j % 4)));
+    out[j] = high ? (float)(byte >> 4) : (float)((byte & 15) - 8);
+  }
+}
+
+template <int PER_LANE, int KIND>
+__device__ __forceinline__ void load_kv(const uint8_t* p, int lane,
+                                        float (&out)[PER_LANE]) {
+  if constexpr (KIND == kBf16)
+    load_row<PER_LANE>(reinterpret_cast<const __nv_bfloat16*>(p), out);
+  else if constexpr (KIND == kInt8)
+    load_row<PER_LANE>(reinterpret_cast<const int8_t*>(p), out);
+  else
+    load_row4<PER_LANE>(p, lane >= 16, out);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-template <int D, typename T>
+template <int D, int KIND>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
-                   const T* __restrict__ k,               // [B, Hkv, S, D]
-                   const T* __restrict__ v,
+                   const void* __restrict__ k,            // [B, Hkv, S, Dc]
+                   const void* __restrict__ v,
                    const float* __restrict__ ks,          // [B, S, Hkv] or
                    const float* __restrict__ vs,          // null (bf16)
                    const int* __restrict__ pos,           // [B]
                    __nv_bfloat16* __restrict__ out,       // [B, Hkv, G, D]
+                   float* __restrict__ part,    // [B, Hkv, NSPLIT, G, D + 2]
+                   int* __restrict__ done,      // [B, Hkv], zero between launches
                    int Hkv, int G, int S, float scale, float softcap,
-                   int window) {
+                   int window, int nsplit) {
   constexpr int PER_LANE = D / 32;
-  constexpr bool kQuant = sizeof(T) == 1;
+  constexpr bool kQuant = KIND != kBf16;
+  // bytes of a cache row, and of this lane's part of it
+  constexpr int ROW = KIND == kBf16 ? 2 * D : KIND == kInt8 ? D : D / 2;
+  constexpr int LANE_BYTES = KIND == kBf16 ? 2 * PER_LANE : PER_LANE;
   extern __shared__ float smem[];  // [kWarps][G][D] acc, then m, l
   float* s_acc = smem;
   float* s_m = smem + kWarps * G * D;
@@ -111,6 +166,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
+  const int z = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   int p = pos[b];
@@ -120,10 +176,15 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
     lo = p - window + 1;
     lo = lo > 0 ? lo : 0;
   }
+  // this block's share [lo, hi] of the live slots (empty past the end)
+  const int share = (p - lo + nsplit) / nsplit;
+  lo += z * share;
+  const int hi = min(p, lo + share - 1);
 
   const size_t head = (size_t)b * Hkv + h;
-  const T* kh = k + head * S * D + lane * PER_LANE;
-  const T* vh = v + head * S * D + lane * PER_LANE;
+  const int lane_off = (KIND == kInt4 ? lane % 16 : lane) * LANE_BYTES;
+  const uint8_t* kh = (const uint8_t*)k + head * S * ROW + lane_off;
+  const uint8_t* vh = (const uint8_t*)v + head * S * ROW + lane_off;
   // this sequence's scale column of head h: element s at [s * Hkv]
   const float* ksh = kQuant ? ks + (size_t)b * S * Hkv + h : nullptr;
   const float* vsh = kQuant ? vs + (size_t)b * S * Hkv + h : nullptr;
@@ -144,15 +205,15 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
     for (int j = 0; j < PER_LANE; ++j) acc[g][j] = 0.f;
   }
 
-  for (int s0 = lo + warp * kUnroll; s0 <= p; s0 += kWarps * kUnroll) {
+  for (int s0 = lo + warp * kUnroll; s0 <= hi; s0 += kWarps * kUnroll) {
     float kf[kUnroll][PER_LANE], vf[kUnroll][PER_LANE];
     float ksc[kUnroll], vsc[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       ksc[u] = vsc[u] = 1.f;
-      if (s0 + u <= p) {
-        load_row<PER_LANE>(kh + (size_t)(s0 + u) * D, kf[u]);
-        load_row<PER_LANE>(vh + (size_t)(s0 + u) * D, vf[u]);
+      if (s0 + u <= hi) {
+        load_kv<PER_LANE, KIND>(kh + (size_t)(s0 + u) * ROW, lane, kf[u]);
+        load_kv<PER_LANE, KIND>(vh + (size_t)(s0 + u) * ROW, lane, vf[u]);
         if constexpr (kQuant) {
           ksc[u] = ksh[(size_t)(s0 + u) * Hkv];
           vsc[u] = vsh[(size_t)(s0 + u) * Hkv];
@@ -161,7 +222,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (s0 + u > p) break;
+      if (s0 + u > hi) break;
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
         if (g >= G) break;
@@ -176,8 +237,10 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
         const float alpha = expf(m[g] - m_new);
         const float pe = expf(sc - m_new);
         l[g] = l[g] * alpha + pe;           // before the V scale
-        const float pb = __bfloat162float(
-            __float2bfloat16(kQuant ? pe * vsc[u] : pe));
+        const float ps = kQuant ? pe * vsc[u] : pe;
+        // int4: the TPU kernel's PV dot is float32; else p rounds to bf16
+        const float pb =
+            KIND == kInt4 ? ps : __bfloat162float(__float2bfloat16(ps));
 #pragma unroll
         for (int j = 0; j < PER_LANE; ++j)
           acc[g][j] = fmaf(pb, vf[u][j], acc[g][j] * alpha);
@@ -200,6 +263,10 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
     }
   }
   __syncthreads();
+  // with splits, this block's state: [G][D] accumulators, [G] maxima,
+  // [G] sums (an empty share leaves m = -1e30 and l = 0, weight 0 below)
+  const int stride = G * (D + 2);
+  float* pz = nsplit > 1 ? part + (head * nsplit + z) * stride : nullptr;
   for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
     const int g = i / D;
     const int d = i % D;
@@ -211,67 +278,111 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
       ll += s_l[w * G + g] * f;
       aa += s_acc[(w * G + g) * D + d] * f;
     }
+    if (nsplit == 1) {
+      out[(head * G + g) * D + d] = __float2bfloat16(aa / ll);
+    } else {
+      pz[i] = aa;
+      if (d == 0) {
+        pz[G * D + g] = mm;
+        pz[G * D + G + g] = ll;
+      }
+    }
+  }
+  if (nsplit == 1) return;
+  __shared__ int s_last;
+  __syncthreads();                          // the block's state is written
+  if (threadIdx.x == 0) {
+    __threadfence();                        // ... and visible to the others
+    s_last = atomicAdd(done + head, 1) == nsplit - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const float* ph = part + head * nsplit * stride;
+  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
+    const int g = i / D;
+    const int d = i % D;
+    float mm = kNegInf;
+    for (int zz = 0; zz < nsplit; ++zz)
+      mm = fmaxf(mm, __ldcg(ph + zz * stride + G * D + g));
+    float ll = 0.f, aa = 0.f;
+    for (int zz = 0; zz < nsplit; ++zz) {
+      const float f = expf(__ldcg(ph + zz * stride + G * D + g) - mm);
+      ll += __ldcg(ph + zz * stride + G * D + G + g) * f;
+      aa += __ldcg(ph + zz * stride + i) * f;
+    }
     out[(head * G + g) * D + d] = __float2bfloat16(aa / ll);
   }
+  if (threadIdx.x == 0) done[head] = 0;     // ready for the next launch
 }
 
-template <int D, typename T>
+template <int D, int KIND>
 int launch_t(const void* q, const void* k, const void* v, const void* ks,
-             const void* vs, const void* pos, void* out, int B, int Hkv,
-             int G, int S, float scale, float softcap, int window,
-             cudaStream_t stream) {
+             const void* vs, const void* pos, void* out, void* part,
+             void* done, int B, int Hkv, int G, int S, float scale,
+             float softcap, int window, int nsplit, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)kWarps * G * (D + 2);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_attn_kernel<D, T>,
+        decode_attn_kernel<D, KIND>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(Hkv, B);
-  decode_attn_kernel<D, T><<<grid, kWarps * 32, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const T*)k, (const T*)v, (const float*)ks,
-      (const float*)vs, (const int*)pos, (__nv_bfloat16*)out, Hkv, G, S,
-      scale, softcap, window);
+  dim3 grid(Hkv, B, nsplit);
+  decode_attn_kernel<D, KIND><<<grid, kWarps * 32, smem, stream>>>(
+      (const __nv_bfloat16*)q, k, v, (const float*)ks, (const float*)vs,
+      (const int*)pos, (__nv_bfloat16*)out, (float*)part, (int*)done, Hkv,
+      G, S, scale, softcap, window, nsplit);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* pos, void* out, int B, int Hkv, int G,
-           int S, float scale, float softcap, int window,
-           cudaStream_t stream) {
-  if (ks)
-    return launch_t<D, int8_t>(q, k, v, ks, vs, pos, out, B, Hkv, G, S,
-                               scale, softcap, window, stream);
-  return launch_t<D, __nv_bfloat16>(q, k, v, ks, vs, pos, out, B, Hkv, G, S,
-                                    scale, softcap, window, stream);
+int launch(int kind, const void* q, const void* k, const void* v,
+           const void* ks, const void* vs, const void* pos, void* out,
+           void* part, void* done, int B, int Hkv, int G, int S, float scale,
+           float softcap, int window, int nsplit, cudaStream_t stream) {
+  if (kind == kInt8)
+    return launch_t<D, kInt8>(q, k, v, ks, vs, pos, out, part, done, B, Hkv,
+                              G, S, scale, softcap, window, nsplit, stream);
+  if (kind == kInt4)
+    return launch_t<D, kInt4>(q, k, v, ks, vs, pos, out, part, done, B, Hkv,
+                              G, S, scale, softcap, window, nsplit, stream);
+  return launch_t<D, kBf16>(q, k, v, ks, vs, pos, out, part, done, B, Hkv,
+                            G, S, scale, softcap, window, nsplit, stream);
 }
 
 }  // namespace
 
-// q [B, Hkv, G, D] bf16; k/v point at one layer [B, Hkv, S, D], bf16
-// codes when ks/vs are null, else int8 codes with ks/vs pointing at the
-// layer's float32 scales [B, S, Hkv]; pos int32 [B]; out [B, Hkv, G, D]
-// bf16. D in {64, 128, 256}, G <= 8.
+// q [B, Hkv, G, D] bf16; k/v point at one layer [B, Hkv, S, Dc] of the
+// cache: kind 0 bf16 (Dc = D, ks/vs null), kind 1 int8 codes (Dc = D),
+// kind 2 packed int4 codes (Dc = D / 2), the quantized kinds with ks/vs
+// pointing at the layer's float32 scales [B, S, Hkv]; pos int32 [B]; out
+// [B, Hkv, G, D] bf16. D in {64, 128, 256}, G <= 8. With nsplit > 1, part
+// is a float32 scratch of B * Hkv * nsplit * G * (D + 2) and done an int32
+// [B * Hkv] that is zero before the launch (and is left zero after it);
+// with nsplit == 1 both may be null.
 extern "C" int decode_attn_launch(const void* q, const void* k,
                                   const void* v, const void* ks,
                                   const void* vs, const void* pos, void* out,
-                                  int B, int Hkv, int G, int S, int D,
+                                  void* part, void* done, int B, int Hkv,
+                                  int G, int S, int D, int kind, int nsplit,
                                   float scale, float softcap, int window,
                                   void* stream) {
-  if (G < 1 || G > kMaxG || (ks == nullptr) != (vs == nullptr))
+  if (G < 1 || G > kMaxG || kind < kBf16 || kind > kInt4 || nsplit < 1 ||
+      (nsplit > 1 && (!part || !done)) ||
+      (kind != kBf16) != (ks != nullptr) || (ks == nullptr) != (vs == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, ks, vs, pos, out, B, Hkv, G, S, scale,
-                        softcap, window, st);
+      return launch<64>(kind, q, k, v, ks, vs, pos, out, part, done, B, Hkv,
+                        G, S, scale, softcap, window, nsplit, st);
     case 128:
-      return launch<128>(q, k, v, ks, vs, pos, out, B, Hkv, G, S, scale,
-                         softcap, window, st);
+      return launch<128>(kind, q, k, v, ks, vs, pos, out, part, done, B,
+                         Hkv, G, S, scale, softcap, window, nsplit, st);
     case 256:
-      return launch<256>(q, k, v, ks, vs, pos, out, B, Hkv, G, S, scale,
-                         softcap, window, st);
+      return launch<256>(kind, q, k, v, ks, vs, pos, out, part, done, B,
+                         Hkv, G, S, scale, softcap, window, nsplit, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -15,7 +15,8 @@
 // K1 epilogue or the K2 prologue would remove the launch; that is later work.
 //
 // The copy is by bytes, so it serves any cache dtype whose row is a
-// multiple of 16 bytes.
+// multiple of 16 bytes: bf16 rows, and the packed rows of an int4 cache
+// (D/2 = 64 bytes at D = 128).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -111,7 +112,50 @@ __global__ void kv_quant_write_kernel(
       scale;
 }
 
+// The decode-step scale write of an int4 cache: one token's per-head K and
+// V scales into the slot-major [B, S, Hkv] float32 scale rows.
+//
+// Replaces llm_inference_tpu/ops/pallas/kv_write.py:write_token_scales
+// (_skernel), which read-modify-writes an 8-slot block through a one-hot
+// blend; here block b writes row min(offsets[b], S-1) of both scale arrays
+// in place (the clamp of kv_write.py:348), thread i one scale. The codes go
+// through K3 (the packed rows are D/2 bytes). Bound: 2 x Hkv x 4 bytes per
+// sequence, launch-bound like K3.
+__global__ void kv_scale_write_kernel(float* __restrict__ k_scale,
+                                      float* __restrict__ v_scale,
+                                      const float* __restrict__ k_new,
+                                      const float* __restrict__ v_new,
+                                      const int* __restrict__ offsets,
+                                      int Hkv, int S) {
+  const int b = blockIdx.x;
+  int s = offsets[b];
+  s = s < S - 1 ? s : S - 1;
+  s = s > 0 ? s : 0;
+  const size_t dst = ((size_t)b * S + s) * Hkv;
+  for (int i = threadIdx.x; i < 2 * Hkv; i += blockDim.x) {
+    if (i < Hkv)
+      k_scale[dst + i] = k_new[(size_t)b * Hkv + i];
+    else
+      v_scale[dst + i - Hkv] = v_new[(size_t)b * Hkv + i - Hkv];
+  }
+}
+
 }  // namespace
+
+// k_scale/v_scale point at one layer's [B, S, Hkv] float32 scales; k_new,
+// v_new are float32 [B, Hkv]; offsets int32 [B] on the device.
+extern "C" int kv_scale_write_launch(void* k_scale, void* v_scale,
+                                     const void* k_new, const void* v_new,
+                                     const void* offsets, int B, int Hkv,
+                                     int S, void* stream) {
+  if (B < 1 || Hkv < 1) return (int)cudaErrorInvalidValue;
+  int threads = 2 * Hkv;
+  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
+  kv_scale_write_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
+      (float*)k_scale, (float*)v_scale, (const float*)k_new,
+      (const float*)v_new, (const int*)offsets, Hkv, S);
+  return (int)cudaGetLastError();
+}
 
 // K4. k_cache/v_cache point at one layer [B, Hkv, S, D] int8 and
 // k_scale/v_scale at its [B, S, Hkv] float32 scales; k_new/v_new hold

@@ -26,7 +26,8 @@
 //   (quant_matmul.py:522). bf16 tensor-core products (wmma 16x16x16, f32
 //   accumulate) on tiles staged in shared memory with 16-byte loads. (A
 //   row-by-row GEMV would read the weights M times.)
-// - M > 128 is the TPU's tiled prefill kernel (K8), not ported here.
+// - M > 128 is the TPU's tiled prefill kernel (K8), quant_matmul_tiled.cu;
+//   it takes its rows from qmm_prologue_launch below.
 //
 // Bound on the H100 SXM (3.35 TB/s HBM): at M = 1 the call must read the
 // layer's int8 weight once. LLaMA-2-7B: wqkv 50.3 MB -> 15.0 us; w_gateup
@@ -568,6 +569,21 @@ extern "C" int qmm_launch(const void* x, const void* res, const void* gamma,
   qmm_mma<<<N / BN, kThreads, 0, st>>>(
       (const __nv_bfloat16*)a, (const int8_t*)w, (const float*)scale,
       (__nv_bfloat16*)out, M, K, N);
+  return (int)cudaGetLastError();
+}
+
+// The prologue alone, for K8 (quant_matmul_tiled.cu), whose GEMM takes
+// ready bf16 rows as the TPU package's tiled path takes them from its jnp
+// prologue: xn = bf16(rms_norm(x + res) * gamma), xout = bf16(x + res)
+// (xout may be null, res and gamma may be null). One block per row.
+extern "C" int qmm_prologue_launch(const void* x, const void* res,
+                                   const void* gamma, void* xn, void* xout,
+                                   int M, int K, float eps, void* stream) {
+  if (M < 1 || !xn) return (int)cudaErrorInvalidValue;
+  qmm_rows_prologue<<<M, kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)res,
+      (const __nv_bfloat16*)gamma, (__nv_bfloat16*)xn, (__nv_bfloat16*)xout,
+      K, eps);
   return (int)cudaGetLastError();
 }
 

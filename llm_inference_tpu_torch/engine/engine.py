@@ -4,15 +4,18 @@
 Decode runs `engine_cfg.decode_chunk` steps on the device between two
 host syncs, as the JAX engine's scan does: each step's sampled token stays
 on the device and feeds the next step; the host reads the chunk's tokens
-once. `cache_dtype` is a float dtype (bf16 cache) or torch.int8 / "int8"
-(int8 codes with slot-major float32 scales); "int4" is not ported yet.
-There is no LoRA, mesh or paged backend in this slice.
+once. Prompts longer than the largest prefill bucket run as a sequence of
+largest-bucket chunks over one cache. `cache_dtype` is a float dtype (bf16
+cache), torch.int8 / "int8" (int8 codes with slot-major float32 scales) or
+"int4" (packed int4 codes with the same scales). There is no LoRA, mesh or
+paged backend in this slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -44,6 +47,16 @@ class InferenceEngine:
         self.engine_cfg = engine_cfg or EngineConfig()
         self.tokenizer = tokenizer
         self.cache_dtype = cache_dtype
+        S = self.engine_cfg.max_seq_len
+        if S % 128 and S >= 512:
+            # the decode and flash kernels need the cache extent to be a
+            # multiple of 128 (decode_attention.supports, flash_attention.
+            # supports); otherwise attention takes the plain path, which
+            # materialises [B, H, T, S] scores (the JAX engine's warning)
+            warnings.warn(
+                f"max_seq_len={S} is not a multiple of 128: prefill and "
+                f"decode attention fall off the kernels to the plain path. "
+                f"Round up to {-(-S // 128) * 128}.")
         self.device = resolve_device(device)
         self.params = params
         self._rope = llama.rope_table(cfg, self.engine_cfg.max_seq_len,

@@ -9,14 +9,17 @@ runs the JAX package's pair-carry protocol (llama.py:930-953): each
 layer's down-projection delta folds into the next layer's qkv prologue,
 so every layer is
 
-    K1 wqkv (norm + residual fused) → RoPE → KV write → K2 attention
+    wqkv (norm + residual fused) → RoPE → KV write → attention
     → layer tail
 
-The KV write is K3 (bf16 cache) or K4 (int8 cache, quantizing) at decode.
-The layer tail is K6, one launch, for grouped int4 weights at M ≤ 32 rows
-(llama.py:802-816), else the K1 chain
+The projections are K1 up to 128 rows and K8 above. The KV write is K3
+(bf16 cache), K4 (int8 cache, quantizing) or K3 + the scale write (int4
+cache) at decode. Attention is K2 (K5 over an int4 cache) at decode, K9
+for prefills that flash_attention.supports takes, else the plain `attend`
+(`attention_route`). The layer tail is K6, one launch, for grouped int4
+weights at M ≤ 32 rows (llama.py:802-816), else the matmul chain
 
-    K1 wo → K1 gate-up (norm + residual fused) → SwiGLU → K1 down
+    wo → gate-up (norm + residual fused) → SwiGLU → down
 
 Weight dict layout (dense tensors or QTensor):
   embed [V, H]; final_norm [H]; lm_head [H, V] (absent if tied);
@@ -37,6 +40,7 @@ from llm_inference_tpu_torch.config import ModelConfig, QuantConfig
 from llm_inference_tpu_torch.ops import activations, attention, embedding
 from llm_inference_tpu_torch.ops import kvcache, norms, rope
 from llm_inference_tpu_torch.ops.kernels import decode_attention
+from llm_inference_tpu_torch.ops.kernels import flash_attention
 from llm_inference_tpu_torch.ops.kernels import quant_matmul as qm
 from llm_inference_tpu_torch.ops.linear import matmul, norm_matmul
 from llm_inference_tpu_torch.ops.quantization import (QTensor, cat_columns,
@@ -257,18 +261,38 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Params:
 # Forward
 # ---------------------------------------------------------------------------
 
+def attention_route(q_shape, S: int, quantized: bool) -> str:
+    """Which attention a layer over an S-slot dense cache runs, in the JAX
+    package's order (llama.py:670-690): "decode" (K2, or K5 over an int4
+    cache) for a single step decode_attention.supports takes, else "flash"
+    (K9) where flash_attention.supports takes the prefill, else "attend"
+    (the plain path over a mask)."""
+    if q_shape[1] == 1 and decode_attention.supports(q_shape, S):
+        return "decode"
+    if flash_attention.supports(q_shape, S, quantized):
+        return "flash"
+    return "attend"
+
+
 def cached_attention(cfg: ModelConfig, q, k, v, cache: kvcache.KVCache,
                      layer: int, positions, write_offsets, mask):
-    """Write this layer's K/V into the dense cache, then attend: K2 for a
-    decode step (mask None), the plain `attend` over `mask` otherwise,
-    either with an int8 cache's scales. q/k/v: [B, T, H*, D] (post-RoPE).
-    Returns [B, T, Hq, D]."""
+    """Write this layer's K/V into the dense cache, then attend as
+    `attention_route` says, with a quantized cache's scales; `mask` (from
+    make_attention_mask) is needed on the "attend" route only. q/k/v:
+    [B, T, H*, D] (post-RoPE). Returns [B, T, Hq, D]."""
     kvcache.update_cache_layer(cache, layer, k, v, write_offsets)
-    if mask is None:
+    route = attention_route(q.shape, cache.max_seq_len, cache.quantized)
+    if route == "decode":
         return decode_attention.decode_attention(
             q, cache.k, cache.v, layer, positions[:, -1],
             logit_softcap=cfg.attn_logit_softcap, window=cfg.sliding_window,
             k_scale=cache.k_scale, v_scale=cache.v_scale)
+    if route == "flash":
+        return flash_attention.flash_attention(
+            q, cache.k, cache.v, layer, positions,
+            logit_softcap=cfg.attn_logit_softcap,
+            sliding_window=cfg.sliding_window, k_scale=cache.k_scale,
+            v_scale=cache.v_scale)
     ks, vs = cache.k_scale, cache.v_scale
     return attention.attend(q, cache.k[layer], cache.v[layer], mask,
                             logit_softcap=cfg.attn_logit_softcap,
@@ -401,10 +425,11 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
     L = layers["attn_norm"].shape[0]
 
     h = embedding.embedding_lookup(params["embed"], ids).to(dtype)
-    hd = cfg.head_dim
-    decode = T == 1 and decode_attention.supports((B, T, cfg.num_heads, hd), S)
-    mask = (None if decode else
-            attention.make_attention_mask(positions, S, cfg.sliding_window))
+    route = attention_route((B, T, cfg.num_heads, cfg.head_dim), S,
+                            cache.quantized)
+    # the [B, 1, T, S] mask only where the plain path will read it
+    mask = (attention.make_attention_mask(positions, S, cfg.sliding_window)
+            if route == "attend" else None)
     write_offsets = positions[:, 0]
     cos, sin = rope_tables or rope_table(cfg, S, ids.device)
     idx = positions.long()

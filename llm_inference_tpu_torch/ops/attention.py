@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from llm_inference_tpu_torch.ops.quantization import unpack_kv4
+
 NEG_INF = -1e30
 
 
@@ -38,14 +40,18 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int8 codes in k/v come with k_scale/v_scale [B, S, Hkv]: the scores
     take k_scale[slot] after the score scale, and the probabilities
     v_scale[slot] (zeroed on slots no query attends) before they are
-    rounded to q.dtype for the product with the codes."""
+    rounded to q.dtype for the product with the codes. Packed int4 codes
+    ([B, Hkv, S, D/2], quantization.quantize_kv4) unpack to their int8
+    values first, then fold the same way."""
     B, T, Hq, D = q.shape
     quantized = not (k.is_floating_point() and v.is_floating_point())
+    if quantized and k.shape[-1] * 2 == D:
+        k, v = unpack_kv4(k), unpack_kv4(v)
     if quantized and k.shape[-1] != D:
-        raise NotImplementedError("int4-packed KV caches are not ported yet")
+        raise ValueError(f"codes of width {k.shape[-1]} for head_dim {D}")
     if quantized != (k_scale is not None) or (k_scale is None) != (
             v_scale is None):
-        raise ValueError("int8 codes need k_scale and v_scale, float "
+        raise ValueError("quantized codes need k_scale and v_scale, float "
                          "caches none")
     Hkv = k.shape[1]
     G = Hq // Hkv

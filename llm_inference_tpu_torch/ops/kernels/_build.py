@@ -34,9 +34,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     "qmm_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "qmm4_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "qmm_prologue_launch": [_P] * 5 + [_I, _I, _F, _P],
+    "qmm_tiled_launch": [_P] * 4 + [_I] * 5 + [_P],
     "layer_tail_launch": [_P] * 13 + [_I] * 7 + [_F, _P],
-    "decode_attn_launch": [_P] * 7 + [_I] * 5 + [_F, _F, _I, _P],
+    "decode_attn_launch": [_P] * 9 + [_I] * 7 + [_F, _F, _I, _P],
+    "flash_attn_launch": [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P],
     "kv_write_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "kv_scale_write_launch": [_P] * 5 + [_I] * 3 + [_P],
     "kv_quant_write_launch": [_P] * 7 + [_I] * 9 + [_P],
 }
 

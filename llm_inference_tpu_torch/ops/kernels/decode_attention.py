@@ -1,6 +1,8 @@
 """K2: single-token GQA attention over the stacked dense cache, bf16 or
-int8 codes with slot-major scales (counterpart of
-`llm_inference_tpu/ops/pallas/decode_attention.py`, `_decode_attn`).
+int8 codes with slot-major scales, and K5: the same over an int4 cache's
+packed codes (counterparts of
+`llm_inference_tpu/ops/pallas/decode_attention.py`, `_decode_attn` and
+`_decode_attn4`).
 
 CUDA tensors go through `csrc/decode_attention.cu`; CPU tensors through
 `decode_attention_ref`, its plain PyTorch version.
@@ -10,12 +12,21 @@ from __future__ import annotations
 
 import torch
 
+from llm_inference_tpu_torch.ops.quantization import unpack_kv4
+
 NEG_INF = -1e30
 _MAX_S = 16384
 _MAX_G = 8
+# the CUDA kernel gives each (sequence, kv head) one block per this many
+# cache slots, at most _MAX_SPLIT, and merges their softmax states
+_SPLIT_SLOTS = 512
+_MAX_SPLIT = 16
+_done = {}      # per device: the kernel's zeroed merge counters
 
-# kernel launches made by decode_attention (the plain version is not counted)
+# kernel launches made by decode_attention: K2 (bf16 and int8 caches) and
+# K5 (int4 caches); the plain version is not counted
 launches = 0
+int4_launches = 0
 
 
 def supports(q_shape, S: int) -> bool:
@@ -33,15 +44,24 @@ def decode_attention_ref(q, k_all, v_all, layer: int, positions,
     k_scale[slot] after the score scale, l sums p before the V scale, and
     p · v_scale[slot] is rounded to bf16 before the product with the codes
     (decode_attention.py:259-263, 280-292); without, p itself is rounded.
-    Slots outside (pos - window, pos] are masked and their V (and V scale)
-    zeroed (a kernel never reads them, so NaN there must not leak)."""
+    An int4 cache (packed [.., D/2] codes) unpacks to signed values and
+    keeps q and p · v_scale in float32, as the TPU kernel's float32 dots do
+    (decode_attention.py:334, 392-415). Slots outside (pos - window, pos]
+    are masked and their V (and V scale) zeroed (a kernel never reads them,
+    so NaN there must not leak)."""
     B, _, Hq, D = q.shape
     Hkv, S = k_all.shape[2], k_all.shape[3]
     G = Hq // Hkv
     f32, bf16 = torch.float32, torch.bfloat16
-    qg = q.reshape(B, Hkv, G, D).to(bf16).to(f32)
-    k = k_all[layer].to(bf16).to(f32)                        # [B, Hkv, S, D]
-    v = v_all[layer].to(bf16).to(f32)
+    packed = k_all.shape[-1] * 2 == D
+    if packed:
+        qg = q.reshape(B, Hkv, G, D).to(f32)
+        k = unpack_kv4(k_all[layer]).to(f32)                 # [B, Hkv, S, D]
+        v = unpack_kv4(v_all[layer]).to(f32)
+    else:
+        qg = q.reshape(B, Hkv, G, D).to(bf16).to(f32)
+        k = k_all[layer].to(bf16).to(f32)
+        v = v_all[layer].to(bf16).to(f32)
     pos = positions.reshape(B, 1).long()
     slot = torch.arange(S, device=q.device)[None, :]
     ok = slot <= pos
@@ -62,18 +82,29 @@ def decode_attention_ref(q, k_all, v_all, layer: int, positions,
         vs = v_scale[layer].transpose(1, 2)[:, :, None, :]
         p = p * torch.where(ok, vs, zero)
     v = torch.where(ok[:, :, 0, :, None], v, zero)
-    acc = torch.einsum("bhgs,bhsd->bhgd", p.to(bf16).to(f32), v)
+    if not packed:
+        p = p.to(bf16).to(f32)
+    acc = torch.einsum("bhgs,bhsd->bhgd", p, v)
     return (acc / l).to(bf16)
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """n zeroed int32 merge counters on `device`, kept between calls (the
+    kernel leaves them zero), grown as needed."""
+    buf = _done.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _done[device] = torch.zeros(n, dtype=torch.int32, device=device)
+    return buf
 
 
 def decode_attention(q, k_all, v_all, layer: int, positions,
                      scale: float | None = None, logit_softcap: float = 0.0,
                      window: int = 0, k_scale=None, v_scale=None):
-    """q [B, 1, Hq, D]; k_all/v_all [L, B, Hkv, S, D] with this step's
-    token already written (bf16, or int8 codes with k_scale/v_scale
-    [L, B, S, Hkv] float32); positions [B] (or [B, 1]) absolute position
-    of the token. Returns [B, 1, Hq, D] in q.dtype. Callers check
-    `supports` first."""
+    """q [B, 1, Hq, D]; k_all/v_all [L, B, Hkv, S, Dc] with this step's
+    token already written (bf16, int8 codes, or int4 packed codes with
+    Dc = D/2, the quantized ones with k_scale/v_scale [L, B, S, Hkv]
+    float32); positions [B] (or [B, 1]) absolute position of the token.
+    Returns [B, 1, Hq, D] in q.dtype. Callers check `supports` first."""
     B, T, Hq, D = q.shape
     if T != 1:
         raise ValueError("decode attention is single-step")
@@ -83,22 +114,28 @@ def decode_attention(q, k_all, v_all, layer: int, positions,
         scale = 1.0 / (D ** 0.5)
     window = int(window or 0)
     quantized = not k_all.is_floating_point()
+    packed = quantized and k_all.shape[-1] * 2 == D
     if quantized and (k_scale is None or v_scale is None):
-        raise ValueError("an int8 KV cache needs its k_scale and v_scale")
+        raise ValueError("a quantized KV cache needs its k_scale and v_scale")
     if not k_all.is_cuda:
         out = decode_attention_ref(q, k_all, v_all, layer, positions, scale,
                                    logit_softcap, window, k_scale, v_scale)
         return out.reshape(B, 1, Hq, D).to(q.dtype)
-    global launches
+    global launches, int4_launches
     from llm_inference_tpu_torch.ops.kernels import _build
+    what = "K5" if packed else "K2"
     code_dtype = torch.int8 if quantized else torch.bfloat16
     if k_all.dtype != code_dtype or v_all.dtype != code_dtype:
-        raise NotImplementedError(
-            f"K2 takes a bf16 or int8 cache, got {k_all.dtype}/"
-            f"{v_all.dtype}; int4 caches are not ported yet")
+        raise TypeError(f"{what} takes a bf16, int8 or packed int4 cache, "
+                        f"got {k_all.dtype}/{v_all.dtype}")
+    if packed and q.dtype != torch.bfloat16:
+        # the TPU kernel dots q at its own precision over an int4 cache
+        raise TypeError(f"K5 takes a bf16 q, got {q.dtype}")
+    Dc = D // 2 if packed else D
     if not (supports(q.shape, S) and G <= _MAX_G and k_all.is_contiguous()
-            and v_all.is_contiguous()):
-        raise ValueError(f"K2 does not take q {tuple(q.shape)} over a "
+            and v_all.is_contiguous() and k_all.shape[-1] == Dc
+            and v_all.shape == k_all.shape):
+        raise ValueError(f"{what} does not take q {tuple(q.shape)} over a "
                          f"cache {tuple(k_all.shape)}")
     ks = vs = None
     if quantized:
@@ -113,12 +150,24 @@ def decode_attention(q, k_all, v_all, layer: int, positions,
     qg = q.to(torch.bfloat16).reshape(B, Hkv, G, D).contiguous()
     pos = positions.reshape(B).to(torch.int32).contiguous()
     out = torch.empty((B, Hkv, G, D), dtype=torch.bfloat16, device=q.device)
-    layer_bytes = B * Hkv * S * D * k_all.element_size()
+    layer_bytes = B * Hkv * S * Dc * k_all.element_size()
+    kind = 2 if packed else 1 if quantized else 0
+    nsplit = max(1, min(_MAX_SPLIT, S // _SPLIT_SLOTS))
+    part = done = None
+    if nsplit > 1:
+        scratch = torch.empty(B * Hkv * nsplit * G * (D + 2),
+                              dtype=torch.float32, device=q.device)
+        part = scratch.data_ptr()
+        done = _counters(q.device, B * Hkv).data_ptr()
     code = _build.lib().decode_attn_launch(
         qg.data_ptr(), k_all.data_ptr() + layer * layer_bytes,
         v_all.data_ptr() + layer * layer_bytes, ks, vs, pos.data_ptr(),
-        out.data_ptr(), B, Hkv, G, S, D, float(scale), float(logit_softcap),
-        window, torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), part, done, B, Hkv, G, S, D, kind, nsplit,
+        float(scale), float(logit_softcap), window,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "decode_attention")
-    launches += 1
+    if packed:
+        int4_launches += 1
+    else:
+        launches += 1
     return out.reshape(B, 1, Hq, D).to(q.dtype)

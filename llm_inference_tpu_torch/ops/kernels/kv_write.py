@@ -1,14 +1,17 @@
-"""K3: decode-step KV-cache write, and K4: its int8 quantize-and-write
-(counterparts of `llm_inference_tpu/ops/pallas/kv_write.py:write_token`
-and `quantize_write_token`).
+"""K3: decode-step KV-cache write, the int4 cache's scale write, and K4:
+the int8 quantize-and-write (counterparts of
+`llm_inference_tpu/ops/pallas/kv_write.py:write_token`,
+`write_token_scales` and `quantize_write_token`).
 
 `write_token` writes one new K and V row per sequence into the stacked
-cache [L, B, Hkv, S, D] at slot min(offsets[b], S-1), in place.
-`quantize_write_token` quantizes the rows to int8 first (per (sequence,
-head) scales over D, quantization.quantize_kv) and writes the codes and
-both slot-major scale rows [L, B, S, Hkv], in place, in one launch. CUDA
+cache [L, B, Hkv, S, Dc] at slot min(offsets[b], S-1), in place (bf16
+rows, or an int4 cache's packed Dc = D/2 byte rows). `write_token_scales`
+writes one token's K and V scale rows into the slot-major [L, B, S, Hkv]
+scales the same way. `quantize_write_token` quantizes the rows to int8
+first (per (sequence, head) scales over D, quantization.quantize_kv) and
+writes the codes and both scale rows, in place, in one launch. CUDA
 tensors go through the kernels of `csrc/kv_write.cu`; CPU tensors through
-`write_token_ref` and `quantize_write_token_ref`, their plain versions.
+the `*_ref` plain versions.
 """
 
 from __future__ import annotations
@@ -17,9 +20,10 @@ import torch
 
 from llm_inference_tpu_torch.ops.quantization import quantize_kv
 
-# kernel launches made by write_token / quantize_write_token (the plain
-# versions are not counted)
+# kernel launches made by write_token / write_token_scales /
+# quantize_write_token (the plain versions are not counted)
 launches = 0
+scale_launches = 0
 quant_launches = 0
 
 
@@ -60,6 +64,47 @@ def write_token(k_all, v_all, layer: int, k_new, v_new, offsets):
     _build.check(code, "kv_write")
     launches += 1
     return k_all, v_all
+
+
+def write_token_scales_ref(ks_all, vs_all, layer: int, ks_new, vs_new,
+                           offsets):
+    """Plain version of `write_token_scales` (same arguments)."""
+    B = ks_new.shape[0]
+    S = ks_all.shape[2]
+    off = torch.clamp(offsets.reshape(B).long(), 0, S - 1)
+    rows = torch.arange(B, device=ks_all.device)
+    ks_all[layer][rows, off] = ks_new[:, 0].to(ks_all.dtype)
+    vs_all[layer][rows, off] = vs_new[:, 0].to(vs_all.dtype)
+    return ks_all, vs_all
+
+
+def write_token_scales(ks_all, vs_all, layer: int, ks_new, vs_new, offsets):
+    """Write ONE token's per-head K and V scales (ks_new/vs_new [B, 1, Hkv]
+    float32) into slot-major [L, B, S, Hkv] float32 scales at slot
+    min(offsets[b], S-1), in place; returns the two scale tensors."""
+    if not ks_all.is_cuda:
+        return write_token_scales_ref(ks_all, vs_all, layer, ks_new, vs_new,
+                                      offsets)
+    global scale_launches
+    from llm_inference_tpu_torch.ops.kernels import _build
+    L, B, S, Hkv = ks_all.shape
+    if not (ks_all.is_contiguous() and vs_all.is_contiguous()
+            and ks_all.dtype == vs_all.dtype == torch.float32
+            and vs_all.shape == ks_all.shape):
+        raise ValueError("the scale write needs two contiguous float32 "
+                         "scale arrays [L, B, S, Hkv] of one shape")
+    kn = ks_new.to(torch.float32).reshape(B, Hkv).contiguous()
+    vn = vs_new.to(torch.float32).reshape(B, Hkv).contiguous()
+    off = offsets.reshape(B).to(torch.int32).contiguous()
+    layer_bytes = B * S * Hkv * 4
+    code = _build.lib().kv_scale_write_launch(
+        ks_all.data_ptr() + layer * layer_bytes,
+        vs_all.data_ptr() + layer * layer_bytes, kn.data_ptr(),
+        vn.data_ptr(), off.data_ptr(), B, Hkv, S,
+        torch.cuda.current_stream(ks_all.device).cuda_stream)
+    _build.check(code, "kv_scale_write")
+    scale_launches += 1
+    return ks_all, vs_all
 
 
 def quantize_write_token_ref(k_all, v_all, ks_all, vs_all, layer: int,

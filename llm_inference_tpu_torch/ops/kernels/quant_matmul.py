@@ -1,8 +1,8 @@
-"""K1: weight-only matmul with the fused residual + RMSNorm prologue, and
-K6: the fused decode layer tail (counterparts of
-`llm_inference_tpu/ops/pallas/quant_matmul.py:quant_matmul`, its blocked
-GEMV kernel, int8 per-channel and int4 N-pair grouped branches, and
-`layer_tail_fused`).
+"""K1: weight-only matmul with the fused residual + RMSNorm prologue, K8:
+its tiled prefill GEMM above 128 rows, and K6: the fused decode layer
+tail (counterparts of `llm_inference_tpu/ops/pallas/quant_matmul.py:
+quant_matmul`, its blocked GEMV kernel (int8 per-channel and int4 N-pair
+grouped branches), `_quant_matmul_tiled` and `layer_tail_fused`).
 
 K1:  y = rms_norm(x (+ residual), gamma, eps) @ dequant(W[layer])
 
@@ -12,9 +12,12 @@ rows are rounded to bf16 for the dot and the per-column scale hits the
 float32 sum. int4: the normed rows stay float32 (the N-pair branch's dot
 is a float32 dot, quant_matmul.py:183, 251) and each group's scale hits
 that group's partial dot, y = Σ_g s[n, g] · (x_g · codes_g)_n. y is bf16
-(then the caller's dtype). Above 128 rows the TPU package's tiled prefill
-path (K8) normalises outside the kernel in the caller's dtype and dots
-bf16 rows.
+(then the caller's dtype).
+
+K8 (M > 128 rows, quant_matmul.py:954-1007): the prologue runs before the
+GEMM in the caller's dtype (the TPU package's jnp prologue), then the GEMM
+dots bf16 rows against the codes: int8 takes its column scale on the
+float32 sum, int4 each group's scale on that group's partial dot.
 
 K6:  (down_out, h2) = layer_tail_fused(h, attn, wo, w_gateup, w_down, ...)
 
@@ -27,9 +30,10 @@ K6:  (down_out, h2) = layer_tail_fused(h, attn, wo, w_gateup, w_down, ...)
 nothing rounded between the phases. It takes M ≤ 32 rows and stacked
 grouped int4 weights, else returns None and the caller runs the K1 chain.
 
-CUDA tensors go through `csrc/quant_matmul.cu` and `csrc/layer_tail.cu`;
-CPU tensors through `quant_matmul_ref` and `layer_tail_fused_ref`, their
-plain versions.
+CUDA tensors go through `csrc/quant_matmul.cu` (K1),
+`csrc/quant_matmul_tiled.cu` (K8) and `csrc/layer_tail.cu` (K6); CPU
+tensors through `quant_matmul_ref` and `layer_tail_fused_ref`, their plain
+versions.
 """
 
 from __future__ import annotations
@@ -45,10 +49,15 @@ _MAX_M = 128      # above this the TPU package runs its tiled kernel (K8)
 _GEMV_MAX_M = 8
 _GEMV_MAX_SMEM = 200 * 1024
 _TAIL_MAX_M = 32  # layer_tail_fused's row limit (quant_matmul.py:710)
+# K8's block owns 128 output columns and steps K by 32
+# (csrc/quant_matmul_tiled.cu)
+_TILE_N = 128
+_TILE_K = 32
 
-# kernel launches made by quant_matmul and layer_tail_fused (the plain
-# versions are not counted)
+# kernel launches made by quant_matmul (K1, and K8 above 128 rows) and
+# layer_tail_fused (K6); the plain versions are not counted
 launches = 0
+tiled_launches = 0
 tail_launches = 0
 
 
@@ -66,13 +75,17 @@ def _layer(qt: QTensor, layer) -> QTensor:
 
 def _grouped_dot(x32, qt: QTensor):
     """Σ_g s[n, g] · (x_g · codes_g)_n in float32, one (unstacked) int4
-    weight: x32 [M, K] float32 → [M, N] float32."""
-    c = codes(qt).to(torch.float32)                              # [N, K]
+    weight: x32 [M, K] float32 → [M, N] float32, the groups summed in
+    order (as the TPU kernels do), one [M, N] product at a time."""
+    c = codes(qt)                                                # [N, K]
     N, K = c.shape
-    G = qt.groups
-    xg = x32.reshape(-1, G, K // G)
-    partial = torch.einsum("mgk,ngk->mgn", xg, c.reshape(N, G, K // G))
-    return (partial * qt.scale.T).sum(dim=1)
+    gs = K // qt.groups
+    y = x32.new_zeros((x32.shape[0], N))
+    for g in range(qt.groups):
+        part = x32[:, g * gs:(g + 1) * gs] @ c[:, g * gs:(g + 1) * gs].T.to(
+            torch.float32)
+        y += part * qt.scale[:, g]
+    return y
 
 
 def quant_matmul_ref(x, qt: QTensor, layer=None, *, norm_gamma=None,
@@ -142,23 +155,28 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
         return quant_matmul_ref(x, qt, layer, norm_gamma=norm_gamma,
                                 norm_eps=norm_eps, residual=residual,
                                 want_x_out=want_x_out)
-    global launches
+    global launches, tiled_launches
     from llm_inference_tpu_torch.ops.kernels import _build
     lead, M, K = _rows(x)
     N = qt.out_features
-    if M > _MAX_M:
-        raise NotImplementedError(
-            f"M={M} > {_MAX_M}: the tiled prefill GEMM (K8) is not yet ported")
-    _check_weight(qt, "K1")
+    tiled = M > _MAX_M
+    what = "K8" if tiled else "K1"
+    _check_weight(qt, what)
     int4 = qt.bits == 4
-    if K % 64 or N % 64 or (int4 and qt.group_size % 64):
+    if tiled:
+        if K % _TILE_K or N % _TILE_N or (int4 and qt.group_size % _TILE_K):
+            raise ValueError(
+                f"K8 needs K % {_TILE_K} == 0, N % {_TILE_N} == 0 and int4 "
+                f"groups of a multiple of {_TILE_K}, got K={K} N={N} bits="
+                f"{qt.bits} group_size={qt.group_size}")
+    elif K % 64 or N % 64 or (int4 and qt.group_size % 64):
         raise ValueError(f"K1 needs K % 64 == 0, N % 64 == 0 and int4 groups "
                          f"of a multiple of 64, got K={K} N={N} bits="
                          f"{qt.bits} group_size={qt.group_size}")
     bf16 = torch.bfloat16
     for name, t in (("residual", residual), ("norm_gamma", norm_gamma)):
         if t is not None and t.dtype != bf16:
-            raise TypeError(f"K1 takes a bf16 {name}, got {t.dtype}")
+            raise TypeError(f"{what} takes a bf16 {name}, got {t.dtype}")
     x2 = x.reshape(M, K).to(bf16).contiguous()
     res = None if residual is None else residual.reshape(M, K).contiguous()
     gam = None if norm_gamma is None else norm_gamma.reshape(K).contiguous()
@@ -166,8 +184,8 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
     fused = norm_gamma is not None or residual is not None
     x_out = (torch.empty((M, K), dtype=bf16, device=x.device)
              if want_x_out and fused else None)
-    # the MMA path normalises the rows once into this scratch; the GEMV
-    # normalises in shared memory and takes none
+    # the MMA and tiled paths normalise the rows once into this scratch;
+    # the GEMV normalises in shared memory and takes none
     mma = M > _GEMV_MAX_M or M * K * (4 if int4 else 2) > _GEMV_MAX_SMEM
     xn = (torch.empty((M, K), dtype=bf16, device=x.device)
           if fused and mma else None)
@@ -179,19 +197,31 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
     outs = (out.data_ptr(), None if x_out is None else x_out.data_ptr(),
             None if xn is None else xn.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if int4:
-        G = qt.groups
-        code = _build.lib().qmm4_launch(
-            *ptrs, qt.q.data_ptr() + li * N * K // 2,
-            qt.scale.data_ptr() + li * N * G * 4, *outs, M, K, N, G,
-            float(norm_eps), stream)
+    G = qt.groups
+    w_ptr = qt.q.data_ptr() + li * N * (K // 2 if int4 else K)
+    s_ptr = qt.scale.data_ptr() + li * N * G * 4
+    if tiled:
+        # the TPU package's prefill path: the prologue runs before the
+        # GEMM (one pre-pass, as its jnp prologue), the GEMM on bf16 rows
+        a = x2
+        if fused:
+            _build.check(_build.lib().qmm_prologue_launch(
+                *ptrs, outs[2], outs[1], M, K, float(norm_eps), stream),
+                "quant_matmul prologue")
+            a = xn
+        _build.check(_build.lib().qmm_tiled_launch(
+            a.data_ptr(), w_ptr, s_ptr, out.data_ptr(), M, K, N, G, qt.bits,
+            stream), "quant_matmul tiled")
+        tiled_launches += 1
     else:
-        code = _build.lib().qmm_launch(
-            *ptrs, qt.q.data_ptr() + li * N * K,
-            qt.scale.data_ptr() + li * N * 4, *outs, M, K, N,
-            float(norm_eps), stream)
-    _build.check(code, "quant_matmul")
-    launches += 1
+        if int4:
+            code = _build.lib().qmm4_launch(*ptrs, w_ptr, s_ptr, *outs, M, K,
+                                            N, G, float(norm_eps), stream)
+        else:
+            code = _build.lib().qmm_launch(*ptrs, w_ptr, s_ptr, *outs, M, K,
+                                           N, float(norm_eps), stream)
+        _build.check(code, "quant_matmul")
+        launches += 1
     y = out.reshape(*lead, N).to(x.dtype)
     if not want_x_out:
         return y

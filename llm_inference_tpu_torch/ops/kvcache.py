@@ -4,12 +4,16 @@
 Both caches are [layers, batch, kv_heads, max_seq, head_dim]. An int8
 cache holds codes there and per-(slot, head) float32 scales SLOT-MAJOR,
 [layers, batch, max_seq, kv_heads], as the JAX package does, so the two
-compare element for element. Where the JAX package threads the cache
-functionally and relies on buffer donation, the port writes the tensors in
-place: a decode step (T == 1) is one launch for the whole batch (K3, or K4
-which quantizes too); a prefill write (T > 1) is one in-place slice write
-per sequence, of codes and scales after the plain `quantize_kv` for an
-int8 cache. Offsets are per sequence.
+compare element for element. An int4 cache (bits 4) holds the packed
+codes of quantization.quantize_kv4, [layers, batch, kv_heads, max_seq,
+head_dim / 2], with the same scales. Where the JAX package threads the
+cache functionally and relies on buffer donation, the port writes the
+tensors in place: a decode step (T == 1) is one launch for the whole batch
+(K3, or K4 which quantizes too; an int4 cache quantizes in plain PyTorch,
+as XLA does in the JAX package, then writes the packed rows with K3 and
+the scales with `write_token_scales`); a prefill write (T > 1) is one
+in-place slice write per sequence, of codes and scales after the plain
+quantizer for a quantized cache. Offsets are per sequence.
 """
 
 from __future__ import annotations
@@ -20,13 +24,16 @@ from typing import Optional
 import torch
 
 from llm_inference_tpu_torch.ops.kernels import kv_write
-from llm_inference_tpu_torch.ops.quantization import quantize_kv
+from llm_inference_tpu_torch.ops.quantization import (quantize_kv,
+                                                      quantize_kv4)
 
 
 @dataclasses.dataclass
 class KVCache:
     """k, v: [layers, batch, kv_heads, max_seq, head_dim]; an int8 cache
-    (bits 8) adds k_scale, v_scale [layers, batch, max_seq, kv_heads]."""
+    (bits 8) adds k_scale, v_scale [layers, batch, max_seq, kv_heads]; an
+    int4 cache (bits 4) holds packed codes [..., head_dim / 2] with the
+    same scales."""
     k: torch.Tensor
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
@@ -44,19 +51,24 @@ class KVCache:
 
 def init_cache(num_layers: int, batch: int, num_kv_heads: int, max_seq: int,
                head_dim: int, dtype=torch.bfloat16, device=None) -> KVCache:
-    """A zeroed cache; dtype is a float dtype, or torch.int8 / "int8" for
-    int8 codes with float32 scales."""
-    if dtype == "int4":
-        raise NotImplementedError("int4 KV caches are not ported yet")
+    """A zeroed cache; dtype is a float dtype, torch.int8 / "int8" for
+    int8 codes with float32 scales, or "int4" for packed int4 codes with
+    float32 scales."""
     shape = (num_layers, batch, num_kv_heads, max_seq, head_dim)
-    if dtype in (torch.int8, "int8"):
+    if dtype in (torch.int8, "int8", "int4"):
+        bits = 4 if dtype == "int4" else 8
+        if bits == 4:
+            if head_dim % 2:
+                raise ValueError(f"an int4 cache packs two dims per byte; "
+                                 f"head_dim {head_dim} is odd")
+            shape = shape[:-1] + (head_dim // 2,)
         sshape = (num_layers, batch, max_seq, num_kv_heads)
         return KVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
             v=torch.zeros(shape, dtype=torch.int8, device=device),
             k_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
             v_scale=torch.zeros(sshape, dtype=torch.float32, device=device),
-            bits=8)
+            bits=bits)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -66,12 +78,23 @@ def update_cache_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
     """Write T new tokens per sequence (k_new/v_new [B, T, Hkv, D]) into
     ONE layer of the stacked cache at offsets[b], in place."""
     B, T = k_new.shape[:2]
+    quantize = quantize_kv4 if cache.bits == 4 else quantize_kv
     if T == 1:
         kt, vt = k_new.transpose(1, 2), v_new.transpose(1, 2)
-        if cache.quantized:
+        if cache.bits == 8:
             kv_write.quantize_write_token(cache.k, cache.v, cache.k_scale,
                                           cache.v_scale, layer, kt, vt,
                                           offsets)
+        elif cache.bits == 4:
+            # K and V rows quantized together (one set of launches)
+            q, s = quantize(torch.stack([kt, vt]))
+            kv_write.write_token(cache.k, cache.v, layer, q[0], q[1],
+                                 offsets)
+            # scales [B, Hkv, 1, 1] → one slot-major row [B, 1, Hkv]
+            kv_write.write_token_scales(cache.k_scale, cache.v_scale, layer,
+                                        s[0, ..., 0].transpose(1, 2),
+                                        s[1, ..., 0].transpose(1, 2),
+                                        offsets)
         else:
             kv_write.write_token(cache.k, cache.v, layer, kt, vt, offsets)
         return cache
@@ -82,7 +105,7 @@ def update_cache_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
     kn = k_new.transpose(1, 2)                                # [B, Hkv, T, D]
     vn = v_new.transpose(1, 2)
     if cache.quantized:
-        (kn, ks), (vn, vs) = quantize_kv(kn), quantize_kv(vn)
+        (kn, ks), (vn, vs) = quantize(kn), quantize(vn)
         # scales [B, Hkv, T, 1] → slot-major [B, T, Hkv]
         for s_all, s_new in ((cache.k_scale, ks), (cache.v_scale, vs)):
             s_new = s_new[..., 0].transpose(1, 2)

@@ -1,9 +1,11 @@
 """Weight-only quantization, symmetric: INT8 per-channel and INT4
-(per-channel or grouped along K), and the INT8 KV-cache quantizer.
+(per-channel or grouped along K), and the INT8 and INT4 KV-cache
+quantizers.
 
 Counterpart of `llm_inference_tpu/ops/quantization.py` (QTensor :27,
 quantize :117, dequantize :314, qmatmul_ref :328, quantize_kv :413,
-dequantize_kv :421). Codes and scales are bit-identical to the JAX
+dequantize_kv :421, quantize_kv4 :425, unpack_kv4 :449, dequantize_kv4
+:457). Codes and scales are bit-identical to the JAX
 package for the same float32 weights: both divide in float32 and round
 half to even.
 
@@ -214,3 +216,33 @@ def quantize_kv(x: torch.Tensor):
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
                   dtype=torch.bfloat16) -> torch.Tensor:
     return (q.to(torch.float32) * scale).to(dtype)
+
+
+def quantize_kv4(x: torch.Tensor):
+    """KV entries [..., D] → (packed int8 codes [..., D/2], float32 scale
+    [..., 1]): scale = max(max|x| / 7, 1e-8), q = clip(round(x / scale),
+    -8, 7). Split-half packing along D with the offset-lo encoding: byte d
+    holds dim d + 8 (unsigned, low nibble) and dim d + D/2 (signed, high
+    nibble), so the signed byte is 16·hi + lo_u and hi = byte >> 4."""
+    D = x.shape[-1]
+    if D % 2:
+        raise ValueError(f"int4 KV packing needs an even head_dim, got {D}")
+    x32 = x.to(torch.float32)
+    scale = torch.clamp(_div(x32.abs().amax(dim=-1, keepdim=True), 7.0),
+                        min=1e-8)
+    q = torch.clamp(torch.round(x32 / scale), -8, 7)
+    # the signed byte 16·hi + lo_u, exact in float32 and in [-128, 127]
+    packed = q[..., D // 2:] * 16 + (q[..., :D // 2] + 8)
+    return packed.to(torch.int8), scale
+
+
+def unpack_kv4(packed: torch.Tensor) -> torch.Tensor:
+    """Packed int4 KV codes [..., D/2] → int8 values [..., D] (split-half
+    order, offset-lo encoding; see quantize_kv4)."""
+    p = packed.to(torch.int32)
+    return torch.cat([(p & 0xF) - 8, p >> 4], dim=-1).to(torch.int8)
+
+
+def dequantize_kv4(packed: torch.Tensor, scale: torch.Tensor,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    return (unpack_kv4(packed).to(torch.float32) * scale).to(dtype)

@@ -1,15 +1,15 @@
-"""Where a decode step's time goes, on the card.
+"""Where a decode step's and a prefill chunk's time goes, on the card.
 
     python -m llm_inference_tpu_torch.tools.profile_decode [--steps 8]
-        [--batch 1] [--prompt N] [--seed 0] [--weights int8|int4]
-        [--kv bf16|int8]
+        [--batch 1] [--prompt 128] [--seed 0] [--weights int8|int4]
+        [--kv bf16|int8|int4]
 
 Builds LLaMA-2-7B with random weights and lm_head on the GPU (`--weights`:
-int8 per-channel, or int4 with groups of 128), over a bf16 or int8 KV
-cache (`--kv`), prefills `--batch` prompts of `--prompt` tokens (default
-128 // batch, so the prefill's batch x prompt rows stay within K1's 128),
-then runs `--steps` decode steps (greedy, the engine's forward) three
-ways:
+int8 per-channel, or int4 with groups of 128), over a bf16, int8 or int4
+KV cache (`--kv`), prefills `--batch` prompts of `--prompt` tokens (the
+cache holds the prompt and the steps, rounded up to a multiple of 128 and
+at least 512 slots), then runs `--steps` decode steps (greedy, the
+engine's forward) three ways:
   1. wall time per step (host clock, synchronised);
   2. the same steps under torch.profiler (CPU + CUDA activities): device
      busy time per step (union of kernel intervals), idle share, kernel
@@ -18,7 +18,11 @@ ways:
   3. one more step under torch.cuda.set_sync_debug_mode("warn"): the
      operations that made the host wait for the device (a decode step
      should have none until the chunk's tokens are read).
-Prints one JSON line at the end with the summary numbers.
+Then one 2048-row prefill chunk (the engine's largest default bucket) at
+B = 1 over a 4096-slot cache under torch.profiler: wall and device busy
+time, and the top device ops by time (K8 is `qmm_tiled`, K9
+`flash_kernel`, the rest plain PyTorch). Prints one JSON line at the end
+with the summary numbers.
 """
 
 from __future__ import annotations
@@ -51,10 +55,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--batch", type=int, default=1)
-    ap.add_argument("--prompt", type=int, default=None)
+    ap.add_argument("--prompt", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--weights", choices=("int8", "int4"), default="int8")
-    ap.add_argument("--kv", choices=("bf16", "int8"), default="bf16")
+    ap.add_argument("--kv", choices=("bf16", "int8", "int4"), default="bf16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
@@ -68,11 +72,11 @@ def main(argv=None):
                        group_size=128 if args.weights == "int4" else 0)
     params = llama.prepare_params(llama.init_params_quantized(
         cfg, qcfg, seed=args.seed, device=dev))
-    B, S = args.batch, 512
-    T = args.prompt or max(1, 128 // B)
-    cache = kvcache.init_cache(
-        cfg.num_layers, B, cfg.num_kv_heads, S, cfg.head_dim,
-        torch.int8 if args.kv == "int8" else torch.bfloat16, device=dev)
+    B, T = args.batch, args.prompt
+    S = max(512, -(-(T + args.steps + 8) // 128) * 128)
+    kv = torch.bfloat16 if args.kv == "bf16" else args.kv
+    cache = kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads, S,
+                               cfg.head_dim, kv, device=dev)
     rope = llama.rope_table(cfg, S, dev)
     g = torch.Generator(device=dev).manual_seed(args.seed)
     ids = torch.randint(1, cfg.vocab_size, (B, T), generator=g, device=dev,
@@ -150,12 +154,59 @@ def main(argv=None):
     for k in sorted(avg, key=lambda k: -k.self_cpu_time_total)[:12]:
         print(f"  {k.self_cpu_time_total / 1e3 / args.steps:8.3f} ms  "
               f"{k.count / args.steps:6.1f}x  {k.key[:90]}")
-    print(json.dumps({"card": smi, "batch": B, "weights": args.weights,
-                      "kv": args.kv, "wall_ms": wall_ms,
-                      "device_busy_ms": busy_ms,
-                      "idle_share": 1 - busy_ms / wall_ms,
-                      "host_syncs_per_step": len(syncs),
-                      "kernels_per_step": len(kernels) / args.steps}))
+    summary = {"card": smi, "batch": B, "prompt": T, "weights": args.weights,
+               "kv": args.kv, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+               "idle_share": 1 - busy_ms / wall_ms,
+               "host_syncs_per_step": len(syncs),
+               "kernels_per_step": len(kernels) / args.steps}
+    del cache
+    summary.update(_prefill_profile(cfg, params, kv, args.seed, dev))
+    print(json.dumps(summary))
+
+
+def _prefill_profile(cfg, params, kv, seed, dev, rows=2048, S=4096):
+    """One prefill chunk of `rows` rows at B = 1, positions 0.., over an
+    S-slot cache, under torch.profiler."""
+    cache = kvcache.init_cache(cfg.num_layers, 1, cfg.num_kv_heads, S,
+                               cfg.head_dim, kv, device=dev)
+    rope = llama.rope_table(cfg, S, dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    ids = torch.randint(1, cfg.vocab_size, (1, rows), generator=g,
+                        device=dev, dtype=torch.int32)
+    pos = torch.arange(rows, device=dev, dtype=torch.int32)[None]
+
+    def chunk():
+        return llama.forward(cfg, params, ids, pos, cache, rope_tables=rope)
+    with torch.no_grad():
+        chunk()                              # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            chunk()
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end)
+                         for e in kernels]) / 1e3
+    print(f"prefill chunk of {rows} rows over {S} slots: wall {wall_ms:.3f} "
+          f"ms, device busy {busy_ms:.3f} ms, {len(kernels)} kernels")
+    print("top device ops of the prefill chunk:")
+    by_kernel = {}
+    for e in kernels:
+        by_kernel.setdefault(e.name, [0.0, 0])
+        by_kernel[e.name][0] += e.time_range.end - e.time_range.start
+        by_kernel[e.name][1] += 1
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (us, n) in top:
+        print(f"  {us / 1e3:8.3f} ms  {n:5d}x  {name[:90]}")
+    return {"prefill_rows": rows, "prefill_wall_ms": wall_ms,
+            "prefill_device_busy_ms": busy_ms,
+            "prefill_top_ops_ms": {name[:60]: us / 1e3
+                                   for name, (us, _) in top[:8]}}
 
 
 if __name__ == "__main__":

@@ -10,9 +10,10 @@ import pytest
 import torch
 
 from llm_inference_tpu_torch.ops.kernels import decode_attention as t_dec
+from llm_inference_tpu_torch.ops.kernels import flash_attention as t_flash
 from llm_inference_tpu_torch.ops.kernels import kv_write as t_kvw
 from llm_inference_tpu_torch.ops.kernels import quant_matmul as t_qm
-from llm_inference_tpu_torch.ops.quantization import QTensor
+from llm_inference_tpu_torch.ops.quantization import QTensor, quantize_kv4
 
 BF16 = torch.bfloat16
 
@@ -98,11 +99,12 @@ def test_k3_cuda_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_k1_rejects_what_it_does_not_take(cuda):
-    qt = QTensor(q=torch.zeros((1, 128, 4096), dtype=torch.int8,
+    # above 128 rows K8 takes the product; it needs N % 128 == 0
+    qt = QTensor(q=torch.zeros((1, 64, 4096), dtype=torch.int8,
                                device=cuda),
-                 scale=torch.ones((1, 1, 128), device=cuda))
+                 scale=torch.ones((1, 1, 64), device=cuda))
     x = torch.zeros((129, 4096), dtype=BF16, device=cuda)
-    with pytest.raises(NotImplementedError, match="K8"):
+    with pytest.raises(ValueError, match="K8"):
         t_qm.quant_matmul(x, qt, 0)
     with pytest.raises(ValueError, match="contiguous"):
         t_qm.quant_matmul(x[:1], QTensor(q=qt.q[:, :, ::2],
@@ -247,3 +249,185 @@ def test_k6_failed_launch_raises(cuda):
                                           11008, 32, 32, 86, 1e-5, None)
     with pytest.raises(RuntimeError, match="layer_tail"):
         _build.check(code, "layer_tail_fused")
+
+
+# ------------------------------------------------------- K8 (M > 128)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,K,N", [(256, 4096, 1024), (300, 4096, 1024),
+                                   (300, 11008, 512)])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_k8_cuda_matches_plain(cuda, bits, M, K, N, prologue):
+    # M = 300: a partial 128-row tile; K = 11008: 86 int4 groups
+    g = torch.Generator().manual_seed(M + K + bits)
+    if bits == 4:
+        qt = _int4_weight(g, 2, N, K)
+    else:
+        qt = QTensor(q=torch.randint(-128, 128, (2, N, K), generator=g,
+                                     dtype=torch.int8),
+                     scale=torch.rand((2, 1, N), generator=g) * 1e-3)
+    x = torch.randn((M, K), generator=g).to(BF16)
+    kw = {}
+    if prologue:
+        kw = dict(norm_gamma=(1 + 0.1 * torch.randn((K,), generator=g)
+                              ).to(BF16),
+                  residual=torch.randn((M, K), generator=g).to(BF16),
+                  want_x_out=True)
+    want = t_qm.quant_matmul(x, qt, 1, **kw)
+    before = t_qm.tiled_launches
+    got = t_qm.quant_matmul(x.to(cuda), qt.to(cuda), 1, **_to(kw, cuda))
+    torch.cuda.synchronize()
+    assert t_qm.tiled_launches == before + 1
+    if prologue:
+        (want, want_x), (got, got_x) = want, got
+        assert torch.equal(got_x.cpu(), want_x)
+    # the same bf16 products, float32 sums in another order (and the
+    # prologue's rsqrt may move a row by a bf16 rounding): one bf16 step
+    # of the largest output
+    err = (got.cpu().float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+# ------------------------------------------------------ K9 (flash)
+
+def _flash_cache(g, kind, L, B, Hkv, S, D):
+    """k, v and (quantized) scales [L, B, S, Hkv] of random rows."""
+    shape = (L, B, Hkv, S, D)
+    if kind == "bf16":
+        return (torch.randn(shape, generator=g).to(BF16),
+                torch.randn(shape, generator=g).to(BF16), None, None)
+    if kind == "int8":
+        k = torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+        v = torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+    else:
+        (k, _), (v, _) = (quantize_kv4(torch.randn(shape, generator=g))
+                          for _ in range(2))
+    ks = torch.rand((L, B, S, Hkv), generator=g) * 0.02 + 1e-3
+    vs = torch.rand((L, B, S, Hkv), generator=g) * 0.02 + 1e-3
+    return k, v, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("B,T,Hq,Hkv,S,D,starts,window,softcap", [
+    (1, 256, 8, 8, 512, 128, (0,), 0, 0.0),            # from scratch
+    (2, 200, 8, 2, 512, 128, (0, 130), 0, 0.0),        # GQA, tail, history
+    (1, 96, 4, 4, 512, 64, (300,), 100, 0.0),          # window
+    (1, 128, 4, 2, 256, 128, (64,), 0, 30.0),          # softcap
+])
+def test_k9_cuda_matches_plain(cuda, kind, B, T, Hq, Hkv, S, D, starts,
+                               window, softcap):
+    g = torch.Generator().manual_seed(T + S + len(kind))
+    L = 2
+    k, v, ks, vs = _flash_cache(g, kind, L, B, Hkv, S, D)
+    q = torch.randn((B, T, Hq, D), generator=g).to(BF16)
+    pos = torch.stack([s + torch.arange(T) for s in starts]).to(torch.int32)
+    kw = dict(logit_softcap=softcap, sliding_window=window)
+    want = t_flash.flash_attention(q, k, v, 1, pos, k_scale=ks, v_scale=vs,
+                                   **kw)
+    dev = [None if t is None else t.to(cuda) for t in (k, v, ks, vs)]
+    before = t_flash.launches
+    got = t_flash.flash_attention(q.to(cuda), dev[0], dev[1], 1,
+                                  pos.to(cuda), k_scale=dev[2],
+                                  v_scale=dev[3], **kw)
+    torch.cuda.synchronize()
+    assert t_flash.launches == before + 1
+    # bf16 output; the same blocks and rounding points (int4: p split into
+    # two bf16 parts, 16 of its 24 bits), float32 sums in another order: a
+    # few bf16 steps (2^-8 relative) of the largest output
+    tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+    assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("G,window,S", [(1, 0, 4096), (4, 700, 2048)])
+def test_k2_split_cuda_matches_plain(cuda, kind, G, window, S):
+    """Caches of 1024 slots or more split each head's slots over several
+    blocks whose softmax states the last block merges; a position in the
+    first share leaves the other shares empty."""
+    g = torch.Generator().manual_seed(30 + G + S)
+    L, B, Hkv, D = 2, 4, 8, 128
+    k, v, ks, vs = _flash_cache(g, kind, L, B, Hkv, S, D)
+    q = torch.randn((B, 1, Hkv * G, D), generator=g).to(BF16)
+    pos = torch.tensor([3, 700, S // 2 + 5, S - 1], dtype=torch.int32)
+    kw = dict(window=window, k_scale=ks, v_scale=vs)
+    want = t_dec.decode_attention(q, k, v, 1, pos, **kw)
+    dev = {n: (None if t is None else t.to(cuda))
+           for n, t in (("k_scale", ks), ("v_scale", vs))}
+    for _ in range(2):              # the merge counters are reset for reuse
+        got = t_dec.decode_attention(q.to(cuda), k.to(cuda), v.to(cuda), 1,
+                                     pos.to(cuda), window=window, **dev)
+        torch.cuda.synchronize()
+        tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+        assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+
+
+# --------------------------------------------- int4 cache (K5, writes)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,window,softcap,S", [(1, 0, 0.0, 4096),
+                                                (4, 64, 0.0, 512),
+                                                (2, 0, 30.0, 512)])
+def test_k5_cuda_matches_plain(cuda, G, window, softcap, S):
+    g = torch.Generator().manual_seed(20 + G)
+    L, B, Hkv, D = 2, 4, 8, 128
+    k, v, ks, vs = _flash_cache(g, "int4", L, B, Hkv, S, D)
+    q = torch.randn((B, 1, Hkv * G, D), generator=g).to(BF16)
+    pos = torch.tensor([0, 100, S // 2, S - 37], dtype=torch.int32)
+    kw = dict(logit_softcap=softcap, window=window)
+    want = t_dec.decode_attention(q, k, v, 1, pos, k_scale=ks, v_scale=vs,
+                                  **kw)
+    before = t_dec.int4_launches
+    got = t_dec.decode_attention(q.to(cuda), k.to(cuda), v.to(cuda), 1,
+                                 pos.to(cuda), k_scale=ks.to(cuda),
+                                 v_scale=vs.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert t_dec.int4_launches == before + 1
+    # float32 p on both sides, float32 sums in another order, one bf16
+    # rounding: a few bf16 steps of the largest output
+    tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+    assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_int4_cache_decode_write_cuda_matches_plain(cuda):
+    """K3 on the packed 64-byte rows of an int4 cache (D = 128) and the
+    scale write, as update_cache_layer runs them: exact."""
+    from llm_inference_tpu_torch.ops import kvcache
+    g = torch.Generator().manual_seed(7)
+    L, B, Hkv, S, D = 2, 4, 8, 64, 128
+    caches = [kvcache.init_cache(L, B, Hkv, S, D, "int4", device=dev)
+              for dev in ("cpu", cuda)]
+    kn = torch.randn((B, 1, Hkv, D), generator=g).to(BF16)
+    vn = torch.randn((B, 1, Hkv, D), generator=g).to(BF16)
+    off = torch.tensor([0, 9, S - 1, S + 3], dtype=torch.int32)
+    before = (t_kvw.launches, t_kvw.scale_launches)
+    for c in caches:
+        kvcache.update_cache_layer(c, 1, kn.to(c.k.device),
+                                   vn.to(c.k.device), off.to(c.k.device))
+    torch.cuda.synchronize()
+    assert (t_kvw.launches, t_kvw.scale_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(getattr(caches[1], name).cpu(),
+                           getattr(caches[0], name))
+    assert caches[0].k[1].any()
+
+
+@pytest.mark.cuda
+def test_write_token_scales_cuda_matches_plain(cuda):
+    g = torch.Generator().manual_seed(8)
+    L, B, S, Hkv = 2, 4, 64, 32
+    ks = torch.rand((L, B, S, Hkv), generator=g)
+    vs = torch.rand((L, B, S, Hkv), generator=g)
+    ksn = torch.rand((B, 1, Hkv), generator=g)
+    vsn = torch.rand((B, 1, Hkv), generator=g)
+    off = torch.tensor([0, 9, S - 1, S + 3], dtype=torch.int32)
+    kd, vd = ks.to(cuda), vs.to(cuda)
+    t_kvw.write_token_scales(ks, vs, 1, ksn, vsn, off)
+    t_kvw.write_token_scales(kd, vd, 1, ksn.to(cuda), vsn.to(cuda),
+                             off.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(kd.cpu(), ks) and torch.equal(vd.cpu(), vs)

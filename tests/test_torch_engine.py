@@ -1,7 +1,9 @@
 """The port's InferenceEngine.generate against the JAX package's, on the
 CPU: greedy token streams of the port's configurations at tiny width
 (int8 weights and lm_head over a 128-slot bf16 cache; int4 g=128 weights
-and lm_head over a 256-slot int8 cache)."""
+and lm_head over a 256-slot int8 cache), and a 1000-token prompt over a
+2048-slot bf16, int8 or int4 cache (two prefill chunks through the tiled
+GEMM and flash attention)."""
 
 import numpy as np
 import jax
@@ -136,10 +138,32 @@ def test_greedy_streams_int4_int8kv_match_jax(setup4, req):
 
 
 def test_buckets_match_jax(setup):
-    _, _, jeng, teng = setup
+    jcfg, jprep, jeng, teng = setup
     for n in (1, 15, 16, 17, 32, 33, 64, 100):
         assert teng._bucket(n) == jeng._bucket(n)
         assert teng.prefill_cache_len(n) == jeng.prefill_cache_len(n)
+    # the default buckets over 4096 slots: a 3000-token prompt runs 2048 +
+    # 1024-row chunks (engine.py:526-575)
+    jeng = JEngine(jcfg, jprep, engine_cfg=JEngineConfig(max_seq_len=4096))
+    teng = InferenceEngine(teng.cfg, teng.params, engine_cfg=EngineConfig(
+        max_seq_len=4096), device="cpu")
+    for n in (1000, 2047, 2048, 2049, 3000, 4000, 4096):
+        assert teng._bucket(n) == jeng._bucket(n)
+        assert teng.prefill_cache_len(n) == jeng.prefill_cache_len(n)
+    assert teng.prefill_cache_len(3000) == 2048 + 1024
+
+
+def test_cache_extent_off_128_warns_and_attends_plain(setup):
+    """As the JAX engine (engine.py:66-80): a cache extent that is not a
+    multiple of 128 warns, and attention then takes the plain path."""
+    _, _, _, teng = setup
+    with pytest.warns(UserWarning, match="multiple of 128"):
+        InferenceEngine(teng.cfg, teng.params, engine_cfg=EngineConfig(
+            max_seq_len=600), device="cpu")
+    cfg = teng.cfg
+    for T in (1, 512):
+        assert llama.attention_route((1, T, cfg.num_heads, cfg.head_dim),
+                                     600, False) == "attend"
 
 
 def test_long_prompt_prefills_in_chunks(setup):
@@ -184,3 +208,87 @@ def test_unported_sampling_knobs_raise(setup):
                 GenerationConfig(logit_bias={3: 1.0})):
         with pytest.raises(NotImplementedError):
             teng.generate([[1, 2]], gen)
+
+
+# ------------------------------------------ long prompts, three caches
+
+LONG = 1000          # prompt tokens: two 512-row chunks over 2048 slots
+LONG_S = 2048
+LONG_BUCKETS = (128, 256, 512)
+LONG_NEW = 5         # the first token, then one 4-step decode chunk
+# prompt seeds: random int4 weights give flat logits, so the int4 cache's
+# prompt is one whose first JAX top-2 gaps are not near-ties
+LONG_SEED = {"bf16": 13, "int8": 13, "int4": 20}
+
+
+def _long_engines(cache_dtype):
+    """int8 weights over a bf16 cache (tiny_llama(head_dim=64)); int4 g=128
+    weights over the int8 and int4 caches (the TINY4 widths); positions up
+    to 2048."""
+    if cache_dtype == "bf16":
+        kw = dict(head_dim=64, max_position_embeddings=LONG_S)
+        jcfg, cfg = j_tiny_llama(**kw), tiny_llama(**kw)
+        qp = j_llama.quantize_params(
+            j_llama.init_params(jcfg, jax.random.PRNGKey(11)),
+            JQuantConfig(weights="int8", quantize_embedding=True))
+    else:
+        kw = dict(TINY4, max_position_embeddings=LONG_S)
+        jcfg, cfg = j_tiny_llama(**kw), tiny_llama(**kw)
+        qp = j_llama.init_params_quantized(jcfg, jax.random.PRNGKey(12),
+                                           JQuantConfig(
+                                               weights="int4",
+                                               group_size=128,
+                                               quantize_embedding=True))
+    jprep = j_llama.prepare_params(qp, donate=False)
+    tprep = llama.prepare_params(llama.params_from_numpy(
+        to_numpy_tree(jprep), cfg, device="cpu"))
+    ecfg = dict(max_seq_len=LONG_S, decode_chunk=4,
+                prefill_buckets=LONG_BUCKETS)
+    jdt = jnp.bfloat16 if cache_dtype == "bf16" else cache_dtype
+    tdt = torch.bfloat16 if cache_dtype == "bf16" else cache_dtype
+    jeng = JEngine(jcfg, jprep, engine_cfg=JEngineConfig(**ecfg),
+                   cache_dtype=jdt)
+    teng = InferenceEngine(cfg, tprep, engine_cfg=EngineConfig(**ecfg),
+                           cache_dtype=tdt, device="cpu")
+    return jprep, jeng, teng
+
+
+@pytest.mark.parametrize("cache_dtype", ["bf16", "int8", "int4"])
+def test_long_prompt_prefill_and_greedy_stream_match_jax(cache_dtype):
+    """A 1000-token prompt prefills in two 512-row chunks (the second at
+    positions 512-1023 over the first's slots): the tiled GEMM (K8) and
+    flash attention (K9) on both sides, the JAX package's in interpret
+    mode. The prefill logits agree, and so do the greedy tokens wherever
+    JAX's top-2 gap exceeds GAP_TOL (its gaps from its own forward,
+    teacher-forced along its stream)."""
+    jprep, jeng, teng = _long_engines(cache_dtype)
+    cfg = teng.cfg
+    prompt = [int(t) for t in np.random.default_rng(
+        LONG_SEED[cache_dtype]).integers(1, cfg.vocab_size, LONG)]
+    assert llama.attention_route((1, 512, cfg.num_heads, cfg.head_dim),
+                                 LONG_S, cache_dtype != "bf16") == "flash"
+    jlog, jc = jeng.prefill([prompt])
+    tlog, tc = teng.prefill([prompt])
+    assert tc.bits == {"bf16": 16, "int8": 8, "int4": 4}[cache_dtype]
+    # as test_torch_model: logits within 1e-2
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-2,
+                               rtol=0)
+    want = jeng.generate([prompt], JGenerationConfig(
+        max_new_tokens=LONG_NEW, greedy=True, eos_token_ids=()))[0].token_ids
+    gaps = []
+    logits, zeros = jlog, jnp.zeros((1,), jnp.int32)
+    for j in range(LONG_NEW):
+        top2 = np.sort(np.asarray(logits), -1)[0, -2:]
+        gaps.append(top2[1] - top2[0])
+        logits, jc = jeng._prefill_jit(
+            jprep, jnp.asarray([[want[j]]], jnp.int32),
+            jnp.asarray([[LONG + j]], jnp.int32), jc, zeros)
+    got = teng.generate([prompt], GenerationConfig(
+        max_new_tokens=LONG_NEW, greedy=True, eos_token_ids=()))[0].token_ids
+    compared = 0
+    for j in range(LONG_NEW):
+        if gaps[j] <= GAP_TOL:
+            break               # a near-tie: the streams may part here
+        assert got[j] == want[j], (j, got, want)
+        compared += 1
+    assert compared >= LONG_NEW // 2, gaps

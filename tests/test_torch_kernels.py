@@ -1,9 +1,11 @@
-"""The port's kernels — K1 fused-norm matmul (int8 and int4), K2 decode
-attention (bf16 and int8 cache), K3 KV write, K4 int8 quantize-write, K6
-layer tail — against the JAX package's Pallas kernels (run in interpret
-mode, as the JAX tests run them on the CPU), through the plain PyTorch
-versions that CPU tensors take. tests/test_torch_cuda.py holds the CUDA
-kernels to those plain versions on a card."""
+"""The port's kernels — K1 fused-norm matmul (int8 and int4) and K8 its
+tiled prefill GEMM, K2 decode attention (bf16 and int8 cache) and K5 (int4
+cache), K3 KV write and the int4 scale write, K4 int8 quantize-write, K6
+layer tail, K9 flash prefill attention (bf16, int8, int4 caches) — against
+the JAX package's Pallas kernels (run in interpret mode, as the JAX tests
+run them on the CPU), through the plain PyTorch versions that CPU tensors
+take. tests/test_torch_cuda.py holds the CUDA kernels to those plain
+versions on a card."""
 
 import numpy as np
 import jax
@@ -13,10 +15,12 @@ import torch
 
 from llm_inference_tpu.ops import quantization as j_quant
 from llm_inference_tpu.ops.pallas import decode_attention as j_dec
+from llm_inference_tpu.ops.pallas import flash_attention as j_flash
 from llm_inference_tpu.ops.pallas import kv_write as j_kvw
 from llm_inference_tpu.ops.pallas import quant_matmul as j_qm
 
 from llm_inference_tpu_torch.ops.kernels import decode_attention as t_dec
+from llm_inference_tpu_torch.ops.kernels import flash_attention as t_flash
 from llm_inference_tpu_torch.ops.kernels import kv_write as t_kvw
 from llm_inference_tpu_torch.ops.kernels import quant_matmul as t_qm
 from llm_inference_tpu_torch.ops.quantization import QTensor, from_split_half
@@ -328,5 +332,155 @@ def test_k2_int8_plain_matches_jax_kernel(S, Hkv, G, window, softcap):
     # as the bf16 cache: bf16 output, p · v_scale rounded to bf16 against
     # each slot block's running max on the TPU, the row max here: a few
     # bf16 steps of |out| <= ~3
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want, np.float32),
+                               atol=2e-2, rtol=0)
+
+
+# ------------------------------------- int4 KV cache (scale write, K5)
+
+def test_write_token_scales_plain_matches_jax_kernel():
+    rng = np.random.default_rng(5)
+    L, B, S, Hkv = 2, 4, 16, 3
+    ks_all = jnp.asarray(rng.random((L, B, S, Hkv)), jnp.float32)
+    vs_all = jnp.asarray(rng.random((L, B, S, Hkv)), jnp.float32)
+    ksn = jnp.asarray(rng.random((B, 1, Hkv)), jnp.float32)
+    vsn = jnp.asarray(rng.random((B, 1, Hkv)), jnp.float32)
+    off = np.array([0, 5, S - 1, S + 7], np.int32)      # the last clamps
+    want = j_kvw.write_token_scales(ks_all, vs_all, jnp.int32(1), ksn, vsn,
+                                    jnp.asarray(off))
+    tks, tvs = to_torch(ks_all), to_torch(vs_all)
+    got = t_kvw.write_token_scales(tks, tvs, 1, to_torch(ksn), to_torch(vsn),
+                                   torch.from_numpy(off))
+    assert got[0] is tks and got[1] is tvs              # in place
+    # a copy through a one-hot blend on the TPU: exact
+    np.testing.assert_array_equal(tks.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(tvs.numpy(), np.asarray(want[1]))
+
+
+def _int4_cache(rng, L, B, Hkv, S, D):
+    """Packed int4 codes [L, B, Hkv, S, D/2] and slot-major scales
+    [L, B, S, Hkv] of random K/V rows, from the JAX package's quantizer."""
+    out = []
+    for _ in range(2):
+        q, s = j_quant.quantize_kv4(jnp.asarray(
+            rng.standard_normal((L, B, S, Hkv, D)), jnp.float32))
+        out += [q.transpose(0, 1, 3, 2, 4), s[..., 0]]
+    return out                                          # k, ks, v, vs
+
+
+@pytest.mark.parametrize("S,Hkv,G,window,softcap", [
+    (128, 2, 2, 0, 0.0),      # GQA
+    (128, 4, 1, 16, 0.0),     # sliding window
+    (128, 2, 2, 0, 30.0),     # logit softcap
+    (256, 2, 4, 0, 0.0),      # two slot blocks in the TPU kernel
+])
+def test_k5_plain_matches_jax_kernel(S, Hkv, G, window, softcap):
+    rng = np.random.default_rng(S + G + 11)
+    L, B, D = 2, 3, 64
+    q = jnp.asarray(rng.standard_normal((B, 1, Hkv * G, D)), jnp.bfloat16)
+    k, ks, v, vs = _int4_cache(rng, L, B, Hkv, S, D)
+    pos = np.array([0, 77, S - 1], np.int32)
+    want = j_dec.decode_attention(q, k, v, jnp.int32(1), jnp.asarray(pos),
+                                  logit_softcap=softcap, k_scale=ks,
+                                  v_scale=vs, window=window)
+    vst = to_torch(vs)
+    vst[1, 1, 78:] = float("inf")          # beyond pos: never read
+    got = t_dec.decode_attention(to_torch(q), to_torch(k), to_torch(v), 1,
+                                 torch.from_numpy(pos),
+                                 logit_softcap=softcap, window=window,
+                                 k_scale=to_torch(ks), v_scale=vst)
+    assert got.shape == (B, 1, Hkv * G, D) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got).all()
+    # float32 q and p on both sides (the TPU kernel folds the -8 of the low
+    # nibbles into row sums, the plain version unpacks): float32 sums in
+    # another order, then one bf16 rounding of |out| <= ~2
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want, np.float32),
+                               atol=1e-2, rtol=0)
+
+
+# ------------------------------------------------ K8 (M > 128 rows)
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("prologue", ["none", "norm_res_xout"])
+def test_k8_plain_matches_jax_kernel(bits, prologue):
+    """M = 300 rows take the TPU package's tiled kernel (two 256-row m
+    tiles, the second partial) and the port's K8 path."""
+    rng = np.random.default_rng(80 + bits)
+    K, N, M = 256, 512, 300
+    jqt, tqt = (_int4_weights(K=K, N=N, seed=2) if bits == 4
+                else _weights(K=K, N=N, seed=2))
+    x = jnp.asarray(rng.standard_normal((M, K)), jnp.bfloat16)
+    kw = {}
+    if prologue != "none":
+        kw = dict(norm_gamma=jnp.asarray(1 + 0.1 * rng.standard_normal(K),
+                                         jnp.bfloat16),
+                  residual=jnp.asarray(rng.standard_normal((M, K)),
+                                       jnp.bfloat16))
+    want_x_out = prologue != "none"
+    want = j_qm.quant_matmul(x, jqt, layer=1, norm_eps=1e-5,
+                             want_x_out=want_x_out, **kw)
+    got = t_qm.quant_matmul(to_torch(x), tqt, 1, norm_eps=1e-5,
+                            want_x_out=want_x_out,
+                            **{k: to_torch(v) for k, v in kw.items()})
+    if want_x_out:
+        (want, want_x), (got, got_x) = want, got
+        np.testing.assert_array_equal(to_numpy(got_x),
+                                      np.asarray(want_x, np.float32))
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    # the same bf16 products summed in float32 in another order, then one
+    # bf16 rounding (int4: plus the TPU's N-pair difference of dots)
+    _assert_bf16_close(to_numpy(got), want)
+
+
+# ------------------------------------------------ K9 (flash prefill)
+
+FLASH_CASES = {
+    # B, T, Hq, Hkv, S, D, starts, window, softcap
+    "gqa_tail": (2, 40, 4, 2, 256, 64, (0, 37), 0, 0.0),
+    "window_history": (1, 64, 2, 1, 256, 64, (100,), 50, 0.0),
+    "softcap": (1, 32, 4, 4, 256, 128, (10,), 0, 20.0),
+}
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_k9_plain_matches_jax_kernel(case, kv):
+    """GQA (Hkv < Hq), a window, a softcap, history offsets and a partial
+    tail tile (T = 40 over 32-row blocks), over each cache kind, called as
+    tests/test_flash_attention.py calls the TPU kernel."""
+    B, T, Hq, Hkv, S, D, starts, window, softcap = FLASH_CASES[case]
+    rng = np.random.default_rng(len(case) + len(kv))
+    L = 2
+    q = jnp.asarray(rng.standard_normal((B, T, Hq, D)), jnp.bfloat16)
+    ks = vs = None
+    if kv == "int4":
+        k, ks, v, vs = _int4_cache(rng, L, B, Hkv, S, D)
+    elif kv == "int8":
+        kq, ks = j_quant.quantize_kv(jnp.asarray(
+            rng.standard_normal((L, B, Hkv, S, D)), jnp.float32))
+        vq, vs = j_quant.quantize_kv(jnp.asarray(
+            rng.standard_normal((L, B, Hkv, S, D)), jnp.float32))
+        k, v = kq, vq
+        ks, vs = ks[..., 0].transpose(0, 1, 3, 2), vs[..., 0].transpose(
+            0, 1, 3, 2)                                 # [L, B, S, Hkv]
+    else:
+        k = jnp.asarray(rng.standard_normal((L, B, Hkv, S, D)), jnp.bfloat16)
+        v = jnp.asarray(rng.standard_normal((L, B, Hkv, S, D)), jnp.bfloat16)
+    pos = np.stack([s + np.arange(T) for s in starts]).astype(np.int32)
+    want = j_flash.flash_attention(q, k, v, 1, jnp.asarray(pos),
+                                   logit_softcap=softcap,
+                                   sliding_window=window, k_scale=ks,
+                                   v_scale=vs, block_t=32, block_s=128)
+    opt = lambda a: None if a is None else to_torch(a)   # noqa: E731
+    got = t_flash.flash_attention(to_torch(q), to_torch(k), to_torch(v), 1,
+                                  torch.from_numpy(pos),
+                                  logit_softcap=softcap,
+                                  sliding_window=window, k_scale=opt(ks),
+                                  v_scale=opt(vs))
+    assert got.shape == (B, T, Hq, D) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got).all()
+    # bf16 output; p (times the V scale) rounds to bf16 against the
+    # running max of 128-slot blocks on the TPU and of 64-slot blocks
+    # here (float32 p over an int4 cache): a few bf16 steps of |out| <= ~3
     np.testing.assert_allclose(to_numpy(got), np.asarray(want, np.float32),
                                atol=2e-2, rtol=0)

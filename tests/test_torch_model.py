@@ -1,9 +1,11 @@
 """The port's LLaMA forward against the JAX package's, on the CPU, in the
-port's two configurations at tiny width: int8 weights with an int8
-lm_head over a 128-slot bf16 cache (K1-K3), and int4 g=128 weights with
-an int4 lm_head over a 256-slot int8 cache (K1 int4, K4, K2 int8, K6).
-The JAX side runs its Pallas kernels in interpret mode and the port its
-plain versions."""
+port's configurations at tiny width: int8 weights with an int8 lm_head
+over a 128-slot bf16 cache (K1-K3), int4 g=128 weights with an int4
+lm_head over a 256-slot int8 cache (K1 int4, K4, K2 int8, K6) and over an
+int4 cache prefilled by the JAX package (K5, the int4 decode write), and
+the attention dispatch (decode kernel, flash or plain attend). The JAX
+side runs its Pallas kernels in interpret mode and the port its plain
+versions."""
 
 import dataclasses
 
@@ -17,13 +19,14 @@ from llm_inference_tpu.config import QuantConfig as JQuantConfig
 from llm_inference_tpu.config import tiny_llama as j_tiny_llama
 from llm_inference_tpu.models import llama as j_llama
 from llm_inference_tpu.ops import kvcache as j_kv
+from llm_inference_tpu.ops import quantization as j_quant
 
 from llm_inference_tpu_torch.config import QuantConfig, tiny_llama
 from llm_inference_tpu_torch.models import llama
-from llm_inference_tpu_torch.ops import kvcache
+from llm_inference_tpu_torch.ops import kvcache, quantization
 from llm_inference_tpu_torch.ops.quantization import QTensor
 
-from torch_bridge import to_numpy_tree
+from torch_bridge import cache_to_torch, to_numpy_tree
 
 S = 128
 # logits leave the lm_head kernel as bf16: one bf16 step of |logit| ≲ 1 is
@@ -276,6 +279,43 @@ def test_int4_int8kv_prefill_and_decode_match_jax(models4, T):
         nxt = nxt + 1
 
 
+def test_decode_over_a_bridged_int4_cache_matches_jax(models4):
+    """A prompt prefilled by the JAX package into an int4 cache, carried
+    across with the test bridge: two decode steps (K5 and the int4 decode
+    write, plain versions here, Pallas in interpret mode there) from the
+    same cache agree, and so do the caches they leave."""
+    jcfg, cfg, jprep, tprep = models4
+    ids, pos, last = _inputs(cfg, B=2, T=16, seed=8)
+    jc = j_kv.init_cache(cfg.num_layers, 2, cfg.num_kv_heads, S4,
+                         cfg.head_dim, "int4")
+    jlog, jc = j_llama.forward(jcfg, jprep, jnp.asarray(ids),
+                               jnp.asarray(pos), jc,
+                               last_idx=jnp.asarray(last))
+    tc = cache_to_torch(jc)
+    assert tc.bits == 4 and tc.k.shape[-1] == cfg.head_dim // 2
+    tok = np.argmax(np.asarray(jlog), -1).astype(np.int32)
+    nxt = (last + 1).astype(np.int32)
+    for _ in range(2):
+        jlog, jc = j_llama.forward(jcfg, jprep, jnp.asarray(tok[:, None]),
+                                   jnp.asarray(nxt[:, None]), jc)
+        tlog, tc = llama.forward(cfg, tprep, torch.from_numpy(tok[:, None]),
+                                 torch.from_numpy(nxt[:, None]), tc)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
+                                   atol=LOGIT_ATOL, rtol=0)
+        tok = np.argmax(np.asarray(jlog), -1).astype(np.int32)
+        nxt = nxt + 1
+    # the decode writes: int4 codes of bf16 K rows that may differ by a
+    # rounding step move by at most one code (of 15 steps), scales alike
+    rows = np.arange(2)
+    for name in ("k", "v"):
+        got = quantization.unpack_kv4(getattr(tc, name)).numpy()
+        want = np.asarray(j_quant.unpack_kv4(getattr(jc, name)))
+        assert np.abs(got.astype(np.int32) - want).max() <= 1
+    np.testing.assert_allclose(tc.k_scale.numpy()[:, rows, nxt - 1],
+                               np.asarray(jc.k_scale)[:, rows, nxt - 1],
+                               rtol=2e-2)
+
+
 def test_quantize_params_int4_matches_jax():
     """int4 g=128 quantize_params + prepare_params give the JAX package's
     codes and scales, fused columns [q|k|v] and [gate|up] included."""
@@ -313,3 +353,53 @@ def test_init_params_quantized_int4_serves():
     logits, _ = llama.forward(cfg, p, ids, ids, c)
     assert logits.shape == (1, cfg.vocab_size)
     assert torch.isfinite(logits).all() and c.k_scale[:, 0, :5].all()
+
+
+# --------------------------------------- attention dispatch, long prompts
+
+@pytest.mark.parametrize("B,T,Hq,D,S,quantized", [
+    (2, 1, 4, 64, 256, False), (1, 1, 4, 64, 200, False),
+    (1, 1, 4, 32, 256, True), (1, 128, 32, 128, 512, False),
+    (1, 512, 4, 64, 2048, True), (2, 1024, 32, 128, 4096, False),
+    (1, 8, 4, 128, 1 << 17, False), (1, 7, 4, 128, 1 << 18, True),
+    (1, 512, 4, 64, 2000, False), (1, 2048, 4, 256, 4096, True)])
+def test_attention_route_matches_jax_dispatch(B, T, Hq, D, S, quantized):
+    """decode_attention (K2/K5), flash (K9) or the plain attend exactly
+    where the JAX package's cached_attention (llama.py:670-690) picks its
+    decode kernel, its flash kernel or its jnp path."""
+    from llm_inference_tpu.ops.pallas import decode_attention as j_dec
+    from llm_inference_tpu.ops.pallas import flash_attention as j_flash
+    q = (B, T, Hq, D)
+    if T == 1 and j_dec.supports(q, S):
+        want = "decode"
+    elif j_flash.supports(q, S, quantized):
+        want = "flash"
+    else:
+        want = "attend"
+    assert llama.attention_route(q, S, quantized) == want
+
+
+@pytest.mark.parametrize("T,S,want", [(1, 256, "decode"), (16, 256, "attend"),
+                                      (512, 2048, "flash")])
+def test_cached_attention_calls_the_routed_path(monkeypatch, T, S, want):
+    from llm_inference_tpu_torch.ops import attention
+    from llm_inference_tpu_torch.ops.kernels import decode_attention
+    from llm_inference_tpu_torch.ops.kernels import flash_attention
+    cfg = tiny_llama(head_dim=64)
+    called = []
+    for mod, name, route in ((decode_attention, "decode_attention",
+                              "decode"),
+                             (flash_attention, "flash_attention", "flash"),
+                             (attention, "attend", "attend")):
+        monkeypatch.setattr(mod, name, lambda *a, _r=route, **k:
+                            called.append(_r) or a[0])
+    B = 1
+    q = torch.zeros((B, T, cfg.num_heads, 64))
+    kv = torch.zeros((B, T, cfg.num_kv_heads, 64))
+    cache = kvcache.init_cache(1, B, cfg.num_kv_heads, S, 64, "int4")
+    pos = torch.arange(T, dtype=torch.int32)[None]
+    mask = (attention.make_attention_mask(pos, S) if want == "attend"
+            else None)
+    llama.cached_attention(cfg, q, kv, kv, cache, 0, pos, pos[:, 0], mask)
+    assert called == [want]
+

@@ -1,6 +1,6 @@
 """PyTorch port vs the JAX package: quantization, norms, RoPE, attention,
-activations, embedding, sampling filters and the KV cache, on the CPU,
-with inputs made from a numpy seed."""
+activations, embedding, sampling filters and the KV cache (bf16, int8 and
+int4), on the CPU, with inputs made from a numpy seed."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -251,13 +251,61 @@ def test_attend_int8_cache_matches_jax(window, softcap, G):
 
 
 def test_attend_quantized_cache_raises():
-    # an int4-packed cache (two dims per byte) is not ported yet
+    # codes that are neither D (int8) nor D/2 (packed int4) wide, and codes
+    # without their scales, are refused
     q = torch.zeros((1, 1, 2, 16))
-    k = torch.zeros((1, 2, 8, 8), dtype=torch.int8)
+    k = torch.zeros((1, 2, 8, 4), dtype=torch.int8)
     s = torch.ones((1, 8, 2))
     mask = torch.ones((1, 1, 1, 8), dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         attention.attend(q, k, k, mask, k_scale=s, v_scale=s)
+    codes = torch.zeros((1, 2, 8, 16), dtype=torch.int8)
+    with pytest.raises(ValueError):
+        attention.attend(q, codes, codes, mask)
+
+
+def test_quantize_kv4_bit_identical():
+    x = (_rng(27).standard_normal((2, 5, 3, 64)) * 4).astype(np.float32)
+    x[0, 1, 2] = 0.0                                  # scale 1e-8, codes 0
+    x[1, 0, 0, :4] = [7.0, 0.5, 1.5, -2.5]            # ties round to even
+    x[1, 0, 0, 32:34] = [-7.0, 3.5]                   # high half too
+    jq, js = j_quant.quantize_kv4(jnp.asarray(x))
+    tq, ts = quantization.quantize_kv4(torch.from_numpy(x))
+    assert tq.dtype == torch.int8 and tq.shape == (2, 5, 3, 32)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(quantization.unpack_kv4(tq).numpy(),
+                                  np.asarray(j_quant.unpack_kv4(jq)))
+    np.testing.assert_array_equal(
+        quantization.dequantize_kv4(tq, ts, torch.float32).numpy(),
+        np.asarray(j_quant.dequantize_kv4(jq, js, jnp.float32)))
+
+
+@pytest.mark.parametrize("window,softcap,G", [(0, 0.0, 2), (6, 0.0, 1),
+                                              (0, 20.0, 4)])
+def test_attend_int4_cache_matches_jax(window, softcap, G):
+    rng = _rng(28)
+    B, T, Hkv, S, D = 2, 5, 2, 24, 16
+    q = jnp.asarray(rng.standard_normal((B, T, Hkv * G, D)), jnp.bfloat16)
+    kq, ks = j_quant.quantize_kv4(jnp.asarray(
+        rng.standard_normal((B, S, Hkv, D)), jnp.float32))
+    vq, vs = j_quant.quantize_kv4(jnp.asarray(
+        rng.standard_normal((B, S, Hkv, D)), jnp.float32))
+    k, v = kq.transpose(0, 2, 1, 3), vq.transpose(0, 2, 1, 3)   # [B,H,S,D/2]
+    ks, vs = ks[..., 0], vs[..., 0]
+    vs = vs.at[:, -3:].set(jnp.inf)                   # never attendable
+    pos = np.stack([np.arange(T) + 3, np.arange(T) + 10]).astype(np.int32)
+    mask = j_attention.make_attention_mask(jnp.asarray(pos), S, window)
+    want = j_attention.attend(q, k, v, mask, logit_softcap=softcap,
+                              k_scale=ks, v_scale=vs)
+    got = attention.attend(to_torch(q), to_torch(k), to_torch(v),
+                           to_torch(mask), logit_softcap=softcap,
+                           k_scale=to_torch(ks), v_scale=to_torch(vs))
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    # as the int8 cache: bf16 output of the same products, float32 sums in
+    # another order (one bf16 step of |out| <= ~2)
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want, np.float32),
+                               atol=1e-2, rtol=0)
 
 
 # ------------------------------------------------- activations, embedding
@@ -385,6 +433,42 @@ def test_int8_cache_write_matches_jax(T):
 
 
 def test_quantized_cache_raises():
-    # int8 caches are ported; int4-packed ones are not yet
-    with pytest.raises(NotImplementedError):
-        kvcache.init_cache(1, 1, 1, 8, 8, "int4")
+    # an int4 cache packs two dims per byte: an odd head_dim is refused
+    with pytest.raises(ValueError):
+        kvcache.init_cache(1, 1, 1, 8, 7, "int4")
+
+
+def test_init_cache_int4_matches_jax():
+    """Packed codes [L, B, Hkv, S, D/2] int8 and slot-major float32 scales
+    [L, B, S, Hkv], bits 4 (kvcache.py:99-104)."""
+    jc = j_kv.init_cache(2, 3, 4, 16, 64, "int4")
+    tc = kvcache.init_cache(2, 3, 4, 16, 64, "int4")
+    assert tc.bits == jc.bits == 4 and tc.quantized and tc.max_seq_len == 16
+    for name in ("k", "v", "k_scale", "v_scale"):
+        t, j = getattr(tc, name), np.asarray(getattr(jc, name))
+        assert t.shape == j.shape and str(t.dtype)[6:] == str(j.dtype)
+        assert not t.any()
+
+
+@pytest.mark.parametrize("T", [5, 1])
+def test_int4_cache_write_matches_jax(T):
+    """Prefill (T > 1: quantize_kv4 and slice writes) and decode (T = 1:
+    quantize_kv4, K3 on the packed rows and the scale write, plain
+    versions) into an int4 cache give the JAX package's codes and scales
+    bit for bit (its decode path runs write_token and write_token_scales
+    in interpret mode)."""
+    rng = _rng(29)
+    L, B, Hkv, S, D = 2, 3, 2, 16, 64
+    kn = (rng.standard_normal((B, T, Hkv, D)) * 2).astype(np.float32)
+    vn = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    off = np.array([0, 4, 14], np.int32)     # the last clamps
+    jc = j_kv.init_cache(L, B, Hkv, S, D, "int4")
+    jc = j_kv.update_cache_layer(jc, jnp.int32(1), jnp.asarray(kn),
+                                 jnp.asarray(vn), jnp.asarray(off))
+    tc = kvcache.init_cache(L, B, Hkv, S, D, "int4")
+    kvcache.update_cache_layer(tc, 1, torch.from_numpy(kn),
+                               torch.from_numpy(vn), torch.from_numpy(off))
+    for name in ("k", "v", "k_scale", "v_scale"):
+        np.testing.assert_array_equal(getattr(tc, name).numpy(),
+                                      np.asarray(getattr(jc, name)))
+    assert tc.k[1].any() and tc.k_scale[1].any() and not tc.k[0].any()

@@ -1,11 +1,13 @@
-"""Test helper (not collected): hands the JAX package's parameters and
-arrays to the PyTorch port through numpy.
+"""Test helper (not collected): hands the JAX package's parameters,
+KV caches and arrays to the PyTorch port through numpy.
 
 JAX QTensors become {"q", "scale", "bits"} (un-blocked with
 quantization.from_blocked): int8 row-major codes [..., K, N] with float32
 scales [..., 1, N], or split-half packed int4 codes [..., K/2, N] (one
 pack block) with float32 scales [..., G, N] — the form
-`llm_inference_tpu_torch.models.llama.params_from_numpy` takes.
+`llm_inference_tpu_torch.models.llama.params_from_numpy` takes. A JAX
+KVCache (bf16, int8, or packed int4 codes with slot-major float32 scales)
+becomes the port's KVCache in the same layout (`cache_to_torch`).
 """
 
 from __future__ import annotations
@@ -47,3 +49,13 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.numpy()
+
+
+def cache_to_torch(cache):
+    """The JAX package's dense KVCache → the port's KVCache on the CPU:
+    codes (packed int8 pairs for bits 4) and scales as they are."""
+    from llm_inference_tpu_torch.ops.kvcache import KVCache
+    scales = [None if a is None else to_torch(a)
+              for a in (cache.k_scale, cache.v_scale)]
+    return KVCache(k=to_torch(cache.k), v=to_torch(cache.v),
+                   k_scale=scales[0], v_scale=scales[1], bits=cache.bits)
