@@ -24,16 +24,27 @@ The paths: (i) int8 per-channel weights and lm_head over a bf16 KV cache
 (K1, K8 int8, K9 bf16, K2 bf16, K3), (ii) int4 g=128 weights and lm_head
 over an int8 KV cache (K1, K8 int4, K9 int8, K2 int8, K4, K6), (iii) the
 same weights over an int4 KV cache (K1, K8 int4, K9 int4, K5, K3 on packed
-rows and the scale write, K6). Every check raises on failure. The line
-before the last is a JSON object with one entry per kernel and path; the
-last is {"ok": true, "device": {...}}. Imports nothing of JAX or the JAX
-package.
+rows and the scale write, K6), and (iv) the continuous-batching
+schedulers on the weights of (ii): phase 2 holds K10a (bf16 and int8
+pages), K10b (int4 pages) and K11 (three bodies) to their plain versions
+over scattered pages; phase 3 runs a 2-layer model through the paged
+forward (a fresh prefill, a chunk over history, decode steps) for each
+pool kind; phase 4 serves 8 slots through ContinuousBatchingScheduler
+(dense int8 KV) and PagedScheduler (paged int8 KV with and without the
+prefix cache, on a full pool and on a 26-page one that forces
+preemption, and paged int4 and bf16 KV), checks each run's launches
+against the forwards it made and its streams against a reference run,
+and prints tokens/s, TTFT, inter-token latency and the schedulers'
+counters. Every check raises on failure. The line before the last is a
+JSON object with one entry per kernel and path; the last is {"ok": true,
+"device": {...}}. Imports nothing of JAX or the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -46,13 +57,16 @@ if not torch.cuda.is_available():
 
 from llm_inference_tpu_torch.config import (EngineConfig, GenerationConfig,
                                             QuantConfig, llama2_7b)
+from llm_inference_tpu_torch.engine import scheduler
 from llm_inference_tpu_torch.engine.engine import InferenceEngine
 from llm_inference_tpu_torch.models import llama
-from llm_inference_tpu_torch.ops import kvcache
+from llm_inference_tpu_torch.ops import kvcache, paged_kvcache
 from llm_inference_tpu_torch.ops.kernels import _build
 from llm_inference_tpu_torch.ops.kernels import decode_attention as k2
 from llm_inference_tpu_torch.ops.kernels import flash_attention as k9
 from llm_inference_tpu_torch.ops.kernels import kv_write as k3
+from llm_inference_tpu_torch.ops.kernels import paged_attention as k10
+from llm_inference_tpu_torch.ops.kernels import paged_flash as k11
 from llm_inference_tpu_torch.ops.kernels import quant_matmul as k1
 from llm_inference_tpu_torch.ops.quantization import dequantize, unpack_kv4
 
@@ -777,20 +791,23 @@ REQUESTS = (  # (name, prompt lengths, max_new_tokens, long engine)
 )
 REPEATS = 3       # timed passes over the requests
 BUCKETS = (32, 128)                 # the short requests' engine
-COUNTERS = ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "K9", "KS")
+COUNTERS = ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "K9", "KS", "K10a",
+            "K10b", "K11")
 
 
 def counts():
     return dict(K1=k1.launches, K2=k2.launches, K3=k3.launches,
                 K4=k3.quant_launches, K5=k2.int4_launches,
                 K6=k1.tail_launches, K8=k1.tiled_launches, K9=k9.launches,
-                KS=k3.scale_launches)
+                KS=k3.scale_launches, K10a=k10.launches,
+                K10b=k10.int4_launches, K11=k11.launches)
 
 
 def zero_counts():
     k1.launches = k1.tail_launches = k1.tiled_launches = 0
     k2.launches = k2.int4_launches = k9.launches = 0
     k3.launches = k3.quant_launches = k3.scale_launches = 0
+    k10.launches = k10.int4_launches = k11.launches = 0
 
 
 def prefill_chunks(eng, lens):
@@ -806,39 +823,46 @@ def prefill_chunks(eng, lens):
     return out
 
 
+def forward_launches(want, weights, cache_dtype, batch, rows, S, ps=0,
+                     history=False):
+    """Add one forward's kernel launches to `want`: batch x rows tokens
+    over an S-slot dense cache (ps = 0) or a paged one of page size ps
+    (history: a chunk over earlier pages). The projections run K8 above
+    128 rows and K1 below: wqkv in every layer, and wo, gate-up, down
+    unless the layer tail is K6 (int4 weights, <= 32 rows); lm_head is K1
+    on the batch's last rows; attention is K9, K2 or K5, K10a, K10b or K11
+    where llama.attention_route says (plain otherwise). A dense decode
+    step also writes the cache: K3 (bf16), K4 (int8), or K3 on packed rows
+    and the scale write (int4); prefill and every paged write are plain
+    PyTorch."""
+    M = batch * rows
+    tail = weights == "int4" and M <= TAIL_MAX_ROWS
+    want["K8" if M > K1_MAX_ROWS else "K1"] += (1 if tail else 4) * L
+    want["K6"] += L if tail else 0
+    want["K1"] += 1
+    int4 = cache_dtype == "int4"
+    route = llama.attention_route(
+        (batch, rows, CFG.num_heads, CFG.head_dim), S, cache_dtype != BF16,
+        ps, history)
+    kernel = {"flash": "K9", "decode": "K5" if int4 else "K2",
+              "paged_flash": "K11",
+              "paged_decode": "K10b" if int4 else "K10a"}.get(route)
+    if kernel:
+        want[kernel] += L
+    if rows == 1 and not ps:
+        for c in {BF16: ("K3",), "int8": ("K4",),
+                  "int4": ("K3", "KS")}[cache_dtype]:
+            want[c] += L
+
+
 def expected_launches(weights, cache_dtype, chunks, S, steps):
     """Kernel launches of one generate call over an S-slot cache: prefill
-    forwards of (batch, rows) `chunks`, then `steps` decode forwards.
-    Per forward over M = batch x rows, the projections run K8 above 128
-    rows and K1 below: wqkv in every layer, and wo, gate-up, down unless
-    the layer tail is K6 (int4 weights, <= 32 rows); lm_head is K1 on the
-    batch's last rows; attention is K9, K2 or K5 where
-    llama.attention_route says (plain otherwise). Decode steps also write
-    the cache: K3 (bf16), K4 (int8), or K3 on packed rows and the scale
-    write (int4); prefill writes in plain PyTorch."""
+    forwards of (batch, rows) `chunks`, then `steps` decode forwards."""
     want = {c: 0 for c in COUNTERS}
-    quantized = cache_dtype != BF16
-
-    def forward(batch, rows):
-        M = batch * rows
-        tail = weights == "int4" and M <= TAIL_MAX_ROWS
-        want["K8" if M > K1_MAX_ROWS else "K1"] += (1 if tail else 4) * L
-        want["K6"] += L if tail else 0
-        want["K1"] += 1
-        route = llama.attention_route(
-            (batch, rows, CFG.num_heads, CFG.head_dim), S, quantized)
-        if route == "flash":
-            want["K9"] += L
-        elif route == "decode":
-            want["K5" if cache_dtype == "int4" else "K2"] += L
     for batch, rows in chunks:
-        forward(batch, rows)
-    batch = chunks[0][0]
+        forward_launches(want, weights, cache_dtype, batch, rows, S)
     for _ in range(steps):
-        forward(batch, 1)
-    writes = {BF16: ("K3",), "int8": ("K4",), "int4": ("K3", "KS")}
-    for c in writes[cache_dtype]:
-        want[c] += L * steps
+        forward_launches(want, weights, cache_dtype, chunks[0][0], 1, S)
     return want
 
 
@@ -1073,6 +1097,476 @@ def path_int4_kv4(gen, shared):
     ]
 
 
+# ---------------------------------------------------------------- path (iv)
+
+PAGE = 128                    # the paged scheduler's default page size
+NB_LONG = LONG_SEQ // PAGE    # table entries of a 4096-slot sequence
+KV_DTYPE = {"bf16": BF16, "int8": "int8", "int4": "int4"}
+
+
+def paged_pool(gen, kind, L_, P):
+    """Random pools [L_, P, Hkv, PAGE, Dc] of `kind` with scales [L_, P,
+    PAGE, Hkv] (as random_cache). Page 0, the null page that unallocated
+    entries point at, holds NaN (codes or scales), as stale garbage may."""
+    Hkv, D = CFG.num_kv_heads, CFG.head_dim
+    Dc = D // 2 if kind == "int4" else D
+    shape = (L_, P, Hkv, PAGE, Dc)
+    if kind == "bf16":
+        k = torch.randn(shape, generator=gen, device=DEV).to(BF16)
+        v = torch.randn(shape, generator=gen, device=DEV).to(BF16)
+        k[:, 0] = v[:, 0] = float("nan")
+        return k, v, None, None
+    codes = [torch.randint(-128, 128, shape, generator=gen, device=DEV,
+                           dtype=torch.int8) for _ in range(2)]
+    qmax = 7.0 if kind == "int4" else 127.0
+    scales = [torch.rand((L_, P, PAGE, Hkv), generator=gen, device=DEV)
+              * 2.0 / qmax + 1e-3 for _ in range(2)]
+    for sc in scales:
+        sc[:, 0] = float("nan")
+    return codes[0], codes[1], scales[0], scales[1]
+
+
+def scattered_table(B, NB, P, live_blocks, seed):
+    """[B, NB] int32: row b's first live_blocks[b] entries are distinct
+    pages of 1..P-1 in scattered order, the rest the null page."""
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(
+        seed)) + 1
+    pt = torch.zeros((B, NB), dtype=torch.int32)
+    o = 0
+    for b, n in enumerate(live_blocks):
+        pt[b, :n] = perm[o:o + n]
+        o += n
+    return pt
+
+
+def gathered(c, s, pt, layer, kind):
+    """The library yardstick's input: one layer's pages gathered densely
+    through the table (as models.llama._gather_paged), dequantized to bf16
+    [B, Hkv, NB x PAGE, D]."""
+    codes = k10.gather_pages(c, pt, layer)
+    if s is None:
+        return codes
+    vals = unpack_kv4(codes) if kind == "int4" else codes
+    sc = k10.gather_scales(s, pt, layer)
+    return (vals.float() * sc.transpose(1, 2)[..., None]).to(BF16)
+
+
+def k10_cases(gen, kind):
+    """K10a (bf16, int8 pages) or K10b (int4 pages) over 4096 slots (32
+    table entries of 128) of scattered pages: B = 1 at pos 3060 (K2's and
+    K5's long case, so the cost of paging shows) and B = 8 at mixed
+    positions, one of them at the last slot. Library yardstick: the pages
+    gathered and dequantized (models.llama._gather_paged), then
+    scaled_dot_product_attention."""
+    Hq, Hkv, D = CFG.num_heads, CFG.num_kv_heads, CFG.head_dim
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    L_ = 4
+    first, err_max = None, 0.0
+    for B, positions in ((1, [3060]),
+                         (8, [5, 130, 700, 1500, 2047, 2600, 3060, 4095])):
+        live = [p // PAGE + 1 for p in positions]
+        P = sum(live) + 1
+        k, v, ks, vs = paged_pool(gen, kind, L_, P)
+        pt = scattered_table(B, NB_LONG, P, live, SEED + B).to(DEV)
+        q = torch.randn((B, 1, Hq, D), generator=gen, device=DEV).to(BF16)
+        pos = torch.tensor(positions, dtype=torch.int32, device=DEV)
+        sc = dict(k_scale=ks, v_scale=vs)
+        got = k10.paged_attention(q, k, v, pt, 1, pos, **sc)
+        want = k10.paged_attention_ref(q, k, v, pt, 1, pos, D ** -0.5,
+                                       **sc).reshape(got.shape)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        # as K2/K5: p rounds against another running max (int4: float32
+        # p on both sides), float32 sums in another order; a few bf16
+        # steps (2^-8 relative) of the largest output
+        tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+        name = "K10b" if kind == "int4" else "K10a"
+        check(bool(torch.isfinite(got).all()) and err <= tol,
+              f"{name} {kind} B={B}: max err {err} > {tol} or non-finite")
+        err_max = max(err_max, err)
+        ms = time_ms(lambda i: k10.paged_attention(q, k, v, pt, i % L_, pos,
+                                                   **sc))
+        plain = plain_ms(lambda i: k10.paged_attention_ref(
+            q, k, v, pt, i % L_, pos, D ** -0.5, **sc))
+        n = max(positions) + 1
+        mask = (torch.arange(n, device=DEV)[None, :]
+                <= pos[:, None].long())[:, None, None, :]
+        gqa = {"enable_gqa": True} if Hq != Hkv else {}
+        lib = time_ms(lambda i: sdpa(
+            q.transpose(1, 2), gathered(k, ks, pt, i % L_, kind)[:, :, :n],
+            gathered(v, vs, pt, i % L_, kind)[:, :, :n], attn_mask=mask,
+            **gqa))
+        nbytes = (sum(attn_bytes(kind, Hkv, p + 1) for p in positions)
+                  + 2 * q.numel() * 2 + pt.numel() * 4 + B * 4)
+        flops = sum(4 * Hq * (p + 1) * D for p in positions)
+        bnd, by = bound_ms(nbytes, flops)
+        say(f"  {name} {kind} pages B={B} pos={positions} err {err:.3g} (tol "
+            f"{tol:.3g})  kernel {ms:.4f} ms  bound {bnd:.5f} ms ({by})  "
+            f"plain {plain:.3f} ms  gather+sdpa {lib:.4f} ms")
+        if first is None:
+            first = dict(ms=ms, plain=plain, lib=lib, bound=bnd, by=by)
+        del k, v, ks, vs
+    return first, err_max
+
+
+def k11_cases(gen, kind):
+    """K11 on a 1024-row chunk at positions 2048-3071 over paged history
+    (the case of K9's second chunk; 24 scattered pages of a 32-entry
+    table). Library yardstick: the pages gathered and dequantized, then
+    scaled_dot_product_attention with the causal mask."""
+    Hq, Hkv, D = CFG.num_heads, CFG.num_kv_heads, CFG.head_dim
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    L_ = 4
+    T, start = CHUNK // 2, CHUNK
+    live = start + T
+    P = live // PAGE + 1
+    k, v, ks, vs = paged_pool(gen, kind, L_, P)
+    pt = scattered_table(1, NB_LONG, P, [live // PAGE], SEED + 11).to(DEV)
+    q = torch.randn((1, T, Hq, D), generator=gen, device=DEV).to(BF16)
+    pos = (start + torch.arange(T, device=DEV, dtype=torch.int32))[None]
+    sc = dict(k_scale=ks, v_scale=vs)
+    got = k11.paged_flash_attention(q, k, v, pt, 1, pos, **sc)
+    want = k11.paged_flash_ref(q, k, v, pt, 1, pos, D ** -0.5, **sc)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    # as K9: the same 64-slot blocks and rounding points, float32 sums in
+    # another order (int4: p in two bf16 parts): a few bf16 steps
+    tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+    check(bool(torch.isfinite(got).all()) and err <= tol,
+          f"K11 {kind}: max err {err} > {tol} or non-finite")
+    del got, want
+    ms = time_ms(lambda i: k11.paged_flash_attention(q, k, v, pt, i % L_, pos,
+                                                     **sc), reps=10)
+    plain = plain_ms(lambda i: k11.paged_flash_ref(q, k, v, pt, i % L_, pos,
+                                                   D ** -0.5, **sc))
+    mask = torch.arange(live, device=DEV)[None, :] <= pos[0, :, None].long()
+    gqa = {"enable_gqa": True} if Hq != Hkv else {}
+    lib = time_ms(lambda i: sdpa(
+        q.transpose(1, 2), gathered(k, ks, pt, i % L_, kind)[:, :, :live],
+        gathered(v, vs, pt, i % L_, kind)[:, :, :live], attn_mask=mask,
+        **gqa), reps=10)
+    pairs = sum(range(start + 1, start + T + 1))
+    nbytes = (attn_bytes(kind, Hkv, live) + 2 * q.numel() * 2 + T * 4
+              + pt.numel() * 4)
+    bnd, by = bound_ms(nbytes, 4 * Hq * D * pairs)
+    say(f"  K11 {kind} pages T={T} positions {start}-{start + T - 1} err "
+        f"{err:.3g} (tol {tol:.3g})  kernel {ms:.4f} ms  bound {bnd:.4f} ms "
+        f"({by})  plain {plain:.3f} ms  gather+sdpa {lib:.4f} ms "
+        f"({4 * Hq * D * pairs / ms / 1e9:.0f} TFLOP/s)")
+    del k, v, ks, vs
+    return dict(ms=ms, plain=plain, lib=lib, bound=bnd, by=by), err
+
+
+def phase_paged_parity(qcfg, kinds):
+    """A 2-layer LLaMA-2-7B-width model through the paged forward, CPU
+    plain versions vs GPU kernels, over a pool of each kind with
+    scattered pages: a 256-token fresh prefill at B = 4 (plain attention
+    over the fresh rows), a 256-row chunk over those pages (K11; rows end
+    at different lengths), then 8 decode steps at mixed positions (K10)."""
+    cfg = dataclasses.replace(CFG, num_layers=2)
+    cpu = torch.device("cpu")
+    p_cpu = llama.prepare_params(llama.init_params_quantized(
+        cfg, qcfg, seed=SEED + 2, device=cpu))
+    p_gpu = llama.params_to(p_cpu, DEV)
+    for kind in kinds:
+        say(f"phase 3: 2-layer LLaMA-2-7B-width {qcfg.weights} model, "
+            f"paged {kind} pool, CPU plain vs GPU kernels")
+        paged_parity(cfg, {cpu: p_cpu, DEV: p_gpu}, kind)
+
+
+def paged_parity(cfg, params, kind):
+    cpu = torch.device("cpu")
+    B, T, NB = 4, 256, 8
+    P = B * NB + 1
+    pt = scattered_table(B, NB, P, [NB] * B, SEED + 12)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    ids = torch.randint(1, cfg.vocab_size, (B, 2 * T), generator=gen,
+                        dtype=torch.int32)
+    lengths = torch.tensor([256, 200, 131, 77])
+    caches = {}
+    for dev in (cpu, DEV):
+        c = paged_kvcache.init_paged_cache(
+            cfg.num_layers, P, cfg.num_kv_heads, PAGE, cfg.head_dim, B, NB,
+            KV_DTYPE[kind], device=dev)
+        caches[dev] = dataclasses.replace(c, page_table=pt.to(dev))
+    check(llama.attention_route((B, T, cfg.num_heads, cfg.head_dim),
+                                NB * PAGE, kind != "bf16", PAGE, True)
+          == "paged_flash" and llama.attention_route(
+              (B, 1, cfg.num_heads, cfg.head_dim), NB * PAGE,
+              kind != "bf16", PAGE) == "paged_decode",
+          "phase 3: the paged routes must take K11 and K10")
+    errs, scale, finite = [], 0.0, []
+
+    def step(ids_, pos_, last=None, hist=False):
+        nonlocal scale
+        out = {}
+        for dev in (cpu, DEV):
+            out[dev], caches[dev] = llama.forward(
+                cfg, params[dev], ids_.to(dev), pos_.to(dev), caches[dev],
+                last_idx=None if last is None else last.to(dev),
+                paged_history=hist)
+        finite.append(bool(torch.isfinite(out[cpu]).all())
+                      and bool(torch.isfinite(out[DEV]).all()))
+        errs.append((out[DEV].cpu() - out[cpu]).abs().max().item())
+        scale = max(scale, out[cpu].abs().max().item())
+        return out[cpu]
+
+    with torch.no_grad():
+        before = counts()
+        pos = torch.arange(T, dtype=torch.int32)[None].repeat(B, 1)
+        step(ids[:, :T], pos)
+        logits = step(ids[:, T:], pos + T, lengths - 1, hist=True)
+        nxt = (T + lengths).to(torch.int32)[:, None]
+        for _ in range(8):
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            logits = step(tok, nxt)
+            nxt = nxt + 1
+        d = {c: n - before[c] for c, n in counts().items()}
+    k10_name = "K10b" if kind == "int4" else "K10a"
+    check(d["K11"] == cfg.num_layers and d[k10_name] == 8 * cfg.num_layers,
+          f"phase 3: the paged chunk and steps did not run K11 and K10: {d}")
+    tol = 4 * 2.0 ** -8 * scale           # as phase 3 of the dense paths
+    say(f"  logits max err per step (fresh prefill, history chunk, 8 "
+        f"decode steps) {['%.4f' % e for e in errs]} (tol {tol:.4f}, max "
+        f"|logit| {scale:.3f})")
+    check(all(finite), "paged parity: non-finite logits")
+    check(max(errs) <= tol, f"paged parity: {max(errs)} > {tol}")
+
+
+SCHED_NEW = 64                        # new tokens of every served request
+SMALL_POOL = 26                       # pages of run (b'): 25 usable, the
+                                      # 3000-token request needs 24
+GEN_SERVE = GenerationConfig(greedy=True, max_new_tokens=SCHED_NEW,
+                             eos_token_ids=())
+
+
+def serving_prompts():
+    """16 distinct 128-token prompts, 16 that share a 256-token prefix and
+    end in 128 distinct tokens, and one 3000-token prompt."""
+    gen = torch.Generator().manual_seed(SEED + 5)
+
+    def rand(n):
+        return torch.randint(1, CFG.vocab_size, (n,), generator=gen).tolist()
+    distinct = [rand(128) for _ in range(16)]
+    shared = rand(256)
+    return distinct, [shared + rand(128) for _ in range(16)], rand(3000)
+
+
+def compare_streams(got, want, tol=2e-2):
+    """(compared, total, largest |difference| of the compared tokens'
+    logprobs): the greedy tokens of `got` equal those of `want` step by
+    step. Two streams may part only at a near-tie, a step where want's
+    top-2 logprob gap is below tol; the comparison of that request ends
+    there. A near-tie where both picked the same token leaves them in
+    step (the logits are bf16: exact ties are common), so the comparison
+    goes on past it. Raises where the streams part at a wider gap."""
+    compared = total = 0
+    diff = 0.0
+    for g, w in zip(got, want):
+        check(len(g.output_ids) == len(w.output_ids) == SCHED_NEW,
+              "served stream length")
+        total += len(w.output_ids)
+        for j, top in enumerate(w.output_top_logprobs):
+            if g.output_ids[j] != w.output_ids[j]:
+                gap = top[0][1] - top[1][1]
+                check(gap < tol, f"request {w.req_id} step {j}: "
+                      f"{g.output_ids[:j + 1]} vs {w.output_ids[:j + 1]} "
+                      f"at a top-2 gap of {gap}")
+                break
+            diff = max(diff, abs(g.output_logprobs[j]
+                                 - w.output_logprobs[j]))
+            compared += 1
+    return compared, total, diff
+
+
+def pct(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p / 100 * len(xs)))]
+
+
+def serve_scheduler(name, eng, weights, kv, make, first, rest):
+    """Serve `first` (admitted alone: one step), then `rest`, through the
+    scheduler `make()` builds, greedy with top-2 logprobs; every count is
+    zeroed just before and read just after. Checks the launches against
+    the forwards the run made (each forward's shapes and route, recorded
+    by a wrapper that also checks the logits are finite on the device),
+    and that every logprob is finite. Returns (requests, counts, the
+    scheduler's preemptions and prefix hit tokens)."""
+    log = []
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    fwd = eng._forward
+
+    def recorded(ids, positions, cache, last_idx, paged_history=False):
+        logits, cache = fwd(ids, positions, cache, last_idx, paged_history)
+        finite.logical_and_(torch.isfinite(logits).all())
+        paged = isinstance(cache, paged_kvcache.PagedKVCache)
+        log.append((ids.shape[0], ids.shape[1],
+                    cache.max_blocks * cache.page_size if paged
+                    else cache.max_seq_len,
+                    cache.page_size if paged else 0, paged_history))
+        return logits, cache
+    eng._forward = recorded
+    sched = make()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    reqs = [sched.submit(p, SCHED_NEW, top_logprobs=2) for p in first]
+    if first:
+        sched.step()
+    reqs += [sched.submit(p, SCHED_NEW, top_logprobs=2) for p in rest]
+    while sched.step():
+        pass
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    del eng._forward
+    want = {c: 0 for c in COUNTERS}
+    for rec in log:
+        forward_launches(want, weights, kv, *rec)
+    check(got == want, f"{name}: launches {got} != expected {want}")
+    check(bool(finite.item()), f"{name}: a forward gave non-finite logits")
+    check(all(math.isfinite(x) for r in reqs for x in r.output_logprobs)
+          and all(math.isfinite(v) for r in reqs
+                  for top in r.output_top_logprobs for _, v in top),
+          f"{name}: non-finite logprobs")
+    check(all(len(r.output_ids) == SCHED_NEW for r in reqs),
+          f"{name}: stream length")
+    tokens = sum(len(r.output_ids) for r in reqs)
+    ttft = [r.ttft_s * 1e3 for r in reqs]
+    itl = [(r.done_t - r.first_token_t) * 1e3 / (len(r.output_ids) - 1)
+           for r in reqs]
+    store = getattr(sched, "store", None)
+    say(f"  {name}: {len(reqs)} requests, {tokens} tokens in {wall:.2f} s "
+        f"= {tokens / wall:.1f} tok/s; TTFT p50 {pct(ttft, 50):.1f} / p95 "
+        f"{pct(ttft, 95):.1f} ms; inter-token p50 {pct(itl, 50):.2f} ms; "
+        f"phase_s {({k: round(v, 3) for k, v in sched.phase_s.items()})} "
+        f"phase_n {sched.phase_n}; preemptions "
+        f"{getattr(sched, 'preemptions', 0)}; prefix hit tokens "
+        f"{store.hit_tokens if store else 0}; forwards {len(log)}; "
+        f"launches { {c: n for c, n in got.items() if n} }")
+    stats = dict(preemptions=getattr(sched, "preemptions", 0),
+                 hits=store.hit_tokens if store else 0)
+    del sched
+    torch.cuda.empty_cache()
+    return reqs, got, stats
+
+
+def phase_serving(params):
+    """Phase 4 of path (iv): full-depth LLaMA-2-7B int4 g=128, 8 slots,
+    greedy with top-2 logprobs, 64 new tokens a request."""
+    say("phase 4: ContinuousBatchingScheduler and PagedScheduler, "
+        "LLaMA-2-7B int4 g=128, 8 slots")
+    distinct, sharing, long = serving_prompts()
+
+    def engine(kv, max_seq):
+        return InferenceEngine(CFG, params, engine_cfg=EngineConfig(
+            max_seq_len=max_seq, max_batch_size=8, page_size=PAGE),
+            cache_dtype=KV_DTYPE[kv], device=DEV)
+
+    def paged(eng, **kw):
+        return lambda: scheduler.PagedScheduler(eng, GEN_SERVE, **kw)
+    engines = {kv: engine(kv, LONG_SEQ) for kv in ("int8", "int4", "bf16")}
+    # warm-up outside the counts: a long and a short prompt on each pool
+    for eng in engines.values():
+        s = scheduler.PagedScheduler(eng, dataclasses.replace(
+            GEN_SERVE, max_new_tokens=4), prefix_cache=True)
+        s.run([long[:300], distinct[0][:100], sharing[0]])
+        del s
+    torch.cuda.synchronize()
+    total = {c: 0 for c in COUNTERS}
+    by_kind = {kv: {c: 0 for c in COUNTERS} for kv in engines}
+
+    def add(kv, got):
+        for c, n in got.items():
+            total[c] += n
+            by_kind[kv][c] += n
+    dense = engine("int8", MAX_SEQ)
+    got_a, n, _ = serve_scheduler(
+        "(a) ContinuousBatchingScheduler, dense int8 KV", dense, "int4",
+        "int8", lambda: scheduler.ContinuousBatchingScheduler(dense,
+                                                              GEN_SERVE),
+        [], distinct)
+    add("int8", n)
+    del dense
+    e8 = engines["int8"]
+    ref, n, _ = serve_scheduler(
+        "reference: paged int8 KV, no prefix cache, full pool", e8, "int4",
+        "int8", paged(e8), [long], distinct + sharing)
+    add("int8", n)
+    got_b, n, st_b = serve_scheduler(
+        "(b) paged int8 KV, prefix cache, full pool", e8, "int4", "int8",
+        paged(e8, prefix_cache=True), [long], distinct + sharing)
+    add("int8", n)
+    got_b2, n, st_b2 = serve_scheduler(
+        f"(b') paged int8 KV, prefix cache, {SMALL_POOL}-page pool", e8,
+        "int4", "int8", paged(e8, prefix_cache=True, num_pages=SMALL_POOL),
+        [long], distinct + sharing)
+    add("int8", n)
+    check(st_b["hits"] > 0 and st_b2["hits"] > 0,
+          "(b), (b'): the prefix store reported no hit tokens")
+    check(st_b2["preemptions"] > 0, "(b'): no request was preempted")
+    gaps = sorted(top[0][1] - top[1][1] for r in ref
+                  for top in r.output_top_logprobs)
+    say(f"  reference top-2 logprob gaps: median {pct(gaps, 50):.4f}, "
+        f"{sum(g < 2e-2 for g in gaps)} of {len(gaps)} below 0.02")
+    for what, got, want in (("(b)", got_b, ref), ("(b')", got_b2, ref),
+                            ("(a) dense", got_a, ref[1:17])):
+        c, t, diff = compare_streams(got, want)
+        say(f"  {what} vs reference: {c} of {t} tokens compared, equal; "
+            f"their logprobs differ by at most {diff:.4f}")
+        # the dense run differs in more than rounding (another attention
+        # path, other batch shapes): its streams may part sooner
+        check(2 * c >= t or what.startswith("(a)"),
+              f"{what}: fewer than half the tokens compared")
+    for kv in ("int4", "bf16"):
+        eng = engines[kv]
+        _, n, st = serve_scheduler(
+            f"(c) paged {kv} KV, prefix cache", eng, "int4", kv,
+            paged(eng, prefix_cache=True), [long],
+            distinct[:4] + sharing[:4])
+        add(kv, n)
+        check(st["hits"] > 0, f"(c) {kv}: no prefix hit tokens")
+    used = ("K1", "K2", "K4", "K6", "K8", "K10a", "K10b", "K11")
+    check(all(total[c] > 0 for c in used), f"a kernel never ran: {total}")
+    del engines
+    return by_kind
+
+
+def path_paged(gen, shared):
+    """Path (iv): continuous batching over the paged KV cache on the int4
+    weights of path (ii)."""
+    say("path (iv): schedulers over paged KV pools, LLaMA-2-7B int4 g=128 "
+        "(the weights of path (ii))")
+    say("phase 2 (paged pools): K10a, K10b and K11 vs plain versions on the "
+        "card, LLaMA-2-7B shapes")
+    k10_r = {kind: k10_cases(gen, kind) for kind in ("bf16", "int8", "int4")}
+    k11_r = {kind: k11_cases(gen, kind) for kind in ("bf16", "int8", "int4")}
+    phase_paged_parity(QCFG4, ("int8", "int4", "bf16"))
+    by_kind = phase_serving(shared["params"])
+    out = []
+    for kind in ("bf16", "int8", "int4"):
+        name = "K10b" if kind == "int4" else "K10a"
+        r, err = k10_r[kind]
+        out.append(dict(entry(
+            f"{name} paged_attention ({kind} pages)", "decode_attention.cu",
+            "paged_attention.py:" + ("209" if kind == "int4" else "271"),
+            by_kind[kind][name], err, r, L,
+            f"32 layers of one decode step at B=1, pos 3060, over 32 "
+            f"scattered pages of 128 slots"),
+            library="gather of the pages (models.llama._gather_paged), "
+                    "dequantize, scaled_dot_product_attention"))
+    for kind in ("bf16", "int8", "int4"):
+        r, err = k11_r[kind]
+        out.append(dict(entry(
+            f"K11 paged_flash_attention ({kind} pages)", "flash_attention.cu",
+            "paged_flash.py:56", by_kind[kind]["K11"], err, r, L,
+            "32 layers of a 1024-row chunk at positions 2048-3071 over 24 "
+            "scattered pages of 128 slots, B=1"),
+            library="gather of the pages (models.llama._gather_paged), "
+                    "dequantize, scaled_dot_product_attention"))
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     phase_card()
@@ -1084,6 +1578,9 @@ def main():
     kernels += more
     say(f"path (ii) done at {time.perf_counter() - t_start:.1f} s")
     kernels += path_int4_kv4(gen, shared)
+    say(f"path (iii) done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    kernels += path_paged(gen, shared)
     del shared
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

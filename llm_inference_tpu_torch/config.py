@@ -1,7 +1,7 @@
 """Configuration dataclasses of the PyTorch port.
 
 The port's own copy of the parts of the JAX package's
-`llm_inference_tpu/config.py` that this slice reads (ModelConfig,
+`llm_inference_tpu/config.py` that the port reads (ModelConfig,
 QuantConfig, EngineConfig, GenerationConfig, llama2_7b, tiny_llama): the
 port imports nothing of the JAX package. Field names and defaults match
 it; fields of families and features not ported yet are added with them.
@@ -89,10 +89,20 @@ class EngineConfig:
     """Serving-engine knobs."""
 
     max_seq_len: int = 2048
+    # Decode slots of the continuous-batching schedulers.
+    max_batch_size: int = 8
     # Prefill length buckets (token counts).
     prefill_buckets: Sequence[int] = (128, 256, 512, 1024, 2048)
     # Decode steps run on the device between two host syncs.
     decode_chunk: int = 8
+    # Paged KV cache page size in tokens; 0 = the scheduler's default, 128.
+    page_size: int = 0
+    # Requests the schedulers queue before submit refuses more.
+    max_queued_requests: int = 256
+    # Largest per-request top-k of the batched decode (its sort width).
+    max_top_k: int = 64
+    # Dispatch decode chunk k + 1 before fetching chunk k's tokens.
+    pipeline_harvest: bool = True
 
 
 @dataclass(frozen=True)

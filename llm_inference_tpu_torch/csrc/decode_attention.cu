@@ -39,6 +39,18 @@
 // so the whole step stays one launch. The wrapper takes NSPLIT from the
 // cache length: one block a head per 512 slots, at most 16.
 //
+// K10a and K10b replace llm_inference_tpu/ops/pallas/paged_attention.py:
+// _paged_attn (_kernel; bf16 and int8 pages) and _paged_attn4 (_kernel4;
+// packed int4 pages): the same function over a paged pool. They are this
+// template with the paged address policy (PagedAddr): slot s of sequence
+// b lives in pool page page_table[b][s / ps] at row s % ps, codes
+// [P, Hkv, ps, Dc], scales [P, ps, Hkv]. The page is looked up per slot;
+// everything else (the per-kind bodies, the split over slots and its
+// merge) is shared with K2/K5. The slot count is S = NB x ps and a
+// position past it clamps to S - 1, so a retired row whose position ran
+// past its table never reads beyond its own table row (the TPU kernel
+// clamps the block only to pos / ps).
+//
 // Bound on the H100 SXM (3.35 TB/s): the kernel must read the live K and
 // V rows once. At LLaMA-2-7B (Hkv = 32, D = 128, bf16), B = 1 and
 // pos = 192 that is 2 x 32 x 193 x 256 bytes = 3.2 MB per layer, about
@@ -53,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "kv_addr.cuh"
 
 namespace {
 
@@ -141,19 +155,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int D, int KIND>
+template <int D, int KIND, typename Addr>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
-                   const void* __restrict__ k,            // [B, Hkv, S, Dc]
+                   const void* __restrict__ k,     // codes, laid out as addr
                    const void* __restrict__ v,
-                   const float* __restrict__ ks,          // [B, S, Hkv] or
-                   const float* __restrict__ vs,          // null (bf16)
+                   const float* __restrict__ ks,   // scales as addr, or
+                   const float* __restrict__ vs,   // null (bf16)
                    const int* __restrict__ pos,           // [B]
                    __nv_bfloat16* __restrict__ out,       // [B, Hkv, G, D]
                    float* __restrict__ part,    // [B, Hkv, NSPLIT, G, D + 2]
                    int* __restrict__ done,      // [B, Hkv], zero between launches
-                   int Hkv, int G, int S, float scale, float softcap,
-                   int window, int nsplit) {
+                   Addr addr, int Hkv, int G, int S, float scale,
+                   float softcap, int window, int nsplit) {
   constexpr int PER_LANE = D / 32;
   constexpr bool kQuant = KIND != kBf16;
   // bytes of a cache row, and of this lane's part of it
@@ -183,11 +197,8 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
 
   const size_t head = (size_t)b * Hkv + h;
   const int lane_off = (KIND == kInt4 ? lane % 16 : lane) * LANE_BYTES;
-  const uint8_t* kh = (const uint8_t*)k + head * S * ROW + lane_off;
-  const uint8_t* vh = (const uint8_t*)v + head * S * ROW + lane_off;
-  // this sequence's scale column of head h: element s at [s * Hkv]
-  const float* ksh = kQuant ? ks + (size_t)b * S * Hkv + h : nullptr;
-  const float* vsh = kQuant ? vs + (size_t)b * S * Hkv + h : nullptr;
+  const uint8_t* kb = (const uint8_t*)k + lane_off;
+  const uint8_t* vb = (const uint8_t*)v + lane_off;
 
   float qr[kMaxG][PER_LANE];
 #pragma unroll
@@ -212,11 +223,13 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
     for (int u = 0; u < kUnroll; ++u) {
       ksc[u] = vsc[u] = 1.f;
       if (s0 + u <= hi) {
-        load_kv<PER_LANE, KIND>(kh + (size_t)(s0 + u) * ROW, lane, kf[u]);
-        load_kv<PER_LANE, KIND>(vh + (size_t)(s0 + u) * ROW, lane, vf[u]);
+        const size_t r = addr.row(b, h, s0 + u) * ROW;
+        load_kv<PER_LANE, KIND>(kb + r, lane, kf[u]);
+        load_kv<PER_LANE, KIND>(vb + r, lane, vf[u]);
         if constexpr (kQuant) {
-          ksc[u] = ksh[(size_t)(s0 + u) * Hkv];
-          vsc[u] = vsh[(size_t)(s0 + u) * Hkv];
+          const size_t si = addr.scale(b, h, s0 + u);
+          ksc[u] = ks[si];
+          vsc[u] = vs[si];
         }
       }
     }
@@ -316,39 +329,68 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
   if (threadIdx.x == 0) done[head] = 0;     // ready for the next launch
 }
 
-template <int D, int KIND>
+template <int D, int KIND, typename Addr>
 int launch_t(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* pos, void* out, void* part,
-             void* done, int B, int Hkv, int G, int S, float scale,
-             float softcap, int window, int nsplit, cudaStream_t stream) {
+             void* done, Addr addr, int B, int Hkv, int G, int S,
+             float scale, float softcap, int window, int nsplit,
+             cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)kWarps * G * (D + 2);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_attn_kernel<D, KIND>,
+        decode_attn_kernel<D, KIND, Addr>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid(Hkv, B, nsplit);
-  decode_attn_kernel<D, KIND><<<grid, kWarps * 32, smem, stream>>>(
+  decode_attn_kernel<D, KIND, Addr><<<grid, kWarps * 32, smem, stream>>>(
       (const __nv_bfloat16*)q, k, v, (const float*)ks, (const float*)vs,
-      (const int*)pos, (__nv_bfloat16*)out, (float*)part, (int*)done, Hkv,
-      G, S, scale, softcap, window, nsplit);
+      (const int*)pos, (__nv_bfloat16*)out, (float*)part, (int*)done, addr,
+      Hkv, G, S, scale, softcap, window, nsplit);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename Addr>
 int launch(int kind, const void* q, const void* k, const void* v,
            const void* ks, const void* vs, const void* pos, void* out,
-           void* part, void* done, int B, int Hkv, int G, int S, float scale,
-           float softcap, int window, int nsplit, cudaStream_t stream) {
+           void* part, void* done, Addr addr, int B, int Hkv, int G, int S,
+           float scale, float softcap, int window, int nsplit,
+           cudaStream_t stream) {
   if (kind == kInt8)
-    return launch_t<D, kInt8>(q, k, v, ks, vs, pos, out, part, done, B, Hkv,
-                              G, S, scale, softcap, window, nsplit, stream);
+    return launch_t<D, kInt8>(q, k, v, ks, vs, pos, out, part, done, addr, B,
+                              Hkv, G, S, scale, softcap, window, nsplit,
+                              stream);
   if (kind == kInt4)
-    return launch_t<D, kInt4>(q, k, v, ks, vs, pos, out, part, done, B, Hkv,
-                              G, S, scale, softcap, window, nsplit, stream);
-  return launch_t<D, kBf16>(q, k, v, ks, vs, pos, out, part, done, B, Hkv,
-                            G, S, scale, softcap, window, nsplit, stream);
+    return launch_t<D, kInt4>(q, k, v, ks, vs, pos, out, part, done, addr, B,
+                              Hkv, G, S, scale, softcap, window, nsplit,
+                              stream);
+  return launch_t<D, kBf16>(q, k, v, ks, vs, pos, out, part, done, addr, B,
+                            Hkv, G, S, scale, softcap, window, nsplit, stream);
+}
+
+template <typename Addr>
+int dispatch(int kind, const void* q, const void* k, const void* v,
+             const void* ks, const void* vs, const void* pos, void* out,
+             void* part, void* done, Addr addr, int B, int Hkv, int G, int S,
+             int D, float scale, float softcap, int window, int nsplit,
+             cudaStream_t st) {
+  if (G < 1 || G > kMaxG || kind < kBf16 || kind > kInt4 || nsplit < 1 ||
+      (nsplit > 1 && (!part || !done)) ||
+      (kind != kBf16) != (ks != nullptr) || (ks == nullptr) != (vs == nullptr))
+    return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 64:
+      return launch<64>(kind, q, k, v, ks, vs, pos, out, part, done, addr, B,
+                        Hkv, G, S, scale, softcap, window, nsplit, st);
+    case 128:
+      return launch<128>(kind, q, k, v, ks, vs, pos, out, part, done, addr,
+                         B, Hkv, G, S, scale, softcap, window, nsplit, st);
+    case 256:
+      return launch<256>(kind, q, k, v, ks, vs, pos, out, part, done, addr,
+                         B, Hkv, G, S, scale, softcap, window, nsplit, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -368,22 +410,26 @@ extern "C" int decode_attn_launch(const void* q, const void* k,
                                   int G, int S, int D, int kind, int nsplit,
                                   float scale, float softcap, int window,
                                   void* stream) {
-  if (G < 1 || G > kMaxG || kind < kBf16 || kind > kInt4 || nsplit < 1 ||
-      (nsplit > 1 && (!part || !done)) ||
-      (kind != kBf16) != (ks != nullptr) || (ks == nullptr) != (vs == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 64:
-      return launch<64>(kind, q, k, v, ks, vs, pos, out, part, done, B, Hkv,
-                        G, S, scale, softcap, window, nsplit, st);
-    case 128:
-      return launch<128>(kind, q, k, v, ks, vs, pos, out, part, done, B,
-                         Hkv, G, S, scale, softcap, window, nsplit, st);
-    case 256:
-      return launch<256>(kind, q, k, v, ks, vs, pos, out, part, done, B,
-                         Hkv, G, S, scale, softcap, window, nsplit, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(kind, q, k, v, ks, vs, pos, out, part, done,
+                  DenseAddr{Hkv, S}, B, Hkv, G, S, D, scale, softcap, window,
+                  nsplit, (cudaStream_t)stream);
+}
+
+// K10a/K10b: as decode_attn_launch, over one layer of a paged pool: k/v
+// point at the layer's codes [P, Hkv, ps, Dc], ks/vs at its float32 scales
+// [P, ps, Hkv] (or null), pt at the page table [B, NB] int32; the slot
+// count is NB * ps.
+extern "C" int paged_decode_attn_launch(const void* q, const void* k,
+                                        const void* v, const void* ks,
+                                        const void* vs, const void* pt,
+                                        const void* pos, void* out,
+                                        void* part, void* done, int B,
+                                        int Hkv, int G, int NB, int ps, int D,
+                                        int kind, int nsplit, float scale,
+                                        float softcap, int window,
+                                        void* stream) {
+  if (NB < 1 || ps < 1 || !pt) return (int)cudaErrorInvalidValue;
+  return dispatch(kind, q, k, v, ks, vs, pos, out, part, done,
+                  PagedAddr{Hkv, NB, ps, (const int*)pt}, B, Hkv, G, NB * ps,
+                  D, scale, softcap, window, nsplit, (cudaStream_t)stream);
 }

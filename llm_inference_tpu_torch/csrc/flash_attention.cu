@@ -45,11 +45,21 @@
 // way in, so a NaN left in a retired slot cannot reach the product. Known
 // weakness: one K/V buffer, so loads and products of a block do not
 // overlap within a block (other resident blocks hide part of it).
+//
+// K11 replaces llm_inference_tpu/ops/pallas/paged_flash.py:_paged_flash
+// (which shares _flash_body/_flash_body4 with K9): the same function over
+// a paged pool, for prefix-cache suffixes and the later chunks of a long
+// paged admission. It is this kernel with the paged address policy
+// (kv_addr.cuh PagedAddr): a 64-slot K/V tile lies inside one page (the
+// page size is a multiple of 64), so the page is looked up once per tile
+// and the tile's rows are contiguous in the pool, as a dense head's are.
+// The slot count is NB x page size.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "kv_addr.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -115,17 +125,17 @@ __device__ __forceinline__ void store_int4(__nv_bfloat16* lo,
   dh[1] = make_uint4(ph[4], ph[5], ph[6], ph[7]);
 }
 
-template <int D, int KIND>
+template <int D, int KIND, typename Addr>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
-             const void* __restrict__ k,            // layer [B, Hkv, S, Dc]
+             const void* __restrict__ k,     // one layer's codes, as addr
              const void* __restrict__ v,
-             const float* __restrict__ ks,          // layer [B, S, Hkv]
-             const float* __restrict__ vs,          //   or null (bf16)
+             const float* __restrict__ ks,   // one layer's scales, as addr,
+             const float* __restrict__ vs,   //   or null (bf16)
              const int* __restrict__ pos,           // [B, T]
              __nv_bfloat16* __restrict__ out,       // [B, T, Hq, D]
-             int T, int Hq, int Hkv, int S, float scale, float softcap,
-             int window) {
+             Addr addr, int T, int Hq, int Hkv, int S, float scale,
+             float softcap, int window) {
   constexpr int LD = D + 8;                          // bf16 per shared row
   constexpr bool kQuant = KIND != kBf16;
   constexpr int ROWB = KIND == kBf16 ? 2 * D : KIND == kInt8 ? D : D / 2;
@@ -159,9 +169,6 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
 
   const int s_first = window > 0 ? max(lo_pos - window + 1, 0) / BS : 0;
   const int s_last = hi_pos < 0 ? -1 : min(hi_pos, S - 1) / BS;
-  const size_t head = (size_t)b * Hkv + hk;
-  const uint8_t* kh = static_cast<const uint8_t*>(k) + head * S * ROWB;
-  const uint8_t* vh = static_cast<const uint8_t*>(v) + head * S * ROWB;
 
   float o[D / 8][4];
 #pragma unroll
@@ -172,14 +179,18 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
 
   for (int sb = s_first; sb <= s_last; ++sb) {
     const int sbase = sb * BS;
+    // the tile's 64 rows are contiguous: one address (one page lookup)
+    const size_t trow = addr.row(b, hk, sbase) * ROWB;
+    const uint8_t* kt = static_cast<const uint8_t*>(k) + trow;
+    const uint8_t* vt = static_cast<const uint8_t*>(v) + trow;
     __syncthreads();                   // the previous block's K/V are read
     if constexpr (KIND == kBf16) {
       for (int i = tid; i < BS * (D / 8); i += kThreads) {
         const int r = i / (D / 8), c = (i % (D / 8)) * 8;
         const int slot = sbase + r;
         const int n = slot <= hi_pos ? 16 : 0;     // zero past the frontier
-        mma::cp_async16(Ks + r * LD + c, kh + (size_t)slot * ROWB + 2 * c, n);
-        mma::cp_async16(Vs + r * LD + c, vh + (size_t)slot * ROWB + 2 * c, n);
+        mma::cp_async16(Ks + r * LD + c, kt + (size_t)r * ROWB + 2 * c, n);
+        mma::cp_async16(Vs + r * LD + c, vt + (size_t)r * ROWB + 2 * c, n);
       }
     } else {
       constexpr int VPR = ROWB / 16;               // 16-byte vectors a row
@@ -188,8 +199,8 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
         const int slot = sbase + r;
         uint4 kw = make_uint4(0u, 0u, 0u, 0u), vw = kw;
         if (slot <= hi_pos) {
-          kw = __ldg(reinterpret_cast<const uint4*>(kh + (size_t)slot * ROWB + c));
-          vw = __ldg(reinterpret_cast<const uint4*>(vh + (size_t)slot * ROWB + c));
+          kw = __ldg(reinterpret_cast<const uint4*>(kt + (size_t)r * ROWB + c));
+          vw = __ldg(reinterpret_cast<const uint4*>(vt + (size_t)r * ROWB + c));
         }
         if constexpr (KIND == kInt8) {
           store_int8(Ks + r * LD + c, kw);
@@ -201,7 +212,7 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
       }
       if (tid < BS) {
         const int slot = sbase + tid;
-        const size_t si = ((size_t)b * S + slot) * Hkv + hk;
+        const size_t si = addr.scale(b, hk, sbase) + (size_t)tid * Hkv;
         kss[tid] = ks[si];
         vss[tid] = slot <= hi_pos ? vs[si] : 0.f;
       }
@@ -341,39 +352,63 @@ flash_kernel(const __nv_bfloat16* __restrict__ q,   // [B, T, Hq, D]
   }
 }
 
-template <int D, int KIND>
+template <int D, int KIND, typename Addr>
 int launch_t(const void* q, const void* k, const void* v, const void* ks,
-             const void* vs, const void* pos, void* out, int B, int T,
-             int Hq, int Hkv, int S, float scale, float softcap, int window,
-             cudaStream_t stream) {
+             const void* vs, const void* pos, void* out, Addr addr, int B,
+             int T, int Hq, int Hkv, int S, float scale, float softcap,
+             int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<D, KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_kernel<D, KIND, Addr>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((T + BT - 1) / BT, Hq, B);
-  flash_kernel<D, KIND><<<grid, kThreads, smem, stream>>>(
+  flash_kernel<D, KIND, Addr><<<grid, kThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, k, v, (const float*)ks, (const float*)vs,
-      (const int*)pos, (__nv_bfloat16*)out, T, Hq, Hkv, S, scale, softcap,
-      window);
+      (const int*)pos, (__nv_bfloat16*)out, addr, T, Hq, Hkv, S, scale,
+      softcap, window);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename Addr>
 int launch(int kind, const void* q, const void* k, const void* v,
-           const void* ks, const void* vs, const void* pos, void* out, int B,
-           int T, int Hq, int Hkv, int S, float scale, float softcap,
-           int window, cudaStream_t st) {
+           const void* ks, const void* vs, const void* pos, void* out,
+           Addr addr, int B, int T, int Hq, int Hkv, int S, float scale,
+           float softcap, int window, cudaStream_t st) {
   if (kind == kInt8)
-    return launch_t<D, kInt8>(q, k, v, ks, vs, pos, out, B, T, Hq, Hkv, S,
-                              scale, softcap, window, st);
+    return launch_t<D, kInt8>(q, k, v, ks, vs, pos, out, addr, B, T, Hq, Hkv,
+                              S, scale, softcap, window, st);
   if (kind == kInt4)
-    return launch_t<D, kInt4>(q, k, v, ks, vs, pos, out, B, T, Hq, Hkv, S,
-                              scale, softcap, window, st);
-  return launch_t<D, kBf16>(q, k, v, ks, vs, pos, out, B, T, Hq, Hkv, S,
-                            scale, softcap, window, st);
+    return launch_t<D, kInt4>(q, k, v, ks, vs, pos, out, addr, B, T, Hq, Hkv,
+                              S, scale, softcap, window, st);
+  return launch_t<D, kBf16>(q, k, v, ks, vs, pos, out, addr, B, T, Hq, Hkv,
+                            S, scale, softcap, window, st);
+}
+
+template <typename Addr>
+int dispatch(const void* q, const void* k, const void* v, const void* ks,
+             const void* vs, const void* pos, void* out, Addr addr, int B,
+             int T, int Hq, int Hkv, int S, int D, int kind, float scale,
+             float softcap, int window, cudaStream_t st) {
+  if (B < 1 || T < 1 || Hkv < 1 || Hq % Hkv != 0 || S % BS != 0 ||
+      kind < kBf16 || kind > kInt4 || (kind != kBf16) != (ks != nullptr) ||
+      (ks == nullptr) != (vs == nullptr))
+    return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 64:
+      return launch<64>(kind, q, k, v, ks, vs, pos, out, addr, B, T, Hq, Hkv,
+                        S, scale, softcap, window, st);
+    case 128:
+      return launch<128>(kind, q, k, v, ks, vs, pos, out, addr, B, T, Hq,
+                         Hkv, S, scale, softcap, window, st);
+    case 256:
+      return launch<256>(kind, q, k, v, ks, vs, pos, out, addr, B, T, Hq,
+                         Hkv, S, scale, softcap, window, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -390,22 +425,27 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  int Hq, int Hkv, int S, int D, int kind,
                                  float scale, float softcap, int window,
                                  void* stream) {
-  if (B < 1 || T < 1 || Hkv < 1 || Hq % Hkv != 0 || S % BS != 0 ||
-      kind < kBf16 || kind > kInt4 || (kind != kBf16) != (ks != nullptr) ||
-      (ks == nullptr) != (vs == nullptr))
+  return dispatch(q, k, v, ks, vs, pos, out, DenseAddr{Hkv, S}, B, T, Hq,
+                  Hkv, S, D, kind, scale, softcap, window,
+                  (cudaStream_t)stream);
+}
+
+// K11: as flash_attn_launch, over one layer of a paged pool: k/v point at
+// the layer's codes [P, Hkv, ps, Dc], ks/vs at its float32 scales
+// [P, ps, Hkv] (or null), pt at the page table [B, NB] int32, ps % 64 ==
+// 0; the slot count is NB * ps.
+extern "C" int paged_flash_attn_launch(const void* q, const void* k,
+                                       const void* v, const void* ks,
+                                       const void* vs, const void* pt,
+                                       const void* pos, void* out, int B,
+                                       int T, int Hq, int Hkv, int NB, int ps,
+                                       int D, int kind, float scale,
+                                       float softcap, int window,
+                                       void* stream) {
+  if (NB < 1 || ps < BS || ps % BS != 0 || !pt)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 64:
-      return launch<64>(kind, q, k, v, ks, vs, pos, out, B, T, Hq, Hkv, S,
-                        scale, softcap, window, st);
-    case 128:
-      return launch<128>(kind, q, k, v, ks, vs, pos, out, B, T, Hq, Hkv, S,
-                         scale, softcap, window, st);
-    case 256:
-      return launch<256>(kind, q, k, v, ks, vs, pos, out, B, T, Hq, Hkv, S,
-                         scale, softcap, window, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(q, k, v, ks, vs, pos, out,
+                  PagedAddr{Hkv, NB, ps, (const int*)pt}, B, T, Hq, Hkv,
+                  NB * ps, D, kind, scale, softcap, window,
+                  (cudaStream_t)stream);
 }

@@ -7,8 +7,11 @@ on the device and feeds the next step; the host reads the chunk's tokens
 once. Prompts longer than the largest prefill bucket run as a sequence of
 largest-bucket chunks over one cache. `cache_dtype` is a float dtype (bf16
 cache), torch.int8 / "int8" (int8 codes with slot-major float32 scales) or
-"int4" (packed int4 codes with the same scales). There is no LoRA, mesh or
-paged backend in this slice.
+"int4" (packed int4 codes with the same scales). The continuous-batching
+schedulers (engine/scheduler.py) run on top: they call `prefill` and
+`paged_forward` for admissions and the decode-chunk programs
+(`_decode_chunk_fn`, `_decode_chunk_rows_fn`) over their slots, dense or
+paged. There is no LoRA or mesh: `data_parallel` is 1, `has_lora` False.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from llm_inference_tpu_torch import resolve_device
 from llm_inference_tpu_torch.config import (EngineConfig, GenerationConfig,
                                             ModelConfig)
 from llm_inference_tpu_torch.models import llama
-from llm_inference_tpu_torch.ops import kvcache, sampling
+from llm_inference_tpu_torch.ops import kvcache, paged_kvcache, sampling
+from llm_inference_tpu_torch.utils.metrics import Metrics
 
 
 @dataclasses.dataclass
@@ -59,6 +63,7 @@ class InferenceEngine:
                 f"Round up to {-(-S // 128) * 128}.")
         self.device = resolve_device(device)
         self.params = params
+        self.metrics = Metrics()
         self._rope = llama.rope_table(cfg, self.engine_cfg.max_seq_len,
                                       self.device)
 
@@ -103,10 +108,93 @@ class InferenceEngine:
                 out.append(list(p))
         return out
 
-    def _forward(self, ids, positions, cache, last_idx):
+    # no mesh and no LoRA stacks in the port (engine.py:129, 435-441)
+    data_parallel = 1
+    has_lora = False
+
+    def resolve_adapter(self, adapter) -> int:
+        """Adapter name/slot → LoRA stack slot: None is the base model
+        (0); the port has no adapters, so anything else raises."""
+        if adapter is None:
+            return 0
+        raise NotImplementedError("LoRA adapters are not ported yet")
+
+    def _forward(self, ids, positions, cache, last_idx, paged_history=False):
+        """The one forward every path runs: last-token logits [B, V]."""
         return llama.forward(self.cfg, self.params, ids, positions, cache,
                              logits_mode="last", last_idx=last_idx,
-                             rope_tables=self._rope)
+                             rope_tables=self._rope,
+                             paged_history=paged_history)
+
+    def paged_forward(self, history: bool = False) -> Callable:
+        """The forward over a paged cache, f(ids, positions, cache,
+        last_idx) → (logits, cache); history=True attends a chunk over the
+        sequence's earlier pages (engine.py:160-187)."""
+        return lambda ids, positions, cache, last_idx: self._forward(
+            ids, positions, cache, last_idx, paged_history=history)
+
+    def _fwd_for(self, cache) -> Callable:
+        if isinstance(cache, paged_kvcache.PagedKVCache):
+            return self.paged_forward()
+        return self._forward
+
+    @torch.no_grad()
+    def _decode_chunk_fn(self, cache, token, pos, *, steps: int,
+                         gen: GenerationConfig, generator=None):
+        """`steps` decode forwards over every row with static sampling
+        knobs (engine.py:267-310); each step's token feeds the next on the
+        device, with no host sync. token/pos [B]: the last token and its
+        position. Returns (tokens [B, steps] int32, their logprobs [B,
+        steps] float32, cache, token, pos)."""
+        B = token.shape[0]
+        zeros = torch.zeros((B,), dtype=torch.long, device=token.device)
+        fwd = self._fwd_for(cache)
+        toks, lps = [], []
+        for _ in range(steps):
+            logits, cache = fwd(token[:, None], pos[:, None], cache, zeros)
+            token = sampling.sample(logits, generator,
+                                    temperature=gen.temperature,
+                                    top_k=gen.top_k, top_p=gen.top_p,
+                                    greedy=gen.greedy, min_p=gen.min_p)
+            toks.append(token)
+            lps.append(sampling.chosen_logprob(logits, token))
+            pos = pos + 1
+        return (torch.stack(toks, 1), torch.stack(lps, 1), cache, token,
+                pos)
+
+    @torch.no_grad()
+    def _decode_chunk_rows_fn(self, cache, token, pos, temp, topk, topp,
+                              greedy, minp, seeds, *, steps: int,
+                              max_top_k: int, use_top_p: bool = True,
+                              use_min_p: bool = False, top_n: int = 0):
+        """As _decode_chunk_fn with per-row knob tensors [B]
+        (engine.py:329-405, seeded): row b's draw at position p uses the
+        noise of (seeds[b], p) only. With top_n > 0 also returns each
+        step's top_n logprobs and ids [B, steps, top_n], else None.
+        Returns (tokens, logprobs, cache, token, pos, top values, top
+        ids)."""
+        B = token.shape[0]
+        V = self.cfg.vocab_size
+        zeros = torch.zeros((B,), dtype=torch.long, device=token.device)
+        fwd = self._fwd_for(cache)
+        toks, lps, tvs, tis = [], [], [], []
+        for _ in range(steps):
+            logits, cache = fwd(token[:, None], pos[:, None], cache, zeros)
+            token = sampling.sample_per_row(
+                logits, sampling.row_noise(seeds, pos + 1, V), temp, topk,
+                topp, greedy, max_top_k, use_top_p,
+                min_p=minp if use_min_p else None)
+            toks.append(token)
+            lps.append(sampling.chosen_logprob(logits, token))
+            if top_n:
+                tv, ti = sampling.top_logprobs(logits, top_n)
+                tvs.append(tv)
+                tis.append(ti)
+            pos = pos + 1
+        top = ((torch.stack(tvs, 1), torch.stack(tis, 1)) if top_n
+               else (None, None))
+        return (torch.stack(toks, 1), torch.stack(lps, 1), cache, token,
+                pos, *top)
 
     # ------------------------------------------------------------------
     # public API

@@ -16,7 +16,11 @@ The projections are K1 up to 128 rows and K8 above. The KV write is K3
 (bf16 cache), K4 (int8 cache, quantizing) or K3 + the scale write (int4
 cache) at decode. Attention is K2 (K5 over an int4 cache) at decode, K9
 for prefills that flash_attention.supports takes, else the plain `attend`
-(`attention_route`). The layer tail is K6, one launch, for grouped int4
+(`attention_route`). Over a paged cache (ops/paged_kvcache.py) the write
+is plain indexing into the pool and attention is K10a/K10b at decode, K11
+for a chunk over earlier pages (paged_history), the plain `attend` over
+the fresh rows for a first chunk, else a dense gather of the pages and
+the plain `attend`. The layer tail is K6, one launch, for grouped int4
 weights at M ≤ 32 rows (llama.py:802-816), else the matmul chain
 
     wo → gate-up (norm + residual fused) → SwiGLU → down
@@ -38,9 +42,11 @@ import torch
 from llm_inference_tpu_torch import resolve_device
 from llm_inference_tpu_torch.config import ModelConfig, QuantConfig
 from llm_inference_tpu_torch.ops import activations, attention, embedding
-from llm_inference_tpu_torch.ops import kvcache, norms, rope
+from llm_inference_tpu_torch.ops import kvcache, norms, paged_kvcache, rope
 from llm_inference_tpu_torch.ops.kernels import decode_attention
 from llm_inference_tpu_torch.ops.kernels import flash_attention
+from llm_inference_tpu_torch.ops.kernels import paged_attention
+from llm_inference_tpu_torch.ops.kernels import paged_flash
 from llm_inference_tpu_torch.ops.kernels import quant_matmul as qm
 from llm_inference_tpu_torch.ops.linear import matmul, norm_matmul
 from llm_inference_tpu_torch.ops.quantization import (QTensor, cat_columns,
@@ -261,12 +267,29 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Params:
 # Forward
 # ---------------------------------------------------------------------------
 
-def attention_route(q_shape, S: int, quantized: bool) -> str:
-    """Which attention a layer over an S-slot dense cache runs, in the JAX
-    package's order (llama.py:670-690): "decode" (K2, or K5 over an int4
-    cache) for a single step decode_attention.supports takes, else "flash"
-    (K9) where flash_attention.supports takes the prefill, else "attend"
-    (the plain path over a mask)."""
+def attention_route(q_shape, S: int, quantized: bool, page_size: int = 0,
+                    paged_history: bool = False) -> str:
+    """Which attention a layer runs, in the JAX package's order
+    (llama.py:609-690). Over an S-slot dense cache (page_size 0):
+    "decode" (K2, or K5 over an int4 cache) for a single step
+    decode_attention.supports takes, else "flash" (K9) where
+    flash_attention.supports takes the prefill, else "attend" (the plain
+    path over a mask). Over a paged cache of that page size: a single step
+    is "paged_decode" (K10a, or K10b over int4 pages) where
+    paged_attention.supports takes it; a chunk over earlier pages
+    (paged_history) is "paged_flash" (K11) where paged_flash.supports
+    takes it; either falls back to "paged_gather" (the pages gathered
+    densely, then the plain path); a first chunk is "paged_prefill" (the
+    plain path over the fresh rows only)."""
+    if page_size:
+        if q_shape[1] == 1:
+            return ("paged_decode"
+                    if paged_attention.supports(q_shape, page_size)
+                    else "paged_gather")
+        if paged_history:
+            return ("paged_flash" if paged_flash.supports(q_shape, page_size)
+                    else "paged_gather")
+        return "paged_prefill"
     if q_shape[1] == 1 and decode_attention.supports(q_shape, S):
         return "decode"
     if flash_attention.supports(q_shape, S, quantized):
@@ -274,14 +297,74 @@ def attention_route(q_shape, S: int, quantized: bool) -> str:
     return "attend"
 
 
-def cached_attention(cfg: ModelConfig, q, k, v, cache: kvcache.KVCache,
-                     layer: int, positions, write_offsets, mask):
-    """Write this layer's K/V into the dense cache, then attend as
-    `attention_route` says, with a quantized cache's scales; `mask` (from
-    make_attention_mask) is needed on the "attend" route only. q/k/v:
+def _gather_paged(cache: paged_kvcache.PagedKVCache, layer: int):
+    """Every sequence's pages, densely: K/V [B, Hkv, NB·ps, Dc] and, for a
+    quantized pool, scales [B, NB·ps, Hkv] (the paged fallbacks)."""
+    pt = cache.page_table
+    kd = paged_attention.gather_pages(cache.k_pages, pt, layer)
+    vd = paged_attention.gather_pages(cache.v_pages, pt, layer)
+    if not cache.quantized:
+        return kd, vd, None, None
+    return (kd, vd, paged_attention.gather_scales(cache.k_scale, pt, layer),
+            paged_attention.gather_scales(cache.v_scale, pt, layer))
+
+
+def _paged_attention(cfg: ModelConfig, q, k, v,
+                     cache: paged_kvcache.PagedKVCache, layer: int,
+                     positions, write_offsets, mask, route: str):
+    """The paged branch of cached_attention (llama.py:609-666): write the
+    rows into the pool, then attend as `route` says. `mask` is the plain
+    path's: over the T fresh rows for "paged_prefill", over the NB·ps slots
+    for "paged_gather"."""
+    B, T = q.shape[:2]
+    ps = cache.page_size
+    if T == 1:
+        paged_kvcache.write_token(cache, layer, k, v, positions[:, 0])
+    else:
+        # a first chunk starts at position 0 (scheduler invariant); a chunk
+        # over earlier pages writes at its block offset
+        start = None if route == "paged_prefill" else write_offsets // ps
+        paged_kvcache.write_prompt_batch(cache, layer, k, v, T // ps,
+                                         start_blocks=start)
+    softcap = cfg.attn_logit_softcap
+    if route == "paged_decode":
+        return paged_attention.paged_attention(
+            q, cache.k_pages, cache.v_pages, cache.page_table, layer,
+            positions[:, -1], logit_softcap=softcap,
+            window=cfg.sliding_window, k_scale=cache.k_scale,
+            v_scale=cache.v_scale)
+    if route == "paged_flash":
+        return paged_flash.paged_flash_attention(
+            q, cache.k_pages, cache.v_pages, cache.page_table, layer,
+            positions, logit_softcap=softcap,
+            sliding_window=cfg.sliding_window, k_scale=cache.k_scale,
+            v_scale=cache.v_scale)
+    if route == "paged_prefill":
+        return attention.attend(q, k.transpose(1, 2), v.transpose(1, 2),
+                                mask, logit_softcap=softcap)
+    kd, vd, ksd, vsd = _gather_paged(cache, layer)
+    return attention.attend(q, kd, vd, mask, logit_softcap=softcap,
+                            k_scale=ksd, v_scale=vsd)
+
+
+def cached_attention(cfg: ModelConfig, q, k, v, cache, layer: int,
+                     positions, write_offsets, mask,
+                     route: Optional[str] = None):
+    """Write this layer's K/V into the dense or paged cache, then attend
+    as `route` says (by default attention_route's choice for a dense cache
+    or a first paged chunk), with a quantized cache's scales; `mask` (from
+    make_attention_mask) is needed on the plain routes only. q/k/v:
     [B, T, H*, D] (post-RoPE). Returns [B, T, Hq, D]."""
+    paged = isinstance(cache, paged_kvcache.PagedKVCache)
+    if route is None:
+        route = attention_route(
+            q.shape, cache.max_blocks * cache.page_size if paged
+            else cache.max_seq_len, cache.quantized,
+            cache.page_size if paged else 0)
+    if paged:
+        return _paged_attention(cfg, q, k, v, cache, layer, positions,
+                                write_offsets, mask, route)
     kvcache.update_cache_layer(cache, layer, k, v, write_offsets)
-    route = attention_route(q.shape, cache.max_seq_len, cache.quantized)
     if route == "decode":
         return decode_attention.decode_attention(
             q, cache.k, cache.v, layer, positions[:, -1],
@@ -330,15 +413,16 @@ def _fused_qkv_heads(cfg: ModelConfig, layers, l, qkv, cos, sin):
     return qk[:, :, :nq // D], qk[:, :, nq // D:], v
 
 
-def _attend_block(cfg, l, q, k, v, cache, positions, write_offsets, mask):
+def _attend_block(cfg, l, q, k, v, cache, positions, write_offsets, mask,
+                  route):
     B, T = q.shape[:2]
     attn = cached_attention(cfg, q, k, v, cache, l, positions, write_offsets,
-                            mask)
+                            mask, route)
     return attn.reshape(B, T, -1)
 
 
 def _layer_pair(cfg, layers, l, h, d, cache, positions, write_offsets, mask,
-                cos, sin):
+                route, cos, sin):
     """Pair-carry layer: returns (h2, delta) with the residual stream
     h2 and this layer's down-projection output, which the next layer's
     wqkv prologue adds. The tail is K6 where it takes the case."""
@@ -350,7 +434,7 @@ def _layer_pair(cfg, layers, l, h, d, cache, positions, write_offsets, mask,
                          residual=d, want_x_out=True)
     q, k, v = _fused_qkv_heads(cfg, layers, l, qkv, cos, sin)
     attn2d = _attend_block(cfg, l, q, k, v, cache, positions, write_offsets,
-                           mask)
+                           mask, route)
     tail = qm.layer_tail_fused(h, attn2d, layers["wo"], layers["w_gateup"],
                                layers["w_down"], layers["ffn_norm"][l], eps,
                                l)
@@ -367,7 +451,7 @@ def _layer_pair(cfg, layers, l, h, d, cache, positions, write_offsets, mask,
 
 
 def _layer_plain(cfg, layers, l, h, cache, positions, write_offsets, mask,
-                 cos, sin):
+                 route, cos, sin):
     """Unfused layer (separate or dense weights): norm, projections and
     residual adds as separate ops."""
     B, T, _ = h.shape
@@ -390,7 +474,7 @@ def _layer_plain(cfg, layers, l, h, cache, positions, write_offsets, mask,
                            cos, sin)
         v = mm("wv", normed, "bv").reshape(B, T, -1, D)
     attn2d = _attend_block(cfg, l, q, k, v, cache, positions, write_offsets,
-                           mask)
+                           mask, route)
     h = h + mm("wo", attn2d)
     normed = norms.rms_norm(h, layers["ffn_norm"][l], eps)
     if "w_gateup" in layers:
@@ -409,30 +493,44 @@ def rope_table(cfg: ModelConfig, cache_len: int, device
 
 
 def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
-            positions: torch.Tensor, cache: kvcache.KVCache, *,
-            logits_mode: str = "last", last_idx: Optional[torch.Tensor] = None,
-            rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-            ) -> Tuple[Optional[torch.Tensor], kvcache.KVCache]:
-    """Run the decoder over T tokens per sequence, writing the cache in
-    place. ids/positions: [B, T] int. Returns (logits, cache): logits
-    [B, V] float32 for "last" (at last_idx, default T-1), [B, T, V] for
-    "all", the final-norm hidden states for "hidden", None for "none".
-    `rope_tables` (from rope_table) saves rebuilding them per call."""
+            positions: torch.Tensor, cache, *, logits_mode: str = "last",
+            last_idx: Optional[torch.Tensor] = None,
+            rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+            paged_history: bool = False
+            ) -> Tuple[Optional[torch.Tensor], Any]:
+    """Run the decoder over T tokens per sequence, writing the dense
+    (kvcache.KVCache) or paged (paged_kvcache.PagedKVCache) cache in place.
+    ids/positions: [B, T] int. Returns (logits, cache): logits [B, V]
+    float32 for "last" (at last_idx, default T-1), [B, T, V] for "all",
+    the final-norm hidden states for "hidden", None for "none".
+    `rope_tables` (from rope_table) saves rebuilding them per call. Over a
+    paged cache, a prefill chunk (T > 1, a multiple of the page size) is
+    a first chunk from position 0, or with `paged_history` a chunk at a
+    block offset over the sequence's earlier pages."""
     B, T = ids.shape
-    S = cache.max_seq_len
+    paged = isinstance(cache, paged_kvcache.PagedKVCache)
+    ps = cache.page_size if paged else 0
+    # slots a position may address; the RoPE tables need no more
+    S = cache.max_blocks * ps if paged else cache.max_seq_len
     dtype = act_dtype(cfg)
     layers = params["layers"]
     L = layers["attn_norm"].shape[0]
 
     h = embedding.embedding_lookup(params["embed"], ids).to(dtype)
     route = attention_route((B, T, cfg.num_heads, cfg.head_dim), S,
-                            cache.quantized)
-    # the [B, 1, T, S] mask only where the plain path will read it
-    mask = (attention.make_attention_mask(positions, S, cfg.sliding_window)
-            if route == "attend" else None)
+                            cache.quantized, ps, paged_history)
+    # the plain routes' mask: over the fresh rows for a first paged chunk
+    # (llama.py:886), over every slot otherwise
+    mask = None
+    if route in ("attend", "paged_gather", "paged_prefill"):
+        mask = attention.make_attention_mask(
+            positions, T if route == "paged_prefill" else S,
+            cfg.sliding_window)
     write_offsets = positions[:, 0]
     cos, sin = rope_tables or rope_table(cfg, S, ids.device)
-    idx = positions.long()
+    # a retired slot's position keeps growing: clamp the gather, as JAX's
+    # does (its writes and reads clamp at the cache edge)
+    idx = torch.clamp(positions.long(), 0, cos.shape[0] - 1)
     cos, sin = cos[idx], sin[idx]          # gathered once for every layer
 
     if (isinstance(layers.get("wqkv"), QTensor)
@@ -440,12 +538,12 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
         d = torch.zeros_like(h)
         for l in range(L):
             h, d = _layer_pair(cfg, layers, l, h, d, cache, positions,
-                               write_offsets, mask, cos, sin)
+                               write_offsets, mask, route, cos, sin)
         h = h + d
     else:
         for l in range(L):
             h = _layer_plain(cfg, layers, l, h, cache, positions,
-                             write_offsets, mask, cos, sin)
+                             write_offsets, mask, route, cos, sin)
 
     if logits_mode == "none":
         return None, cache

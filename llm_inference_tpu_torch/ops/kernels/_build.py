@@ -39,6 +39,8 @@ SIGNATURES = {
     "layer_tail_launch": [_P] * 13 + [_I] * 7 + [_F, _P],
     "decode_attn_launch": [_P] * 9 + [_I] * 7 + [_F, _F, _I, _P],
     "flash_attn_launch": [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P],
+    "paged_decode_attn_launch": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
+    "paged_flash_attn_launch": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
     "kv_write_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "kv_scale_write_launch": [_P] * 5 + [_I] * 3 + [_P],
     "kv_quant_write_launch": [_P] * 7 + [_I] * 9 + [_P],

@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from llm_inference_tpu_torch import resolve_device
 from llm_inference_tpu_torch.ops.kernels import kv_write
 from llm_inference_tpu_torch.ops.quantization import (quantize_kv,
                                                       quantize_kv4)
@@ -51,9 +52,10 @@ class KVCache:
 
 def init_cache(num_layers: int, batch: int, num_kv_heads: int, max_seq: int,
                head_dim: int, dtype=torch.bfloat16, device=None) -> KVCache:
-    """A zeroed cache; dtype is a float dtype, torch.int8 / "int8" for
-    int8 codes with float32 scales, or "int4" for packed int4 codes with
-    float32 scales."""
+    """A zeroed cache on `device` (the card unless a device is named);
+    dtype is a float dtype, torch.int8 / "int8" for int8 codes with float32
+    scales, or "int4" for packed int4 codes with float32 scales."""
+    device = resolve_device(device)
     shape = (num_layers, batch, num_kv_heads, max_seq, head_dim)
     if dtype in (torch.int8, "int8", "int4"):
         bits = 4 if dtype == "int4" else 8

@@ -1,10 +1,15 @@
-"""Token sampling: greedy, temperature, top-k, top-p, min-p (counterpart
-of `llm_inference_tpu/ops/sampling.py:26-52, 91, 184-206`).
+"""Token sampling: greedy, temperature, top-k, top-p, min-p, with static
+knobs (`sample`) or per-row knob tensors (`sample_per_row`), and logprobs
+(counterpart of `llm_inference_tpu/ops/sampling.py:26-52, 79-206`).
 
-Randomness comes from an explicit `torch.Generator`. It cannot reproduce
-JAX's threefry draws, so the port is held to the JAX package's filtered
-distributions and greedy tokens, not to its sampled ids. Penalties and
-logit_bias wait for a later slice.
+`sample` draws from an explicit `torch.Generator`. The schedulers draw
+with `sample_per_row` over Gumbel noise from `row_noise`, an integer hash
+of (request seed, absolute position, vocab index): a row's draw depends on
+nothing else, not on its batch-mates and not on a generator's state, so a
+preempted request replays the same tokens, on the CPU as on the card.
+Neither reproduces JAX's threefry draws, so the port is held to the JAX
+package's filtered distributions and greedy tokens, not to its sampled
+ids. Penalties and logit_bias wait for a later slice.
 """
 
 from __future__ import annotations
@@ -76,3 +81,94 @@ def chosen_logprob(logits: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
     """log P(token) under softmax(logits): [B, V], [B] → [B] float32."""
     lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     return torch.gather(lp, -1, token[:, None].long())[:, 0]
+
+
+def top_logprobs(logits: torch.Tensor, n: int):
+    """The n most likely tokens under softmax(logits): [B, V] →
+    (logprobs [B, n] float32, ids [B, n] int32)."""
+    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    vals, ids = torch.topk(lp, n, dim=-1)
+    return vals, ids.to(torch.int32)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """An integer hash of int64 values in [0, 2^32) onto the same range.
+    The multiplier is below 2^27, so no product leaves int64."""
+    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
+    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
+    return (x >> 16) ^ x
+
+
+def row_noise(seeds: torch.Tensor, positions: torch.Tensor,
+              vocab: int) -> torch.Tensor:
+    """Gumbel noise [B, vocab] float32 for row b's draw at absolute
+    position positions[b] under seeds[b] (the port's `row_keys`): a hash
+    of (seed, position, vocab index) in int64 ops, so the same on every
+    device and independent of batch-mates."""
+    dev = seeds.device
+    key = _mix32(_mix32(seeds.to(torch.int64) & _M32)
+                 ^ (positions.to(torch.int64) & _M32))
+    v = torch.arange(vocab, dtype=torch.int64, device=dev)
+    h = _mix32((key[:, None] + v[None, :] * 0x9E3779B9) & _M32)
+    # 24 bits → u in (0, 1), exact in float32
+    u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def filter_per_row(logits: torch.Tensor, temperature: torch.Tensor,
+                   top_k: torch.Tensor, top_p: torch.Tensor,
+                   max_top_k: int = 64, use_top_p: bool = True,
+                   min_p: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The float32 logits a sampled row draws from, with per-row knob
+    tensors [B] (sampling.py:146-170): temperature (rows at <= 0 scale by
+    1), then min-p (rows at 0 skip), top-k clamped to max_top_k (rows at 0
+    skip; max_top_k == 0 skips the stage), top-p (rows at 1 skip;
+    use_top_p=False skips the stage). Filtered tokens are NEG_INF."""
+    logits = logits.to(torch.float32)
+    neg = torch.full_like(logits, NEG_INF)
+    t = torch.where(temperature <= 0.0, torch.ones_like(temperature),
+                    temperature).to(torch.float32)[:, None]
+    scaled = logits / t
+    if min_p is not None:
+        thresh = (scaled.amax(dim=-1, keepdim=True)
+                  + torch.log(torch.clamp(min_p.to(torch.float32),
+                                          min=1e-10))[:, None])
+        scaled = torch.where((min_p > 0.0)[:, None] & (scaled < thresh), neg,
+                             scaled)
+    if max_top_k > 0:
+        vals = torch.topk(scaled, min(max_top_k, scaled.shape[-1]),
+                          dim=-1).values
+        k_eff = torch.clamp(top_k.long(), 1, vals.shape[-1]) - 1
+        kth = torch.gather(vals, -1, k_eff[:, None])
+        scaled = torch.where((top_k > 0)[:, None] & (scaled < kth), neg,
+                             scaled)
+    if use_top_p:
+        sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = (cum - probs) < top_p.to(torch.float32)[:, None]
+        num_keep = torch.clamp(keep.sum(dim=-1, keepdim=True), min=1)
+        threshold = torch.gather(sorted_logits, -1, num_keep - 1)
+        scaled = torch.where((top_p < 1.0)[:, None] & (scaled < threshold),
+                             neg, scaled)
+    return scaled
+
+
+def sample_per_row(logits: torch.Tensor, noise: torch.Tensor,
+                   temperature: torch.Tensor, top_k: torch.Tensor,
+                   top_p: torch.Tensor, greedy: torch.Tensor,
+                   max_top_k: int = 64, use_top_p: bool = True,
+                   min_p: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token ids [B] int32 with per-row knobs (sampling.py:107-181):
+    a greedy row (greedy, or temperature <= 0) takes the argmax of the
+    unscaled logits; any other row the Gumbel-max draw
+    argmax(filter_per_row(...) + noise), `noise` [B, V] from row_noise."""
+    arg = torch.argmax(logits.to(torch.float32), dim=-1)
+    scaled = filter_per_row(logits, temperature, top_k, top_p, max_top_k,
+                            use_top_p, min_p)
+    drawn = torch.argmax(scaled + noise, dim=-1)
+    return torch.where(greedy | (temperature <= 0.0), arg, drawn).to(
+        torch.int32)

@@ -2,13 +2,15 @@
 
     python -m llm_inference_tpu_torch.tools.profile_decode [--steps 8]
         [--batch 1] [--prompt 128] [--seed 0] [--weights int8|int4]
-        [--kv bf16|int8|int4]
+        [--kv bf16|int8|int4] [--page-size 0]
 
 Builds LLaMA-2-7B with random weights and lm_head on the GPU (`--weights`:
 int8 per-channel, or int4 with groups of 128), over a bf16, int8 or int4
-KV cache (`--kv`), prefills `--batch` prompts of `--prompt` tokens (the
-cache holds the prompt and the steps, rounded up to a multiple of 128 and
-at least 512 slots), then runs `--steps` decode steps (greedy, the
+KV cache (`--kv`), dense or, with `--page-size`, a paged pool of pages of
+that many tokens (each row's pages in order; the prompt a multiple of the
+page size), prefills `--batch` prompts of `--prompt` tokens (the cache
+holds the prompt and the steps, rounded up to a multiple of 128 and at
+least 512 slots), then runs `--steps` decode steps (greedy, the
 engine's forward) three ways:
   1. wall time per step (host clock, synchronised);
   2. the same steps under torch.profiler (CPU + CUDA activities): device
@@ -38,7 +40,7 @@ from torch.autograd import DeviceType
 
 from llm_inference_tpu_torch.config import QuantConfig, llama2_7b
 from llm_inference_tpu_torch.models import llama
-from llm_inference_tpu_torch.ops import kvcache, sampling
+from llm_inference_tpu_torch.ops import kvcache, paged_kvcache, sampling
 
 
 def _union_us(intervals):
@@ -59,6 +61,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--weights", choices=("int8", "int4"), default="int8")
     ap.add_argument("--kv", choices=("bf16", "int8", "int4"), default="bf16")
+    ap.add_argument("--page-size", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
@@ -75,8 +78,20 @@ def main(argv=None):
     B, T = args.batch, args.prompt
     S = max(512, -(-(T + args.steps + 8) // 128) * 128)
     kv = torch.bfloat16 if args.kv == "bf16" else args.kv
-    cache = kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads, S,
-                               cfg.head_dim, kv, device=dev)
+    ps = args.page_size
+    if ps:
+        if T % ps or S % ps:
+            raise SystemExit(f"--prompt {T} and the {S} slots must be "
+                             f"multiples of --page-size {ps}")
+        NB = S // ps
+        cache = paged_kvcache.init_paged_cache(
+            cfg.num_layers, B * NB + 1, cfg.num_kv_heads, ps, cfg.head_dim,
+            B, NB, kv, device=dev)
+        cache.page_table.copy_(1 + torch.arange(
+            B * NB, device=dev, dtype=torch.int32).reshape(B, NB))
+    else:
+        cache = kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads, S,
+                                   cfg.head_dim, kv, device=dev)
     rope = llama.rope_table(cfg, S, dev)
     g = torch.Generator(device=dev).manual_seed(args.seed)
     ids = torch.randint(1, cfg.vocab_size, (B, T), generator=g, device=dev,
@@ -155,7 +170,7 @@ def main(argv=None):
         print(f"  {k.self_cpu_time_total / 1e3 / args.steps:8.3f} ms  "
               f"{k.count / args.steps:6.1f}x  {k.key[:90]}")
     summary = {"card": smi, "batch": B, "prompt": T, "weights": args.weights,
-               "kv": args.kv, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+               "kv": args.kv, "page_size": ps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
                "idle_share": 1 - busy_ms / wall_ms,
                "host_syncs_per_step": len(syncs),
                "kernels_per_step": len(kernels) / args.steps}

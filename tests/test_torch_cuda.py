@@ -431,3 +431,170 @@ def test_write_token_scales_cuda_matches_plain(cuda):
                              off.to(cuda))
     torch.cuda.synchronize()
     assert torch.equal(kd.cpu(), ks) and torch.equal(vd.cpu(), vs)
+
+
+# ------------------------------------ paged pools (K10a, K10b, K11)
+
+def _paged_pool(g, kind, L, P, Hkv, ps, D):
+    """Random pools [L, P, Hkv, ps, Dc] of `kind` with scales [L, P, ps,
+    Hkv]; page 0 (the null page) holds NaN where the pool is float."""
+    shape = (L, P, Hkv, ps, D)
+    if kind == "bf16":
+        k = torch.randn(shape, generator=g).to(BF16)
+        v = torch.randn(shape, generator=g).to(BF16)
+        k[:, 0] = v[:, 0] = float("nan")
+        return k, v, None, None
+    if kind == "int8":
+        k = torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+        v = torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+    else:
+        (k, _), (v, _) = (quantize_kv4(torch.randn(shape, generator=g))
+                          for _ in range(2))
+    ks = torch.rand((L, P, ps, Hkv), generator=g) * 0.02 + 1e-3
+    vs = torch.rand((L, P, ps, Hkv), generator=g) * 0.02 + 1e-3
+    ks[:, 0] = vs[:, 0] = float("nan")
+    return k, v, ks, vs
+
+
+def _scattered_table(g, B, NB, P, live_blocks):
+    """[B, NB] int32: each row's first live_blocks[b] entries are distinct
+    pages drawn from 1..P-1 in scattered order, the rest the null page."""
+    perm = torch.randperm(P - 1, generator=g) + 1
+    pt = torch.zeros((B, NB), dtype=torch.int32)
+    o = 0
+    for b, n in enumerate(live_blocks):
+        pt[b, :n] = perm[o:o + n]
+        o += n
+    return pt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("G,window,softcap,ps,NB", [
+    (1, 0, 0.0, 128, 32),          # 4096 slots: the split over slots
+    (4, 64, 0.0, 16, 8), (2, 0, 30.0, 128, 4)])
+def test_k10_cuda_matches_plain(cuda, kind, G, window, softcap, ps, NB):
+    """K10a (bf16, int8 pages) and K10b (int4 pages) over scattered pages,
+    one row's position past its table (it clamps to the last slot) and
+    NaN in the null page that unallocated entries point at."""
+    from llm_inference_tpu_torch.ops.kernels import paged_attention as t_pa
+    g = torch.Generator().manual_seed(40 + G + ps)
+    L, B, Hkv, D = 2, 4, 8, 128
+    S = NB * ps
+    pos = torch.tensor([0, S // 3, S - 1, S + 40], dtype=torch.int32)
+    live = [min(int(p) // ps + 1, NB) for p in pos]
+    P = sum(live) + 3
+    k, v, ks, vs = _paged_pool(g, kind, L, P, Hkv, ps, D)
+    pt = _scattered_table(g, B, NB, P, live)
+    q = torch.randn((B, 1, Hkv * G, D), generator=g).to(BF16)
+    kw = dict(logit_softcap=softcap, window=window)
+    want = t_pa.paged_attention(q, k, v, pt, 1, pos, k_scale=ks, v_scale=vs,
+                                **kw)
+    assert torch.isfinite(want).all()
+    dev = [None if t is None else t.to(cuda) for t in (k, v, ks, vs)]
+    before = (t_pa.launches, t_pa.int4_launches)
+    for _ in range(2):             # the merge counters are reset for reuse
+        got = t_pa.paged_attention(q.to(cuda), dev[0], dev[1], pt.to(cuda), 1,
+                                   pos.to(cuda), k_scale=dev[2],
+                                   v_scale=dev[3], **kw)
+        torch.cuda.synchronize()
+        # as K2/K5: a few bf16 steps (2^-8 relative) of the largest output
+        tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+        assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+    int4 = kind == "int4"
+    assert (t_pa.launches, t_pa.int4_launches) == (before[0] + 2 * (not int4),
+                                                   before[1] + 2 * int4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("B,T,Hq,Hkv,starts,NB,window,softcap", [
+    (1, 256, 8, 8, (256,), 8, 0, 0.0),           # history + fresh rows
+    (2, 200, 8, 2, (0, 384), 8, 0, 0.0),         # GQA, a ragged tail
+    (1, 128, 4, 4, (300,), 4, 100, 30.0),        # window, softcap
+])
+def test_k11_cuda_matches_plain(cuda, kind, B, T, Hq, Hkv, starts, NB,
+                                window, softcap):
+    from llm_inference_tpu_torch.ops.kernels import paged_flash as t_pf
+    g = torch.Generator().manual_seed(50 + T + NB)
+    L, D, ps = 2, 128, 128
+    live = [min((s + T - 1) // ps + 1, NB) for s in starts]
+    P = sum(live) + 2
+    k, v, ks, vs = _paged_pool(g, kind, L, P, Hkv, ps, D)
+    pt = _scattered_table(g, B, NB, P, live)
+    q = torch.randn((B, T, Hq, D), generator=g).to(BF16)
+    pos = torch.stack([s + torch.arange(T) for s in starts]).to(torch.int32)
+    kw = dict(logit_softcap=softcap, sliding_window=window)
+    want = t_pf.paged_flash_attention(q, k, v, pt, 1, pos, k_scale=ks,
+                                      v_scale=vs, **kw)
+    assert torch.isfinite(want).all()
+    dev = [None if t is None else t.to(cuda) for t in (k, v, ks, vs)]
+    before = t_pf.launches
+    got = t_pf.paged_flash_attention(q.to(cuda), dev[0], dev[1], pt.to(cuda),
+                                     1, pos.to(cuda), k_scale=dev[2],
+                                     v_scale=dev[3], **kw)
+    torch.cuda.synchronize()
+    assert t_pf.launches == before + 1
+    # as K9: a few bf16 steps (2^-8 relative) of the largest output
+    tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+    assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cache_dtype", ["int8", "int4"])
+def test_paged_scheduler_cuda_matches_cpu(cuda, cache_dtype):
+    """A small PagedScheduler run with prefix sharing and a second chunk,
+    on the card (K1, K8, K10, K11) and on the CPU (plain versions): the
+    greedy streams agree wherever the CPU run's top-2 logprob gap is
+    wide."""
+    from llm_inference_tpu_torch.config import (EngineConfig,
+                                                GenerationConfig,
+                                                QuantConfig, tiny_llama)
+    from llm_inference_tpu_torch.engine.engine import InferenceEngine
+    from llm_inference_tpu_torch.engine.scheduler import PagedScheduler
+    from llm_inference_tpu_torch.models import llama
+    from llm_inference_tpu_torch.ops.kernels import paged_attention as t_pa
+    from llm_inference_tpu_torch.ops.kernels import paged_flash as t_pf
+    cfg = tiny_llama(hidden_size=256, intermediate_size=512, num_heads=4,
+                     num_kv_heads=2, head_dim=128, vocab_size=320,
+                     dtype="bfloat16", max_position_embeddings=1024)
+    params = llama.prepare_params(llama.init_params_quantized(
+        cfg, QuantConfig(weights="int8", quantize_embedding=True), seed=3,
+        device="cpu"))
+    # random weights give near-flat logits (top-2 gaps below 0.01 at this
+    # width); a sharper lm_head makes most of the stream comparable
+    params["lm_head"].scale.mul_(64)
+    g = torch.Generator().manual_seed(4)
+    shared = torch.randint(1, 320, (256,), generator=g).tolist()
+    prompts = [shared + torch.randint(1, 320, (n,), generator=g).tolist()
+               for n in (60, 100, 140)]
+    ecfg = EngineConfig(max_seq_len=1024, decode_chunk=4,
+                        prefill_buckets=(128, 256), max_batch_size=2)
+    runs = {}
+    for dev in ("cpu", cuda):
+        eng = InferenceEngine(cfg, llama.params_to(params, dev),
+                              engine_cfg=ecfg, cache_dtype=cache_dtype,
+                              device=dev)
+        sched = PagedScheduler(eng, GenerationConfig(
+            greedy=True, max_new_tokens=8, eos_token_ids=()),
+            prefix_cache=True)
+        before = (t_pa.launches + t_pa.int4_launches, t_pf.launches)
+        reqs = [sched.submit(p, top_logprobs=2) for p in prompts]
+        while sched.step():
+            pass
+        runs[str(dev)] = reqs
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert t_pa.launches + t_pa.int4_launches > before[0]
+            assert t_pf.launches > before[1]
+            assert sched.store.hit_tokens > 0
+    compared = 0
+    for c, d in zip(runs["cpu"], runs[str(cuda)]):
+        assert len(d.output_ids) == 8
+        for j, top in enumerate(c.output_top_logprobs):
+            if top[0][1] - top[1][1] < 2e-2:
+                break
+            assert d.output_ids[j] == c.output_ids[j], (j, c.output_ids,
+                                                        d.output_ids)
+            compared += 1
+    assert compared >= 12

@@ -85,6 +85,7 @@ def test_no_device_means_cuda(monkeypatch):
                                                 tiny_llama)
     from llm_inference_tpu_torch.engine.engine import InferenceEngine
     from llm_inference_tpu_torch.models import llama
+    from llm_inference_tpu_torch.ops import kvcache, paged_kvcache
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tiny_llama(head_dim=64)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -95,4 +96,11 @@ def test_no_device_means_cuda(monkeypatch):
         llama.params_from_numpy({}, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         InferenceEngine(cfg, {}, engine_cfg=EngineConfig(max_seq_len=128))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kvcache.init_cache(1, 1, 2, 8, 64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paged_kvcache.init_paged_cache(1, 4, 2, 8, 64, 1, 2)
     assert resolve_device("cpu") == torch.device("cpu")
+    assert kvcache.init_cache(1, 1, 2, 8, 64, device="cpu").k.is_cpu
+    assert paged_kvcache.init_paged_cache(1, 4, 2, 8, 64, 1, 2,
+                                          device="cpu").k_pages.is_cpu

@@ -65,7 +65,7 @@ def test_prefill_and_teacher_forced_decode_match_jax(models):
     jc = j_kv.init_cache(cfg.num_layers, B, cfg.num_kv_heads, S,
                          cfg.head_dim, jnp.bfloat16)
     tc = kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads, S,
-                            cfg.head_dim, torch.bfloat16)
+                            cfg.head_dim, torch.bfloat16, device="cpu")
     jlog, jc = j_llama.forward(jcfg, jprep, jnp.asarray(ids),
                                jnp.asarray(pos), jc,
                                last_idx=jnp.asarray(last))
@@ -100,7 +100,7 @@ def test_dense_weights_forward_matches_jax(models):
     jc = j_kv.init_cache(cfg.num_layers, 1, cfg.num_kv_heads, S,
                          cfg.head_dim, jnp.bfloat16)
     tc = kvcache.init_cache(cfg.num_layers, 1, cfg.num_kv_heads, S,
-                            cfg.head_dim, torch.bfloat16)
+                            cfg.head_dim, torch.bfloat16, device="cpu")
     jlog, jc = j_llama.forward(jcfg, dense, jnp.asarray(ids),
                                jnp.asarray(pos), jc)
     tlog, tc = llama.forward(cfg, tparams, torch.from_numpy(ids),
@@ -147,7 +147,7 @@ def test_init_params_quantized_serves(models):
     prep = llama.prepare_params(p)
     assert prep["layers"]["wqkv"].shape == (cfg.hidden_size, cfg.qkv_out_dim)
     c = kvcache.init_cache(cfg.num_layers, 1, cfg.num_kv_heads, S,
-                           cfg.head_dim, torch.bfloat16)
+                           cfg.head_dim, torch.bfloat16, device="cpu")
     ids = torch.arange(5, dtype=torch.int32)[None]
     logits, _ = llama.forward(cfg, prep, ids, ids, c)
     assert logits.shape == (1, cfg.vocab_size)
@@ -197,7 +197,7 @@ def test_config_variants_match_jax(variant):
     jc = j_kv.init_cache(cfg.num_layers, B, cfg.num_kv_heads, S,
                          cfg.head_dim, jnp.bfloat16)
     tc = kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads, S,
-                            cfg.head_dim, torch.bfloat16)
+                            cfg.head_dim, torch.bfloat16, device="cpu")
     jlog, jc = j_llama.forward(jcfg, jprep, jnp.asarray(ids),
                                jnp.asarray(pos), jc, logits_mode="all")
     tlog, tc = llama.forward(cfg, tprep, torch.from_numpy(ids),
@@ -251,7 +251,7 @@ def test_int4_int8kv_prefill_and_decode_match_jax(models4, T):
     jc = j_kv.init_cache(cfg.num_layers, B, cfg.num_kv_heads, S4,
                          cfg.head_dim, "int8")
     tc = kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads, S4,
-                            cfg.head_dim, "int8")
+                            cfg.head_dim, "int8", device="cpu")
     jlog, jc = j_llama.forward(jcfg, jprep, jnp.asarray(ids),
                                jnp.asarray(pos), jc,
                                last_idx=jnp.asarray(last))
@@ -348,7 +348,7 @@ def test_init_params_quantized_int4_serves():
     assert w.scale.shape == (cfg.num_layers, 256, 4) and w.group_size == 128
     assert p["lm_head"].shape == (cfg.hidden_size, cfg.vocab_size)
     c = kvcache.init_cache(cfg.num_layers, 1, cfg.num_kv_heads, S4,
-                           cfg.head_dim, torch.int8)
+                           cfg.head_dim, torch.int8, device="cpu")
     ids = torch.arange(5, dtype=torch.int32)[None]
     logits, _ = llama.forward(cfg, p, ids, ids, c)
     assert logits.shape == (1, cfg.vocab_size)
@@ -396,7 +396,8 @@ def test_cached_attention_calls_the_routed_path(monkeypatch, T, S, want):
     B = 1
     q = torch.zeros((B, T, cfg.num_heads, 64))
     kv = torch.zeros((B, T, cfg.num_kv_heads, 64))
-    cache = kvcache.init_cache(1, B, cfg.num_kv_heads, S, 64, "int4")
+    cache = kvcache.init_cache(1, B, cfg.num_kv_heads, S, 64, "int4",
+                               device="cpu")
     pos = torch.arange(T, dtype=torch.int32)[None]
     mask = (attention.make_attention_mask(pos, S) if want == "attend"
             else None)

@@ -395,7 +395,8 @@ def test_prefill_cache_write_matches_jax():
     jc = j_kv.init_cache(L, B, Hkv, S, D, jnp.float32)
     jc = j_kv.update_cache_layer(jc, jnp.int32(1), jnp.asarray(kn),
                                  jnp.asarray(vn), jnp.asarray(off))
-    tc = kvcache.init_cache(L, B, Hkv, S, D, torch.float32)
+    tc = kvcache.init_cache(L, B, Hkv, S, D, torch.float32,
+                            device="cpu")
     kvcache.update_cache_layer(tc, 1, torch.from_numpy(kn),
                                torch.from_numpy(vn), torch.from_numpy(off))
     np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k))
@@ -415,7 +416,8 @@ def test_int8_cache_write_matches_jax(T):
     jc = j_kv.init_cache(L, B, Hkv, S, D, "int8")
     jc = j_kv.update_cache_layer(jc, jnp.int32(1), jnp.asarray(kn),
                                  jnp.asarray(vn), jnp.asarray(off))
-    tc = kvcache.init_cache(L, B, Hkv, S, D, torch.int8)
+    tc = kvcache.init_cache(L, B, Hkv, S, D, torch.int8,
+                            device="cpu")
     assert tc.quantized and tc.bits == 8 and tc.k.dtype == torch.int8
     kvcache.update_cache_layer(tc, 1, torch.from_numpy(kn),
                                torch.from_numpy(vn), torch.from_numpy(off))
@@ -435,14 +437,14 @@ def test_int8_cache_write_matches_jax(T):
 def test_quantized_cache_raises():
     # an int4 cache packs two dims per byte: an odd head_dim is refused
     with pytest.raises(ValueError):
-        kvcache.init_cache(1, 1, 1, 8, 7, "int4")
+        kvcache.init_cache(1, 1, 1, 8, 7, "int4", device="cpu")
 
 
 def test_init_cache_int4_matches_jax():
     """Packed codes [L, B, Hkv, S, D/2] int8 and slot-major float32 scales
     [L, B, S, Hkv], bits 4 (kvcache.py:99-104)."""
     jc = j_kv.init_cache(2, 3, 4, 16, 64, "int4")
-    tc = kvcache.init_cache(2, 3, 4, 16, 64, "int4")
+    tc = kvcache.init_cache(2, 3, 4, 16, 64, "int4", device="cpu")
     assert tc.bits == jc.bits == 4 and tc.quantized and tc.max_seq_len == 16
     for name in ("k", "v", "k_scale", "v_scale"):
         t, j = getattr(tc, name), np.asarray(getattr(jc, name))
@@ -465,7 +467,7 @@ def test_int4_cache_write_matches_jax(T):
     jc = j_kv.init_cache(L, B, Hkv, S, D, "int4")
     jc = j_kv.update_cache_layer(jc, jnp.int32(1), jnp.asarray(kn),
                                  jnp.asarray(vn), jnp.asarray(off))
-    tc = kvcache.init_cache(L, B, Hkv, S, D, "int4")
+    tc = kvcache.init_cache(L, B, Hkv, S, D, "int4", device="cpu")
     kvcache.update_cache_layer(tc, 1, torch.from_numpy(kn),
                                torch.from_numpy(vn), torch.from_numpy(off))
     for name in ("k", "v", "k_scale", "v_scale"):

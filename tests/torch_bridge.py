@@ -7,7 +7,9 @@ scales [..., 1, N], or split-half packed int4 codes [..., K/2, N] (one
 pack block) with float32 scales [..., G, N] — the form
 `llm_inference_tpu_torch.models.llama.params_from_numpy` takes. A JAX
 KVCache (bf16, int8, or packed int4 codes with slot-major float32 scales)
-becomes the port's KVCache in the same layout (`cache_to_torch`).
+becomes the port's KVCache in the same layout (`cache_to_torch`), and a
+PagedKVCache the port's PagedKVCache (`paged_cache_to_torch`).
+`assert_streams_agree` compares two schedulers' greedy streams.
 """
 
 from __future__ import annotations
@@ -59,3 +61,33 @@ def cache_to_torch(cache):
               for a in (cache.k_scale, cache.v_scale)]
     return KVCache(k=to_torch(cache.k), v=to_torch(cache.v),
                    k_scale=scales[0], v_scale=scales[1], bits=cache.bits)
+
+
+def paged_cache_to_torch(cache):
+    """The JAX package's PagedKVCache → the port's on the CPU: pools, page
+    table and scales as they are."""
+    from llm_inference_tpu_torch.ops.paged_kvcache import PagedKVCache
+    scales = [None if a is None else to_torch(a)
+              for a in (cache.k_scale, cache.v_scale)]
+    return PagedKVCache(k_pages=to_torch(cache.k_pages),
+                        v_pages=to_torch(cache.v_pages),
+                        page_table=to_torch(cache.page_table),
+                        k_scale=scales[0], v_scale=scales[1], bits=cache.bits)
+
+
+def assert_streams_agree(got, want, tol=2e-2):
+    """Two runs' requests (each with top_logprobs >= 2) emitted the same
+    greedy tokens up to the first step where the reference run's top-2
+    logprob gap is within `tol` (a near-tie, where the streams may part);
+    at least half of all tokens are compared."""
+    compared = total = 0
+    for g, w in zip(got, want):
+        assert len(g.output_ids) == len(w.output_ids)
+        total += len(w.output_ids)
+        for j, top in enumerate(w.output_top_logprobs):
+            if top[0][1] - top[1][1] <= tol:
+                break
+            assert g.output_ids[j] == w.output_ids[j], (
+                j, g.output_ids, w.output_ids)
+            compared += 1
+    assert compared >= total // 2, (compared, total)
