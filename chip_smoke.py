@@ -35,19 +35,33 @@ prefix cache, on a full pool and on a 26-page one that forces
 preemption, and paged int4 and bf16 KV), checks each run's launches
 against the forwards it made and its streams against a reference run,
 and prints tokens/s, TTFT, inter-token latency and the schedulers'
-counters. Every check raises on failure. The line before the last is a
-JSON object with one entry per kernel and path; the last is {"ok": true,
-"device": {...}}. Imports nothing of JAX or the JAX package.
+counters. Path (v), the B = 1 chat path with LLMI_LAYER_MEGA=1 on the
+weights of (i) and (ii): phase 2 holds K12 (the whole-layer megakernel,
+its four instantiations: int8 or int4 weights over a bf16 or int8 cache)
+and its two row writes to their plain versions; phase 3 runs a 2-layer
+model through the mega route, CPU plain vs card kernels and mega vs
+split on the card; phase 4 chats three rounds through ChatSession with
+penalties and a logit bias over a synthetic 32,000-piece vocabulary,
+generates 64 tokens after a 3000-token prompt on both weight sets, each
+with the megakernel on and off (streams compared, launches checked
+against the mega route's, tokens/s printed), and runs the CLI REPL once
+as a subprocess. Every check raises on failure. The line before the last
+is a JSON object with one entry per kernel and path; the last is {"ok":
+true, "device": {...}}. Imports nothing of JAX or the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -57,14 +71,18 @@ if not torch.cuda.is_available():
 
 from llm_inference_tpu_torch.config import (EngineConfig, GenerationConfig,
                                             QuantConfig, llama2_7b)
+from llm_inference_tpu_torch.engine import engine as engine_mod
 from llm_inference_tpu_torch.engine import scheduler
-from llm_inference_tpu_torch.engine.engine import InferenceEngine
+from llm_inference_tpu_torch.engine.engine import ChatSession, InferenceEngine
+from llm_inference_tpu_torch.engine.tokenizer import (BPETokenizer,
+                                                      load_tokenizer)
 from llm_inference_tpu_torch.models import llama
 from llm_inference_tpu_torch.ops import kvcache, paged_kvcache
 from llm_inference_tpu_torch.ops.kernels import _build
 from llm_inference_tpu_torch.ops.kernels import decode_attention as k2
 from llm_inference_tpu_torch.ops.kernels import flash_attention as k9
 from llm_inference_tpu_torch.ops.kernels import kv_write as k3
+from llm_inference_tpu_torch.ops.kernels import layer_fused as k12
 from llm_inference_tpu_torch.ops.kernels import paged_attention as k10
 from llm_inference_tpu_torch.ops.kernels import paged_flash as k11
 from llm_inference_tpu_torch.ops.kernels import quant_matmul as k1
@@ -792,7 +810,7 @@ REQUESTS = (  # (name, prompt lengths, max_new_tokens, long engine)
 REPEATS = 3       # timed passes over the requests
 BUCKETS = (32, 128)                 # the short requests' engine
 COUNTERS = ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "K9", "KS", "K10a",
-            "K10b", "K11")
+            "K10b", "K11", "K12", "RW", "QRW")
 
 
 def counts():
@@ -800,7 +818,8 @@ def counts():
                 K4=k3.quant_launches, K5=k2.int4_launches,
                 K6=k1.tail_launches, K8=k1.tiled_launches, K9=k9.launches,
                 KS=k3.scale_launches, K10a=k10.launches,
-                K10b=k10.int4_launches, K11=k11.launches)
+                K10b=k10.int4_launches, K11=k11.launches, K12=k12.launches,
+                RW=k3.rows_launches, QRW=k3.qrows_launches)
 
 
 def zero_counts():
@@ -808,6 +827,7 @@ def zero_counts():
     k2.launches = k2.int4_launches = k9.launches = 0
     k3.launches = k3.quant_launches = k3.scale_launches = 0
     k10.launches = k10.int4_launches = k11.launches = 0
+    k12.launches = k3.rows_launches = k3.qrows_launches = 0
 
 
 def prefill_chunks(eng, lens):
@@ -824,7 +844,7 @@ def prefill_chunks(eng, lens):
 
 
 def forward_launches(want, weights, cache_dtype, batch, rows, S, ps=0,
-                     history=False):
+                     history=False, mega=False):
     """Add one forward's kernel launches to `want`: batch x rows tokens
     over an S-slot dense cache (ps = 0) or a paged one of page size ps
     (history: a chunk over earlier pages). The projections run K8 above
@@ -834,7 +854,14 @@ def forward_launches(want, weights, cache_dtype, batch, rows, S, ps=0,
     where llama.attention_route says (plain otherwise). A dense decode
     step also writes the cache: K3 (bf16), K4 (int8), or K3 on packed rows
     and the scale write (int4); prefill and every paged write are plain
-    PyTorch."""
+    PyTorch. On the mega route (`mega`: llama.layer_route says "mega")
+    every layer is K12 and its row write (write_rows over a bf16 cache,
+    quantize_write_rows over an int8 one), and lm_head is K1."""
+    if mega:
+        want["K12"] += L
+        want["RW" if cache_dtype == BF16 else "QRW"] += L
+        want["K1"] += 1
+        return
     M = batch * rows
     tail = weights == "int4" and M <= TAIL_MAX_ROWS
     want["K8" if M > K1_MAX_ROWS else "K1"] += (1 if tail else 4) * L
@@ -855,14 +882,17 @@ def forward_launches(want, weights, cache_dtype, batch, rows, S, ps=0,
             want[c] += L
 
 
-def expected_launches(weights, cache_dtype, chunks, S, steps):
+def expected_launches(weights, cache_dtype, chunks, S, steps, mega=False):
     """Kernel launches of one generate call over an S-slot cache: prefill
-    forwards of (batch, rows) `chunks`, then `steps` decode forwards."""
+    forwards of (batch, rows) `chunks`, then `steps` decode forwards (with
+    `mega`, LLMI_LAYER_MEGA=1, a single sequence's steps take the mega
+    route)."""
     want = {c: 0 for c in COUNTERS}
     for batch, rows in chunks:
         forward_launches(want, weights, cache_dtype, batch, rows, S)
     for _ in range(steps):
-        forward_launches(want, weights, cache_dtype, chunks[0][0], 1, S)
+        forward_launches(want, weights, cache_dtype, chunks[0][0], 1, S,
+                         mega=mega and chunks[0][0] == 1)
     return want
 
 
@@ -1002,6 +1032,7 @@ def build_params(qcfg):
 
 
 def path_int8(gen):
+    """Path (i); returns its weights (path (v) reuses them) and entries."""
     say(f"path (i): LLaMA-2-7B int8 weights, bf16 cache (seed {SEED})")
     params = build_params(QCFG8)
     say("phase 2 (int8 weights, bf16 cache): kernels vs plain versions on "
@@ -1014,8 +1045,7 @@ def path_int8(gen):
     k3_step, k3_err = k3_cases(gen)
     phase_parity(QCFG8, BF16)
     total = phase_main_path(params, "int8", BF16)
-    del params
-    return [
+    return params, [
         k1_entry(8, total["K1"], k1_err, step, names),
         k8_entry(8, total["K8"], k8_err, k8_r),
         k9_entry("bf16", total["K9"], k9_err, k9_r),
@@ -1567,11 +1597,552 @@ def path_paged(gen, shared):
     return out
 
 
+# ----------------------------------------------------------------- path (v)
+
+ROOT = Path(__file__).resolve().parent
+# K12's four instantiations, (weights, cache kind)
+MEGA_INSTANCES = (("int8", "bf16"), ("int8", "int8"), ("int4", "int8"),
+                  ("int4", "bf16"))
+# phase 2's K12 cases (weights, cache kind, position, slots); the pos-191
+# case of each instantiation is its JSON entry
+MEGA_CASES = (("int8", "bf16", 191, MAX_SEQ), ("int8", "bf16", 3060, LONG_SEQ),
+              ("int4", "int8", 191, MAX_SEQ), ("int4", "int8", 3060, LONG_SEQ),
+              ("int8", "int8", 191, MAX_SEQ), ("int4", "bf16", 191, MAX_SEQ))
+CHAT_NEW = 24                         # new tokens of every chat round
+CHAT_GEN = GenerationConfig(max_new_tokens=CHAT_NEW, greedy=True,
+                            eos_token_ids=(), repetition_penalty=1.1,
+                            presence_penalty=0.5, frequency_penalty=0.2,
+                            logit_bias={100: 3.0, 2000: -100.0, 31999: 1.5})
+CHAT_TURNS = ("Hello there, who are you?", "Tell me about the sea.",
+              "And what of the mountains, then?")
+GEN_NEW = 64                          # new tokens after the 3000-token prompt
+
+
+@contextlib.contextmanager
+def layer_mega(on):
+    """LLMI_LAYER_MEGA=1 (on) or 0 in the environment while inside;
+    llama.layer_route reads it at every forward."""
+    old = os.environ.get("LLMI_LAYER_MEGA")
+    os.environ["LLMI_LAYER_MEGA"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["LLMI_LAYER_MEGA"]
+        else:
+            os.environ["LLMI_LAYER_MEGA"] = old
+
+
+def k12_case(params, weights, kind, pos, S, gen):
+    """K12 on layer 1 of the full model at position `pos` over S slots of
+    a random cache of `kind`, against layer_decode_fused_ref on the same
+    inputs; then timed beside it, its bound and the library layer
+    (torch.matmul on bf16 dequantized weights, scaled_dot_product_attention
+    over the dequantized cache, F.silu and the norms in torch ops)."""
+    H, Hq, Hkv, D = (CFG.hidden_size, CFG.num_heads, CFG.num_kv_heads,
+                     CFG.head_dim)
+    lay = params["layers"]
+    kc, vc, ks, vs = random_cache(gen, kind, L, 1, S)
+    cache = kvcache.KVCache(k=kc, v=vc, k_scale=ks, v_scale=vs,
+                            bits=16 if kind == "bf16" else 8)
+    check(k12.supports(CFG, (1, 1, H), lay, cache),
+          f"K12 {weights}/{kind}: supports() declines the case")
+    h = torch.randn((1, 1, H), generator=gen, device=DEV).to(BF16)
+    res = torch.randn((1, 1, H), generator=gen, device=DEV).to(BF16)
+    cos_t, sin_t = llama.rope_table(CFG, S, DEV)
+    cos, sin = cos_t[pos][None, None], sin_t[pos][None, None]
+    positions = torch.tensor([[pos]], dtype=torch.int32, device=DEV)
+    args = (h, res, lay, cache)
+    got = k12.layer_kernel(CFG, *args, 1, positions, cos, sin)
+    want = k12.layer_decode_fused_ref(CFG, *args, 1, positions, cos, sin)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("h2", "down", "k_new", "v_new"), got, want):
+        e = max_err(g, w)
+        # float32 sums in another order; the kernel rounds p to bf16
+        # against a running maximum, the plain version against the row
+        # maximum: a few bf16 steps (2^-8 relative) of the largest value.
+        # k_new/v_new round one float32 sum: one bf16 step (2^-7)
+        tol = (2.0 ** -7 if name in ("k_new", "v_new") else 4 * 2.0 ** -8
+               ) * w.float().abs().max().item()
+        check(bool(torch.isfinite(g).all()) and e <= tol,
+              f"K12 {weights}/{kind} pos={pos} {name}: max err {e} > {tol}")
+        err = max(err, e)
+    del got, want
+    ms = time_ms(lambda i: k12.layer_kernel(CFG, *args, i % L, positions,
+                                            cos, sin))
+    plain = plain_ms(lambda i: k12.layer_decode_fused_ref(
+        CFG, *args, i % L, positions, cos, sin))
+    n_lib = 2
+    deq = [[dequantize(lay[n].layer(i), BF16) for n in k12.WEIGHTS]
+           for i in range(n_lib)]
+    kd = [dequant_layer(kc, ks, i, kind)[:, :, :pos + 1] for i in range(n_lib)]
+    vd = [dequant_layer(vc, vs, i, kind)[:, :, :pos + 1] for i in range(n_lib)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = {"enable_gqa": True} if Hq != Hkv else {}
+    c16, s16 = cos.reshape(D).to(BF16), sin.reshape(D).to(BF16)
+    eps = CFG.rms_norm_eps
+
+    def norm(x, g):
+        return x * torch.rsqrt(x.float().pow(2).mean(-1, keepdim=True)
+                               + eps).to(BF16) * g
+
+    def rope(x):
+        return x * c16 + torch.cat([-x[..., D // 2:], x[..., :D // 2]],
+                                   -1) * s16
+
+    def lib_layer(i):
+        # the same layer in library calls; attention reads the cache's
+        # pos + 1 slots (the yardstick does not write the new row)
+        wq, wo, wgu, wd = deq[i % n_lib]
+        x = (h + res).reshape(1, H)
+        qkv = torch.matmul(norm(x, lay["attn_norm"][i % n_lib]), wq)
+        q = rope(qkv[:, :Hq * D].reshape(1, Hq, 1, D))
+        k = rope(qkv[:, Hq * D:(Hq + Hkv) * D].reshape(1, Hkv, 1, D))
+        a = sdpa(q, kd[i % n_lib], vd[i % n_lib], **gqa)
+        x = x + torch.matmul(a.reshape(1, Hq * D), wo)
+        gate, up = torch.matmul(norm(x, lay["ffn_norm"][i % n_lib]),
+                                wgu).chunk(2, dim=-1)
+        return torch.matmul(torch.nn.functional.silu(gate) * up, wd), x, k
+    lib = time_ms(lib_layer)
+    del deq, kd, vd, cache, kc, vc, ks, vs
+    # each weight's codes and scales and the history's K and V rows (and
+    # scales) read once; h, res, the two norms read and h2, down, k_new,
+    # v_new written once; bf16 tensor-core peak for the products
+    nbytes = (sum(qbytes(lay[n]) for n in k12.WEIGHTS)
+              + attn_bytes(kind, Hkv, pos) + 6 * H * 2 + 2 * Hkv * D * 2
+              + 2 * D * 4 + 4)
+    flops = (2 * sum(lay[n].in_features * lay[n].out_features
+                     for n in k12.WEIGHTS) + 4 * Hq * D * (pos + 1))
+    bnd, by = bound_ms(nbytes, flops)
+    say(f"  K12 int{lay['wqkv'].bits} weights, {kind} cache, pos={pos} S={S} "
+        f"err {err:.3g}  kernel {ms:.4f} ms  bound {bnd:.4f} ms ({by})  "
+        f"plain {plain:.3f} ms  library layer {lib:.4f} ms")
+    return dict(ms=ms, plain=plain, lib=lib, bound=bnd, by=by, err=err)
+
+
+def k12_cases(params8, params4, gen):
+    """Every MEGA_CASES case: (the pos-191 numbers of each instantiation,
+    the largest error of each)."""
+    first, errs = {}, {}
+    for weights, kind, pos, S in MEGA_CASES:
+        r = k12_case(params8 if weights == "int8" else params4, weights,
+                     kind, pos, S, gen)
+        first.setdefault((weights, kind), r)
+        errs[(weights, kind)] = max(errs.get((weights, kind), 0.0), r["err"])
+    return first, errs
+
+
+def row_write_cases(gen):
+    """write_rows (bf16 cache) and quantize_write_rows (int8 cache) on the
+    rows K12 hands over ([Hkv, D] bf16) at slots 191, 3060 and one past
+    the end of 4096, exact against their plain versions; timed at slot 191
+    beside the plain version and index assignment (after torch quantize
+    ops for int8)."""
+    Hkv, D, S = CFG.num_kv_heads, CFG.head_dim, LONG_SEQ
+    L_, slot = 4, 191
+    out = {}
+    for kind, fn, ref_fn in (
+            ("bf16", k3.write_rows, k3.write_rows_ref),
+            ("int8", k3.quantize_write_rows, k3.quantize_write_rows_ref)):
+        caches = [t for t in random_cache(gen, kind, L_, 1, S) if t is not None]
+        ref = [t.clone() for t in caches]
+        kn = (3 * torch.randn((Hkv, D), generator=gen, device=DEV)).to(BF16)
+        vn = torch.randn((Hkv, D), generator=gen, device=DEV).to(BF16)
+        for off in (slot, 3060, S + 5):
+            o = torch.tensor([off], dtype=torch.int32, device=DEV)
+            fn(*caches, 2, kn, vn, o)
+            ref_fn(*ref, 2, kn, vn, o)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(caches, ref)),
+                  f"{fn.__name__} at offset {off}: differs from the plain "
+                  f"version")
+        o = torch.tensor([slot], dtype=torch.int32, device=DEV)
+        ms = time_ms(lambda i: fn(*caches, i % L_, kn, vn, o))
+        plain = time_ms(lambda i: ref_fn(*ref, i % L_, kn, vn, o))
+        new = torch.stack([kn, vn]).float()
+        if kind == "bf16":
+            def lib_write(i):
+                ref[0][i % L_][0, :, slot] = kn
+                ref[1][i % L_][0, :, slot] = vn
+            bnd, by = bound_ms(2 * 2 * Hkv * D * 2 + 4, 0)
+        else:
+            def lib_write(i):
+                s = torch.clamp(new.abs().amax(-1, keepdim=True) / 127.0,
+                                min=1e-8)
+                q = torch.clamp(torch.round(new / s), -128, 127).to(
+                    torch.int8)
+                ref[0][i % L_][0, :, slot] = q[0]
+                ref[1][i % L_][0, :, slot] = q[1]
+                ref[2][i % L_][0, slot] = s[0, :, 0]
+                ref[3][i % L_][0, slot] = s[1, :, 0]
+            # float32 |x|, max, divide, round, clamp per element
+            bnd, by = bound_ms(2 * Hkv * D * (2 + 1) + 2 * Hkv * 4 + 4,
+                               5 * 2 * Hkv * D, FP32_FLOPS)
+        lib = time_ms(lib_write)
+        say(f"  {fn.__name__} ({kind} cache) exact  kernel {ms:.4f} ms  "
+            f"bound {bnd:.6f} ms ({by})  plain {plain:.4f} ms  index_put "
+            f"{lib:.4f} ms")
+        out[kind] = dict(ms=ms, plain=plain, lib=lib, bound=bnd, by=by)
+        del caches, ref
+    return out
+
+
+def phase_mega_parity(qcfg, cache_dtype):
+    """A 2-layer LLaMA-2-7B-width model at B = 1: a 128-row prefill (the
+    split route) and 8 teacher-forced decode steps (the mega route) with
+    LLMI_LAYER_MEGA=1 on the CPU (plain versions) and on the card
+    (kernels), and the same steps on the card with the variable at 0 (the
+    split route)."""
+    say(f"phase 3: 2-layer LLaMA-2-7B-width {qcfg.weights} model, "
+        f"{cache_dtype} cache, LLMI_LAYER_MEGA=1: CPU plain vs GPU kernels, "
+        f"and mega vs split on the GPU")
+    cfg = dataclasses.replace(CFG, num_layers=2)
+    cpu = torch.device("cpu")
+    p_cpu = llama.prepare_params(llama.init_params_quantized(
+        cfg, qcfg, seed=SEED + 6, device=cpu))
+    p_gpu = llama.params_to(p_cpu, DEV)
+    T, steps = 128, 8
+    gen = torch.Generator().manual_seed(SEED + 7)
+    ids = torch.randint(1, cfg.vocab_size, (1, T), generator=gen,
+                        dtype=torch.int32)
+    runs = {"cpu": (cpu, p_cpu, True), "mega": (DEV, p_gpu, True),
+            "split": (DEV, p_gpu, False)}
+    caches = {r: kvcache.init_cache(cfg.num_layers, 1, cfg.num_kv_heads,
+                                    MAX_SEQ, cfg.head_dim, cache_dtype,
+                                    device=dev)
+              for r, (dev, _, _) in runs.items()}
+    errs = {"mega vs cpu": [], "mega vs split": []}
+    scale, finite, logits = 0.0, [], {}
+    tok, nxt = ids, torch.arange(T, dtype=torch.int32)[None]
+    with torch.no_grad():
+        before = counts()
+        for step in range(steps + 1):
+            for r, (dev, p, on) in runs.items():
+                with layer_mega(on):
+                    route = llama.layer_route(cfg, p["layers"], *tok.shape,
+                                              caches[r])
+                    want = "mega" if on and step else "split"
+                    check(route == want, f"phase 3 {r} step {step}: route "
+                          f"{route}, not {want}")
+                    out, caches[r] = llama.forward(cfg, p, tok.to(dev),
+                                                   nxt.to(dev), caches[r])
+                logits[r] = out.float().cpu()
+            finite.append(all(bool(torch.isfinite(x).all())
+                              for x in logits.values()))
+            errs["mega vs cpu"].append(max_err(logits["mega"], logits["cpu"]))
+            errs["mega vs split"].append(max_err(logits["mega"],
+                                                 logits["split"]))
+            scale = max(scale, logits["cpu"].abs().max().item())
+            tok = logits["cpu"].argmax(-1).to(torch.int32)[:, None]
+            nxt = torch.tensor([[T + step]], dtype=torch.int32)
+        d = {c: n - before[c] for c, n in counts().items()}
+    row = "RW" if cache_dtype == BF16 else "QRW"
+    check(d["K12"] == d[row] == steps * cfg.num_layers,
+          f"phase 3: K12 and its row write must run layers x steps "
+          f"({steps * cfg.num_layers}) times: {d}")
+    # as phase 3 of the other paths: 4 bf16 steps of the largest logit
+    tol = 4 * 2.0 ** -8 * scale
+    for what, e in errs.items():
+        say(f"  logits max err per step (prefill, {steps} decode steps), "
+            f"{what}: {['%.4f' % x for x in e]} (tol {tol:.4f}, max |logit| "
+            f"{scale:.3f})")
+        check(max(e) <= tol, f"mega parity, {what}: {max(e)} > {tol}")
+    check(all(finite), "mega parity: non-finite logits")
+
+
+@contextlib.contextmanager
+def logged_forwards(eng, log):
+    """While inside, every forward of `eng` is appended to `log` as
+    (batch, rows, slots, 0, False, mega) — forward_launches' arguments,
+    with mega the route llama.layer_route gave it — and its logits are
+    checked finite on the device (the yielded flag)."""
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    fwd = eng._forward
+    layers = eng.params["layers"]
+
+    def logged(ids, positions, cache, *a, **k):
+        mega = llama.layer_route(CFG, layers, ids.shape[0], ids.shape[1],
+                                 cache) == "mega"
+        logits, cache = fwd(ids, positions, cache, *a, **k)
+        finite.logical_and_(torch.isfinite(logits).all())
+        log.append((ids.shape[0], ids.shape[1], cache.max_seq_len, 0, False,
+                    mega))
+        return logits, cache
+    eng._forward = logged
+    try:
+        yield finite
+    finally:
+        del eng._forward
+
+
+@contextlib.contextmanager
+def recorded_picks():
+    """While inside, every token the engine picks (B = 1) is appended to
+    the yielded list with the logits it was picked from (after the bias
+    and the penalties), both left on the device."""
+    picks = []
+    sample = engine_mod.sampling.sample
+
+    def recorded(logits, *a, **k):
+        tok = sample(logits, *a, **k)
+        picks.append((tok[0], logits[0].float().clone()))
+        return tok
+    engine_mod.sampling.sample = recorded
+    try:
+        yield picks
+    finally:
+        engine_mod.sampling.sample = sample
+
+
+def compare_picks(got, want, what):
+    """Two runs' picks step by step, under compare_streams' rule: equal
+    tokens until the streams part, which they may only at a near-tie of
+    the reference's logits, a top-2 gap below 2e-2 or below twice the two
+    runs' largest logit difference at that step (the contexts are still
+    equal there). While the tokens agree, the logits must agree within
+    phase 3's 4 bf16 steps of the largest, grown with the depth as a sum
+    of independent roundings grows, by sqrt(L / 2) (16 steps at 32
+    layers). Returns (compared, total, the largest logit difference)."""
+    check(len(got) == len(want), f"{what}: {len(got)} != {len(want)} picks")
+    diff = 0.0
+    for j, ((gt, gl), (wt, wl)) in enumerate(zip(got, want)):
+        d = (gl - wl).abs().max().item()
+        tol = 4 * math.sqrt(L / 2) * 2.0 ** -8 * wl.abs().max().item()
+        check(d <= tol, f"{what} step {j}: logits differ by {d} > {tol}")
+        diff = max(diff, d)
+        if int(gt) != int(wt):
+            top = wl.topk(2).values
+            gap = (top[0] - top[1]).item()
+            check(gap < max(2e-2, 2 * d), f"{what} step {j}: the streams "
+                  f"part at a top-2 gap of {gap} (logits differ by {d})")
+            return j, len(want), diff
+    return len(want), len(want), diff
+
+
+def chat_vocab():
+    """A synthetic 32,000-piece BPE vocabulary: <unk>, <s>, </s>, the 256
+    byte pieces, "▁", letters and punctuation, then the letters' 2- and
+    3-letter strings with and without "▁" (scored by length, so merges
+    build the longest piece), cut at LLaMA-2's 32,000."""
+    vocab = {}
+
+    def add(piece, score):
+        if len(vocab) < CFG.vocab_size and piece.encode() not in vocab:
+            vocab[piece.encode()] = (len(vocab), score)
+    for t in ("<unk>", "<s>", "</s>"):
+        add(t, 0.0)
+    for i in range(256):
+        add("<0x%02X>" % i, -1000.0)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    for p in ["▁"] + list(letters) + list(",.?!'"):
+        add(p, 1.0)
+    for c in letters:
+        add("▁" + c, 2.0)
+    for n in (2, 3):
+        for combo in itertools.product(letters, repeat=n):
+            s = "".join(combo)
+            add("▁" + s, float(n + 1))
+            add(s, float(n))
+    return vocab
+
+
+def phase_chat(params4):
+    """Three ChatSession rounds on full-depth LLaMA-2-7B int4 g=128 over an
+    int8 cache of 512 slots, greedy with the repetition, presence and
+    frequency penalties and a logit bias, over a synthetic vocabulary
+    written by save_binary and read back by load_tokenizer: with the
+    megakernel on, then off. Launches checked against the forwards each
+    run made; the two runs' streams compared (compare_picks). Returns the
+    mega run's launches."""
+    path = ROOT / "build" / "chip_smoke" / "tokenizer.bin"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    BPETokenizer(chat_vocab(), kv={"bos_token_id": "1",
+                                   "eos_token_id": "2"}).save_binary(str(path))
+    tok = load_tokenizer(str(path))
+    check(isinstance(tok, BPETokenizer) and tok.vocab_size == CFG.vocab_size,
+          f"tokenizer round trip: {type(tok).__name__} {tok.vocab_size}")
+    eng = InferenceEngine(CFG, params4, engine_cfg=EngineConfig(
+        max_seq_len=MAX_SEQ, decode_chunk=8), tokenizer=tok,
+        cache_dtype="int8", device=DEV)
+    with layer_mega(True):                 # warm-up, outside the counts
+        ChatSession(eng).ask("warm up", dataclasses.replace(
+            CHAT_GEN, max_new_tokens=4))
+    runs = {}
+    for on in (True, False):
+        log = []
+        with layer_mega(on), logged_forwards(eng, log) as finite, \
+                recorded_picks() as picks:
+            session = ChatSession(eng)
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            texts = [session.ask(t, CHAT_GEN) for t in CHAT_TURNS]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = counts()
+        want = {c: 0 for c in COUNTERS}
+        for rec in log:
+            forward_launches(want, "int4", "int8", *rec)
+        check(got == want, f"chat (mega {on}): launches {got} != expected "
+              f"{want}")
+        check(bool(finite.item()), f"chat (mega {on}): non-finite logits")
+        n_mega = sum(rec[-1] for rec in log)
+        check(n_mega == (len(CHAT_TURNS) * (CHAT_NEW - 1) if on else 0),
+              f"chat (mega {on}): {n_mega} forwards took the mega route")
+        check(len(picks) == len(CHAT_TURNS) * CHAT_NEW
+              and all(0 <= int(t) < CFG.vocab_size for t, _ in picks),
+              f"chat (mega {on}): {len(picks)} picks")
+        runs[on] = picks, got
+        say(f"  chat, mega {'on' if on else 'off'}: {len(CHAT_TURNS)} rounds "
+            f"of {CHAT_NEW} tokens in {wall:.2f} s ({len(log)} forwards, "
+            f"{n_mega} on the mega route); launches "
+            f"{ {c: n for c, n in got.items() if n} }; replies "
+            f"{[t[:40] for t in texts]}")
+    c, t, diff = compare_picks(runs[True][0], runs[False][0],
+                               "chat, mega vs split")
+    say(f"  chat, mega vs split: {c} of {t} tokens compared, equal; logits "
+        f"differ by at most {diff:.4f}")
+    del eng
+    return runs[True][1]
+
+
+def phase_mega_generate(params, weights, kv, prompt, compare):
+    """generate on the 3000-token prompt, 64 new tokens, greedy, over 4096
+    slots with the megakernel on (and, with `compare`, off): each run's
+    launches against expected_launches of its route, TTFT, decode tokens/s
+    and wall per step; then a second run of each route with its picks
+    recorded (the same tokens) and the two routes' streams compared.
+    Returns the mega run's launches."""
+    eng = InferenceEngine(CFG, params, engine_cfg=EngineConfig(
+        max_seq_len=LONG_SEQ, decode_chunk=8), cache_dtype=KV_DTYPE[kv],
+        device=DEV)
+    gen = GenerationConfig(max_new_tokens=GEN_NEW, greedy=True,
+                           eos_token_ids=())
+    with layer_mega(True):                 # warm-up, outside the counts
+        eng.generate([prompt[:300]], dataclasses.replace(gen,
+                                                         max_new_tokens=4))
+    mega_counts, picks = None, {}
+    for on in ((True, False) if compare else (True,)):
+        with layer_mega(on):
+            torch.cuda.synchronize()
+            zero_counts()
+            res = eng.generate([prompt], gen)[0]
+            torch.cuda.synchronize()
+            got = counts()
+            want = expected_launches(weights, KV_DTYPE[kv],
+                                     prefill_chunks(eng, [len(prompt)]),
+                                     LONG_SEQ, GEN_NEW - 1, mega=on)
+            check(got == want, f"generate {weights}/{kv} (mega {on}): "
+                  f"launches {got} != expected {want}")
+            check(len(res.token_ids) == GEN_NEW, "generate: length")
+            if compare:
+                with recorded_picks() as p:
+                    again = eng.generate([prompt], gen)[0]
+                check(again.token_ids == res.token_ids,
+                      f"generate {weights}/{kv} (mega {on}): the recorded "
+                      f"run's tokens differ")
+                picks[on] = p
+        if on:
+            mega_counts = got
+        tps = res.decode_tokens_per_s
+        say(f"  generate, {weights} weights, {kv} cache, mega "
+            f"{'on ' if on else 'off'}: TTFT {res.ttft_s * 1e3:.2f} ms, "
+            f"decode {tps:.2f} tok/s = {1e3 / tps:.2f} ms a step; "
+            f"launches {({c: n for c, n in got.items() if n})}")
+    if compare:
+        c, t, diff = compare_picks(picks[True], picks[False],
+                                   f"generate {weights}/{kv}, mega vs split")
+        say(f"  generate {weights}/{kv}, mega vs split: {c} of {t} tokens "
+            f"compared, equal; logits differ by at most {diff:.4f}")
+    del eng
+    return mega_counts
+
+
+def run_cli():
+    """The CLI REPL as a user starts it, on dummy LLaMA-2-7B int4 g=128
+    weights over an int8 cache with LLMI_LAYER_MEGA=1, two lines on stdin:
+    it must exit 0 and echo two `ids>` lines, then `bye.`."""
+    cmd = [sys.executable, "-m", "llm_inference_tpu_torch.cli", "--model",
+           "llama2-7b", "--quant", "int4", "--group-size", "128",
+           "--kv-cache", "int8", "--greedy", "--max-new-tokens", "8",
+           "--max-seq-len", "512"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, input="hello\nhow are you\n",
+                         capture_output=True, text=True, timeout=600,
+                         cwd=str(ROOT), env=dict(os.environ,
+                                                 LLMI_LAYER_MEGA="1"))
+    ids = [line.split("ids> ", 1)[1] for line in out.stdout.splitlines()
+           if "ids> " in line]
+    check(out.returncode == 0 and len(ids) == 2
+          and out.stdout.rstrip().endswith("bye."),
+          f"CLI: rc {out.returncode}, stdout {out.stdout[-2000:]!r}, "
+          f"stderr {out.stderr[-3000:]!r}")
+    say(f"  CLI (python -m llm_inference_tpu_torch.cli, LLMI_LAYER_MEGA=1) "
+        f"exit 0 in {time.perf_counter() - t0:.1f} s: ids> {ids}")
+
+
+def path_chat(gen, params8, params4):
+    """Path (v): the B = 1 chat path with LLMI_LAYER_MEGA=1 on the weights
+    of paths (i) and (ii)."""
+    t0 = time.perf_counter()
+    say("path (v): the B = 1 chat path, LLMI_LAYER_MEGA=1, on the weights "
+        "of paths (i) (int8) and (ii) (int4 g=128)")
+    say("phase 2 (K12 and its row writes): kernels vs plain versions on the "
+        "card, LLaMA-2-7B shapes")
+    k12_r, k12_err = k12_cases(params8, params4, gen)
+    rows_r = row_write_cases(gen)
+    phase_mega_parity(QCFG8, BF16)
+    phase_mega_parity(QCFG4, "int8")
+    say("phase 4: ChatSession, generate and the CLI on full-depth "
+        "LLaMA-2-7B")
+    by_inst = {inst: {c: 0 for c in COUNTERS} for inst in MEGA_INSTANCES}
+
+    def add(inst, got):
+        for c, n in got.items():
+            by_inst[inst][c] += n
+    add(("int4", "int8"), phase_chat(params4))
+    g = torch.Generator().manual_seed(SEED + 8)
+    prompt = torch.randint(1, CFG.vocab_size, (3000,), generator=g).tolist()
+    for weights, kv, compare in (("int8", "bf16", True),
+                                 ("int4", "int8", True),
+                                 ("int8", "int8", False),
+                                 ("int4", "bf16", False)):
+        add((weights, kv), phase_mega_generate(
+            params8 if weights == "int8" else params4, weights, kv, prompt,
+            compare))
+    torch.cuda.empty_cache()
+    run_cli()
+    total = {c: sum(d[c] for d in by_inst.values()) for c in COUNTERS}
+    check(all(d["K12"] > 0 for d in by_inst.values())
+          and total["RW"] > 0 and total["QRW"] > 0,
+          f"a kernel of path (v) never ran: {by_inst}")
+    say(f"path (v) took {time.perf_counter() - t0:.1f} s")
+    out = []
+    for weights, kind in MEGA_INSTANCES:
+        out.append(dict(entry(
+            f"K12 layer_decode_fused ({weights} weights, {kind} cache)",
+            "layer_fused.cu", "layer_fused.py:353",
+            by_inst[(weights, kind)]["K12"], k12_err[(weights, kind)],
+            k12_r[(weights, kind)], L,
+            "32 layers of one decode step at B=1, pos 191, S=512"),
+            library="torch.matmul on bf16 dequantized weights, "
+                    "scaled_dot_product_attention over the dequantized "
+                    "cache, F.silu, RMSNorm in torch ops"))
+    out.append(entry("write_rows (K12's bf16 row write)", "kv_write.cu",
+                     "kv_write.py:314", total["RW"], 0.0, rows_r["bf16"], L,
+                     "32 layers of one decode step at B=1"))
+    out.append(entry("quantize_write_rows (K12's int8 row write)",
+                     "kv_write.cu", "kv_write.py:248", total["QRW"], 0.0,
+                     rows_r["int8"], L, "32 layers of one decode step at B=1"))
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     phase_card()
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
-    kernels = path_int8(gen)
+    params8, kernels = path_int8(gen)
     torch.cuda.empty_cache()
     say(f"path (i) done at {time.perf_counter() - t_start:.1f} s")
     more, shared = path_int4(gen)
@@ -1581,7 +2152,10 @@ def main():
     say(f"path (iii) done at {time.perf_counter() - t_start:.1f} s")
     torch.cuda.empty_cache()
     kernels += path_paged(gen, shared)
-    del shared
+    say(f"path (iv) done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    kernels += path_chat(gen, params8, shared["params"])
+    del shared, params8
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

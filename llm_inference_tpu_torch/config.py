@@ -2,9 +2,11 @@
 
 The port's own copy of the parts of the JAX package's
 `llm_inference_tpu/config.py` that the port reads (ModelConfig,
-QuantConfig, EngineConfig, GenerationConfig, llama2_7b, tiny_llama): the
-port imports nothing of the JAX package. Field names and defaults match
-it; fields of families and features not ported yet are added with them.
+QuantConfig, EngineConfig, GenerationConfig, the LLaMA-2 presets and
+tiny_llama): the port imports nothing of the JAX package. Field names and
+defaults match it; fields of families and features not ported yet are
+added with them. `PRESETS` holds only the models the port serves;
+`preset` raises for the JAX package's other names.
 """
 
 from __future__ import annotations
@@ -55,6 +57,20 @@ def llama2_7b(**kw) -> ModelConfig:
                        max_position_embeddings=4096, **kw)
 
 
+def llama2_13b(**kw) -> ModelConfig:
+    return ModelConfig(name="llama2-13b", vocab_size=32000, hidden_size=5120,
+                       intermediate_size=13824, num_layers=40, num_heads=40,
+                       num_kv_heads=40, head_dim=128, rms_norm_eps=1e-5,
+                       max_position_embeddings=4096, **kw)
+
+
+def llama2_70b(**kw) -> ModelConfig:
+    return ModelConfig(name="llama2-70b", vocab_size=32000, hidden_size=8192,
+                       intermediate_size=28672, num_layers=80, num_heads=64,
+                       num_kv_heads=8, head_dim=128, rms_norm_eps=1e-5,
+                       max_position_embeddings=4096, **kw)
+
+
 def tiny_llama(**kw) -> ModelConfig:
     """Small config for tests."""
     defaults = dict(name="tiny-llama", vocab_size=256, hidden_size=128,
@@ -65,11 +81,33 @@ def tiny_llama(**kw) -> ModelConfig:
     return ModelConfig(**defaults)
 
 
+# the presets the port serves; "tiny" is the CLI's default name for
+# tiny_llama (the JAX CLI falls back to it for names it does not know)
+PRESETS = {
+    "llama2-7b": llama2_7b,
+    "llama2-13b": llama2_13b,
+    "llama2-70b": llama2_70b,
+    "tiny-llama": tiny_llama,
+    "tiny": tiny_llama,
+}
+
+
+def preset(name: str) -> ModelConfig:
+    """The config of a preset the port serves; other names (the JAX
+    package's other families) raise NotImplementedError."""
+    if name not in PRESETS:
+        raise NotImplementedError(
+            f"preset {name!r} is not ported; the port serves "
+            f"{sorted(PRESETS)}")
+    return PRESETS[name]()
+
+
 @dataclass(frozen=True)
 class QuantConfig:
-    """Weight quantization. This slice serves int8 symmetric per-channel
-    weights; int4, grouped and asymmetric weights raise
-    NotImplementedError where they would be used."""
+    """Weight quantization. The port serves int8 symmetric per-channel and
+    int4 symmetric (per-channel or grouped) weights; int8 grouped and
+    asymmetric weights raise NotImplementedError where they would be
+    used."""
 
     # "none" | "int8" | "int4"  (weight-only)
     weights: str = "none"

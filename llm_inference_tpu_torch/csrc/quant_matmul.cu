@@ -17,8 +17,8 @@
 //   rows (a read of M x K activations from L2, small beside the weights)
 //   into shared memory as bf16; block 0 alone writes x_out. Each warp owns
 //   4 output columns and streams their codes with 16-byte loads, lanes
-//   splitting K, and reduces with shuffles at the end. Each weight byte is
-//   read once from HBM.
+//   splitting K (the int8 core, int8_gemv.cuh, also K12's), and reduces
+//   with shuffles at the end. Each weight byte is read once from HBM.
 // - 8 < M <= 128 (prefill): a tiny pre-pass (qmm_rows_prologue, one block
 //   per row) writes the normalised bf16 rows and x_out once; then qmm_mma
 //   computes a 128 x 64 output tile per block, so a weight tile is read
@@ -53,6 +53,7 @@
 #include <stdint.h>
 
 #include "int4_gemv.cuh"
+#include "int8_gemv.cuh"
 
 namespace {
 
@@ -95,7 +96,7 @@ __device__ float row_prologue(const __nv_bfloat16* __restrict__ x,
 }
 
 // ---------------------------------------------------------------- GEMV
-constexpr int kColsPerWarp = 4;
+constexpr int kColsPerWarp = int8g::kCols;
 constexpr int kColsPerBlock = kWarps * kColsPerWarp;   // 32
 
 template <int MT>
@@ -139,52 +140,7 @@ qmm_gemv(const __nv_bfloat16* __restrict__ x,      // [M, K]
   for (int c = 0; c < kColsPerWarp; ++c)
 #pragma unroll
     for (int m = 0; m < MT; ++m) acc[c][m] = 0.f;
-
-  const int chunks = K / 16;  // 16 codes per lane per step
-#pragma unroll 2
-  for (int ch = lane; ch < chunks; ch += 32) {
-    int4 wv[kColsPerWarp];
-#pragma unroll
-    for (int c = 0; c < kColsPerWarp; ++c)
-      wv[c] = __ldg(reinterpret_cast<const int4*>(
-          w + (size_t)(n0 + c) * K + (size_t)ch * 16));
-    // the 16 codes of each column as signed bytes of four 32-bit words
-    uint32_t words[kColsPerWarp][4];
-#pragma unroll
-    for (int c = 0; c < kColsPerWarp; ++c) {
-      words[c][0] = (uint32_t)wv[c].x;
-      words[c][1] = (uint32_t)wv[c].y;
-      words[c][2] = (uint32_t)wv[c].z;
-      words[c][3] = (uint32_t)wv[c].w;
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < M) {
-        const uint4* xp =
-            reinterpret_cast<const uint4*>(xs + (size_t)m * K + ch * 16);
-        const uint4 xa = xp[0], xb = xp[1];
-        const uint32_t xw[8] = {xa.x, xa.y, xa.z, xa.w,
-                                xb.x, xb.y, xb.z, xb.w};
-        float xf[16];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {      // bf16 pair → two exact floats
-          xf[2 * j] = __uint_as_float(xw[j] << 16);
-          xf[2 * j + 1] = __uint_as_float(xw[j] & 0xffff0000u);
-        }
-#pragma unroll
-        for (int c = 0; c < kColsPerWarp; ++c) {
-          float a = acc[c][m];
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            const int code =
-                (int)(words[c][j >> 2] << (24 - 8 * (j & 3))) >> 24;
-            a = fmaf(xf[j], (float)code, a);
-          }
-          acc[c][m] = a;
-        }
-      }
-    }
-  }
+  int8g::gemv_cols<MT>(xs, K, M, w, K, n0, lane, acc);
 
 #pragma unroll
   for (int c = 0; c < kColsPerWarp; ++c) {

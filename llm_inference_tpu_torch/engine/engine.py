@@ -1,5 +1,6 @@
-"""InferenceEngine: bucketed prefill and chunked decode on one model
-(counterpart of `llm_inference_tpu/engine/engine.py:40-575, 752-861`).
+"""InferenceEngine: bucketed prefill and chunked decode on one model,
+ChatSession over it, and the chat templates (counterpart of
+`llm_inference_tpu/engine/engine.py:40-575, 752-1089`).
 
 Decode runs `engine_cfg.decode_chunk` steps on the device between two
 host syncs, as the JAX engine's scan does: each step's sampled token stays
@@ -12,6 +13,10 @@ schedulers (engine/scheduler.py) run on top: they call `prefill` and
 `paged_forward` for admissions and the decode-chunk programs
 (`_decode_chunk_fn`, `_decode_chunk_rows_fn`) over their slots, dense or
 paged. There is no LoRA or mesh: `data_parallel` is 1, `has_lora` False.
+Sampling takes the serving API's repetition, presence and frequency
+penalties and a logit bias (engine.py:222-240, 781-803): the output-token
+counts and the prompt ∪ output seen mask of each row live on the device
+and are updated in place by every sampled token.
 """
 
 from __future__ import annotations
@@ -138,29 +143,81 @@ class InferenceEngine:
             return self.paged_forward()
         return self._forward
 
+    @staticmethod
+    def _gen_penalized(gen: GenerationConfig) -> bool:
+        return (gen.repetition_penalty != 1.0 or gen.presence_penalty != 0.0
+                or gen.frequency_penalty != 0.0)
+
+    def _bias_rows(self, logit_bias, batch: int):
+        """{token_id: bias} → [B, V] float32 on the device (one row for
+        every sequence), or None when unset; ids outside the vocabulary
+        raise."""
+        if not logit_bias:
+            return None
+        row = sampling.bias_row(logit_bias, self.cfg.vocab_size, self.device)
+        return row.expand(batch, -1)
+
+    def _penalty_state(self, seen_lists):
+        """(output counts [B, V] int32 zeros, seen [B, V] bool with each
+        row's ids of seen_lists) on the device: the penalties' state."""
+        V = self.cfg.vocab_size
+        seen = np.zeros((len(seen_lists), V), bool)
+        for i, ids in enumerate(seen_lists):
+            seen[i, np.asarray(list(ids), np.int64) % V] = True
+        return (torch.zeros((len(seen_lists), V), dtype=torch.int32,
+                            device=self.device),
+                torch.from_numpy(seen).to(self.device))
+
+    def _pick(self, logits, gen: GenerationConfig, generator, counts=None,
+              seen=None, bias=None):
+        """Next tokens [B] int32 from logits [B, V] under gen's knobs, the
+        logit bias and (with counts/seen) the penalties, which then count
+        the picked tokens in place."""
+        if bias is not None:
+            logits = logits + bias
+        if counts is not None:
+            B = logits.shape[0]
+
+            def knob(v):
+                return torch.full((B,), v, dtype=torch.float32,
+                                  device=logits.device)
+            logits = sampling.apply_penalties(
+                logits, counts, seen, knob(gen.repetition_penalty),
+                knob(gen.presence_penalty), knob(gen.frequency_penalty))
+        token = sampling.sample(logits, generator,
+                                temperature=gen.temperature,
+                                top_k=gen.top_k, top_p=gen.top_p,
+                                greedy=gen.greedy, min_p=gen.min_p)
+        if counts is not None:
+            rows = torch.arange(token.shape[0], device=token.device)
+            counts[rows, token.long()] += 1
+            seen[rows, token.long()] = True
+        return token
+
     @torch.no_grad()
-    def _decode_chunk_fn(self, cache, token, pos, *, steps: int,
-                         gen: GenerationConfig, generator=None):
+    def _decode_chunk_fn(self, cache, token, pos, counts=None, seen=None,
+                         bias=None, *, steps: int, gen: GenerationConfig,
+                         generator=None, logprobs: bool = True):
         """`steps` decode forwards over every row with static sampling
         knobs (engine.py:267-310); each step's token feeds the next on the
         device, with no host sync. token/pos [B]: the last token and its
-        position. Returns (tokens [B, steps] int32, their logprobs [B,
-        steps] float32, cache, token, pos)."""
+        position; counts/seen the penalties' state (updated in place) and
+        bias a [B, V] logit bias, which shape the pick but not the
+        logprobs. Returns (tokens [B, steps] int32, their logprobs [B,
+        steps] float32 or None without `logprobs`, cache, token, pos)."""
         B = token.shape[0]
         zeros = torch.zeros((B,), dtype=torch.long, device=token.device)
         fwd = self._fwd_for(cache)
         toks, lps = [], []
         for _ in range(steps):
             logits, cache = fwd(token[:, None], pos[:, None], cache, zeros)
-            token = sampling.sample(logits, generator,
-                                    temperature=gen.temperature,
-                                    top_k=gen.top_k, top_p=gen.top_p,
-                                    greedy=gen.greedy, min_p=gen.min_p)
+            token = self._pick(logits, gen, generator, counts, seen, bias)
             toks.append(token)
-            lps.append(sampling.chosen_logprob(logits, token))
+            if logprobs:
+                lps.append(sampling.chosen_logprob(logits, token))
             pos = pos + 1
-        return (torch.stack(toks, 1), torch.stack(lps, 1), cache, token,
-                pos)
+        return (torch.stack(toks, 1), torch.stack(lps, 1) if logprobs
+                else None, cache, token, pos)
 
     @torch.no_grad()
     def _decode_chunk_rows_fn(self, cache, token, pos, temp, topk, topp,
@@ -262,12 +319,9 @@ class InferenceEngine:
         """Batch generation. `stream(row, token_id, text_piece)` is called
         as tokens arrive."""
         gen = gen or GenerationConfig()
-        if (gen.repetition_penalty != 1.0 or gen.presence_penalty != 0.0
-                or gen.frequency_penalty != 0.0 or gen.logit_bias):
-            raise NotImplementedError("sampling penalties and logit_bias "
-                                      "are not ported yet")
         token_lists = self._encode_prompts(prompts)
         B = len(token_lists)
+        bias = self._bias_rows(gen.logit_bias, B)
         lengths = np.array([len(t) for t in token_lists], np.int32)
         need = int(lengths.max()) + gen.max_new_tokens
         if need > self.engine_cfg.max_seq_len:
@@ -277,15 +331,14 @@ class InferenceEngine:
         eos = set(gen.eos_token_ids)
         generator = torch.Generator(device=self.device).manual_seed(gen.seed)
 
-        def draw(logits):
-            return sampling.sample(logits, generator,
-                                   temperature=gen.temperature,
-                                   top_k=gen.top_k, top_p=gen.top_p,
-                                   greedy=gen.greedy, min_p=gen.min_p)
-
         t0 = time.perf_counter()
         logits, cache = self.prefill(token_lists)
-        first = draw(logits)
+        # the penalties' state: repetition over prompt ∪ output, presence
+        # and frequency over the output
+        counts = seen = None
+        if self._gen_penalized(gen):
+            counts, seen = self._penalty_state(token_lists)
+        first = self._pick(logits, gen, generator, counts, seen, bias)
         first_np = first.cpu().numpy()
         ttft = time.perf_counter() - t0
 
@@ -298,21 +351,16 @@ class InferenceEngine:
 
         token = first
         pos = torch.from_numpy(lengths).to(self.device)  # next write slot
-        zeros = torch.zeros((B,), dtype=torch.long, device=self.device)
         chunk = max(1, self.engine_cfg.decode_chunk)
         produced = 1
         t_dec = time.perf_counter()
         decoded = 0
         while produced < gen.max_new_tokens and not finished.all():
             steps = min(chunk, gen.max_new_tokens - produced)
-            toks = []
-            for _ in range(steps):
-                logits, cache = self._forward(token[:, None], pos[:, None],
-                                              cache, zeros)
-                token = draw(logits)
-                toks.append(token)
-                pos = pos + 1
-            toks_np = torch.stack(toks, dim=1).cpu().numpy()   # host sync
+            toks, _, cache, token, pos = self._decode_chunk_fn(
+                cache, token, pos, counts, seen, bias, steps=steps, gen=gen,
+                generator=generator, logprobs=False)
+            toks_np = toks.cpu().numpy()                     # host sync
             for i in range(B):
                 for j in range(steps):
                     if finished[i]:
@@ -345,3 +393,195 @@ class InferenceEngine:
         piece = (self.tokenizer.decode_token(token_id)
                  if self.tokenizer else "")
         stream(row, token_id, piece)
+
+
+class ChatSession:
+    """Multi-round chat that keeps the KV cache across rounds
+    (engine.py:864-975): history stays resident and each round prefills
+    only the new turn at the next free slot. The last sampled token of a
+    round is never forwarded; it is carried into the next round's
+    prefill. The repetition penalty's scope is the whole resident
+    history; presence and frequency count this round's completion."""
+
+    def __init__(self, engine: InferenceEngine,
+                 template: Optional[Callable[[str, int], str]] = None,
+                 adapter=None):
+        engine.resolve_adapter(adapter)       # no adapters in the port
+        self.engine = engine
+        self.template = template or chat_template_for(engine.cfg.name)
+        self.cache = None
+        self.pos = 0          # next unwritten cache slot / absolute position
+        self.round = 0
+        self._pending: List[int] = []   # sampled but never forwarded tokens
+        self._seen_ids: set = set()     # full history (repetition scope)
+
+    @torch.no_grad()
+    def ask(self, user_text: str, gen: Optional[GenerationConfig] = None,
+            stream: Optional[Callable[[str], None]] = None) -> str:
+        eng = self.engine
+        gen = gen or GenerationConfig()
+        prompt = self.template(user_text, self.round)
+        toks = (self._pending
+                + eng.tokenizer.encode(prompt, add_bos=(self.round == 0)))
+        self._pending = []
+        need = self.pos + len(toks) + gen.max_new_tokens
+        if need > eng.engine_cfg.max_seq_len:
+            raise ValueError(
+                f"chat history + turn + max_new_tokens needs {need} cache "
+                f"slots but max_seq_len is {eng.engine_cfg.max_seq_len}; "
+                f"start a new session or raise max_seq_len")
+        if self.cache is None:
+            self.cache = eng.new_cache(1)
+        logits, self.cache = eng.prefill([toks], cache=self.cache,
+                                         start_positions=[self.pos])
+        self.pos += len(toks)
+        generator = torch.Generator(device=eng.device).manual_seed(
+            gen.seed + self.round)
+        bias = eng._bias_rows(gen.logit_bias, 1)
+        counts = seen = None
+        if eng._gen_penalized(gen):
+            self._seen_ids.update(toks)
+            counts, seen = eng._penalty_state([sorted(self._seen_ids)])
+        token = eng._pick(logits, gen, generator, counts, seen, bias)
+        eos = set(gen.eos_token_ids)
+
+        out_ids: List[int] = []
+        cur = int(token[0])           # sampled, not yet forwarded
+        pos = torch.tensor([self.pos], dtype=torch.int32, device=eng.device)
+        chunk = max(1, eng.engine_cfg.decode_chunk)
+        ended_by_eos = cur in eos
+        while not ended_by_eos and len(out_ids) + 1 < gen.max_new_tokens:
+            out_ids.append(cur)       # about to be forwarded by the chunk
+            if stream is not None:
+                stream(eng.tokenizer.decode_token(cur))
+            steps = min(chunk, gen.max_new_tokens - len(out_ids))
+            toks_d, _, self.cache, token, pos = eng._decode_chunk_fn(
+                self.cache, token, pos, counts, seen, bias, steps=steps,
+                gen=gen, generator=generator, logprobs=False)
+            self.pos += 1             # `cur` is now in the cache...
+            chunk_toks = toks_d[0].tolist()
+            # ...and all but the last sampled token of the chunk are too
+            for j, t in enumerate(chunk_toks):
+                cur = int(t)
+                if cur in eos:
+                    ended_by_eos = True
+                    break
+                if j < len(chunk_toks) - 1:
+                    out_ids.append(cur)
+                    self.pos += 1
+                    if stream is not None:
+                        stream(eng.tokenizer.decode_token(cur))
+        if not ended_by_eos:
+            # the last sampled token was never forwarded: emit it, and
+            # carry it into the next round's prefill
+            out_ids.append(cur)
+            if stream is not None:
+                stream(eng.tokenizer.decode_token(cur))
+            self._pending = [cur]
+        self.round += 1
+        self._seen_ids.update(out_ids)
+        return eng.tokenizer.decode(out_ids)
+
+
+def llama2_chat_template(user_text: str, round_idx: int) -> str:
+    """LLaMA-2-chat prompt format."""
+    return f"[INST] {user_text} [/INST]"
+
+
+def gemma_chat_template(user_text: str, round_idx: int) -> str:
+    """Gemma instruction format (<start_of_turn> markers)."""
+    return (f"<start_of_turn>user\n{user_text}<end_of_turn>\n"
+            f"<start_of_turn>model\n")
+
+
+def llama3_chat_template(user_text: str, round_idx: int) -> str:
+    """LLaMA-3-instruct header format (<|start_header_id|> markers)."""
+    return ("<|start_header_id|>user<|end_header_id|>\n\n"
+            f"{user_text}<|eot_id|>"
+            "<|start_header_id|>assistant<|end_header_id|>\n\n")
+
+
+def chatml_chat_template(user_text: str, round_idx: int) -> str:
+    """ChatML (<|im_start|> markers), the Qwen family's format."""
+    return (f"<|im_start|>user\n{user_text}<|im_end|>\n"
+            "<|im_start|>assistant\n")
+
+
+def phi3_chat_template(user_text: str, round_idx: int) -> str:
+    """Phi-3 instruct format (<|user|> / <|assistant|> with <|end|>)."""
+    return f"<|user|>\n{user_text}<|end|>\n<|assistant|>\n"
+
+
+def chat_template_for(model_name: str):
+    """The family's chat template (ChatSession's default). Mistral and
+    Mixtral instruct use LLaMA-2's [INST] format."""
+    head = model_name.split("-")[0].lower()
+    if head.startswith("gemma"):
+        return gemma_chat_template
+    if head.startswith("llama3") or head.startswith("llama-3"):
+        return llama3_chat_template
+    if head.startswith("qwen"):
+        return chatml_chat_template
+    if head.startswith("phi3"):
+        return phi3_chat_template
+    return llama2_chat_template
+
+
+def format_chat_messages(messages: Sequence[dict],
+                         model_name: str = "") -> str:
+    """An OpenAI-style message list as the family's chat prompt, the
+    stateless counterpart of ChatSession's per-round template.
+    LLaMA-2/Mistral: [INST]...[/INST] turns with the <<SYS>> block folded
+    into the first user turn; LLaMA-3: header markers; Qwen: ChatML; Phi-3:
+    role markers; Gemma: start_of_turn markers (the system text folded into
+    the first user turn: gemma has no system role)."""
+    head = (model_name or "").split("-")[0].lower()
+    if head.startswith("llama3") or head.startswith("llama-3"):
+        out = [f"<|start_header_id|>{m['role']}<|end_header_id|>"
+               f"\n\n{m['content']}<|eot_id|>" for m in messages]
+        out.append("<|start_header_id|>assistant<|end_header_id|>\n\n")
+        return "".join(out)
+    if head.startswith("qwen"):
+        out = [f"<|im_start|>{m['role']}\n{m['content']}<|im_end|>\n"
+               for m in messages]
+        out.append("<|im_start|>assistant\n")
+        return "".join(out)
+    if head.startswith("phi3"):
+        out = [f"<|{m['role']}|>\n{m['content']}<|end|>\n" for m in messages]
+        out.append("<|assistant|>\n")
+        return "".join(out)
+    if head.startswith("gemma"):
+        out = []
+        system = ""
+        for m in messages:
+            if m["role"] == "system":
+                system = m["content"] + "\n\n"
+                continue
+            role = "model" if m["role"] == "assistant" else "user"
+            body = system + m["content"] if role == "user" else m["content"]
+            system = ""
+            out.append(f"<start_of_turn>{role}\n{body}<end_of_turn>\n")
+        out.append("<start_of_turn>model\n")
+        return "".join(out)
+    system = ""
+    turns: List[str] = []
+    pending_user: Optional[str] = None
+    for m in messages:
+        role, content = m["role"], m["content"]
+        if role == "system":
+            system = content
+        elif role == "user":
+            pending_user = (content if pending_user is None
+                            else pending_user + "\n" + content)
+        elif role == "assistant":
+            turns.append(f"[INST] {pending_user or ''} [/INST] {content}")
+            pending_user = None
+    final_user = pending_user or ""
+    if system:
+        sys_block = f"<<SYS>>\n{system}\n<</SYS>>\n\n"
+        if turns:
+            turns[0] = "[INST] " + sys_block + turns[0][len("[INST] "):]
+        else:
+            final_user = sys_block + final_user
+    turns.append(f"[INST] {final_user} [/INST]")
+    return " ".join(turns)

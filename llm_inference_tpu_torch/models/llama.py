@@ -25,6 +25,10 @@ weights at M ≤ 32 rows (llama.py:802-816), else the matmul chain
 
     wo → gate-up (norm + residual fused) → SwiGLU → down
 
+With LLMI_LAYER_MEGA=1 in the environment, a single-sequence decode step
+over a dense cache runs each whole layer as K12 and its row write
+(`layer_route`, llama.py:719-731).
+
 Weight dict layout (dense tensors or QTensor):
   embed [V, H]; final_norm [H]; lm_head [H, V] (absent if tied);
   layers/attn_norm, ffn_norm [L, H]; wq [L, H, Hq·D]; wk, wv [L, H, Hkv·D];
@@ -34,6 +38,7 @@ Weight dict layout (dense tensors or QTensor):
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -45,6 +50,7 @@ from llm_inference_tpu_torch.ops import activations, attention, embedding
 from llm_inference_tpu_torch.ops import kvcache, norms, paged_kvcache, rope
 from llm_inference_tpu_torch.ops.kernels import decode_attention
 from llm_inference_tpu_torch.ops.kernels import flash_attention
+from llm_inference_tpu_torch.ops.kernels import layer_fused
 from llm_inference_tpu_torch.ops.kernels import paged_attention
 from llm_inference_tpu_torch.ops.kernels import paged_flash
 from llm_inference_tpu_torch.ops.kernels import quant_matmul as qm
@@ -297,6 +303,23 @@ def attention_route(q_shape, S: int, quantized: bool, page_size: int = 0,
     return "attend"
 
 
+def layer_route(cfg: ModelConfig, layers, batch: int, rows: int,
+                cache) -> str:
+    """Which layer a forward runs, under the JAX package's gate
+    (llama.py:719-731): "mega" (K12 and its row write, a whole layer in
+    two launches) when LLMI_LAYER_MEGA=1 is set at call time, the step is
+    a single token of a single sequence (B·T = 1) over a dense cache, the
+    four weights are fused quantized ones and layer_fused.supports takes
+    the layer; else "split" (the K1/attention/K6 chain). The port has no
+    LoRA, the other part of the JAX gate."""
+    if (os.environ.get("LLMI_LAYER_MEGA", "0") == "1" and batch * rows == 1
+            and isinstance(cache, kvcache.KVCache)
+            and layer_fused.supports(cfg, (batch, rows, cfg.hidden_size),
+                                     layers, cache)):
+        return "mega"
+    return "split"
+
+
 def _gather_paged(cache: paged_kvcache.PagedKVCache, layer: int):
     """Every sequence's pages, densely: K/V [B, Hkv, NB·ps, Dc] and, for a
     quantized pool, scales [B, NB·ps, Hkv] (the paged fallbacks)."""
@@ -422,10 +445,14 @@ def _attend_block(cfg, l, q, k, v, cache, positions, write_offsets, mask,
 
 
 def _layer_pair(cfg, layers, l, h, d, cache, positions, write_offsets, mask,
-                route, cos, sin):
+                route, cos, sin, mega=False):
     """Pair-carry layer: returns (h2, delta) with the residual stream
     h2 and this layer's down-projection output, which the next layer's
-    wqkv prologue adds. The tail is K6 where it takes the case."""
+    wqkv prologue adds. With `mega` the whole layer is K12 (layer_route);
+    else the tail is K6 where it takes the case."""
+    if mega:
+        return layer_fused.layer_decode_fused(cfg, h, d, layers, cache, l,
+                                              positions, cos, sin)
     B, T, _ = h.shape
     eps = cfg.rms_norm_eps
     bqkv = layers.get("bqkv")
@@ -536,9 +563,10 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
     if (isinstance(layers.get("wqkv"), QTensor)
             and isinstance(layers.get("w_gateup"), QTensor)):
         d = torch.zeros_like(h)
+        mega = layer_route(cfg, layers, B, T, cache) == "mega"
         for l in range(L):
             h, d = _layer_pair(cfg, layers, l, h, d, cache, positions,
-                               write_offsets, mask, route, cos, sin)
+                               write_offsets, mask, route, cos, sin, mega)
         h = h + d
     else:
         for l in range(L):

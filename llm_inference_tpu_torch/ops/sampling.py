@@ -1,6 +1,8 @@
 """Token sampling: greedy, temperature, top-k, top-p, min-p, with static
-knobs (`sample`) or per-row knob tensors (`sample_per_row`), and logprobs
-(counterpart of `llm_inference_tpu/ops/sampling.py:26-52, 79-206`).
+knobs (`sample`) or per-row knob tensors (`sample_per_row`), the serving
+API's penalties (`apply_penalties`) and logit bias (`bias_row`), and
+logprobs (counterpart of `llm_inference_tpu/ops/sampling.py:26-206` and
+of the logit-bias row at `engine/engine.py:222-240`).
 
 `sample` draws from an explicit `torch.Generator`. The schedulers draw
 with `sample_per_row` over Gumbel noise from `row_noise`, an integer hash
@@ -9,7 +11,7 @@ nothing else, not on its batch-mates and not on a generator's state, so a
 preempted request replays the same tokens, on the CPU as on the card.
 Neither reproduces JAX's threefry draws, so the port is held to the JAX
 package's filtered distributions and greedy tokens, not to its sampled
-ids. Penalties and logit_bias wait for a later slice.
+ids.
 """
 
 from __future__ import annotations
@@ -46,6 +48,38 @@ def apply_min_p(logits: torch.Tensor, min_p: float) -> torch.Tensor:
         torch.tensor(min_p, dtype=logits.dtype, device=logits.device))
     return torch.where(logits < thresh, torch.full_like(logits, NEG_INF),
                        logits)
+
+
+def apply_penalties(logits: torch.Tensor, out_counts: torch.Tensor,
+                    seen_mask: torch.Tensor, repetition: torch.Tensor,
+                    presence: torch.Tensor,
+                    frequency: torch.Tensor) -> torch.Tensor:
+    """The serving API's penalties on logits [B, V] (float32 out):
+    out_counts [B, V] int — output token counts; seen_mask [B, V] bool —
+    prompt ∪ output tokens; repetition/presence/frequency [B] float32 (1,
+    0, 0 switch them off). The CTRL-style repetition penalty divides a
+    positive and multiplies a negative logit of every seen token;
+    presence (once) and frequency (per count) subtract from output tokens
+    only."""
+    logits = logits.to(torch.float32)
+    rep = repetition.to(torch.float32)[:, None]
+    pen = torch.where(logits > 0, logits / rep, logits * rep)
+    logits = torch.where(seen_mask & (rep != 1.0), pen, logits)
+    logits = logits - presence.to(torch.float32)[:, None] * (out_counts > 0)
+    return logits - frequency.to(torch.float32)[:, None] * out_counts
+
+
+def bias_row(logit_bias, vocab: int, device=None) -> torch.Tensor:
+    """{token_id: bias} → a [vocab] float32 row; ids outside [0, vocab)
+    raise ValueError."""
+    row = torch.zeros((vocab,), dtype=torch.float32)
+    for t, b in (logit_bias or {}).items():
+        t = int(t)
+        if not 0 <= t < vocab:
+            raise ValueError(f"logit_bias token id {t} out of range "
+                             f"[0, {vocab})")
+        row[t] = float(b)
+    return row.to(device)
 
 
 def filter_logits(logits: torch.Tensor, temperature: float = 1.0,

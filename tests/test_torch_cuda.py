@@ -6,6 +6,8 @@ imports no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -598,3 +600,104 @@ def test_paged_scheduler_cuda_matches_cpu(cuda, cache_dtype):
                                                         d.output_ids)
             compared += 1
     assert compared >= 12
+
+
+def _mega_layer(g, bits, kv, Hkv, S, pos):
+    """A 2-layer model's layer dict (random quantized weights, random bf16
+    norms), a random cache of one sequence and the RoPE rows at pos."""
+    from llm_inference_tpu_torch.config import QuantConfig, tiny_llama
+    from llm_inference_tpu_torch.models import llama
+    from llm_inference_tpu_torch.ops import kvcache
+    cfg = tiny_llama(hidden_size=1024, intermediate_size=2816, num_heads=8,
+                     num_kv_heads=Hkv, head_dim=128, vocab_size=256,
+                     dtype="bfloat16", max_position_embeddings=4096)
+    qcfg = QuantConfig(weights=bits, group_size=128 if bits == "int4" else 0)
+    params = llama.prepare_params(llama.init_params_quantized(
+        cfg, qcfg, seed=5, device="cpu"))
+    layers = params["layers"]
+    for name in ("attn_norm", "ffn_norm"):
+        layers[name] = (1 + 0.1 * torch.randn(layers[name].shape,
+                                              generator=g)).to(BF16)
+    cache = kvcache.init_cache(2, 1, Hkv, S, 128,
+                               BF16 if kv == "bf16" else "int8",
+                               device="cpu")
+    if kv == "bf16":
+        cache.k.copy_(torch.randn(cache.k.shape, generator=g))
+        cache.v.copy_(torch.randn(cache.v.shape, generator=g))
+    else:
+        for c in (cache.k, cache.v):
+            c.copy_(torch.randint(-128, 128, c.shape, generator=g))
+        for s in (cache.k_scale, cache.v_scale):
+            s.copy_(torch.rand(s.shape, generator=g) * 0.02 + 0.005)
+    cos, sin = llama.rope_table(cfg, S, "cpu")
+    return cfg, layers, cache, cos[pos][None, None], sin[pos][None, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,kv,Hkv,S,pos", [
+    ("int8", "bf16", 8, 512, 191), ("int8", "bf16", 2, 1024, 900),
+    ("int4", "int8", 8, 512, 191), ("int4", "int8", 2, 1024, 0),
+    ("int8", "int8", 8, 256, 255), ("int4", "bf16", 4, 512, 64)])
+def test_k12_cuda_matches_plain(cuda, bits, kv, Hkv, S, pos):
+    from llm_inference_tpu_torch.models import llama
+    from llm_inference_tpu_torch.ops.kernels import layer_fused as t_lf
+    g = torch.Generator().manual_seed(pos + S)
+    cfg, layers, cache, cos, sin = _mega_layer(g, bits, kv, Hkv, S, pos)
+    H = cfg.hidden_size
+    h = torch.randn((1, 1, H), generator=g).to(BF16)
+    res = torch.randn((1, 1, H), generator=g).to(BF16)
+    positions = torch.tensor([[pos]], dtype=torch.int32)
+    assert t_lf.supports(cfg, h.shape, layers, cache)
+    want = t_lf.layer_decode_fused_ref(cfg, h, res, layers, cache, 1,
+                                       positions, cos, sin)
+    dev_layers = llama.params_to(layers, cuda)
+    dev_cache = dataclasses.replace(cache, **{
+        f: getattr(cache, f).to(cuda) for f in ("k", "v", "k_scale",
+                                                "v_scale")
+        if getattr(cache, f) is not None})
+    before = t_lf.launches
+    got = t_lf.layer_kernel(cfg, h.to(cuda), res.to(cuda), dev_layers,
+                            dev_cache, 1, positions.to(cuda), cos.to(cuda),
+                            sin.to(cuda))
+    torch.cuda.synchronize()
+    assert t_lf.launches == before + 1
+    for name, a, b in zip(("h2", "down", "k_new", "v_new"), got, want):
+        a, b = a.cpu().float(), b.float()
+        assert torch.isfinite(a).all(), name
+        # float32 sums in another order; the kernel rounds p to bf16 against
+        # a running maximum, the plain version against the row maximum: a
+        # few bf16 steps (2^-8 relative) of the largest value; k_new/v_new
+        # round one float32 sum: one bf16 step (at most 2^-7 of it)
+        tol = (2.0 ** -7 if name in ("k_new", "v_new") else 4 * 2.0 ** -8
+               ) * b.abs().max().item()
+        assert (a - b).abs().max().item() <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_row_writes_cuda_match_plain_exactly(cuda, kv):
+    g = torch.Generator().manual_seed(12)
+    L, Hkv, S, D = 2, 8, 64, 128
+    kn = (torch.randn((Hkv, D), generator=g) * 3).to(BF16)
+    vn = torch.randn((Hkv, D), generator=g).to(BF16)
+    kn[2] = 0.0                                     # an all-zero row
+    for off in (0, 9, S + 3):
+        if kv == "bf16":
+            cpu = [torch.randn((L, 1, Hkv, S, D), generator=g).to(BF16)
+                   for _ in range(2)]
+            fn = t_kvw.write_rows
+        else:
+            cpu = [torch.randint(-128, 128, (L, 1, Hkv, S, D), generator=g,
+                                 dtype=torch.int8) for _ in range(2)]
+            cpu += [torch.rand((L, 1, S, Hkv), generator=g) for _ in range(2)]
+            fn = t_kvw.quantize_write_rows
+        dev = [t.to(cuda) for t in cpu]
+        before = (t_kvw.rows_launches, t_kvw.qrows_launches)
+        fn(*cpu, 1, kn, vn, torch.tensor([off]))
+        fn(*dev, 1, kn.to(cuda), vn.to(cuda),
+           torch.tensor([off], device=cuda))
+        torch.cuda.synchronize()
+        assert (t_kvw.rows_launches + t_kvw.qrows_launches
+                == sum(before) + 1)
+        for a, b in zip(dev, cpu):
+            assert torch.equal(a.cpu(), b)

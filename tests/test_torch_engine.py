@@ -203,11 +203,20 @@ def test_sampled_generation_is_seeded(setup):
 
 
 def test_unported_sampling_knobs_raise(setup):
+    """The penalties and logit_bias are ported for generate (held to the
+    JAX package in tests/test_torch_chat.py), not yet for the schedulers'
+    per-request sampling: submit raises on them."""
+    from llm_inference_tpu_torch.engine.scheduler import (
+        ContinuousBatchingScheduler)
     _, _, _, teng = setup
-    for gen in (GenerationConfig(repetition_penalty=1.2),
-                GenerationConfig(logit_bias={3: 1.0})):
+    sched = ContinuousBatchingScheduler(teng, GenerationConfig(
+        max_new_tokens=4))
+    for knobs in (dict(repetition_penalty=1.2), dict(logit_bias={3: 1.0})):
+        res = teng.generate([[1, 2]], GenerationConfig(
+            max_new_tokens=4, eos_token_ids=(), **knobs))[0]
+        assert len(res.token_ids) == 4
         with pytest.raises(NotImplementedError):
-            teng.generate([[1, 2]], gen)
+            sched.submit([1, 2], 4, **knobs)
 
 
 # ------------------------------------------ long prompts, three caches

@@ -79,13 +79,14 @@ print("ok")
     assert out.stdout.strip().endswith("ok")
 
 
-def test_no_device_means_cuda(monkeypatch):
-    from llm_inference_tpu_torch import resolve_device
+def test_no_device_means_cuda(monkeypatch, tmp_path):
+    from llm_inference_tpu_torch import cli, resolve_device
     from llm_inference_tpu_torch.config import (EngineConfig, QuantConfig,
                                                 tiny_llama)
     from llm_inference_tpu_torch.engine.engine import InferenceEngine
     from llm_inference_tpu_torch.models import llama
     from llm_inference_tpu_torch.ops import kvcache, paged_kvcache
+    from llm_inference_tpu_torch.utils import checkpoint
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tiny_llama(head_dim=64)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -100,6 +101,15 @@ def test_no_device_means_cuda(monkeypatch):
         kvcache.init_cache(1, 1, 2, 8, 64)
     with pytest.raises(RuntimeError, match="CUDA"):
         paged_kvcache.init_paged_cache(1, 4, 2, 8, 64, 1, 2)
+    # the CLI's default device, and the checkpoint loaders without one
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--model", "tiny", "--quant", "int8"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        checkpoint.load_hf_checkpoint(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        checkpoint.convert_hf_state_dict(cfg, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        checkpoint.load_reference_bin_dir(cfg, str(tmp_path))
     assert resolve_device("cpu") == torch.device("cpu")
     assert kvcache.init_cache(1, 1, 2, 8, 64, device="cpu").k.is_cpu
     assert paged_kvcache.init_paged_cache(1, 4, 2, 8, 64, 1, 2,
