@@ -11,7 +11,7 @@ time, then runs the port's three serving paths in turn, each through:
      call;
   3. a 2-layer LLaMA-2-7B-width model through `forward` on the CPU (plain
      versions) and on the card (kernels): the logits of a 128-row prefill
-     and 8 teacher-forced decode steps over 512 slots, then of two 512-row
+     and 4 teacher-forced decode steps over 512 slots, then of two 512-row
      prefill chunks over 2048 slots (the tiled GEMM and flash attention);
   4. requests served by `InferenceEngine.generate` on full-depth
      LLaMA-2-7B (random weights from a seed), greedy: a 3000-token prompt
@@ -45,7 +45,17 @@ penalties and a logit bias over a synthetic 32,000-piece vocabulary,
 generates 64 tokens after a 3000-token prompt on both weight sets, each
 with the megakernel on and off (streams compared, launches checked
 against the mega route's, tokens/s printed), and runs the CLI REPL once
-as a subprocess. Every check raises on failure. The line before the last
+as a subprocess. Path (vi), tensor parallelism at tp = 2 with two ranks
+sharing the card over gloo (parallel.run_ranks): phase 2 holds K7 (the
+TP layer's FFN block) to its plain version at one rank's shard of
+LLaMA-2-7B in groups of 128 and 32 codes, and K1 (groups of 8, 16, 32),
+K6, K8 and K12 (8, 16) to theirs on 2-layer 7B-width models; phase 3
+runs a 2-layer model through the TP forward against tp = 1 on the card
+and on the CPU; phase 4 serves a 128- and a 3000-token prompt, 64 tokens
+each, on full-depth int4 g=128 over an int8 cache at tp = 2 and at
+tp = 1 (streams compared, launches checked, TTFT, tokens/s and a decode
+step's busy and collective time printed), and runs the CLI at --tp 2.
+Every check raises on failure. The line before the last
 is a JSON object with one entry per kernel and path; the last is {"ok":
 true, "device": {...}}. Imports nothing of JAX or the JAX package.
 """
@@ -86,7 +96,10 @@ from llm_inference_tpu_torch.ops.kernels import layer_fused as k12
 from llm_inference_tpu_torch.ops.kernels import paged_attention as k10
 from llm_inference_tpu_torch.ops.kernels import paged_flash as k11
 from llm_inference_tpu_torch.ops.kernels import quant_matmul as k1
-from llm_inference_tpu_torch.ops.quantization import dequantize, unpack_kv4
+from llm_inference_tpu_torch.ops.quantization import (QTensor, dequantize,
+                                                      unpack_kv4)
+from llm_inference_tpu_torch.parallel import run_ranks
+from llm_inference_tpu_torch.tools import tp_ranks
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
@@ -103,6 +116,9 @@ CHUNK = 2048                        # the largest default prefill bucket
 L = CFG.num_layers
 TAIL_MAX_ROWS = 32                  # K6 takes up to 32 rows (else K1 chain)
 K1_MAX_ROWS = 128                   # above, the projections run K8
+# teacher-forced decode steps of the 2-layer parity phases of paths (i)-(v),
+# few enough that the whole run stays well inside its time limit
+PARITY_STEPS = 4
 
 
 def say(*a):
@@ -206,7 +222,7 @@ def k1_case(name, qt, M, prologue, gen, reps_layers):
     ms = time_ms(lambda i: k1.quant_matmul(x, qt, lay(i), **kw))
     plain = plain_ms(lambda i: k1.quant_matmul_ref(x, qt, lay(i), **kw))
     # library yardstick: torch.matmul against bf16 dequantized copies
-    n_lib = 4 if qt.stacked else 1
+    n_lib = min(4, qt.q.shape[0]) if qt.stacked else 1
     deq = [dequantize(qt.layer(i) if qt.stacked else qt, BF16)
            for i in range(n_lib)]
     lib = time_ms(lambda i: torch.matmul(x, deq[i % n_lib]))
@@ -416,9 +432,10 @@ def k4_cases(gen):
 
 
 def k6_cases(params, gen):
-    """K6 on layer weights of the int4 model at M = 1 and M = 4."""
+    """K6 on layer weights of an int4 model at M = 1 and M = 4."""
     lay = params["layers"]
     wo, gu, dn = lay["wo"], lay["w_gateup"], lay["w_down"]
+    depth = wo.q.shape[0]
     H, I = CFG.hidden_size, CFG.intermediate_size
     eps = CFG.rms_norm_eps
     n_lib = 2
@@ -443,8 +460,8 @@ def k6_cases(params, gen):
             check(e <= tol, f"K6 M={M} {what}: max err {e} > {tol}")
             err = max(err, e)
         err_max = max(err_max, err)
-        ms = time_ms(lambda i: k1.layer_tail_fused(*args, i % L))
-        plain = plain_ms(lambda i: k1.layer_tail_fused_ref(*args, i % L))
+        ms = time_ms(lambda i: k1.layer_tail_fused(*args, i % depth))
+        plain = plain_ms(lambda i: k1.layer_tail_fused_ref(*args, i % depth))
 
         def lib_tail(i):
             w_o, w_gu, w_d = deq[i % n_lib]
@@ -469,14 +486,16 @@ def k6_cases(params, gen):
 PROLOGUE = {"wqkv": True, "wo": False, "w_gateup": True, "w_down": False}
 
 
-def k8_cases(params, gen, M=CHUNK):
-    """K8 on the four layer weights at M rows (one 2048-row prefill chunk)
-    with the main path's prologue choice. The plain version and
+def k8_cases(params, gen, M=CHUNK, names=tuple(PROLOGUE)):
+    """K8 on the layer weights `names` at M rows (one 2048-row prefill
+    chunk) with the main path's prologue choice. The plain version and
     torch.matmul (bf16 dequantized) run on the same rows."""
     lay = params["layers"]
     res, err_max = {}, 0.0
-    for name, pro in PROLOGUE.items():
+    for name in names:
+        pro = PROLOGUE[name]
         qt = lay[name]
+        depth = qt.q.shape[0]
         K, N = qt.in_features, qt.out_features
         x = torch.randn((M, K), generator=gen, device=DEV).to(BF16)
         kw = {}
@@ -499,8 +518,10 @@ def k8_cases(params, gen, M=CHUNK):
         check(err <= tol, f"K8 {name} M={M}: max err {err} > {tol}")
         err_max = max(err_max, err)
         del got, want
-        ms = time_ms(lambda i: k1.quant_matmul(x, qt, i % L, **kw), reps=10)
-        plain = plain_ms(lambda i: k1.quant_matmul_ref(x, qt, i % L, **kw))
+        ms = time_ms(lambda i: k1.quant_matmul(x, qt, i % depth, **kw),
+                     reps=10)
+        plain = plain_ms(lambda i: k1.quant_matmul_ref(x, qt, i % depth,
+                                                       **kw))
         deq = [dequantize(qt.layer(i), BF16) for i in range(2)]
         lib = time_ms(lambda i: torch.matmul(x, deq[i % 2]), reps=10)
         del deq
@@ -756,7 +777,7 @@ def phase_parity(qcfg, cache_dtype):
         errs = [compare(l_cpu, l_gpu)]
         scale = l_cpu.abs().max().item()
         nxt = torch.tensor(lengths, dtype=torch.int32)[:, None]
-        for _ in range(8):
+        for _ in range(PARITY_STEPS):
             tok = l_cpu.argmax(-1).to(torch.int32)[:, None]
             l_cpu, _ = llama.forward(cfg, p_cpu, tok, nxt, c_cpu)
             l_gpu, _ = llama.forward(cfg, p_gpu, tok.to(DEV), nxt.to(DEV),
@@ -791,9 +812,9 @@ def phase_parity(qcfg, cache_dtype):
     # order, a bf16 rounding step upstream moves a logit by a few bf16
     # steps of |logit| (2^-8 relative); 4 such steps of the largest logit
     tol = 4 * 2.0 ** -8 * scale
-    say(f"  logits max err per step (prefill, 8 decode steps, 2 long "
-        f"chunks) {['%.4f' % e for e in errs]} (tol {tol:.4f}, max |logit| "
-        f"{scale:.3f})")
+    say(f"  logits max err per step (prefill, {PARITY_STEPS} decode steps, "
+        f"2 long chunks) {['%.4f' % e for e in errs]} (tol {tol:.4f}, max "
+        f"|logit| {scale:.3f})")
     check(all(finite), "2-layer parity: non-finite logits")
     check(max(errs) <= tol, f"2-layer parity: {max(errs)} > {tol}")
 
@@ -809,14 +830,15 @@ REQUESTS = (  # (name, prompt lengths, max_new_tokens, long engine)
 )
 REPEATS = 3       # timed passes over the requests
 BUCKETS = (32, 128)                 # the short requests' engine
-COUNTERS = ("K1", "K2", "K3", "K4", "K5", "K6", "K8", "K9", "KS", "K10a",
-            "K10b", "K11", "K12", "RW", "QRW")
+COUNTERS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "KS",
+            "K10a", "K10b", "K11", "K12", "RW", "QRW")
 
 
 def counts():
     return dict(K1=k1.launches, K2=k2.launches, K3=k3.launches,
                 K4=k3.quant_launches, K5=k2.int4_launches,
-                K6=k1.tail_launches, K8=k1.tiled_launches, K9=k9.launches,
+                K6=k1.tail_launches, K7=k1.ffn_launches,
+                K8=k1.tiled_launches, K9=k9.launches,
                 KS=k3.scale_launches, K10a=k10.launches,
                 K10b=k10.int4_launches, K11=k11.launches, K12=k12.launches,
                 RW=k3.rows_launches, QRW=k3.qrows_launches)
@@ -824,6 +846,7 @@ def counts():
 
 def zero_counts():
     k1.launches = k1.tail_launches = k1.tiled_launches = 0
+    k1.ffn_launches = 0
     k2.launches = k2.int4_launches = k9.launches = 0
     k3.launches = k3.quant_launches = k3.scale_launches = 0
     k10.launches = k10.int4_launches = k11.launches = 0
@@ -844,7 +867,7 @@ def prefill_chunks(eng, lens):
 
 
 def forward_launches(want, weights, cache_dtype, batch, rows, S, ps=0,
-                     history=False, mega=False):
+                     history=False, mega=False, tp=False):
     """Add one forward's kernel launches to `want`: batch x rows tokens
     over an S-slot dense cache (ps = 0) or a paged one of page size ps
     (history: a chunk over earlier pages). The projections run K8 above
@@ -856,7 +879,9 @@ def forward_launches(want, weights, cache_dtype, batch, rows, S, ps=0,
     and the scale write (int4); prefill and every paged write are plain
     PyTorch. On the mega route (`mega`: llama.layer_route says "mega")
     every layer is K12 and its row write (write_rows over a bf16 cache,
-    quantize_write_rows over an int8 one), and lm_head is K1."""
+    quantize_write_rows over an int8 one), and lm_head is K1. One rank of a
+    tensor-parallel forward (`tp`) runs wo as K1 and the FFN block as K7
+    where the single-card layer runs K6."""
     if mega:
         want["K12"] += L
         want["RW" if cache_dtype == BF16 else "QRW"] += L
@@ -864,8 +889,9 @@ def forward_launches(want, weights, cache_dtype, batch, rows, S, ps=0,
         return
     M = batch * rows
     tail = weights == "int4" and M <= TAIL_MAX_ROWS
-    want["K8" if M > K1_MAX_ROWS else "K1"] += (1 if tail else 4) * L
-    want["K6"] += L if tail else 0
+    projections = 4 if not tail else 2 if tp else 1
+    want["K8" if M > K1_MAX_ROWS else "K1"] += projections * L
+    want["K7" if tp else "K6"] += L if tail else 0
     want["K1"] += 1
     int4 = cache_dtype == "int4"
     route = llama.attention_route(
@@ -882,17 +908,18 @@ def forward_launches(want, weights, cache_dtype, batch, rows, S, ps=0,
             want[c] += L
 
 
-def expected_launches(weights, cache_dtype, chunks, S, steps, mega=False):
+def expected_launches(weights, cache_dtype, chunks, S, steps, mega=False,
+                      tp=False):
     """Kernel launches of one generate call over an S-slot cache: prefill
     forwards of (batch, rows) `chunks`, then `steps` decode forwards (with
     `mega`, LLMI_LAYER_MEGA=1, a single sequence's steps take the mega
-    route)."""
+    route; with `tp`, one rank's launches)."""
     want = {c: 0 for c in COUNTERS}
     for batch, rows in chunks:
-        forward_launches(want, weights, cache_dtype, batch, rows, S)
+        forward_launches(want, weights, cache_dtype, batch, rows, S, tp=tp)
     for _ in range(steps):
         forward_launches(want, weights, cache_dtype, chunks[0][0], 1, S,
-                         mega=mega and chunks[0][0] == 1)
+                         mega=mega and chunks[0][0] == 1, tp=tp)
     return want
 
 
@@ -1292,7 +1319,8 @@ def phase_paged_parity(qcfg, kinds):
     plain versions vs GPU kernels, over a pool of each kind with
     scattered pages: a 256-token fresh prefill at B = 4 (plain attention
     over the fresh rows), a 256-row chunk over those pages (K11; rows end
-    at different lengths), then 8 decode steps at mixed positions (K10)."""
+    at different lengths), then PARITY_STEPS decode steps at mixed
+    positions (K10)."""
     cfg = dataclasses.replace(CFG, num_layers=2)
     cpu = torch.device("cpu")
     p_cpu = llama.prepare_params(llama.init_params_quantized(
@@ -1347,18 +1375,19 @@ def paged_parity(cfg, params, kind):
         step(ids[:, :T], pos)
         logits = step(ids[:, T:], pos + T, lengths - 1, hist=True)
         nxt = (T + lengths).to(torch.int32)[:, None]
-        for _ in range(8):
+        for _ in range(PARITY_STEPS):
             tok = logits.argmax(-1).to(torch.int32)[:, None]
             logits = step(tok, nxt)
             nxt = nxt + 1
         d = {c: n - before[c] for c, n in counts().items()}
     k10_name = "K10b" if kind == "int4" else "K10a"
-    check(d["K11"] == cfg.num_layers and d[k10_name] == 8 * cfg.num_layers,
+    check(d["K11"] == cfg.num_layers
+          and d[k10_name] == PARITY_STEPS * cfg.num_layers,
           f"phase 3: the paged chunk and steps did not run K11 and K10: {d}")
     tol = 4 * 2.0 ** -8 * scale           # as phase 3 of the dense paths
-    say(f"  logits max err per step (fresh prefill, history chunk, 8 "
-        f"decode steps) {['%.4f' % e for e in errs]} (tol {tol:.4f}, max "
-        f"|logit| {scale:.3f})")
+    say(f"  logits max err per step (fresh prefill, history chunk, "
+        f"{PARITY_STEPS} decode steps) {['%.4f' % e for e in errs]} (tol "
+        f"{tol:.4f}, max |logit| {scale:.3f})")
     check(all(finite), "paged parity: non-finite logits")
     check(max(errs) <= tol, f"paged parity: {max(errs)} > {tol}")
 
@@ -1642,7 +1671,8 @@ def k12_case(params, weights, kind, pos, S, gen):
     H, Hq, Hkv, D = (CFG.hidden_size, CFG.num_heads, CFG.num_kv_heads,
                      CFG.head_dim)
     lay = params["layers"]
-    kc, vc, ks, vs = random_cache(gen, kind, L, 1, S)
+    depth = lay["wqkv"].q.shape[0]
+    kc, vc, ks, vs = random_cache(gen, kind, depth, 1, S)
     cache = kvcache.KVCache(k=kc, v=vc, k_scale=ks, v_scale=vs,
                             bits=16 if kind == "bf16" else 8)
     check(k12.supports(CFG, (1, 1, H), lay, cache),
@@ -1669,10 +1699,10 @@ def k12_case(params, weights, kind, pos, S, gen):
               f"K12 {weights}/{kind} pos={pos} {name}: max err {e} > {tol}")
         err = max(err, e)
     del got, want
-    ms = time_ms(lambda i: k12.layer_kernel(CFG, *args, i % L, positions,
-                                            cos, sin))
+    ms = time_ms(lambda i: k12.layer_kernel(CFG, *args, i % depth,
+                                            positions, cos, sin))
     plain = plain_ms(lambda i: k12.layer_decode_fused_ref(
-        CFG, *args, i % L, positions, cos, sin))
+        CFG, *args, i % depth, positions, cos, sin))
     n_lib = 2
     deq = [[dequantize(lay[n].layer(i), BF16) for n in k12.WEIGHTS]
            for i in range(n_lib)]
@@ -1790,7 +1820,8 @@ def row_write_cases(gen):
 
 def phase_mega_parity(qcfg, cache_dtype):
     """A 2-layer LLaMA-2-7B-width model at B = 1: a 128-row prefill (the
-    split route) and 8 teacher-forced decode steps (the mega route) with
+    split route) and PARITY_STEPS teacher-forced decode steps (the mega
+    route) with
     LLMI_LAYER_MEGA=1 on the CPU (plain versions) and on the card
     (kernels), and the same steps on the card with the variable at 0 (the
     split route)."""
@@ -1802,7 +1833,7 @@ def phase_mega_parity(qcfg, cache_dtype):
     p_cpu = llama.prepare_params(llama.init_params_quantized(
         cfg, qcfg, seed=SEED + 6, device=cpu))
     p_gpu = llama.params_to(p_cpu, DEV)
-    T, steps = 128, 8
+    T, steps = 128, PARITY_STEPS
     gen = torch.Generator().manual_seed(SEED + 7)
     ids = torch.randint(1, cfg.vocab_size, (1, T), generator=gen,
                         dtype=torch.int32)
@@ -2138,6 +2169,291 @@ def path_chat(gen, params8, params4):
     return out
 
 
+# ---------------------------------------------------------------- path (vi)
+
+TP = 2
+TP_REQUESTS = ((128, 64), (3000, 64))   # (prompt tokens, new tokens)
+TP_ENGINE = EngineConfig(max_seq_len=LONG_SEQ, decode_chunk=8)
+TP_GEN = GenerationConfig(max_new_tokens=64, greedy=True, eos_token_ids=())
+# the small-group cases: LLaMA-2-7B width, 2 layers, int4 in groups of gs
+SMALL_GROUPS = (8, 16, 32)
+
+
+def rand_int4(L_, N, K, gs, gen):
+    """A random stacked int4 weight [L_, N, K/2] in groups of gs codes,
+    scales of the dummy weights' order (0.02 / 7)."""
+    return QTensor(q=torch.randint(-128, 128, (L_, N, K // 2), generator=gen,
+                                   device=DEV, dtype=torch.int8),
+                   scale=torch.rand((L_, N, K // gs), generator=gen,
+                                    device=DEV) * 0.04 / 7 + 1e-4, bits=4)
+
+
+def k7_case(gu, dn, M, gen):
+    """K7 against ffn_fused_ref at M rows, timed beside it, its bound and
+    the library chain (torch.matmul on bf16 dequantized weights, F.silu,
+    the norm in torch ops)."""
+    H, I = dn.out_features, dn.in_features
+    eps = CFG.rms_norm_eps
+    depth = gu.q.shape[0]
+    x = torch.randn((M, H), generator=gen, device=DEV).to(BF16)
+    res = torch.randn((M, H), generator=gen, device=DEV).to(BF16)
+    gamma = (1 + 0.1 * torch.randn((H,), generator=gen, device=DEV)).to(BF16)
+    args = (x, res, gamma, eps, gu, dn)
+    (y, h2), (wy, wh2) = k1.ffn_fused(*args, 1), k1.ffn_fused_ref(*args, 1)
+    torch.cuda.synchronize()
+    check(torch.equal(h2, wh2), f"K7 g={gu.group_size} M={M}: h2 differs")
+    err = max_err(y, wy)
+    # float32 sums in another order through two products, one bf16
+    # rounding: one bf16 step of the largest output
+    tol = 2.0 ** -7 * wy.float().abs().max().item()
+    check(err <= tol, f"K7 g={gu.group_size} M={M}: max err {err} > {tol}")
+    ms = time_ms(lambda i: k1.ffn_fused(x, res, gamma, eps, gu, dn,
+                                        i % depth))
+    plain = plain_ms(lambda i: k1.ffn_fused_ref(x, res, gamma, eps, gu, dn,
+                                                i % depth))
+    deq = [(dequantize(gu.layer(i), BF16), dequantize(dn.layer(i), BF16))
+           for i in range(2)]
+
+    def lib_ffn(i):
+        w_gu, w_d = deq[i % 2]
+        h = x + res
+        xn = h * torch.rsqrt(h.float().pow(2).mean(-1, keepdim=True)
+                             + eps).to(BF16) * gamma
+        gate, up = torch.matmul(xn, w_gu).chunk(2, dim=-1)
+        return torch.matmul(torch.nn.functional.silu(gate) * up, w_d), h
+    lib = time_ms(lib_ffn)
+    del deq
+    # both weights' codes and scales, x, res and gamma read once, y and h2
+    # written once
+    nbytes = qbytes(gu) + qbytes(dn) + 4 * M * H * 2 + H * 2
+    bnd, by = bound_ms(nbytes, 2 * M * (H * 2 * I + I * H))
+    say(f"  K7 int4 g={gu.group_size} M={M} H={H} I={I} err {err:.3g} (tol "
+        f"{tol:.3g})  kernel {ms:.4f} ms  bound {bnd:.4f} ms ({by})  plain "
+        f"{plain:.3f} ms  torch.matmul(bf16) chain {lib:.4f} ms")
+    return dict(ms=ms, plain=plain, lib=lib, bound=bnd, by=by, err=err)
+
+
+def k7_cases(gen):
+    """K7 on one rank's shard of LLaMA-2-7B at tp = 2 (gate-up [2 x 5504,
+    4096], down [4096, 5504], two layers of random codes) in groups of 128
+    and of 32 codes, M = 1 (a decode step) and 8."""
+    H, I = CFG.hidden_size, CFG.intermediate_size // TP
+    out = {}
+    for gs in (128, 32):
+        gu, dn = rand_int4(2, 2 * I, H, gs, gen), rand_int4(2, H, I, gs, gen)
+        for M in (1, 8):
+            out[(gs, M)] = k7_case(gu, dn, M, gen)
+        del gu, dn
+    return out
+
+
+def small_group_cases(gen):
+    """K1 (g = 8, 16, 32), K6, K8 and K12 (g = 8, 16) against their plain
+    versions on a 2-layer LLaMA-2-7B-width int4 model of each group size,
+    each timed beside its plain version, bound and library call: K1 on
+    wqkv at M = 1 (GEMV) and 32 (MMA), K6 at M = 1 and 4, K8 on w_gateup
+    at 2048 rows, K12 at pos 191 over an int8 cache."""
+    cfg2 = dataclasses.replace(CFG, num_layers=2)
+    for gs in SMALL_GROUPS:
+        say(f"  -- int4 groups of {gs} codes (2 layers, LLaMA-2-7B width)")
+        params = llama.prepare_params(llama.init_params_quantized(
+            cfg2, QuantConfig(weights="int4", group_size=gs), seed=SEED + gs,
+            device=DEV))
+        lay = params["layers"]
+        for M in (1, 32):
+            k1_case("wqkv", lay["wqkv"], M, True, gen, 2)
+        if gs < 32:                      # K6, K8, K12 took 32k before
+            k6_cases(params, gen)
+            k8_cases(params, gen, names=("w_gateup",))
+            k12_case(params, "int4", "int8", 191, MAX_SEQ, gen)
+        del params, lay
+
+
+def tp_prefill(gen, T):
+    """[a prefill step]: ids [1, T], positions and last index T - 1."""
+    ids = torch.randint(1, CFG.vocab_size, (1, T), generator=gen,
+                        dtype=torch.int32).numpy()
+    pos = torch.arange(T, dtype=torch.int32)[None].numpy()
+    return [(ids, pos, torch.tensor([T - 1]).numpy())]
+
+
+def phase_tp_parity():
+    """A 2-layer LLaMA-2-7B-width int4 g=128 model over an int8 cache: a
+    128-row prefill and 8 decode steps through 2 ranks (the TP forward,
+    parallel.run_ranks) against tp = 1, on the card (kernels; both ranks
+    share it over gloo) and on the CPU (plain versions). The decode steps
+    are teacher-forced with the card's tp = 1 greedy tokens."""
+    say("phase 3: 2-layer LLaMA-2-7B-width int4 g=128 model, int8 cache, "
+        f"tp={TP} ranks vs tp=1, on the card and on the CPU")
+    cfg2 = dataclasses.replace(CFG, num_layers=2)
+    T, n_dec = 128, 8
+    gen = torch.Generator().manual_seed(SEED + 10)
+    steps = tp_prefill(gen, T)
+    out = {}
+    for dev in (DEV, torch.device("cpu")):
+        # tp = 1 on this device (its own generator's weights)
+        p1 = tp_ranks.build_from_seed(dev, 1, cfg2, QCFG4, SEED + 9)
+        c = kvcache.init_cache(2, 1, CFG.num_kv_heads, MAX_SEQ, CFG.head_dim,
+                               "int8", device=dev)
+        want = []
+        with torch.no_grad():
+            for j in range(n_dec + 1):
+                if j == len(steps):
+                    tok = want[-1].argmax(-1).astype("int32")[:, None]
+                    steps.append((tok, torch.tensor([[T + j - 1]],
+                                                    dtype=torch.int32).numpy(),
+                                  torch.tensor([0]).numpy()))
+                ids, pos, last = (torch.from_numpy(a).to(dev)
+                                  for a in steps[j])
+                logits, c = llama.forward(cfg2, p1, ids, pos, c,
+                                          last_idx=last)
+                want.append(logits.float().cpu().numpy())
+        del p1, c
+        t0 = time.perf_counter()
+        ranks = run_ranks(tp_ranks.run_jobs, TP, [(tp_ranks.forwards, dict(
+            cfg=cfg2, build=(tp_ranks.build_from_seed, (cfg2, QCFG4,
+                                                        SEED + 9)),
+            cache=("int8", 1, MAX_SEQ), steps=steps))], device=dev)
+        got = [r[0] for r in ranks]
+        for j in range(n_dec + 1):
+            check((got[0][0][j] == got[1][0][j]).all(),
+                  f"phase 3 tp ({dev.type}) step {j}: the ranks' logits "
+                  f"differ")
+        errs = [float(abs(g - w).max()) for g, w in zip(got[0][0], want)]
+        scale = max(float(abs(w).max()) for w in want)
+        # as phase 3 of the other paths: 4 bf16 steps of the largest logit
+        tol = 4 * 2.0 ** -8 * scale
+        launches = got[0][1]
+        say(f"  {dev.type}: {time.perf_counter() - t0:.1f} s for the ranks; "
+            f"logits max err per step vs tp=1 {['%.4f' % e for e in errs]} "
+            f"(tol {tol:.4f}, max |logit| {scale:.3f}); rank launches "
+            f"{launches}; ranks bit-identical")
+        check(max(errs) <= tol, f"tp parity ({dev.type}): {max(errs)} > {tol}")
+        if dev.type == "cuda":
+            check(launches["K7"] == n_dec * 2 and launches["K6"] == 0
+                  and launches["K12"] == 0,
+                  f"phase 3 tp: K7 must run layers x decode steps, K6 and "
+                  f"K12 never: {launches}")
+        out[dev.type] = max(errs)
+    return out
+
+
+def phase_tp_generate(params4):
+    """generate on full-depth LLaMA-2-7B int4 g=128 over an int8 cache of
+    4096 slots: a 128-token and a 3000-token prompt (two prefill chunks),
+    64 greedy tokens each, at tp = 2 (two ranks on the card, each drawing
+    the model from the seed of path (ii) and keeping its shard) and at
+    tp = 1 (path (ii)'s weights in this process). Returns rank 0's K7
+    launches."""
+    say(f"phase 4: InferenceEngine.generate at tp={TP} vs tp=1, LLaMA-2-7B "
+        f"int4 g=128, int8 cache, {TP_ENGINE.max_seq_len} slots")
+    gen = torch.Generator().manual_seed(SEED + 11)
+    requests = [[torch.randint(1, CFG.vocab_size, (n,), generator=gen
+                               ).tolist()] for n, _ in TP_REQUESTS]
+    eng = InferenceEngine(CFG, params4, engine_cfg=TP_ENGINE,
+                          cache_dtype="int8", device=DEV)
+    eng.generate([requests[0][0][:16]], dataclasses.replace(
+        TP_GEN, max_new_tokens=2))                       # warm-up
+    want = []
+    for prompts in requests:
+        picks = tp_ranks.record_picks(eng)
+        res = eng.generate(prompts, TP_GEN)
+        want.append((res[0].token_ids, picks, res[0]))
+    expect = [expected_launches("int4", "int8",
+                                prefill_chunks(eng, [n]), LONG_SEQ, new - 1,
+                                tp=True) for n, new in TP_REQUESTS]
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp_ranks.run_jobs, TP, [(tp_ranks.generate, dict(
+        cfg=CFG, build=(tp_ranks.build_from_seed, (CFG, QCFG4, SEED)),
+        requests=requests, gen=TP_GEN, engine_cfg=TP_ENGINE, cache="int8",
+        warmup=16)), (tp_ranks.collective_cost, dict(
+            numel=CFG.hidden_size, reps=200))], device=DEV)
+    cost = ranks[0][1]
+    say(f"  ranks spawned, built and served in "
+        f"{time.perf_counter() - t0:.1f} s; one all-reduce of a decode "
+        f"step's {CFG.hidden_size} values alone: {cost['call_s'] * 1e3:.3f} "
+        f"ms a call ({cost['collective_s'] * 1e3:.3f} ms in the collective)")
+    per_rank = [r[0] for r in ranks]
+    k7 = 0
+    for i, ((n, new), (w_tokens, w_picks, w_res)) in enumerate(
+            zip(TP_REQUESTS, want)):
+        r0, r1 = per_rank[0][i], per_rank[1][i]
+        check(r0["tokens"] == r1["tokens"],
+              f"tp generate {n}: the ranks' tokens differ")
+        scale = max(float(abs(p).max()) for p in w_picks)
+        # phase 3's 4 bf16 steps of the largest logit, grown with the depth
+        # by sqrt(L / 2) (compare_picks)
+        tol = 4 * math.sqrt(L / 2) * 2.0 ** -8 * scale
+        compared, diff = tp_ranks.compare_picks(
+            r0["picks"], r0["tokens"], w_picks, [w_tokens], tol)
+        la = r0["launches"]
+        exp = {c: expect[i][c] for c in la}
+        check(la == exp and la["K7"] == L * (new - 1),
+              f"tp generate {n}: rank 0's launches {la} != expected {exp} "
+              f"(K7: {L} x {new - 1} decode forwards, K6 and K12 never)")
+        k7 += la["K7"]
+        steps = r0["steps"]
+        busy = (r0["step_s"] - r0["coll_s"]) / steps * 1e3
+        coll = r0["coll_s"] / steps * 1e3
+        say(f"  {n}-token prompt, {new} new, tp={TP} ({r0['backend']}, two "
+            f"ranks share the card): TTFT {r0['ttft_s'] * 1e3:.2f} ms, decode "
+            f"{r0['tokens_per_s']:.2f} tok/s; a decode step {busy:.3f} ms "
+            f"busy + {coll:.3f} ms in {r0['colls'] / steps:.0f} collectives "
+            f"(rank 0); launches {({k: v for k, v in la.items() if v})}; "
+            f"tp=1: TTFT {w_res.ttft_s * 1e3:.2f} ms, decode "
+            f"{w_res.decode_tokens_per_s:.2f} tok/s; streams: {compared} of "
+            f"{new} tokens compared, equal; logits differ by at most "
+            f"{diff:.4f} (tol {tol:.4f}); tokens {r0['tokens'][0][:8]}...")
+    return k7
+
+
+def run_cli_tp():
+    """The CLI REPL at --tp 2 on dummy LLaMA-2-7B int4 g=128 weights over
+    an int8 cache, "hello" then "exit": it must exit 0 and echo one
+    `ids>` line, then `bye.`."""
+    cmd = [sys.executable, "-m", "llm_inference_tpu_torch.cli", "--model",
+           "llama2-7b", "--tp", str(TP), "--quant", "int4", "--group-size",
+           "128", "--kv-cache", "int8", "--greedy", "--max-new-tokens", "8",
+           "--max-seq-len", "512"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, input="hello\nexit\n", capture_output=True,
+                         text=True, timeout=600, cwd=str(ROOT))
+    ids = [line.split("ids> ", 1)[1] for line in out.stdout.splitlines()
+           if "ids> " in line]
+    check(out.returncode == 0 and len(ids) == 1
+          and out.stdout.rstrip().endswith("bye."),
+          f"CLI --tp {TP}: rc {out.returncode}, stdout "
+          f"{out.stdout[-2000:]!r}, stderr {out.stderr[-3000:]!r}")
+    say(f"  CLI (python -m llm_inference_tpu_torch.cli --tp {TP}) exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s: ids> {ids}")
+
+
+def path_tp(gen, params4):
+    """Path (vi): tensor parallelism at tp = 2, two ranks on the card."""
+    t0 = time.perf_counter()
+    say(f"path (vi): LLaMA-2-7B int4 g=128 at tp={TP} (two ranks on one "
+        f"card, gloo), and int4 groups of 8, 16 and 32 codes")
+    say("phase 2 (K7, and K1/K6/K8/K12 in small groups): kernels vs plain "
+        "versions on the card")
+    k7_r = k7_cases(gen)
+    small_group_cases(gen)
+    torch.cuda.empty_cache()
+    say(f"  phase 2 done at {time.perf_counter() - t0:.1f} s")
+    phase_tp_parity()
+    say(f"  phase 3 done at {time.perf_counter() - t0:.1f} s")
+    k7_launches = phase_tp_generate(params4)
+    run_cli_tp()
+    say(f"path (vi) took {time.perf_counter() - t0:.1f} s")
+    k7_err = max(r["err"] for r in k7_r.values())
+    return [entry("K7 ffn_fused (int4 norm, gate-up, SwiGLU, down; one tp=2 "
+                  "shard)", "layer_tail.cu", "quant_matmul.py:800",
+                  k7_launches, k7_err, k7_r[(128, 1)], L,
+                  "32 layers of one decode step of one rank of LLaMA-2-7B "
+                  "int4 g=128 at tp=2, M=1")]
+
+
 def main():
     t_start = time.perf_counter()
     phase_card()
@@ -2155,7 +2471,11 @@ def main():
     say(f"path (iv) done at {time.perf_counter() - t_start:.1f} s")
     torch.cuda.empty_cache()
     kernels += path_chat(gen, params8, shared["params"])
-    del shared, params8
+    say(f"path (v) done at {time.perf_counter() - t_start:.1f} s")
+    del params8
+    torch.cuda.empty_cache()
+    kernels += path_tp(gen, shared["params"])
+    del shared
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

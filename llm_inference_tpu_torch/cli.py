@@ -13,9 +13,18 @@ Usage:
       --tokenizer /path/to/tokenizer.bin --quant int8
   python -m llm_inference_tpu_torch.cli --device cpu --max-seq-len 128
 
+  python -m llm_inference_tpu_torch.cli --model llama2-7b --tp 2 \
+      --quant int4 --group-size 128 --kv-cache int8   # tensor-parallel
+  python -m llm_inference_tpu_torch.cli --device cpu --tp 2 --quant int8
+
 LLMI_LAYER_MEGA=1 in the environment runs single-sequence decode through
-the whole-layer megakernel (models/llama.layer_route). --tp/--dp above 1,
---lora, --asym and --no-int4-npair are not ported and raise.
+the whole-layer megakernel (models/llama.layer_route). --tp N serves the
+model over N tensor-parallel ranks from this one command, as the JAX CLI
+does: this process is rank 0 and keeps the REPL, ranks 1..N-1 are spawned
+(parallel.run_ranks; NCCL when every rank has a card of its own, else
+gloo), each line goes to every rank (broadcast_object), every rank runs
+it and rank 0 prints. --dp above 1, --lora, --asym and --no-int4-npair
+are not ported and raise.
 """
 
 from __future__ import annotations
@@ -26,33 +35,49 @@ import dataclasses
 import torch
 
 
-def build_engine(args):
+def build_engine(args, tp=None):
+    """The engine the flags describe; with `tp` (a parallel.TPGroup) this
+    rank's engine of a tensor-parallel model."""
     from llm_inference_tpu_torch import config as C
     from llm_inference_tpu_torch import resolve_device
     from llm_inference_tpu_torch.engine.engine import InferenceEngine
     from llm_inference_tpu_torch.engine.tokenizer import load_tokenizer
     from llm_inference_tpu_torch.models import llama
+    from llm_inference_tpu_torch.parallel import sharding
     from llm_inference_tpu_torch.utils import checkpoint
 
-    for flag, on in (("--tp > 1", args.tp > 1), ("--dp > 1", args.dp > 1),
-                     ("--lora", bool(args.lora)), ("--asym", args.asym),
+    for flag, on in (("--dp > 1", args.dp > 1), ("--lora", bool(args.lora)),
+                     ("--asym", args.asym),
                      ("--no-int4-npair", args.int4_npair is False)):
         if on:
             raise NotImplementedError(f"{flag} is not ported")
-    device = resolve_device(args.device)
+    device = tp.device if tp is not None else resolve_device(args.device)
+    lead = tp is None or tp.rank == 0
     qcfg = C.QuantConfig(weights=args.quant, group_size=args.group_size)
     if args.checkpoint:
         cfg, params = checkpoint.load_hf_checkpoint(
             args.checkpoint, dtype=args.dtype, device=device)
-        params = llama.quantize_params(params, qcfg)
     else:
         cfg = C.preset(args.model)
         if args.dtype:
             cfg = dataclasses.replace(cfg, dtype=args.dtype)
-        print(f"[cli] no checkpoint given: dummy weights for {cfg.name}")
-        params = llama.init_params_quantized(cfg, qcfg, seed=0,
-                                             device=device)
-    params = llama.prepare_params(params)
+        if lead:
+            print(f"[cli] no checkpoint given: dummy weights for {cfg.name}")
+    if args.tp > 1:
+        sharding.validate_tp(cfg, args.tp)
+    quantum = 128 * args.tp
+    pad = args.tp > 1 and (cfg.intermediate_size % quantum
+                           or cfg.vocab_size % quantum)
+    if not args.checkpoint:
+        # dummy weights: drawn as codes, or dense where the shards need
+        # padding (pad_params_for_tp takes dense weights)
+        params = (llama.init_params(cfg, seed=0, device=device) if pad
+                  else llama.init_params_quantized(cfg, qcfg, seed=0,
+                                                   device=device))
+    if pad or args.checkpoint:
+        params = llama.pad_params_for_tp(params, cfg, args.tp)
+        params = llama.quantize_params(params, qcfg, row_shards=args.tp)
+    params = llama.prepare_params(params, tp_size=args.tp)
     tokenizer = load_tokenizer(args.tokenizer) if args.tokenizer else None
     eng_cfg = C.EngineConfig(max_seq_len=args.max_seq_len,
                              decode_chunk=args.decode_chunk)
@@ -60,7 +85,60 @@ def build_engine(args):
                    else torch.bfloat16)
     return InferenceEngine(cfg, params, engine_cfg=eng_cfg,
                            tokenizer=tokenizer, cache_dtype=cache_dtype,
-                           device=device)
+                           device=device, tp=tp)
+
+
+def serve(tp, args):
+    """The REPL on one rank (tp None: the only one). Rank 0 reads the
+    lines and prints; every rank runs each line."""
+    from llm_inference_tpu_torch.config import GenerationConfig
+    from llm_inference_tpu_torch.engine.engine import ChatSession
+
+    engine = build_engine(args, tp)
+    lead = tp is None or tp.rank == 0
+    gen = GenerationConfig(max_new_tokens=args.max_new_tokens,
+                           temperature=args.temperature, top_k=args.top_k,
+                           top_p=args.top_p, min_p=args.min_p,
+                           repetition_penalty=args.repetition_penalty,
+                           presence_penalty=args.presence_penalty,
+                           frequency_penalty=args.frequency_penalty,
+                           greedy=args.greedy)
+    if lead and engine.tokenizer is None:
+        print("[cli] no tokenizer: echoing token ids for dummy runs")
+    session = ChatSession(engine)
+    if lead:
+        print("Ready. Type your message ('exit' to quit, 'reset' to clear "
+              "history).")
+    while True:
+        line = None
+        if lead:
+            try:
+                line = input("you> ").strip()
+            except EOFError:
+                line = "exit"
+        if tp is not None:
+            line = tp.broadcast_object(line)
+        if not line:
+            continue
+        if line == "exit":
+            break
+        if line == "reset":
+            session = ChatSession(engine)
+            continue
+        if engine.tokenizer is None:
+            # dummy mode: feed fixed ids, print the sampled ids
+            res = engine.generate([[1, 2, 3, 4]], gen)[0]
+            if lead:
+                print("ids>", res.token_ids)
+            continue
+        if lead:
+            print("bot> ", end="", flush=True)
+        session.ask(line, gen, stream=(lambda s: print(s, end="", flush=True))
+                    if lead else None)
+        if lead:
+            print()
+    if lead:
+        print("bye.")
 
 
 def main(argv=None):
@@ -100,44 +178,13 @@ def main(argv=None):
     ap.add_argument("--frequency-penalty", type=float, default=0.0)
     ap.add_argument("--greedy", action="store_true")
     args = ap.parse_args(argv)
-
-    from llm_inference_tpu_torch.config import GenerationConfig
-    from llm_inference_tpu_torch.engine.engine import ChatSession
-
-    engine = build_engine(args)
-    gen = GenerationConfig(max_new_tokens=args.max_new_tokens,
-                           temperature=args.temperature, top_k=args.top_k,
-                           top_p=args.top_p, min_p=args.min_p,
-                           repetition_penalty=args.repetition_penalty,
-                           presence_penalty=args.presence_penalty,
-                           frequency_penalty=args.frequency_penalty,
-                           greedy=args.greedy)
-    if engine.tokenizer is None:
-        print("[cli] no tokenizer: echoing token ids for dummy runs")
-    session = ChatSession(engine)
-    print("Ready. Type your message ('exit' to quit, 'reset' to clear "
-          "history).")
-    while True:
-        try:
-            line = input("you> ").strip()
-        except EOFError:
-            break
-        if not line:
-            continue
-        if line == "exit":
-            break
-        if line == "reset":
-            session = ChatSession(engine)
-            continue
-        if engine.tokenizer is None:
-            # dummy mode: feed fixed ids, print the sampled ids
-            res = engine.generate([[1, 2, 3, 4]], gen)[0]
-            print("ids>", res.token_ids)
-            continue
-        print("bot> ", end="", flush=True)
-        session.ask(line, gen, stream=lambda s: print(s, end="", flush=True))
-        print()
-    print("bye.")
+    if args.tp > 1:
+        from llm_inference_tpu_torch import resolve_device
+        from llm_inference_tpu_torch.parallel import run_ranks
+        run_ranks(serve, args.tp, args, device=resolve_device(args.device),
+                  in_caller=True)
+        return
+    serve(None, args)
 
 
 if __name__ == "__main__":

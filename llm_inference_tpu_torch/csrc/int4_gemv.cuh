@@ -1,5 +1,6 @@
-// The int4 GEMV core shared by K1 (quant_matmul.cu, M <= 8) and K6
-// (layer_tail.cu): one warp computes kCols output columns of
+// The int4 GEMV core shared by K1 (quant_matmul.cu, M <= 8), K6 and K7
+// (layer_tail.cu) and K12 (layer_fused.cu): one warp computes kCols
+// output columns of
 //   y[m][n] = sum_g scale[n][g] * sum_{k in group g} x[m][k] * code[n][k]
 // with float32 x and float32 accumulation.
 //
@@ -7,9 +8,14 @@
 // bytes, byte j of a column holding code 2j in its low nibble and code
 // 2j+1 in its high nibble (two's complement); scales are float32 [N][G],
 // one column's G group scales contiguous. A lane streams a 16-byte chunk
-// (32 consecutive codes, which never straddle a group since the group
-// size is a multiple of 32), lanes split K, so a warp reads a column
-// coalesced; the lanes of a chunk's group read the same scale.
+// (32 consecutive codes), lanes split K, so a warp reads a column
+// coalesced. Groups of a multiple of 32 codes: a chunk never straddles a
+// group, so the chunk's partial dot takes one scale (the lanes of a
+// group read the same one). Groups of 8 or 16 codes (the TPU kernels take
+// any group size of at least 8): a chunk's four 32-bit words are 8 codes
+// each, so every group ends at a word boundary; the words of one group
+// sum into a partial that takes the group's scale when the group ends,
+// and the groups' scaled partials are summed, as on the TPU.
 //
 // Nibble → float without an int→float conversion (a quarter-rate
 // instruction): xor 8 makes every nibble u = code + 8 in [0, 15]; a byte
@@ -62,18 +68,24 @@ __device__ __forceinline__ void unpack8(uint32_t w, float (&c)[8]) {
   }
 }
 
-// The codes and scales of one lane's chunk ch for kCols columns.
+// The codes and scales of one lane's chunk ch for kCols columns: NS = 1
+// scale a column (groups of 32k codes) or one for each of the chunk's four
+// 8-code words (groups of 8 or 16 codes; a 16-code group's scale is read
+// twice).
+template <int NS>
 __device__ __forceinline__ void load_chunk(const uint8_t* __restrict__ w,
                                            const float* __restrict__ s,
                                            size_t row_bytes, int G,
-                                           int chunks_per_group, int n0,
-                                           int ch, uint4 (&wv)[kCols],
-                                           float (&sc)[kCols]) {
+                                           int gsize, int n0, int ch,
+                                           uint4 (&wv)[kCols],
+                                           float (&sc)[kCols][NS]) {
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
     wv[c] = __ldg(reinterpret_cast<const uint4*>(
         w + (size_t)(n0 + c) * row_bytes + (size_t)ch * 16));
-    sc[c] = __ldg(s + (size_t)(n0 + c) * G + ch / chunks_per_group);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      sc[c][j] = __ldg(s + (size_t)(n0 + c) * G + (ch * 32 + j * 8) / gsize);
   }
 }
 
@@ -81,31 +93,34 @@ __device__ __forceinline__ void load_chunk(const uint8_t* __restrict__ w,
 // x: float rows at stride ldx in shared memory, each laid out by swz.
 // w: the layer's codes, s: its scales. The loads of the lane's next chunk
 // are issued before the current one is computed, so a warp keeps its
-// loads in flight while it unpacks.
-template <int MT>
-__device__ __forceinline__ void gemv_cols(const float* x, int ldx, int M,
-                                          const uint8_t* __restrict__ w,
-                                          const float* __restrict__ s,
-                                          int K, int G, int n0, int lane,
-                                          float (&acc)[kCols][MT]) {
+// loads in flight while it unpacks. WORD: groups of 8 or 16 codes, whose
+// partials take their scale at the group's last word.
+template <int MT, bool WORD>
+__device__ __forceinline__ void gemv_cols_t(const float* x, int ldx, int M,
+                                            const uint8_t* __restrict__ w,
+                                            const float* __restrict__ s,
+                                            int K, int G, int n0, int lane,
+                                            float (&acc)[kCols][MT]) {
+  constexpr int NS = WORD ? 4 : 1;
   const int chunks = K / 32;
-  const int chunks_per_group = K / G / 32;
+  const int gsize = K / G;
   const size_t row_bytes = (size_t)K / 2;
   uint4 wn[kCols];
-  float sn[kCols];
+  float sn[kCols][NS];
   if (lane < chunks)
-    load_chunk(w, s, row_bytes, G, chunks_per_group, n0, lane, wn, sn);
+    load_chunk<NS>(w, s, row_bytes, G, gsize, n0, lane, wn, sn);
 #pragma unroll 1
   for (int ch = lane; ch < chunks; ch += 32) {
     uint4 wv[kCols];
-    float sc[kCols];
+    float sc[kCols][NS];
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       wv[c] = wn[c];
-      sc[c] = sn[c];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) sc[c][j] = sn[c][j];
     }
     if (ch + 32 < chunks)
-      load_chunk(w, s, row_bytes, G, chunks_per_group, n0, ch + 32, wn, sn);
+      load_chunk<NS>(w, s, row_bytes, G, gsize, n0, ch + 32, wn, sn);
     float part[kCols][MT];
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
@@ -141,13 +156,46 @@ __device__ __forceinline__ void gemv_cols(const float* x, int ldx, int M,
           }
         }
       }
+      if constexpr (WORD) {
+        if (((q + 1) * 8) % gsize == 0) {   // a group ends with this word
+#pragma unroll
+          for (int c = 0; c < kCols; ++c)
+#pragma unroll
+            for (int m = 0; m < MT; ++m) {
+              acc[c][m] = fmaf(part[c][m], sc[c][q], acc[c][m]);
+              part[c][m] = 0.f;
+            }
+        }
+      }
     }
+    if constexpr (!WORD) {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c)
+      for (int c = 0; c < kCols; ++c)
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
-        acc[c][m] = fmaf(part[c][m], sc[c], acc[c][m]);
+        for (int m = 0; m < MT; ++m)
+          acc[c][m] = fmaf(part[c][m], sc[c][0], acc[c][m]);
+    }
   }
+}
+
+// Whether the core takes groups of K / G codes: a multiple of 32, or 8
+// or 16 (G must divide K, and K be a multiple of 32).
+__host__ __device__ __forceinline__ bool groups_ok(int K, int G) {
+  if (G < 1 || K % 32 || K % G) return false;
+  const int gsize = K / G;
+  return gsize % 32 == 0 || gsize == 8 || gsize == 16;
+}
+
+template <int MT>
+__device__ __forceinline__ void gemv_cols(const float* x, int ldx, int M,
+                                          const uint8_t* __restrict__ w,
+                                          const float* __restrict__ s,
+                                          int K, int G, int n0, int lane,
+                                          float (&acc)[kCols][MT]) {
+  if (K / G < 32)
+    gemv_cols_t<MT, true>(x, ldx, M, w, s, K, G, n0, lane, acc);
+  else
+    gemv_cols_t<MT, false>(x, ldx, M, w, s, K, G, n0, lane, acc);
 }
 
 }  // namespace int4g

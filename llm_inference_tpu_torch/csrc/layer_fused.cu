@@ -524,10 +524,6 @@ int launch(const Layer& t, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-bool groups_ok(int K, int G) {   // the int4 core: groups of 32k codes
-  return G >= 1 && K % G == 0 && (K / G) % 32 == 0;
-}
-
 }  // namespace
 
 // One decode layer at B = 1. h/res/ga/gf/h2/dn bf16 [H]; cos/sin float32
@@ -538,7 +534,7 @@ bool groups_ok(int K, int G) {   // the int4 core: groups of 32k codes
 // float32 buffer of (Hq + 2 Hkv) D + Hkv max_split (Hq / Hkv) (D + 2)
 // + Hq D + H + I; k_new/v_new bf16 [Hkv, D]. D = 128, Hq / Hkv <= 8,
 // H and I multiples of 32, wbits 8 (per-channel) or 4 (groups of a
-// multiple of 32 codes), max_split >= 1.
+// multiple of 32 codes, or of 8 or 16: int4_gemv.cuh), max_split >= 1.
 extern "C" int layer_fused_launch(
     const void* h, const void* res, const void* ga, const void* gf,
     const void* cos, const void* sin, const void* wq, const void* sq,
@@ -552,8 +548,9 @@ extern "C" int layer_fused_launch(
       S < 1 || max_split < 1 || (wbits != 8 && wbits != 4) ||
       (ks == nullptr) != (vs == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (wbits == 4 && !(groups_ok(H, Gq) && groups_ok(Hq * D, Go) &&
-                      groups_ok(H, Gg) && groups_ok(I, Gd)))
+  if (wbits == 4 &&
+      !(int4g::groups_ok(H, Gq) && int4g::groups_ok(Hq * D, Go) &&
+        int4g::groups_ok(H, Gg) && int4g::groups_ok(I, Gd)))
     return (int)cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   float* f = (float*)scratch;

@@ -13,6 +13,9 @@
 //   C, D (16 x 8 float32), four floats:
 //     c0, c1 = C[g][2t, 2t+1]     c2, c3 = C[g+8][2t, 2t+1]
 // The lower-indexed element of a pair sits in the low 16 bits.
+// mma_1688 (m16n8k8) takes the k-halves of those fragments: A is (a0, a1)
+// of columns 0-7 or (a2, a3) of columns 8-15, B is b0 or b1; C and D are
+// laid out as above.
 
 #pragma once
 
@@ -29,6 +32,15 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_1688(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
 // two floats → one register of two bf16 (round to nearest even)

@@ -39,7 +39,8 @@
 // split K for the narrow (N = 4096) weights.
 //
 // The int4 branch (qmm4_launch) replaces the same TPU kernel's N-pair
-// int4 branch (grouped symmetric scales, g = 128): codes [N, K/2] with two
+// int4 branch (grouped symmetric scales: groups of 64k codes, or 8, 16 or
+// 32, as the TPU kernel takes any group of at least 8): codes [N, K/2] with two
 // K-adjacent nibbles per byte, float32 scales [N, G]. Its rounding points
 // differ from int8's: the normed rows stay float32 (the TPU branch dots
 // float32 rows) and each group's scale hits its partial dot. M <= 8 runs
@@ -372,10 +373,13 @@ int launch_gemv4(const void* x, const void* res, const void* gamma,
 // fresh fragments, stores it over the (then idle) staging tiles, and each
 // thread folds its 32 elements times their column's scale (the group's
 // 64 column scales staged in shared memory once) into its own float32
-// accumulators. The rows enter as bf16 (the prologue pre-pass
-// rounds the normed rows), where the TPU kernel dots float32 rows: the
-// difference is one bf16 rounding of each input, stated with the
-// tolerance in chip_smoke.py.
+// accumulators. A group of 64k codes is staged BK = 64 deep at a time; a
+// group of 8, 16 or 32 codes is staged whole (8 codes a 4-byte word below
+// 32), and a group of 8 is padded with 8 zero columns to the product's
+// depth of 16. The rows enter as bf16 (the prologue pre-pass rounds the
+// normed rows), where the TPU kernel dots float32 rows: the difference is
+// one bf16 rounding of each input, stated with the tolerance in
+// chip_smoke.py.
 constexpr int kAccPerThread = BM * BN / kThreads;   // 32
 
 __global__ void __launch_bounds__(kThreads)
@@ -393,6 +397,8 @@ qmm4_mma(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
   const int wm = warp & 3, wn = warp >> 2;  // 4 x 2 warps, 32 x 32 each
   const int n0 = blockIdx.x * BN;
   const int gsize = K / G;
+  const int bk = gsize < BK ? gsize : BK;   // codes staged per step
+  const int depth = bk < 16 ? 16 : bk;      // staged columns (zero-padded)
   const size_t row_bytes = (size_t)K / 2;
   float acc[kAccPerThread];
 #pragma unroll
@@ -404,36 +410,57 @@ qmm4_mma(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
-    for (int k0 = g * gsize; k0 < (g + 1) * gsize; k0 += BK) {
-      for (int i = threadIdx.x; i < BM * (BK / 8); i += kThreads) {
-        const int r = i / (BK / 8), c8 = (i % (BK / 8)) * 8;
+    for (int k0 = g * gsize; k0 < (g + 1) * gsize; k0 += bk) {
+      for (int i = threadIdx.x; i < BM * (depth / 8); i += kThreads) {
+        const int r = i / (depth / 8), c8 = (i % (depth / 8)) * 8;
         uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (r < M)
+        if (r < M && c8 < bk)
           v = *reinterpret_cast<const uint4*>(a + (size_t)r * K + k0 + c8);
         *reinterpret_cast<uint4*>(As + r * LDA + c8) = v;
       }
-      // weight tile [BN, BK]: 32 codes per 16-byte load, widened to bf16
-      for (int i = threadIdx.x; i < BN * (BK / 32); i += kThreads) {
-        const int n = i / (BK / 32), c32 = (i % (BK / 32)) * 32;
-        const uint4 wv = __ldg(reinterpret_cast<const uint4*>(
-            w + (size_t)(n0 + n) * row_bytes + (k0 + c32) / 2));
-        const uint32_t words[4] = {wv.x, wv.y, wv.z, wv.w};
-        uint4* dst = reinterpret_cast<uint4*>(Bs + n * LDB + c32);
+      if (bk >= 32) {
+        // weight tile [BN, bk]: 32 codes per 16-byte load, widened to bf16
+        for (int i = threadIdx.x; i < BN * (bk / 32); i += kThreads) {
+          const int n = i / (bk / 32), c32 = (i % (bk / 32)) * 32;
+          const uint4 wv = __ldg(reinterpret_cast<const uint4*>(
+              w + (size_t)(n0 + n) * row_bytes + (k0 + c32) / 2));
+          const uint32_t words[4] = {wv.x, wv.y, wv.z, wv.w};
+          uint4* dst = reinterpret_cast<uint4*>(Bs + n * LDB + c32);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          float cf[8];
-          int4g::unpack8(words[q], cf);
-          uint32_t packed[4];
+          for (int q = 0; q < 4; ++q) {
+            float cf[8];
+            int4g::unpack8(words[q], cf);
+            uint32_t packed[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j)     // codes are exact in bf16
-            packed[j] = (__float_as_uint(cf[2 * j]) >> 16) |
-                        (__float_as_uint(cf[2 * j + 1]) & 0xffff0000u);
-          dst[q] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+            for (int j = 0; j < 4; ++j)     // codes are exact in bf16
+              packed[j] = (__float_as_uint(cf[2 * j]) >> 16) |
+                          (__float_as_uint(cf[2 * j + 1]) & 0xffff0000u);
+            dst[q] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+          }
+        }
+      } else {
+        // weight tile [BN, depth]: 8 codes per 4-byte word, zero past bk
+        for (int i = threadIdx.x; i < BN * (depth / 8); i += kThreads) {
+          const int n = i / (depth / 8), c8 = (i % (depth / 8)) * 8;
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (c8 < bk) {
+            float cf[8];
+            int4g::unpack8(__ldg(reinterpret_cast<const uint32_t*>(
+                               w + (size_t)(n0 + n) * row_bytes +
+                               (k0 + c8) / 2)),
+                           cf);
+            uint32_t packed[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              packed[j] = (__float_as_uint(cf[2 * j]) >> 16) |
+                          (__float_as_uint(cf[2 * j + 1]) & 0xffff0000u);
+            v = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+          }
+          *reinterpret_cast<uint4*>(Bs + n * LDB + c8) = v;
         }
       }
       __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
+      for (int kk = 0; kk < depth; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                        wmma::row_major> af[2];
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
@@ -546,13 +573,16 @@ extern "C" int qmm_prologue_launch(const void* x, const void* res,
 // The int4 branch: w packed int4 [N, K/2] and scale f32 [N, G] of ONE
 // layer (ops/quantization.py); the other arguments as qmm_launch. The
 // GEMV path (M <= 8, M * K * 4 <= QMM_GEMV_MAX_SMEM) keeps float32 rows.
-// Requires K % 64 == 0, N % 64 == 0, (K / G) % 64 == 0, 1 <= M <= 128.
+// Requires K % 64 == 0, N % 64 == 0, groups of K / G codes a multiple of
+// 64 or 8, 16 or 32, and 1 <= M <= 128.
 extern "C" int qmm4_launch(const void* x, const void* res, const void* gamma,
                            const void* w, const void* scale, void* out,
                            void* xout, void* xn, int M, int K, int N, int G,
                            float eps, void* stream) {
-  if (M < 1 || M > BM || K % BK != 0 || N % BN != 0 || G < 1 || K % G != 0
-      || (K / G) % BK != 0)
+  if (M < 1 || M > BM || K % BK != 0 || N % BN != 0 || G < 1 || K % G != 0)
+    return (int)cudaErrorInvalidValue;
+  const int gsize = K / G;
+  if (gsize % BK != 0 && gsize != 8 && gsize != 16 && gsize != 32)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t gemv_smem = (size_t)M * K * sizeof(float);

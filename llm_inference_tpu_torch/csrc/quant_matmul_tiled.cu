@@ -34,8 +34,12 @@
 // int4: the documented mma.sync accumulator layout (mma.cuh) says which
 // column each register holds, so each group's partial sums take their
 // column scales in registers (a second set of accumulators) instead of
-// going through shared memory as K1's wmma path must. Rows past M are
-// zero-filled and not stored; N must be a multiple of 128.
+// going through shared memory as K1's wmma path must. A group of 32k
+// codes folds after its last chunk; a group of 16 codes after each
+// 16-deep product; a group of 8 codes splits each product into its two
+// m16n8k8 halves and folds after each (the TPU kernel takes any group of
+// at least 8 codes). Rows past M are zero-filled and not stored; N must
+// be a multiple of 128.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -50,7 +54,9 @@ constexpr int TM = 128, TN = 128, TK = 32;
 constexpr int kThreads = 256;       // 8 warps: 2 along M x 4 along N
 constexpr int LDS = TK + 8;         // bf16 per shared row (80 bytes)
 
-template <bool INT4>
+// SUB: 0 for int8 and for int4 groups of 32k codes, else the int4 group
+// size (16 or 8).
+template <bool INT4, int SUB>
 __global__ void __launch_bounds__(kThreads, 1)
 qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
           const uint8_t* __restrict__ w,         // this layer's codes
@@ -65,7 +71,7 @@ qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
   const int gr = lane >> 2, tg = lane & 3;
   const int m0 = blockIdx.x * TM, n0 = blockIdx.y * TN;
   const int nk = K / TK;
-  const int chunks_per_group = INT4 ? (K / G) / TK : nk;
+  const int chunks_per_group = INT4 && SUB == 0 ? (K / G) / TK : nk;
 
   // this thread's share of a weight chunk: 16 codes of column bcol
   const int bcol = tid >> 1, bhalf = tid & 1;
@@ -129,6 +135,25 @@ qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
     dst[1] = make_uint4(p[4], p[5], p[6], p[7]);
   };
 
+  // acc += part * (group g's column scales), then part = 0
+  auto fold = [&](int g) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int col = n0 + wn + ni * 8 + tg * 2;
+      const float s0 = __ldg(scale + (size_t)col * G + g);
+      const float s1 = __ldg(scale + (size_t)(col + 1) * G + g);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        acc[mi][ni][0] = fmaf(part[mi][ni][0], s0, acc[mi][ni][0]);
+        acc[mi][ni][1] = fmaf(part[mi][ni][1], s1, acc[mi][ni][1]);
+        acc[mi][ni][2] = fmaf(part[mi][ni][2], s0, acc[mi][ni][2]);
+        acc[mi][ni][3] = fmaf(part[mi][ni][3], s1, acc[mi][ni][3]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[mi][ni][c] = 0.f;
+      }
+    }
+  };
+
   load_a(0, 0);
   mma::cp_async_commit();
   load_w(0);
@@ -155,38 +180,39 @@ qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
         af[mi][2] = mma::lds32(r0 + 8);
         af[mi][3] = mma::lds32(r1 + 8);
       }
+      if constexpr (INT4 && SUB == 8) {
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const __nv_bfloat16* bp = &Bs[buf][(wn + ni * 8 + gr) * LDS + c];
-        const uint32_t b0 = mma::lds32(bp), b1 = mma::lds32(bp + 8);
+        for (int h = 0; h < 2; ++h) {        // the product's two k-halves
 #pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          if constexpr (INT4)
-            mma::mma_16816(part[mi][ni], af[mi], b0, b1);
-          else
-            mma::mma_16816(acc[mi][ni], af[mi], b0, b1);
+          for (int ni = 0; ni < 4; ++ni) {
+            const uint32_t b = mma::lds32(
+                &Bs[buf][(wn + ni * 8 + gr) * LDS + c + 8 * h]);
+#pragma unroll
+            for (int mi = 0; mi < 4; ++mi)
+              mma::mma_1688(part[mi][ni], af[mi][2 * h], af[mi][2 * h + 1],
+                            b);
+          }
+          fold(kt * 4 + ks * 2 + h);
         }
-      }
-    }
-    if constexpr (INT4) {
-      if ((kt + 1) % chunks_per_group == 0) {  // the group is complete
-        const int g = kt / chunks_per_group;
+      } else {
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) {
-          const int col = n0 + wn + ni * 8 + tg * 2;
-          const float s0 = __ldg(scale + (size_t)col * G + g);
-          const float s1 = __ldg(scale + (size_t)(col + 1) * G + g);
+          const __nv_bfloat16* bp = &Bs[buf][(wn + ni * 8 + gr) * LDS + c];
+          const uint32_t b0 = mma::lds32(bp), b1 = mma::lds32(bp + 8);
 #pragma unroll
           for (int mi = 0; mi < 4; ++mi) {
-            acc[mi][ni][0] = fmaf(part[mi][ni][0], s0, acc[mi][ni][0]);
-            acc[mi][ni][1] = fmaf(part[mi][ni][1], s1, acc[mi][ni][1]);
-            acc[mi][ni][2] = fmaf(part[mi][ni][2], s0, acc[mi][ni][2]);
-            acc[mi][ni][3] = fmaf(part[mi][ni][3], s1, acc[mi][ni][3]);
-#pragma unroll
-            for (int c = 0; c < 4; ++c) part[mi][ni][c] = 0.f;
+            if constexpr (INT4)
+              mma::mma_16816(part[mi][ni], af[mi], b0, b1);
+            else
+              mma::mma_16816(acc[mi][ni], af[mi], b0, b1);
           }
         }
+        if constexpr (INT4 && SUB == 16) fold(kt * 2 + ks);
       }
+    }
+    if constexpr (INT4 && SUB == 0) {
+      if ((kt + 1) % chunks_per_group == 0)  // the group is complete
+        fold(kt / chunks_per_group);
     }
     // the other buffer was last read before this iteration's barrier
     if (kt + 1 < nk) store_w(buf ^ 1);
@@ -219,23 +245,30 @@ qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
 // a: bf16 rows [M, K]; w: ONE layer's codes (int8 [N, K] when bits == 8,
 // packed int4 [N, K/2] when bits == 4); scale: float32 [N] (int8) or
 // [N, G] (int4); out: bf16 [M, N]. Requires K % 32 == 0, N % 128 == 0 and,
-// for int4, (K / G) % 32 == 0.
+// for int4, groups of K / G codes a multiple of 32, or 16 or 8.
 extern "C" int qmm_tiled_launch(const void* a, const void* w,
                                 const void* scale, void* out, int M, int K,
                                 int N, int G, int bits, void* stream) {
   if (M < 1 || K % TK != 0 || N % TN != 0 || (bits != 4 && bits != 8))
     return (int)cudaErrorInvalidValue;
-  if (bits == 4 && (G < 1 || K % G != 0 || (K / G) % TK != 0))
+  const int gsize = bits == 4 && G >= 1 && K % G == 0 ? K / G : 0;
+  if (bits == 4 && gsize % TK != 0 && gsize != 16 && gsize != 8)
     return (int)cudaErrorInvalidValue;
   dim3 grid((M + TM - 1) / TM, N / TN);
   cudaStream_t st = (cudaStream_t)stream;
-  if (bits == 4)
-    qmm_tiled<true><<<grid, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)a, (const uint8_t*)w, (const float*)scale,
-        (__nv_bfloat16*)out, M, K, N, G);
+  const __nv_bfloat16* ap = (const __nv_bfloat16*)a;
+  const uint8_t* wp = (const uint8_t*)w;
+  const float* sp = (const float*)scale;
+  __nv_bfloat16* op = (__nv_bfloat16*)out;
+  if (bits == 8)
+    qmm_tiled<false, 0><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N,
+                                                   1);
+  else if (gsize == 8)
+    qmm_tiled<true, 8><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N, G);
+  else if (gsize == 16)
+    qmm_tiled<true, 16><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N,
+                                                   G);
   else
-    qmm_tiled<false><<<grid, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)a, (const uint8_t*)w, (const float*)scale,
-        (__nv_bfloat16*)out, M, K, N, 1);
+    qmm_tiled<true, 0><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N, G);
   return (int)cudaGetLastError();
 }

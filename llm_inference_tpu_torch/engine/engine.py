@@ -12,7 +12,14 @@ cache), torch.int8 / "int8" (int8 codes with slot-major float32 scales) or
 schedulers (engine/scheduler.py) run on top: they call `prefill` and
 `paged_forward` for admissions and the decode-chunk programs
 (`_decode_chunk_fn`, `_decode_chunk_rows_fn`) over their slots, dense or
-paged. There is no LoRA or mesh: `data_parallel` is 1, `has_lora` False.
+paged. There is no LoRA or data parallelism: `data_parallel` is 1,
+`has_lora` False. With `tp` (a parallel.TPGroup, the counterpart of the
+JAX engine's `mesh=`, engine.py:86-112) the engine is one rank of a
+tensor-parallel model: it shards the full parameters it is given, builds
+caches of its kv heads, and every forward is the TP forward; every rank
+samples from the same gathered logits, so every rank draws the same
+tokens. `generate` records `ttft_s` and `decode_tokens_per_s` in
+`metrics` as the JAX engine does (engine.py:806, 843).
 Sampling takes the serving API's repetition, presence and frequency
 penalties and a logit bias (engine.py:222-240, 781-803): the output-token
 counts and the prompt ∪ output seen mask of each row live on the device
@@ -34,6 +41,8 @@ from llm_inference_tpu_torch.config import (EngineConfig, GenerationConfig,
                                             ModelConfig)
 from llm_inference_tpu_torch.models import llama
 from llm_inference_tpu_torch.ops import kvcache, paged_kvcache, sampling
+from llm_inference_tpu_torch.parallel import sharding
+from llm_inference_tpu_torch.parallel.mesh import TPGroup
 from llm_inference_tpu_torch.utils.metrics import Metrics
 
 
@@ -51,7 +60,11 @@ class InferenceEngine:
 
     def __init__(self, cfg: ModelConfig, params, *,
                  engine_cfg: Optional[EngineConfig] = None,
-                 tokenizer=None, cache_dtype=torch.bfloat16, device=None):
+                 tokenizer=None, cache_dtype=torch.bfloat16, device=None,
+                 tp: Optional[TPGroup] = None):
+        """`params`: the model's prepared parameters (llama.prepare_params
+        with tp_size = tp.size under tensor parallelism, where the engine
+        keeps its rank's shard of them and runs on tp.device)."""
         self.cfg = cfg
         self.engine_cfg = engine_cfg or EngineConfig()
         self.tokenizer = tokenizer
@@ -66,6 +79,13 @@ class InferenceEngine:
                 f"max_seq_len={S} is not a multiple of 128: prefill and "
                 f"decode attention fall off the kernels to the plain path. "
                 f"Round up to {-(-S // 128) * 128}.")
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        self.kv_heads = cfg.num_kv_heads
+        if self.tp is not None:
+            sharding.validate_tp(cfg, tp.size)
+            params = sharding.shard_params(params, tp.rank, tp.size)
+            self.kv_heads = sharding.local_kv_heads(cfg, tp.size)
+            device = tp.device
         self.device = resolve_device(device)
         self.params = params
         self.metrics = Metrics()
@@ -78,7 +98,7 @@ class InferenceEngine:
 
     def new_cache(self, batch: int, max_seq: Optional[int] = None):
         return kvcache.init_cache(
-            self.cfg.num_layers, batch, self.cfg.num_kv_heads,
+            self.cfg.num_layers, batch, self.kv_heads,
             max_seq or self.engine_cfg.max_seq_len, self.cfg.head_dim,
             self.cache_dtype, device=self.device)
 
@@ -113,7 +133,8 @@ class InferenceEngine:
                 out.append(list(p))
         return out
 
-    # no mesh and no LoRA stacks in the port (engine.py:129, 435-441)
+    # no data-parallel mesh and no LoRA stacks in the port (engine.py:129,
+    # 435-441)
     data_parallel = 1
     has_lora = False
 
@@ -129,7 +150,7 @@ class InferenceEngine:
         return llama.forward(self.cfg, self.params, ids, positions, cache,
                              logits_mode="last", last_idx=last_idx,
                              rope_tables=self._rope,
-                             paged_history=paged_history)
+                             paged_history=paged_history, tp=self.tp)
 
     def paged_forward(self, history: bool = False) -> Callable:
         """The forward over a paged cache, f(ids, positions, cache,
@@ -341,6 +362,7 @@ class InferenceEngine:
         first = self._pick(logits, gen, generator, counts, seen, bias)
         first_np = first.cpu().numpy()
         ttft = time.perf_counter() - t0
+        self.metrics.observe("ttft_s", ttft)
 
         results = [[int(first_np[i])] for i in range(B)]
         finished = np.array([int(first_np[i]) in eos for i in range(B)])
@@ -375,6 +397,7 @@ class InferenceEngine:
             produced += steps
         dt = time.perf_counter() - t_dec
         tps = decoded / dt if dt > 0 else 0.0
+        self.metrics.observe("decode_tokens_per_s", tps)
 
         out = []
         for i in range(B):

@@ -114,6 +114,9 @@ class ContinuousBatchingScheduler:
     def __init__(self, engine: InferenceEngine,
                  gen: Optional[GenerationConfig] = None,
                  slots: Optional[int] = None):
+        if getattr(engine, "tp", None) is not None:
+            raise NotImplementedError("the schedulers over a tensor-parallel "
+                                      "engine are not ported yet")
         self.engine = engine
         self.gen = g = gen or GenerationConfig()
         self.B = slots or engine.engine_cfg.max_batch_size

@@ -21,13 +21,25 @@ is plain indexing into the pool and attention is K10a/K10b at decode, K11
 for a chunk over earlier pages (paged_history), the plain `attend` over
 the fresh rows for a first chunk, else a dense gather of the pages and
 the plain `attend`. The layer tail is K6, one launch, for grouped int4
-weights at M ≤ 32 rows (llama.py:802-816), else the matmul chain
+weights at M ≤ 32 rows (llama.py:802-816), else wo then K7 (the FFN
+block in one launch, where ffn_fused takes the case), else the matmul
+chain
 
     wo → gate-up (norm + residual fused) → SwiGLU → down
 
 With LLMI_LAYER_MEGA=1 in the environment, a single-sequence decode step
 over a dense cache runs each whole layer as K12 and its row write
 (`layer_route`, llama.py:719-731).
+
+Tensor parallelism (`forward(..., tp=group)`, llama.py:817-860, 990-996):
+each rank of a parallel.TPGroup holds its shard of the weights
+(parallel.sharding.shard_params of params prepared with tp_size) and a
+cache of its kv heads, and runs the same forward. The embedding rows
+are summed across ranks (each rank holds a vocab slice), the wo product
+is summed before the residual add, the FFN block is K7 (ffn_fused) where
+it takes the case, else the K1 chain, and its down product is summed;
+the logits are gathered across ranks and un-padded to the vocabulary.
+K6 and K12 are never called under TP.
 
 Weight dict layout (dense tensors or QTensor):
   embed [V, H]; final_norm [H]; lm_head [H, V] (absent if tied);
@@ -58,6 +70,7 @@ from llm_inference_tpu_torch.ops.linear import matmul, norm_matmul
 from llm_inference_tpu_torch.ops.quantization import (QTensor, cat_columns,
                                                       from_split_half,
                                                       quantize)
+from llm_inference_tpu_torch.parallel.mesh import TPGroup
 
 Params = Dict[str, Any]
 
@@ -112,21 +125,35 @@ def _stack_quantize(w: torch.Tensor, qcfg: QuantConfig) -> QTensor:
                    scale=torch.stack([t.scale for t in qts]), bits=bits)
 
 
-def quantize_params(params: Params, qcfg: QuantConfig) -> Params:
+def quantize_params(params: Params, qcfg: QuantConfig,
+                    row_shards: int = 1) -> Params:
     """Quantize the per-layer matmul weights (and lm_head when
-    qcfg.quantize_embedding) to QTensors stacked over layers."""
+    qcfg.quantize_embedding) to QTensors stacked over layers.
+
+    `row_shards`: the tensor-parallel degree the weights will be served
+    at. The JAX package lays the row-sharded weights' (wo, w_down) int4
+    codes out in one pack block per shard (llama.py:384-399); the port's
+    codes pack two K-adjacent rows per byte, so any slice at a shard
+    boundary is already self-contained, and row_shards only checks that
+    the boundaries fall between bytes."""
     if not qcfg.enabled:
         return params
     out = dict(params)
     layers = dict(params["layers"])
+    bits = {"int8": 8, "int4": 4}[qcfg.weights]
     for name in _QUANT_KEYS:
+        if name in ("wo", "w_down"):
+            K = layers[name].shape[-2]
+            if K % ((2 if bits == 4 else 1) * row_shards):
+                raise ValueError(f"{name}: {K} input rows do not split into "
+                                 f"{row_shards} shards of whole int{bits} "
+                                 f"code bytes")
         layers[name] = _stack_quantize(layers[name], qcfg)
     out["layers"] = layers
     if qcfg.quantize_embedding:
         if "lm_head" not in params:
             raise NotImplementedError("a quantized tied lm_head is not "
                                       "ported yet")
-        bits = {"int8": 8, "int4": 4}[qcfg.weights]
         out["lm_head"] = quantize(params["lm_head"], bits, qcfg.group_size,
                                   qcfg.asymmetric)
     return out
@@ -183,17 +210,45 @@ def init_params_quantized(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
     return params
 
 
-def fuse_params(params: Params) -> Params:
-    """wq|wk|wv → wqkv and w_gate|w_up → w_gateup, concatenated along the
-    output columns (the JAX package's _interleave_cols at tp_size=1)."""
+def _column_slice(w, s: int, n: int):
+    """Output-column block s of n of a dense weight [..., N] or a QTensor
+    (codes [.., N, K'], scales [.., 1, N] or [.., N, G])."""
+    if isinstance(w, QTensor):
+        N = w.out_features
+        sdim = -2 if w.bits == 4 else -1
+        return QTensor(q=w.q.narrow(-2, s * N // n, N // n),
+                       scale=w.scale.narrow(sdim, s * N // n, N // n),
+                       bits=w.bits)
+    N = w.shape[-1]
+    return w.narrow(-1, s * N // n, N // n)
+
+
+def _interleave_cols(ws, tp_size: int):
+    """Concat along the output columns, shard-locally (llama.py:124-137):
+    column block s of the result is [w0_s | w1_s | ...], so a contiguous
+    1/tp_size column slice of the fused weight is the fusion of each
+    input's shard-s slice. tp_size=1 is a plain concat."""
+    parts = [_column_slice(w, s, tp_size) for s in range(tp_size)
+             for w in ws]
+    if isinstance(ws[0], QTensor):
+        return cat_columns(parts)
+    return torch.cat(parts, dim=-1)
+
+
+def fuse_params(params: Params, tp_size: int = 1) -> Params:
+    """wq|wk|wv → wqkv and w_gate|w_up → w_gateup along the output
+    columns, interleaved per tensor-parallel shard (_interleave_cols), so
+    each rank's slice is [q_s | k_s | v_s] and [gate_s | up_s]."""
     layers = dict(params["layers"])
 
     def fuse(keys, out_key):
         ws = [layers.pop(k) for k in keys]
-        if isinstance(ws[0], QTensor):
-            layers[out_key] = cat_columns(ws)
-        else:
-            layers[out_key] = torch.cat(ws, dim=-1)
+        for w in ws:
+            n = w.out_features if isinstance(w, QTensor) else w.shape[-1]
+            if n % tp_size:
+                raise ValueError(f"{keys}: {n} columns do not split over "
+                                 f"tp={tp_size}")
+        layers[out_key] = _interleave_cols(ws, tp_size)
 
     if "wq" in layers:
         fuse(("wq", "wk", "wv"), "wqkv")
@@ -206,10 +261,51 @@ def fuse_params(params: Params) -> Params:
     return out
 
 
-def prepare_params(params: Params) -> Params:
-    """Serving layout: qkv and gate-up fused (the JAX package's
-    prepare_params without its TPU column blocking)."""
-    return fuse_params(params)
+def _round_up(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def pad_params_for_tp(params: Params, cfg: ModelConfig,
+                      tp_size: int) -> Params:
+    """Zero-pad the FFN intermediate and vocab dims of DENSE params
+    (before quantization) so every shard is a multiple of 128 columns
+    (llama.py:304-339). Exact: padded gate/up columns give silu(0)·0 = 0
+    through the padded down rows; padded vocab rows are ids no prompt
+    holds, and `forward` cuts the logits back to cfg.vocab_size."""
+    if tp_size <= 1:
+        return params
+    quantum = 128 * tp_size
+    I, V = cfg.intermediate_size, cfg.vocab_size
+    I_pad, V_pad = _round_up(I, quantum), _round_up(V, quantum)
+    if I_pad == I and V_pad == V:
+        return params
+
+    def pad_axis(a, axis, new):
+        if a.shape[axis] == new:
+            return a
+        shape = list(a.shape)
+        shape[axis] = new - a.shape[axis]
+        return torch.cat([a, a.new_zeros(shape)], dim=axis)
+
+    layers = dict(params["layers"])
+    if I_pad != I:
+        for k in ("w_gate", "w_up"):
+            layers[k] = pad_axis(layers[k], 2, I_pad)          # [L, H, I]
+        layers["w_down"] = pad_axis(layers["w_down"], 1, I_pad)  # [L, I, H]
+    out = dict(params)
+    out["layers"] = layers
+    if V_pad != V:
+        out["embed"] = pad_axis(params["embed"], 0, V_pad)
+        if "lm_head" in params:
+            out["lm_head"] = pad_axis(params["lm_head"], 1, V_pad)
+    return out
+
+
+def prepare_params(params: Params, tp_size: int = 1) -> Params:
+    """Serving layout: qkv and gate-up fused, interleaved per shard at
+    tp_size (the JAX package's prepare_params without its TPU column
+    blocking)."""
+    return fuse_params(params, tp_size)
 
 
 def params_to(params: Params, device) -> Params:
@@ -220,6 +316,8 @@ def params_to(params: Params, device) -> Params:
 
 
 def _from_numpy(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.asarray(a)
     if not a.flags.writeable:
         a = a.copy()
@@ -237,8 +335,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Params:
     A quantized weight is a dict {"q", "scale", "bits"} (the JAX QTensor
     after quantization.from_blocked): int8 codes [..., K, N] row-major
     with float32 scales [..., 1, N], or (bits 4) split-half packed int4
-    codes [..., K/2, N] (row r in the low nibble, row r + K/2 in the high
-    one) with float32 scales [..., G, N]. The codes are re-laid into the
+    codes [..., K/2, N] with float32 scales [..., G, N], in pack blocks of
+    "block_rows" packed rows (absent or 0: one block; in a block, row r
+    sits in the low nibble and row r + block_rows in the high one). The codes are re-laid into the
     port's transposed layouts (ops/quantization.py); every other leaf is
     an array. Fused keys (wqkv, w_gateup) pass through as they are. Call
     prepare_params on the result before serving."""
@@ -250,7 +349,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Params:
             scale = _from_numpy(node["scale"], device).to(torch.float32)
             bits = int(node.get("bits", 8))
             if bits == 4:
-                return from_split_half(q, scale)
+                return from_split_half(q, scale,
+                                       int(node.get("block_rows", 0)))
             if bits != 8 or scale.shape[-2:] != (1, q.shape[-1]):
                 raise NotImplementedError(
                     f"bits {bits}, scales {tuple(scale.shape)} for codes "
@@ -304,15 +404,17 @@ def attention_route(q_shape, S: int, quantized: bool, page_size: int = 0,
 
 
 def layer_route(cfg: ModelConfig, layers, batch: int, rows: int,
-                cache) -> str:
+                cache, tp: Optional[TPGroup] = None) -> str:
     """Which layer a forward runs, under the JAX package's gate
     (llama.py:719-731): "mega" (K12 and its row write, a whole layer in
     two launches) when LLMI_LAYER_MEGA=1 is set at call time, the step is
-    a single token of a single sequence (B·T = 1) over a dense cache, the
-    four weights are fused quantized ones and layer_fused.supports takes
-    the layer; else "split" (the K1/attention/K6 chain). The port has no
-    LoRA, the other part of the JAX gate."""
+    a single token of a single sequence (B·T = 1) over a dense cache, not
+    tensor-parallel, the four weights are fused quantized ones and
+    layer_fused.supports takes the layer; else "split" (the K1/attention/
+    K6 or K7 chain). The port has no LoRA, the other part of the JAX
+    gate."""
     if (os.environ.get("LLMI_LAYER_MEGA", "0") == "1" and batch * rows == 1
+            and (tp is None or tp.size == 1)
             and isinstance(cache, kvcache.KVCache)
             and layer_fused.supports(cfg, (batch, rows, cfg.hidden_size),
                                      layers, cache)):
@@ -444,12 +546,35 @@ def _attend_block(cfg, l, q, k, v, cache, positions, write_offsets, mask,
     return attn.reshape(B, T, -1)
 
 
+def _psum(x, tp: Optional[TPGroup]):
+    """Σ over the ranks of x under tensor parallelism, else x
+    (llama.py:518)."""
+    return x if tp is None else tp.all_reduce_sum(x)
+
+
+def _sharded_embedding_lookup(table, ids, tp: Optional[TPGroup]):
+    """Vocab-sharded gather (llama.py:522-533): the rank's rows cover
+    [lo, lo + V_local); ids outside contribute zero rows, and the sum over
+    the ranks restores every row."""
+    if tp is None:
+        return embedding.embedding_lookup(table, ids)
+    v_local = table.shape[0]
+    local = ids.long() - tp.rank * v_local
+    in_shard = (local >= 0) & (local < v_local)
+    rows = embedding.embedding_lookup(table, torch.clamp(local, 0,
+                                                         v_local - 1))
+    rows = torch.where(in_shard[..., None], rows, torch.zeros_like(rows))
+    return _psum(rows, tp)
+
+
 def _layer_pair(cfg, layers, l, h, d, cache, positions, write_offsets, mask,
-                route, cos, sin, mega=False):
+                route, cos, sin, mega=False, tp=None):
     """Pair-carry layer: returns (h2, delta) with the residual stream
     h2 and this layer's down-projection output, which the next layer's
     wqkv prologue adds. With `mega` the whole layer is K12 (layer_route);
-    else the tail is K6 where it takes the case."""
+    else the tail is K6 where it takes the case (never under TP), then
+    K7 after the wo product (summed across ranks under TP), then the K1
+    chain (llama.py:802-842)."""
     if mega:
         return layer_fused.layer_decode_fused(cfg, h, d, layers, cache, l,
                                               positions, cos, sin)
@@ -462,25 +587,32 @@ def _layer_pair(cfg, layers, l, h, d, cache, positions, write_offsets, mask,
     q, k, v = _fused_qkv_heads(cfg, layers, l, qkv, cos, sin)
     attn2d = _attend_block(cfg, l, q, k, v, cache, positions, write_offsets,
                            mask, route)
-    tail = qm.layer_tail_fused(h, attn2d, layers["wo"], layers["w_gateup"],
-                               layers["w_down"], layers["ffn_norm"][l], eps,
-                               l)
-    if tail is not None:
-        down_out, h2 = tail
-        return h2, down_out
-    attn_out = matmul(attn2d, layers["wo"], layer=l)
-    gateup, h2 = norm_matmul(h, layers["w_gateup"], layers["ffn_norm"][l],
-                             eps, residual=attn_out, layer=l,
-                             want_x_out=True)
+    gamma = layers["ffn_norm"][l]
+    if tp is None:
+        tail = qm.layer_tail_fused(h, attn2d, layers["wo"],
+                                   layers["w_gateup"], layers["w_down"],
+                                   gamma, eps, l)
+        if tail is not None:
+            down_out, h2 = tail
+            return h2, down_out
+    attn_out = _psum(matmul(attn2d, layers["wo"], layer=l), tp)
+    ffn = qm.ffn_fused(h, attn_out, gamma, eps, layers["w_gateup"],
+                       layers["w_down"], l)
+    if ffn is not None:
+        down_out, h2 = ffn
+        return h2, _psum(down_out, tp)
+    gateup, h2 = norm_matmul(h, layers["w_gateup"], gamma, eps,
+                             residual=attn_out, layer=l, want_x_out=True)
     gate, up = torch.chunk(gateup, 2, dim=-1)
     act = activations.swiglu_split(gate, up)
-    return h2, matmul(act, layers["w_down"], layer=l)
+    return h2, _psum(matmul(act, layers["w_down"], layer=l), tp)
 
 
 def _layer_plain(cfg, layers, l, h, cache, positions, write_offsets, mask,
-                 route, cos, sin):
+                 route, cos, sin, tp=None):
     """Unfused layer (separate or dense weights): norm, projections and
-    residual adds as separate ops."""
+    residual adds as separate ops, the wo and down products summed across
+    ranks under TP (llama.py:844-860)."""
     B, T, _ = h.shape
     eps = cfg.rms_norm_eps
 
@@ -502,13 +634,13 @@ def _layer_plain(cfg, layers, l, h, cache, positions, write_offsets, mask,
         v = mm("wv", normed, "bv").reshape(B, T, -1, D)
     attn2d = _attend_block(cfg, l, q, k, v, cache, positions, write_offsets,
                            mask, route)
-    h = h + mm("wo", attn2d)
+    h = h + _psum(mm("wo", attn2d), tp)
     normed = norms.rms_norm(h, layers["ffn_norm"][l], eps)
     if "w_gateup" in layers:
         gate, up = torch.chunk(mm("w_gateup", normed), 2, dim=-1)
     else:
         gate, up = mm("w_gate", normed), mm("w_up", normed)
-    return h + mm("w_down", activations.swiglu_split(gate, up))
+    return h + _psum(mm("w_down", activations.swiglu_split(gate, up)), tp)
 
 
 def rope_table(cfg: ModelConfig, cache_len: int, device
@@ -523,7 +655,7 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
             positions: torch.Tensor, cache, *, logits_mode: str = "last",
             last_idx: Optional[torch.Tensor] = None,
             rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-            paged_history: bool = False
+            paged_history: bool = False, tp: Optional[TPGroup] = None
             ) -> Tuple[Optional[torch.Tensor], Any]:
     """Run the decoder over T tokens per sequence, writing the dense
     (kvcache.KVCache) or paged (paged_kvcache.PagedKVCache) cache in place.
@@ -533,9 +665,17 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
     `rope_tables` (from rope_table) saves rebuilding them per call. Over a
     paged cache, a prefill chunk (T > 1, a multiple of the page size) is
     a first chunk from position 0, or with `paged_history` a chunk at a
-    block offset over the sequence's earlier pages."""
+    block offset over the sequence's earlier pages. With `tp` (a
+    parallel.TPGroup of more than one rank) `params` are this rank's
+    shard and `cache` holds its kv heads (module docstring); every rank
+    returns the same full logits."""
     B, T = ids.shape
     paged = isinstance(cache, paged_kvcache.PagedKVCache)
+    if tp is not None and tp.size == 1:
+        tp = None
+    if tp is not None and paged:
+        raise NotImplementedError("tensor parallelism over a paged cache "
+                                  "is not ported yet")
     ps = cache.page_size if paged else 0
     # slots a position may address; the RoPE tables need no more
     S = cache.max_blocks * ps if paged else cache.max_seq_len
@@ -543,7 +683,7 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
     layers = params["layers"]
     L = layers["attn_norm"].shape[0]
 
-    h = embedding.embedding_lookup(params["embed"], ids).to(dtype)
+    h = _sharded_embedding_lookup(params["embed"], ids, tp).to(dtype)
     route = attention_route((B, T, cfg.num_heads, cfg.head_dim), S,
                             cache.quantized, ps, paged_history)
     # the plain routes' mask: over the fresh rows for a first paged chunk
@@ -563,15 +703,16 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
     if (isinstance(layers.get("wqkv"), QTensor)
             and isinstance(layers.get("w_gateup"), QTensor)):
         d = torch.zeros_like(h)
-        mega = layer_route(cfg, layers, B, T, cache) == "mega"
+        mega = layer_route(cfg, layers, B, T, cache, tp) == "mega"
         for l in range(L):
             h, d = _layer_pair(cfg, layers, l, h, d, cache, positions,
-                               write_offsets, mask, route, cos, sin, mega)
+                               write_offsets, mask, route, cos, sin, mega,
+                               tp)
         h = h + d
     else:
         for l in range(L):
             h = _layer_plain(cfg, layers, l, h, cache, positions,
-                             write_offsets, mask, route, cos, sin)
+                             write_offsets, mask, route, cos, sin, tp)
 
     if logits_mode == "none":
         return None, cache
@@ -588,7 +729,11 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
         logits = h.to(torch.float32) @ params["embed"].to(torch.float32).T
     else:
         logits = matmul(h, lm_head).to(torch.float32)
+    if tp is not None:
+        # vocab-sharded logits → the full logits on every rank
+        logits = tp.all_gather_last(logits)
     if logits.shape[-1] > cfg.vocab_size:
+        # the vocabulary was padded for the shards (pad_params_for_tp)
         logits = logits[..., :cfg.vocab_size]
     if cfg.final_logit_softcap > 0.0:
         logits = (torch.tanh(logits / cfg.final_logit_softcap)

@@ -37,6 +37,7 @@ SIGNATURES = {
     "qmm_prologue_launch": [_P] * 5 + [_I, _I, _F, _P],
     "qmm_tiled_launch": [_P] * 4 + [_I] * 5 + [_P],
     "layer_tail_launch": [_P] * 13 + [_I] * 7 + [_F, _P],
+    "ffn_fused_launch": [_P] * 10 + [_I] * 5 + [_F, _P],
     "layer_fused_launch": [_P] * 24 + [_I] * 11 + [_F, _F, _P],
     "decode_attn_launch": [_P] * 9 + [_I] * 7 + [_F, _F, _I, _P],
     "flash_attn_launch": [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P],

@@ -37,8 +37,8 @@ import torch
 
 from llm_inference_tpu_torch.ops import kvcache
 from llm_inference_tpu_torch.ops.kernels import kv_write
-from llm_inference_tpu_torch.ops.kernels.quant_matmul import (_check_weight,
-                                                              _grouped_dot)
+from llm_inference_tpu_torch.ops.kernels.quant_matmul import (
+    _check_weight, _grouped_dot, small_groups_ok)
 from llm_inference_tpu_torch.ops.quantization import QTensor, quantize_kv
 
 NEG_INF = -1e30
@@ -202,9 +202,9 @@ def layer_kernel(cfg, h, residual, layers, cache, layer: int, positions,
     bits = ws[0].bits
     for w in ws:
         _check_weight(w, "K12")
-        if bits == 4 and w.group_size % 32:
-            raise ValueError(f"K12 needs int4 groups of a multiple of 32, "
-                             f"got {w.group_size}")
+        if bits == 4 and not small_groups_ok(w.group_size, 32):
+            raise ValueError(f"K12 needs int4 groups of a multiple of 32 "
+                             f"codes, or of 8 or 16, got {w.group_size}")
     if H % 32 or I % 32 or Hq // Hkv > 8:
         raise ValueError(f"K12 needs H and I multiples of 32 and at most 8 "
                          f"query heads a kv head, got H={H} I={I} "

@@ -1,8 +1,9 @@
 """K1: weight-only matmul with the fused residual + RMSNorm prologue, K8:
-its tiled prefill GEMM above 128 rows, and K6: the fused decode layer
-tail (counterparts of `llm_inference_tpu/ops/pallas/quant_matmul.py:
-quant_matmul`, its blocked GEMV kernel (int8 per-channel and int4 N-pair
-grouped branches), `_quant_matmul_tiled` and `layer_tail_fused`).
+its tiled prefill GEMM above 128 rows, K6: the fused decode layer tail,
+and K7: the fused FFN block of a tensor-parallel layer (counterparts of
+`llm_inference_tpu/ops/pallas/quant_matmul.py: quant_matmul`, its blocked
+GEMV kernel (int8 per-channel and int4 N-pair grouped branches),
+`_quant_matmul_tiled`, `layer_tail_fused` and `ffn_fused`).
 
 K1:  y = rms_norm(x (+ residual), gamma, eps) @ dequant(W[layer])
 
@@ -30,10 +31,22 @@ K6:  (down_out, h2) = layer_tail_fused(h, attn, wo, w_gateup, w_down, ...)
 nothing rounded between the phases. It takes M ≤ 32 rows and stacked
 grouped int4 weights, else returns None and the caller runs the K1 chain.
 
+K7:  (down_out, h2) = ffn_fused(x, residual, gamma, eps, w_gateup, w_down)
+
+K6 without its wo phase, for a tensor-parallel layer whose wo partials
+are summed across ranks first: x32 = bf16(x) + residual in float32,
+h2 = x32 in x's dtype, then the norm, gate-up, SwiGLU and down as K6. It
+returns None where the TPU package's ffn_fused does (more than 32 rows,
+weights that are not stacked grouped int4, groups under 8 codes).
+
+The int4 kernels take every group size of the TPU kernels' int4 paths
+that the port's layout can feed them: K1 groups of 8, 16, 32 or 64k
+codes, K6, K7, K8 and K12 groups of 8, 16 or 32k codes (small_groups_ok).
+
 CUDA tensors go through `csrc/quant_matmul.cu` (K1),
-`csrc/quant_matmul_tiled.cu` (K8) and `csrc/layer_tail.cu` (K6); CPU
-tensors through `quant_matmul_ref` and `layer_tail_fused_ref`, their plain
-versions.
+`csrc/quant_matmul_tiled.cu` (K8) and `csrc/layer_tail.cu` (K6, K7); CPU
+tensors through `quant_matmul_ref`, `layer_tail_fused_ref` and
+`ffn_fused_ref`, their plain versions.
 """
 
 from __future__ import annotations
@@ -54,11 +67,13 @@ _TAIL_MAX_M = 32  # layer_tail_fused's row limit (quant_matmul.py:710)
 _TILE_N = 128
 _TILE_K = 32
 
-# kernel launches made by quant_matmul (K1, and K8 above 128 rows) and
-# layer_tail_fused (K6); the plain versions are not counted
+# kernel launches made by quant_matmul (K1, and K8 above 128 rows),
+# layer_tail_fused (K6) and ffn_fused (K7); the plain versions are not
+# counted
 launches = 0
 tiled_launches = 0
 tail_launches = 0
+ffn_launches = 0
 
 
 def _rows(x):
@@ -143,6 +158,13 @@ def _check_weight(qt: QTensor, what: str):
                          "and float32 scales (models.llama.prepare_params)")
 
 
+def small_groups_ok(group_size: int, multiple: int) -> bool:
+    """Whether an int4 kernel whose groups come in multiples of `multiple`
+    codes takes `group_size`: such a multiple, or 8, 16 or 32 codes (the
+    GEMV core applies a scale per 8-code word, int4_gemv.cuh)."""
+    return group_size % multiple == 0 or group_size in (8, 16, 32)
+
+
 def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
                  norm_eps: float = 1e-5, residual=None,
                  want_x_out: bool = False):
@@ -164,15 +186,18 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
     _check_weight(qt, what)
     int4 = qt.bits == 4
     if tiled:
-        if K % _TILE_K or N % _TILE_N or (int4 and qt.group_size % _TILE_K):
+        if (K % _TILE_K or N % _TILE_N
+                or (int4 and not small_groups_ok(qt.group_size, _TILE_K))):
             raise ValueError(
                 f"K8 needs K % {_TILE_K} == 0, N % {_TILE_N} == 0 and int4 "
-                f"groups of a multiple of {_TILE_K}, got K={K} N={N} bits="
-                f"{qt.bits} group_size={qt.group_size}")
-    elif K % 64 or N % 64 or (int4 and qt.group_size % 64):
+                f"groups of a multiple of {_TILE_K} codes, or of 8 or 16, "
+                f"got K={K} N={N} bits={qt.bits} group_size={qt.group_size}")
+    elif (K % 64 or N % 64
+          or (int4 and not small_groups_ok(qt.group_size, 64))):
         raise ValueError(f"K1 needs K % 64 == 0, N % 64 == 0 and int4 groups "
-                         f"of a multiple of 64, got K={K} N={N} bits="
-                         f"{qt.bits} group_size={qt.group_size}")
+                         f"of a multiple of 64 codes, or of 8, 16 or 32, got "
+                         f"K={K} N={N} bits={qt.bits} group_size="
+                         f"{qt.group_size}")
     bf16 = torch.bfloat16
     for name, t in (("residual", residual), ("norm_gamma", norm_gamma)):
         if t is not None and t.dtype != bf16:
@@ -295,9 +320,9 @@ def layer_tail_fused(h, attn2d, wo: QTensor, gu: QTensor, dn: QTensor,
     M, H, Ko, I = shapes
     for qt in (wo, gu, dn):
         _check_weight(qt, "K6")
-        if qt.group_size % 32:
-            raise ValueError(f"K6 needs int4 groups of a multiple of 32, "
-                             f"got {qt.group_size}")
+        if not small_groups_ok(qt.group_size, 32):
+            raise ValueError(f"K6 needs int4 groups of a multiple of 32 "
+                             f"codes, or of 8 or 16, got {qt.group_size}")
     if H % 32 or Ko % 32 or I % 32:
         raise ValueError(f"K6 needs widths that are multiples of 32, got "
                          f"H={H} Ko={Ko} I={I}")
@@ -328,3 +353,98 @@ def layer_tail_fused(h, attn2d, wo: QTensor, gu: QTensor, dn: QTensor,
     tail_launches += 1
     *lead, _ = h.shape
     return (y.reshape(*lead, H).to(h.dtype), h2.reshape(*lead, H).to(h.dtype))
+
+
+# ------------------------------------------------------------------- K7
+
+def _ffn_shapes(x, gu, dn):
+    """(M, K, I) when K7 takes the case, else None (the JAX package's
+    acceptance conditions, quant_matmul.py:806-826): at most 32 rows,
+    stacked grouped symmetric int4 gate-up and down weights of K and I
+    input rows, groups of at least 8 codes that divide the rows."""
+    _, M, K = _rows(x)
+    if M > _TAIL_MAX_M:
+        return None
+    for qt in (gu, dn):
+        if not (isinstance(qt, QTensor) and qt.bits == 4 and qt.stacked
+                and qt.groups > 1):
+            return None
+    I = gu.out_features // 2
+    if gu.in_features != K or dn.in_features != I:
+        return None
+    gs_g, gs_d = K // gu.groups, I // dn.groups
+    if gs_g < 8 or gs_d < 8 or K % gs_g or I % gs_d:
+        return None
+    return M, K, I
+
+
+def ffn_fused_ref(x, residual, gamma, eps: float, gu: QTensor, dn: QTensor,
+                  layer: int):
+    """Plain version of `ffn_fused` for a case it takes."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    *lead, K = x.shape
+    M = x.numel() // K
+    x32 = x.reshape(M, K).to(bf16).to(f32) + residual.reshape(M, K).to(f32)
+    h2 = x32.to(x.dtype)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    xn = x32 * torch.rsqrt(var + eps) * gamma.to(f32)
+    gate, up = torch.chunk(_grouped_dot(xn, gu.layer(layer)), 2, dim=-1)
+    act = gate * torch.sigmoid(gate) * up
+    y = _grouped_dot(act, dn.layer(layer)).to(x.dtype)
+    return y.reshape(*lead, -1), h2.reshape(*lead, K)
+
+
+def ffn_fused(x, residual, gamma, eps: float, gu: QTensor, dn: QTensor,
+              layer: int):
+    """rms_norm(x + residual) → gate-up → SwiGLU → down in one launch.
+
+    x [..., K] is the residual stream, residual [..., K] the summed wo
+    output of a tensor-parallel layer, gamma [K] the FFN norm, gu/dn
+    stacked QTensors (this rank's shards) indexed by `layer`. Returns
+    (down_out, h2 = x + residual) in x.dtype, down_out being this rank's
+    partial sum, or None when the case is not K7's (the caller runs the K1
+    chain)."""
+    shapes = _ffn_shapes(x, gu, dn)
+    if shapes is None:
+        return None
+    if not x.is_cuda:
+        return ffn_fused_ref(x, residual, gamma, eps, gu, dn, layer)
+    global ffn_launches
+    from llm_inference_tpu_torch.ops.kernels import _build
+    M, K, I = shapes
+    for qt in (gu, dn):
+        _check_weight(qt, "K7")
+        if not small_groups_ok(qt.group_size, 32):
+            raise ValueError(f"K7 needs int4 groups of a multiple of 32 "
+                             f"codes, or of 8 or 16, got {qt.group_size}")
+    if K % 32 or I % 32 or dn.out_features != K:
+        raise ValueError(f"K7 needs widths that are multiples of 32 and a "
+                         f"down projection back to K, got K={K} I={I} "
+                         f"H={dn.out_features}")
+    bf16, f32 = torch.bfloat16, torch.float32
+    for name, t in (("residual", residual), ("gamma", gamma)):
+        if t.dtype != bf16:
+            raise TypeError(f"K7 takes a bf16 {name}, got {t.dtype}")
+    dev = x.device
+    H = dn.out_features
+    x2 = x.reshape(M, K).to(bf16).contiguous()
+    res = residual.reshape(M, K).contiguous()
+    gam = gamma.reshape(K).contiguous()
+    y = torch.empty((M, H), dtype=bf16, device=dev)
+    h2 = torch.empty((M, K), dtype=bf16, device=dev)
+    act = torch.empty((M, I), dtype=f32, device=dev)         # scratch
+    li = int(layer)
+
+    def w(qt):
+        N, G = qt.out_features, qt.groups
+        return (qt.q.data_ptr() + li * N * qt.in_features // 2,
+                qt.scale.data_ptr() + li * N * G * 4)
+
+    code = _build.lib().ffn_fused_launch(
+        x2.data_ptr(), res.data_ptr(), gam.data_ptr(), *w(gu), *w(dn),
+        act.data_ptr(), h2.data_ptr(), y.data_ptr(), M, K, I, gu.groups,
+        dn.groups, float(eps), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "ffn_fused")
+    ffn_launches += 1
+    *lead, _ = x.shape
+    return (y.reshape(*lead, H).to(x.dtype), h2.reshape(*lead, K).to(x.dtype))

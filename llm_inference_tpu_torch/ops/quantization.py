@@ -25,8 +25,9 @@ layer_tail) stream a column with 16-byte loads:
 The JAX package's column-blocked layouts ([N/bn, K', bn], and for int4 the
 N-pair packing of columns j and j + bn/2 in one byte for the TPU matrix
 unit's difference of dots) exist for the TPU and are not copied.
-The JAX package's row-major split-half int4 layout is read
-(`from_split_half`), not served. Asymmetric and grouped int8 weights raise
+The JAX package's row-major split-half int4 layout, in one pack block or
+in one block per tensor-parallel rank, is read (`from_split_half`), not
+served. Asymmetric and grouped int8 weights raise
 NotImplementedError until they are ported.
 """
 
@@ -109,14 +110,24 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
         *packed.shape[:-1], 2 * packed.shape[-1]).to(torch.int8)
 
 
-def from_split_half(q: torch.Tensor, scale: torch.Tensor) -> QTensor:
-    """The JAX package's row-major int4 weight (one split-half pack block:
-    packed row r holds row r in its low nibble and row r + K/2 in its high
-    one) [..., K/2, N], with scales [..., G, N], as the port's QTensor."""
-    p = q.to(torch.int32)
-    lo = ((p & 0xF) ^ 8) - 8                                   # rows r
-    hi = (((p >> 4) & 0xF) ^ 8) - 8                            # rows r + K/2
-    codes = torch.cat([lo, hi], dim=-2)                        # [..., K, N]
+def from_split_half(q: torch.Tensor, scale: torch.Tensor,
+                    block_rows: int = 0) -> QTensor:
+    """The JAX package's row-major int4 weight [..., K/2, N], with scales
+    [..., G, N], as the port's QTensor. Its packed rows come in pack
+    blocks of `block_rows` (0: one block of K/2, a single-device weight;
+    K/2/tp for a weight the JAX package row-shards over tp ranks,
+    quantize_params(row_shards=tp)): packed row r of a block holds the
+    block's row r in its low nibble and its row r + block_rows in the high
+    one."""
+    P, N = q.shape[-2], q.shape[-1]
+    br = block_rows or P
+    if P % br:
+        raise ValueError(f"{P} packed rows do not split into pack blocks "
+                         f"of {br}")
+    p = q.to(torch.int32).reshape(*q.shape[:-2], P // br, br, N)
+    lo = ((p & 0xF) ^ 8) - 8                           # rows r of a block
+    hi = (((p >> 4) & 0xF) ^ 8) - 8                    # rows r + br
+    codes = torch.cat([lo, hi], dim=-2).reshape(*q.shape[:-2], 2 * P, N)
     return QTensor(q=pack_int4(codes.transpose(-1, -2)),
                    scale=scale.to(torch.float32).transpose(-1, -2)
                    .contiguous(), bits=4)

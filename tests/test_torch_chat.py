@@ -460,7 +460,9 @@ def test_cli_chats_with_a_tokenizer(monkeypatch, capsys, tmp_path):
     assert out.count("bot> ") == 2 and out.rstrip().endswith("bye.")
 
 
-@pytest.mark.parametrize("argv", [["--tp", "2"], ["--dp", "2"],
+# --tp alone is served (tests/test_torch_tp.py); under --tp the ranks
+# still refuse --dp, and the refusal reaches the caller
+@pytest.mark.parametrize("argv", [["--tp", "2", "--dp", "2"], ["--dp", "2"],
                                   ["--lora", "a=b"], ["--asym"],
                                   ["--no-int4-npair"],
                                   ["--model", "mistral-7b"]])

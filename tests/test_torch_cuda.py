@@ -602,16 +602,18 @@ def test_paged_scheduler_cuda_matches_cpu(cuda, cache_dtype):
     assert compared >= 12
 
 
-def _mega_layer(g, bits, kv, Hkv, S, pos):
-    """A 2-layer model's layer dict (random quantized weights, random bf16
-    norms), a random cache of one sequence and the RoPE rows at pos."""
+def _mega_layer(g, bits, kv, Hkv, S, pos, gsize=128):
+    """A 2-layer model's layer dict (random quantized weights, int4 in
+    groups of gsize codes, random bf16 norms), a random cache of one
+    sequence and the RoPE rows at pos."""
     from llm_inference_tpu_torch.config import QuantConfig, tiny_llama
     from llm_inference_tpu_torch.models import llama
     from llm_inference_tpu_torch.ops import kvcache
     cfg = tiny_llama(hidden_size=1024, intermediate_size=2816, num_heads=8,
                      num_kv_heads=Hkv, head_dim=128, vocab_size=256,
                      dtype="bfloat16", max_position_embeddings=4096)
-    qcfg = QuantConfig(weights=bits, group_size=128 if bits == "int4" else 0)
+    qcfg = QuantConfig(weights=bits,
+                       group_size=gsize if bits == "int4" else 0)
     params = llama.prepare_params(llama.init_params_quantized(
         cfg, qcfg, seed=5, device="cpu"))
     layers = params["layers"]
@@ -638,11 +640,12 @@ def _mega_layer(g, bits, kv, Hkv, S, pos):
     ("int8", "bf16", 8, 512, 191), ("int8", "bf16", 2, 1024, 900),
     ("int4", "int8", 8, 512, 191), ("int4", "int8", 2, 1024, 0),
     ("int8", "int8", 8, 256, 255), ("int4", "bf16", 4, 512, 64)])
-def test_k12_cuda_matches_plain(cuda, bits, kv, Hkv, S, pos):
+def test_k12_cuda_matches_plain(cuda, bits, kv, Hkv, S, pos, gsize=128):
     from llm_inference_tpu_torch.models import llama
     from llm_inference_tpu_torch.ops.kernels import layer_fused as t_lf
     g = torch.Generator().manual_seed(pos + S)
-    cfg, layers, cache, cos, sin = _mega_layer(g, bits, kv, Hkv, S, pos)
+    cfg, layers, cache, cos, sin = _mega_layer(g, bits, kv, Hkv, S, pos,
+                                               gsize)
     H = cfg.hidden_size
     h = torch.randn((1, 1, H), generator=g).to(BF16)
     res = torch.randn((1, 1, H), generator=g).to(BF16)
@@ -701,3 +704,114 @@ def test_row_writes_cuda_match_plain_exactly(cuda, kv):
                 == sum(before) + 1)
         for a, b in zip(dev, cpu):
             assert torch.equal(a.cpu(), b)
+
+
+# ------------------------------------ int4 groups of 8, 16 and 32 codes
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gsize", [8, 16, 32])
+@pytest.mark.parametrize("M", [1, 4, 32])
+def test_k1_int4_small_groups_cuda_matches_plain(cuda, gsize, M):
+    # M <= 8: the GEMV (a scale per 8-code word for groups of 8 and 16);
+    # M = 32: the MMA path, a group staged whole (8 zero-padded to 16)
+    g = torch.Generator().manual_seed(100 + gsize + M)
+    K, N = 1024, 512
+    qt = _int4_weight(g, 2, N, K, gsize)
+    x = torch.randn((M, K), generator=g).to(BF16)
+    kw = dict(norm_gamma=(1 + 0.1 * torch.randn((K,), generator=g)).to(BF16),
+              residual=torch.randn((M, K), generator=g).to(BF16),
+              want_x_out=True)
+    want, want_x = t_qm.quant_matmul(x, qt, 1, **kw)
+    before = t_qm.launches
+    got, got_x = t_qm.quant_matmul(x.to(cuda), qt.to(cuda), 1,
+                                   **_to(kw, cuda))
+    torch.cuda.synchronize()
+    assert t_qm.launches == before + 1
+    assert torch.equal(got_x.cpu(), want_x)
+    # as test_k1_int4_cuda_matches_plain: one bf16 step of the largest
+    err = (got.cpu().float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gsize", [8, 16])
+def test_k8_small_groups_cuda_matches_plain(cuda, gsize):
+    # groups of 16: a fold after each m16n8k16 product; of 8: after each
+    # m16n8k8 half
+    g = torch.Generator().manual_seed(200 + gsize)
+    M, K, N = 200, 1024, 256
+    qt = _int4_weight(g, 2, N, K, gsize)
+    x = torch.randn((M, K), generator=g).to(BF16)
+    want = t_qm.quant_matmul(x, qt, 1)
+    before = t_qm.tiled_launches
+    got = t_qm.quant_matmul(x.to(cuda), qt.to(cuda), 1)
+    torch.cuda.synchronize()
+    assert t_qm.tiled_launches == before + 1
+    err = (got.cpu().float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gsize", [8, 16])
+@pytest.mark.parametrize("M", [1, 4])
+def test_k6_small_groups_cuda_matches_plain(cuda, gsize, M):
+    g = torch.Generator().manual_seed(300 + gsize + M)
+    H, I = 1024, 2816
+    wo, gu, dn = (_int4_weight(g, 1, H, H, gsize),
+                  _int4_weight(g, 1, 2 * I, H, gsize),
+                  _int4_weight(g, 1, H, I, gsize))
+    h = torch.randn((M, H), generator=g).to(BF16)
+    attn = torch.randn((M, H), generator=g).to(BF16)
+    gamma = (1 + 0.1 * torch.randn((H,), generator=g)).to(BF16)
+    want = t_qm.layer_tail_fused(h, attn, wo, gu, dn, gamma, 1e-5, 0)
+    got = t_qm.layer_tail_fused(h.to(cuda), attn.to(cuda), wo.to(cuda),
+                                gu.to(cuda), dn.to(cuda), gamma.to(cuda),
+                                1e-5, 0)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        err = (a.cpu().float() - b.float()).abs().max().item()
+        assert err <= 2.0 ** -7 * b.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gsize", [8, 16])
+def test_k12_small_groups_cuda_matches_plain(cuda, gsize):
+    test_k12_cuda_matches_plain(cuda, "int4", "int8", 8, 512, 191, gsize)
+
+
+# ------------------------------------------------------------------- K7
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gsize,H,I", [(128, 4096, 5504), (32, 4096, 5504),
+                                       (16, 1024, 2816), (8, 1024, 2816)])
+@pytest.mark.parametrize("M", [1, 8])
+def test_k7_cuda_matches_plain(cuda, gsize, H, I, M):
+    # H = 4096, I = 5504: one rank's shard of LLaMA-2-7B at tp = 2
+    g = torch.Generator().manual_seed(400 + gsize + M)
+    gu = _int4_weight(g, 2, 2 * I, H, gsize)
+    dn = _int4_weight(g, 2, H, I, gsize)
+    x = torch.randn((M, H), generator=g).to(BF16)
+    res = torch.randn((M, H), generator=g).to(BF16)
+    gamma = (1 + 0.1 * torch.randn((H,), generator=g)).to(BF16)
+    want_y, want_h2 = t_qm.ffn_fused(x, res, gamma, 1e-5, gu, dn, 1)
+    before = t_qm.ffn_launches
+    got_y, got_h2 = t_qm.ffn_fused(x.to(cuda), res.to(cuda), gamma.to(cuda),
+                                   1e-5, gu.to(cuda), dn.to(cuda), 1)
+    torch.cuda.synchronize()
+    assert t_qm.ffn_launches == before + 1
+    # h2 is the same float32 sum rounded once; y: float32 sums in another
+    # order through two products, one rounding: one bf16 step of the
+    # largest output
+    assert torch.equal(got_h2.cpu(), want_h2)
+    err = (got_y.cpu().float() - want_y.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * want_y.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_k7_failed_launch_raises(cuda):
+    from llm_inference_tpu_torch.ops.kernels import _build
+    # M = 0 is refused by the C entry point; the wrapper's check raises
+    code = _build.lib().ffn_fused_launch(*([None] * 10), 0, 4096, 5504, 32,
+                                         43, 1e-5, None)
+    with pytest.raises(RuntimeError, match="ffn_fused"):
+        _build.check(code, "ffn_fused")

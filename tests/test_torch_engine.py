@@ -137,6 +137,28 @@ def test_greedy_streams_int4_int8kv_match_jax(setup4, req):
     assert setup4[3].new_cache(1).k.dtype == torch.int8
 
 
+def test_generate_records_the_jax_engines_metrics(setup):
+    """One generate call observes the series the JAX engine observes
+    (ttft_s and decode_tokens_per_s, engine.py:806, 843), once each:
+    the snapshots have the same keys and the series the same number of
+    observations."""
+    jcfg, jprep, _, teng = setup
+    jeng = JEngine(jcfg, jprep, engine_cfg=JEngineConfig(
+        max_seq_len=S, decode_chunk=4, prefill_buckets=BUCKETS))
+    teng = InferenceEngine(teng.cfg, teng.params, engine_cfg=teng.engine_cfg,
+                           device="cpu")
+    jeng.generate(REQUESTS[1], JGenerationConfig(max_new_tokens=NEW,
+                                                 greedy=True))
+    teng.generate(REQUESTS[1], GenerationConfig(max_new_tokens=NEW,
+                                                greedy=True))
+    jsnap, tsnap = jeng.metrics.snapshot(), teng.metrics.snapshot()
+    assert set(tsnap) == set(jsnap)
+    assert {"ttft_s_last", "decode_tokens_per_s_last"} <= set(tsnap)
+    assert ({k: len(v) for k, v in teng.metrics._series.items()}
+            == {k: len(v) for k, v in jeng.metrics._series.items()})
+    assert tsnap["ttft_s_last"] > 0 and tsnap["decode_tokens_per_s_last"] > 0
+
+
 def test_buckets_match_jax(setup):
     jcfg, jprep, jeng, teng = setup
     for n in (1, 15, 16, 17, 32, 33, 64, 100):

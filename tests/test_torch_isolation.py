@@ -69,6 +69,11 @@ ids = torch.arange(4, dtype=torch.int32)[None]
 logits, cache = llama.forward(cfg, p, ids, ids, cache)
 logits, cache = llama.forward(cfg, p, ids[:, :1], torch.tensor([[4]]), cache)
 assert torch.isfinite(logits).all() and logits.shape == (1, cfg.vocab_size)
+import llm_inference_tpu_torch.parallel
+import llm_inference_tpu_torch.tools.tp_ranks
+from llm_inference_tpu_torch.parallel import sharding
+shard = sharding.shard_params(p, 1, 2)
+assert shard["layers"]["wqkv"].out_features * 2 == p["layers"]["wqkv"].out_features
 assert "llm_inference_tpu_torch.ops.kernels._build" not in sys.modules
 print("ok")
 """

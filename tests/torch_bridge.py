@@ -3,8 +3,10 @@ KV caches and arrays to the PyTorch port through numpy.
 
 JAX QTensors become {"q", "scale", "bits"} (un-blocked with
 quantization.from_blocked): int8 row-major codes [..., K, N] with float32
-scales [..., 1, N], or split-half packed int4 codes [..., K/2, N] (one
-pack block) with float32 scales [..., G, N] — the form
+scales [..., 1, N], or split-half packed int4 codes [..., K/2, N] with
+float32 scales [..., G, N] and "block_rows", the packed rows of a pack
+block (one block, or one per rank of quantize_params(row_shards=)) — the
+form
 `llm_inference_tpu_torch.models.llama.params_from_numpy` takes. A JAX
 KVCache (bf16, int8, or packed int4 codes with slot-major float32 scales)
 becomes the port's KVCache in the same layout (`cache_to_torch`), and a
@@ -25,13 +27,16 @@ def to_numpy_tree(params):
     if isinstance(params, QTensor):
         qt = from_blocked(params)
         int8_ok = qt.bits == 8 and qt.scale.shape[-2] == 1
-        int4_ok = (qt.bits == 4 and (qt.block_rows or qt.q.shape[-2]) * 2
-                   == qt.in_features)
+        int4_ok = (qt.bits == 4 and qt.q.shape[-2]
+                   % (qt.block_rows or qt.q.shape[-2]) == 0)
         if qt.zbias is not None or not (int8_ok or int4_ok):
             raise NotImplementedError("the port takes symmetric int8 "
                                       "per-channel and int4 weights")
-        return {"q": np.asarray(qt.q), "scale": np.asarray(qt.scale),
-                "bits": qt.bits}
+        out = {"q": np.asarray(qt.q), "scale": np.asarray(qt.scale),
+               "bits": qt.bits}
+        if qt.bits == 4:
+            out["block_rows"] = qt.block_rows or qt.q.shape[-2]
+        return out
     if isinstance(params, dict):
         return {k: to_numpy_tree(v) for k, v in params.items()}
     return np.asarray(params)
