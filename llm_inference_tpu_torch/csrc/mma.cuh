@@ -1,5 +1,5 @@
-// Tensor-core and async-copy primitives shared by K8 (quant_matmul_tiled.cu)
-// and K9 (flash_attention.cu).
+// Tensor-core, fragment-load and async-copy primitives shared by K8
+// (quant_matmul_tiled.cu) and K9/K11 (flash_attention.cu).
 //
 // mma_16816 is one warp's mma.sync.m16n8k16 with bf16 inputs and float32
 // accumulation. Its register layout is the one the PTX ISA documents, which
@@ -16,6 +16,13 @@
 // mma_1688 (m16n8k8) takes the k-halves of those fragments: A is (a0, a1)
 // of columns 0-7 or (a2, a3) of columns 8-15, B is b0 or b1; C and D are
 // laid out as above.
+// ldmatrix_x4 loads four 8 x 8 bf16 matrices from shared memory: lanes
+// 8i..8i+7 give the addresses of matrix i's eight rows (16 bytes each,
+// 16-byte aligned), and register i of lane l receives row l / 4, elements
+// 2(l % 4) and 2(l % 4) + 1 of matrix i, which is an A or B register above.
+// ldmatrix_x4_trans delivers each matrix transposed: register i of lane l
+// holds rows 2(l % 4) and 2(l % 4) + 1 of column l / 4, so a row-major
+// [k][n] tile in shared memory yields the B registers of B = that tile.
 
 #pragma once
 
@@ -58,6 +65,27 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// a generic pointer into shared memory → its shared-window address
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 // 16 bytes global → shared; with src_bytes 0 the destination is zero-filled
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -68,6 +96,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// 4 bytes global → shared (through L1); with src_bytes 0 a zero is written
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
 }
 
 template <int N>

@@ -310,24 +310,42 @@ def _flash_cache(g, kind, L, B, Hkv, S, D):
     return k, v, ks, vs
 
 
+def _nan_past(k, v, ks, vs, b, first):
+    """NaN in sequence b's slots from `first` on (bf16 rows; the scales of
+    a quantized cache, whose codes cannot hold NaN), as a retired or never
+    written slot may hold."""
+    if ks is None:
+        k[:, b, :, first:] = v[:, b, :, first:] = float("nan")
+    else:
+        ks[:, b, first:] = vs[:, b, first:] = float("nan")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
-@pytest.mark.parametrize("B,T,Hq,Hkv,S,D,starts,window,softcap", [
-    (1, 256, 8, 8, 512, 128, (0,), 0, 0.0),            # from scratch
-    (2, 200, 8, 2, 512, 128, (0, 130), 0, 0.0),        # GQA, tail, history
-    (1, 96, 4, 4, 512, 64, (300,), 100, 0.0),          # window
-    (1, 128, 4, 2, 256, 128, (64,), 0, 30.0),          # softcap
+@pytest.mark.parametrize("B,T,Hq,Hkv,S,D,starts,window,softcap,nan", [
+    (1, 256, 8, 8, 512, 128, (0,), 0, 0.0, False),       # from scratch
+    (2, 200, 8, 2, 512, 128, (0, 130), 0, 0.0, False),   # GQA, tail, history
+    (1, 96, 4, 4, 512, 64, (300,), 100, 0.0, False),     # window
+    (1, 128, 4, 2, 256, 128, (64,), 0, 30.0, False),     # softcap
+    # T off the 128-row tile, a history offset off it, NaN past the frontier
+    (1, 1000, 8, 8, 2048, 128, (37,), 0, 0.0, True),
+    (2, 160, 8, 2, 512, 256, (0, 70), 0, 0.0, True),     # D = 256 with GQA
+    (1, 2048, 32, 32, 2048, 128, (0,), 0, 0.0, False),   # LLaMA-2-7B chunk
 ])
 def test_k9_cuda_matches_plain(cuda, kind, B, T, Hq, Hkv, S, D, starts,
-                               window, softcap):
+                               window, softcap, nan):
     g = torch.Generator().manual_seed(T + S + len(kind))
     L = 2
     k, v, ks, vs = _flash_cache(g, kind, L, B, Hkv, S, D)
+    if nan:
+        for b, s in enumerate(starts):
+            _nan_past(k, v, ks, vs, b, s + T)
     q = torch.randn((B, T, Hq, D), generator=g).to(BF16)
     pos = torch.stack([s + torch.arange(T) for s in starts]).to(torch.int32)
     kw = dict(logit_softcap=softcap, sliding_window=window)
     want = t_flash.flash_attention(q, k, v, 1, pos, k_scale=ks, v_scale=vs,
                                    **kw)
+    assert torch.isfinite(want).all()
     dev = [None if t is None else t.to(cuda) for t in (k, v, ks, vs)]
     before = t_flash.launches
     got = t_flash.flash_attention(q.to(cuda), dev[0], dev[1], 1,
@@ -335,6 +353,7 @@ def test_k9_cuda_matches_plain(cuda, kind, B, T, Hq, Hkv, S, D, starts,
                                   v_scale=dev[3], **kw)
     torch.cuda.synchronize()
     assert t_flash.launches == before + 1
+    assert torch.isfinite(got).all()
     # bf16 output; the same blocks and rounding points (int4: p split into
     # two bf16 parts, 16 of its 24 bits), float32 sums in another order: a
     # few bf16 steps (2^-8 relative) of the largest output
@@ -510,20 +529,39 @@ def test_k10_cuda_matches_plain(cuda, kind, G, window, softcap, ps, NB):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
-@pytest.mark.parametrize("B,T,Hq,Hkv,starts,NB,window,softcap", [
-    (1, 256, 8, 8, (256,), 8, 0, 0.0),           # history + fresh rows
-    (2, 200, 8, 2, (0, 384), 8, 0, 0.0),         # GQA, a ragged tail
-    (1, 128, 4, 4, (300,), 4, 100, 30.0),        # window, softcap
+@pytest.mark.parametrize("B,T,Hq,Hkv,starts,NB,window,softcap,D,nan", [
+    (1, 256, 8, 8, (256,), 8, 0, 0.0, 128, False),      # history + fresh rows
+    (2, 200, 8, 2, (0, 384), 8, 0, 0.0, 128, False),    # GQA, a ragged tail
+    (1, 128, 4, 4, (300,), 4, 100, 30.0, 128, False),   # window, softcap
+    # T off the 128-row tile, a history offset off it; NaN in the unused
+    # pages and past the frontier in the last live page
+    (1, 1000, 8, 8, (37,), 16, 0, 0.0, 128, True),
+    (2, 160, 8, 2, (0, 70), 4, 0, 0.0, 256, True),      # D = 256 with GQA
+    (1, 2048, 32, 32, (1024,), 24, 0, 0.0, 128, False),  # LLaMA-2-7B chunk
 ])
 def test_k11_cuda_matches_plain(cuda, kind, B, T, Hq, Hkv, starts, NB,
-                                window, softcap):
+                                window, softcap, D, nan):
     from llm_inference_tpu_torch.ops.kernels import paged_flash as t_pf
     g = torch.Generator().manual_seed(50 + T + NB)
-    L, D, ps = 2, 128, 128
+    L, ps = 2, 128
     live = [min((s + T - 1) // ps + 1, NB) for s in starts]
     P = sum(live) + 2
     k, v, ks, vs = _paged_pool(g, kind, L, P, Hkv, ps, D)
     pt = _scattered_table(g, B, NB, P, live)
+    if nan:
+        used = {int(p) for b, n in enumerate(live) for p in pt[b, :n]}
+        for p in set(range(P)) - used:
+            if ks is None:
+                k[:, p] = v[:, p] = float("nan")
+            else:
+                ks[:, p] = vs[:, p] = float("nan")
+        for b, s in enumerate(starts):
+            last = s + T - 1
+            page, first = int(pt[b, last // ps]), last % ps + 1
+            if ks is None:
+                k[:, page, :, first:] = v[:, page, :, first:] = float("nan")
+            else:
+                ks[:, page, first:] = vs[:, page, first:] = float("nan")
     q = torch.randn((B, T, Hq, D), generator=g).to(BF16)
     pos = torch.stack([s + torch.arange(T) for s in starts]).to(torch.int32)
     kw = dict(logit_softcap=softcap, sliding_window=window)
@@ -537,6 +575,7 @@ def test_k11_cuda_matches_plain(cuda, kind, B, T, Hq, Hkv, starts, NB,
                                      v_scale=dev[3], **kw)
     torch.cuda.synchronize()
     assert t_pf.launches == before + 1
+    assert torch.isfinite(got).all()
     # as K9: a few bf16 steps (2^-8 relative) of the largest output
     tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
     assert (got.cpu().float() - want.float()).abs().max().item() <= tol
