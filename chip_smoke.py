@@ -7,8 +7,8 @@ card (nvidia-smi name and power limit), torch/CUDA versions and the build
 time, then runs the port's three serving paths in turn, each through:
   2. its kernels held against their plain PyTorch versions on the card at
      LLaMA-2-7B shapes (decode, and 2048-row prefill chunks over a
-     4096-slot cache), and timed beside the plain version and a library
-     call;
+     4096-slot cache; K8 also at 1024 rows, the second chunk), and timed
+     beside the plain version and a library call;
   3. a 2-layer LLaMA-2-7B-width model through `forward` on the CPU (plain
      versions) and on the card (kernels): the logits of a 128-row prefill
      and 4 teacher-forced decode steps over 512 slots, then of two 512-row
@@ -48,8 +48,8 @@ against the mega route's, tokens/s printed), and runs the CLI REPL once
 as a subprocess. Path (vi), tensor parallelism at tp = 2 with two ranks
 sharing the card over gloo (parallel.run_ranks): phase 2 holds K7 (the
 TP layer's FFN block) to its plain version at one rank's shard of
-LLaMA-2-7B in groups of 128 and 32 codes, and K1 (groups of 8, 16, 32),
-K6, K8 and K12 (8, 16) to theirs on 2-layer 7B-width models; phase 3
+LLaMA-2-7B in groups of 128 and 32 codes, and K1 and K8 (groups of 8,
+16, 32), K6 and K12 (8, 16) to theirs on 2-layer 7B-width models; phase 3
 runs a 2-layer model through the TP forward against tp = 1 on the card
 and on the CPU; phase 4 serves a 128- and a 3000-token prompt, 64 tokens
 each, on full-depth int4 g=128 over an int8 cache at tp = 2 and at
@@ -486,57 +486,76 @@ def k6_cases(params, gen):
 PROLOGUE = {"wqkv": True, "wo": False, "w_gateup": True, "w_down": False}
 
 
-def k8_cases(params, gen, M=CHUNK, names=tuple(PROLOGUE)):
-    """K8 on the layer weights `names` at M rows (one 2048-row prefill
-    chunk) with the main path's prologue choice. The plain version and
-    torch.matmul (bf16 dequantized) run on the same rows."""
+def k8_cases(params, gen, Ms=(CHUNK, CHUNK // 2), names=tuple(PROLOGUE),
+             route=1):
+    """K8 on the layer weights `names` at each row count of `Ms` (the
+    first and second chunk of a 3000-token prompt) with the main path's
+    prologue choice, through the kernel `route` (qmm_tiled_route: 1 wgmma,
+    0 mma.sync). The plain version and torch.matmul (bf16 dequantized) run
+    on the same rows; the plain version is timed at the first M only.
+    Returns the per-chunk totals at the first M."""
     lay = params["layers"]
     res, err_max = {}, 0.0
-    for name in names:
-        pro = PROLOGUE[name]
-        qt = lay[name]
-        depth = qt.q.shape[0]
-        K, N = qt.in_features, qt.out_features
-        x = torch.randn((M, K), generator=gen, device=DEV).to(BF16)
-        kw = {}
-        if pro:
-            kw = dict(norm_gamma=(1 + 0.1 * torch.randn(
-                (K,), generator=gen, device=DEV)).to(BF16),
-                residual=torch.randn((M, K), generator=gen,
-                                     device=DEV).to(BF16), want_x_out=True)
-        got = k1.quant_matmul(x, qt, 1, **kw)
-        want = k1.quant_matmul_ref(x, qt, 1, **kw)
-        torch.cuda.synchronize()
-        if pro:
-            (got, got_x), (want, want_x) = got, want
-            check(torch.equal(got_x, want_x), f"K8 {name}: x_out differs")
-        err = max_err(got, want)
-        # the same bf16 products, float32 sums in another order, and the
-        # prologue's rsqrt may move a row by one bf16 rounding: one bf16
-        # step of the largest output
-        tol = 2.0 ** -7 * want.float().abs().max().item()
-        check(err <= tol, f"K8 {name} M={M}: max err {err} > {tol}")
-        err_max = max(err_max, err)
-        del got, want
-        ms = time_ms(lambda i: k1.quant_matmul(x, qt, i % depth, **kw),
-                     reps=10)
-        plain = plain_ms(lambda i: k1.quant_matmul_ref(x, qt, i % depth,
-                                                       **kw))
-        deq = [dequantize(qt.layer(i), BF16) for i in range(2)]
-        lib = time_ms(lambda i: torch.matmul(x, deq[i % 2]), reps=10)
-        del deq
-        nbytes = qbytes(qt) + M * K * 2 + M * N * 2
-        if pro:
-            nbytes += 2 * M * K * 2 + K * 2
-        bnd, by = bound_ms(nbytes, 2 * M * K * N)
-        say(f"  K8 int{qt.bits} {name:8s} M={M} "
-            f"{'norm+res' if pro else 'plain   '} err {err:.3g} (tol "
-            f"{tol:.3g})  kernel {ms:.4f} ms  bound {bnd:.4f} ms ({by})  "
-            f"plain {plain:.3f} ms  torch.matmul(bf16) {lib:.4f} ms "
-            f"({2 * M * K * N / ms / 1e9:.0f} TFLOP/s)")
-        res[name] = dict(ms=ms, plain=plain, lib=lib, bound=bnd, by=by)
-    total = {k: L * sum(r[k] for r in res.values())
-             for k in ("ms", "plain", "lib", "bound")}
+    for M in Ms:
+        for name in names:
+            pro = PROLOGUE[name]
+            qt = lay[name]
+            depth = qt.q.shape[0]
+            K, N = qt.in_features, qt.out_features
+            check(_build.lib().qmm_tiled_route(K, N, qt.groups, qt.bits)
+                  == route, f"K8 {name}: not on route {route}")
+            x = torch.randn((M, K), generator=gen, device=DEV).to(BF16)
+            kw = {}
+            if pro:
+                kw = dict(norm_gamma=(1 + 0.1 * torch.randn(
+                    (K,), generator=gen, device=DEV)).to(BF16),
+                    residual=torch.randn((M, K), generator=gen,
+                                         device=DEV).to(BF16),
+                    want_x_out=True)
+            got = k1.quant_matmul(x, qt, 1, **kw)
+            want = k1.quant_matmul_ref(x, qt, 1, **kw)
+            torch.cuda.synchronize()
+            if pro:
+                (got, got_x), (want, want_x) = got, want
+                check(torch.equal(got_x, want_x), f"K8 {name}: x_out differs")
+            err = max_err(got, want)
+            # the same bf16 products, float32 sums in another order, and the
+            # prologue's rsqrt may move a row by one bf16 rounding: one bf16
+            # step of the largest output
+            tol = 2.0 ** -7 * want.float().abs().max().item()
+            check(err <= tol, f"K8 {name} M={M}: max err {err} > {tol}")
+            err_max = max(err_max, err)
+            del got, want
+            ms = time_ms(lambda i: k1.quant_matmul(x, qt, i % depth, **kw),
+                         reps=10)
+            plain = float("nan")
+            if M == Ms[0]:
+                plain = plain_ms(lambda i: k1.quant_matmul_ref(
+                    x, qt, i % depth, **kw))
+            deq = [dequantize(qt.layer(i), BF16) for i in range(2)]
+            lib = time_ms(lambda i: torch.matmul(x, deq[i % 2]), reps=10)
+            del deq
+            nbytes = qbytes(qt) + M * K * 2 + M * N * 2
+            if pro:
+                nbytes += 2 * M * K * 2 + K * 2
+            bnd, by = bound_ms(nbytes, 2 * M * K * N)
+            say(f"  K8 int{qt.bits} {name:8s} M={M} "
+                f"{'norm+res' if pro else 'plain   '} err {err:.3g} (tol "
+                f"{tol:.3g})  kernel {ms:.4f} ms  bound {bnd:.4f} ms ({by})  "
+                f"plain {plain:.3f} ms  torch.matmul(bf16) {lib:.4f} ms "
+                f"({2 * M * K * N / ms / 1e9:.0f} TFLOP/s)")
+            res[(M, name)] = dict(ms=ms, plain=plain, lib=lib, bound=bnd,
+                                  by=by, flops=2 * M * K * N)
+    totals = {}
+    for M in Ms:
+        totals[M] = {k: L * sum(res[(M, n)][k] for n in names)
+                     for k in ("ms", "plain", "lib", "bound", "flops")}
+        t = totals[M]
+        say(f"  K8 int{qt.bits} ({', '.join(names)}) x {L} layers, M={M}: "
+            f"kernel {t['ms']:.2f} ms ({t['flops'] / t['ms'] / 1e9:.0f} "
+            f"TFLOP/s), torch.matmul {t['lib']:.2f} ms, bound "
+            f"{t['bound']:.2f} ms")
+    total = totals[Ms[0]]
     total["by"] = "operations"
     return total, err_max
 
@@ -2248,11 +2267,12 @@ def k7_cases(gen):
 
 
 def small_group_cases(gen):
-    """K1 (g = 8, 16, 32), K6, K8 and K12 (g = 8, 16) against their plain
-    versions on a 2-layer LLaMA-2-7B-width int4 model of each group size,
-    each timed beside its plain version, bound and library call: K1 on
-    wqkv at M = 1 (GEMV) and 32 (MMA), K6 at M = 1 and 4, K8 on w_gateup
-    at 2048 rows, K12 at pos 191 over an int8 cache."""
+    """K1 and K8 (g = 8, 16, 32), K6 and K12 (g = 8, 16) against their
+    plain versions on a 2-layer LLaMA-2-7B-width int4 model of each group
+    size, each timed beside its plain version, bound and library call: K1
+    on wqkv at M = 1 (GEMV) and 32 (MMA), K6 at M = 1 and 4, K8 (its
+    mma.sync kernel) on w_gateup at 2048 rows, K12 at pos 191 over an int8
+    cache."""
     cfg2 = dataclasses.replace(CFG, num_layers=2)
     for gs in SMALL_GROUPS:
         say(f"  -- int4 groups of {gs} codes (2 layers, LLaMA-2-7B width)")
@@ -2262,9 +2282,11 @@ def small_group_cases(gen):
         lay = params["layers"]
         for M in (1, 32):
             k1_case("wqkv", lay["wqkv"], M, True, gen, 2)
-        if gs < 32:                      # K6, K8, K12 took 32k before
+        # K8's mma.sync kernel takes groups of 8, 16 and 32 (its wgmma
+        # kernel multiples of 64)
+        k8_cases(params, gen, Ms=(CHUNK,), names=("w_gateup",), route=0)
+        if gs < 32:                      # K6 and K12 took 32k before
             k6_cases(params, gen)
-            k8_cases(params, gen, names=("w_gateup",))
             k12_case(params, "int4", "int8", 191, MAX_SEQ, gen)
         del params, lay
 

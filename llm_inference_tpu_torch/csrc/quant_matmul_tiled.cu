@@ -17,50 +17,289 @@
 // gate-up, down), 0.84 ms at 989 TFLOP/s of bf16; the int8 codes of a layer
 // (202 MB) take 0.06 ms to read.
 //
-// Design. The TPU kernel keeps a weight block's widened codes in VMEM and
-// runs every 256-row m tile against them, so weights cross HBM once. A
-// block here has 227 KB of shared memory, which cannot hold a useful
-// N tile's codes for all of K (K x 128 x 2 bytes is 1 MB at K = 4096), so
-// the trade is made in two levels instead:
-// - a block owns a 128 x 128 output tile; per 32-deep K chunk it widens
-//   the weight chunk to bf16 in shared memory ONCE and all 8 warps (128
-//   rows) reuse it on tensor cores (mma.sync m16n8k16, bf16 in, float32
-//   accumulate);
-// - blocks are numbered m-tile fastest, so the m tiles of one N tile run
-//   side by side and the later ones find the weight chunk in L2: the codes
-//   cross HBM about once, the rows (x) once per N tile, as on the TPU.
-// The x chunk arrives by cp.async into a double buffer; the next weight
-// chunk is loaded into registers while the current one is multiplied.
-// int4: the documented mma.sync accumulator layout (mma.cuh) says which
-// column each register holds, so each group's partial sums take their
-// column scales in registers (a second set of accumulators) instead of
-// going through shared memory as K1's wmma path must. A group of 32k
-// codes folds after its last chunk; a group of 16 codes after each
-// 16-deep product; a group of 8 codes splits each product into its two
-// m16n8k8 halves and folds after each (the TPU kernel takes any group of
-// at least 8 codes). Rows past M are zero-filled and not stored; N must
-// be a multiple of 128.
+// Two routes, chosen by qmm_tiled_route:
+//
+// 1. qmm_wgmma: int8, and int4 groups of a multiple of 64 codes (the main
+//    paths' 128). Hopper's warpgroup MMA (sm90.cuh) computes the product
+//    transposed, y^T = W x^T: the weight codes are the A operand, widened
+//    in registers, and the rows x the B operand, read from shared memory
+//    by descriptor. A block owns 128 weight rows (output columns) by BM
+//    rows of x (256 for int8; 176 for int4, whose second accumulator set
+//    leaves room for no more) and has three warpgroups:
+//    - one producer thread keeps a ring of STAGES slots full by TMA: per
+//      64-deep k step the x tile [BM][64] bf16 (128-byte swizzle, the
+//      layout the descriptor reads; rows past M arrive as zeros) and the
+//      raw code tile [128][64 bytes] (int8, 64-byte swizzle) or [128][32
+//      bytes] (int4, 32-byte swizzle), each slot guarded by a "full"
+//      mbarrier (its bytes landed) and an "empty" one (256 consumer
+//      arrivals);
+//    - two consumer warpgroups own 64 weight rows each. Per k step a
+//      consumer reads its codes from the slot (conflict-free thanks to
+//      the swizzle), widens them into A fragments with exact magic-number
+//      conversions (int8: 0x4B0000uu - (2^23 + 128) in float32, one cvt
+//      to a bf16 pair; int4: 0x43 above a nibble is the bf16 128 + code +
+//      8, minus 136 in one bf16x2 subtract), issues four m64nBMk16
+//      wgmmas, waits for them and frees the slot. The consumers are tied
+//      by no barrier: one widens while the other's products run;
+//    - int4 sums each group into `part` (the group's first wgmma
+//      overwrites it) and folds part * scale[n][g] into `acc` after the
+//      group's last step; the scales are loaded when the group starts.
+//    setmaxnreg moves registers from the producer (40) to the consumers
+//    (232): acc is 128 floats a thread for int8, acc + part 88 + 88 for
+//    int4. The epilogue scales (int8), swaps values between neighbouring
+//    lanes so each thread holds two adjacent columns of one row, and
+//    stores bf16 pairs of rows below M.
+//    Blocks are numbered m tile fastest, so the m tiles of one band of
+//    128 weight rows run side by side and the later ones find the codes
+//    in L2: the codes cross HBM about once, as on the TPU, whose grid
+//    walks the m tiles inside a weight block.
+//    Measured against this design (PERF.md §6): the codes widened into
+//    shared memory for wgmmas with both operands there (9 % slower), the
+//    next step widened under the current step's wgmmas, the two
+//    consumers issuing in turns, persistent blocks, and two or three k
+//    steps a wgmma group; none was faster. int8 runs near torch.matmul's
+//    bf16 rate; int4 is held by the widening, hence its wide tile.
+// 2. qmm_tiled: int4 groups of 8, 16 or 32 codes, which no main path
+//    runs (a group shorter than the 64-deep k step would need a fold
+//    inside one step's wgmmas). The earlier mma.sync kernel: a block owns
+//    a 128 x 128 output tile; per 32-deep K chunk it widens the weight
+//    chunk to bf16 in shared memory once and all 8 warps reuse it
+//    (mma.sync m16n8k16); the x chunk arrives by cp.async into a double
+//    buffer. Each group's partial sums take their column scales in
+//    registers (a second set of accumulators): a group of 32 codes folds
+//    after its chunk, of 16 after each 16-deep product, of 8 after each
+//    m16n8k8 half. Rows past M are zero-filled and not stored.
+// N must be a multiple of 128 and K of 64 on both routes.
+//
+// The tensor maps of route 1 are encoded on the host for every call with
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
+// library needs no link against libcuda.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "int4_gemv.cuh"
 #include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
+
+// ------------------------------------------------- route 1: wgmma + TMA
+
+constexpr int kWgThreads = 384;     // producer warpgroup + 2 consumers
+constexpr int kWgTN = 128;          // weight rows (output columns) a block
+constexpr int kWgTK = 64;           // k a pipeline step
+
+template <bool INT4>
+struct Wg {
+  static constexpr int BM = INT4 ? 176 : 256;      // output rows a block
+  static constexpr int STAGES = INT4 ? 8 : 5;
+  static constexpr int XB = BM * kWgTK * 2;        // x tile bytes
+  static constexpr int WROW = INT4 ? kWgTK / 2 : kWgTK;
+  static constexpr int WB = kWgTN * WROW;          // code tile bytes
+  static constexpr int SMEM = STAGES * (XB + WB) + 1024;   // + alignment
+};
+
+// Widen one k step of codes into the A fragments a[ks][0..3] of the four
+// 16-deep products: rows r and r + 8 of the slot's code tile.
+__device__ __forceinline__ void widen8(uint32_t wtile, int r, int tg,
+                                       uint32_t (&a)[4][4]) {
+  // 64-byte swizzle: chunk c of row r sits at chunk c ^ ((r >> 1) & 3);
+  // rows r and r + 8 share it
+  const int sw = (r >> 1) & 3;
+  const uint32_t sel = 0x7440u | (2u * (tg & 1));
+  const uint32_t row[2] = {wtile + r * 64u + 4u * (tg >> 1),
+                           wtile + (r + 8) * 64u + 4u * (tg >> 1)};
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        uint32_t w;
+        asm volatile("ld.shared.u32 %0, [%1];\n"
+                     : "=r"(w) : "r"(row[i] + 16u * (ks ^ sw) + 8u * h));
+        w ^= 0x80808080u;                       // code + 128 in each byte
+        const float lo = __uint_as_float(__byte_perm(w, 0x4B000000u, sel)) -
+                         8388736.0f;
+        const float hi =
+            __uint_as_float(__byte_perm(w, 0x4B000000u, sel + 1)) -
+            8388736.0f;
+        a[ks][i + 2 * h] = mma::pack_bf16(lo, hi);
+      }
+}
+
+__device__ __forceinline__ void widen4(uint32_t wtile, int r, int tg,
+                                       uint32_t (&a)[4][4]) {
+  // 32-byte swizzle: chunk c of row r sits at chunk c ^ ((r >> 2) & 1)
+  const int sw = (r >> 2) & 1;
+  const __nv_bfloat162 k136 = __floats2bfloat162_rn(136.f, 136.f);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint32_t base = wtile + (r + 8 * i) * 32u;
+    uint32_t w[8];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(w[4 * c]), "=r"(w[4 * c + 1]), "=r"(w[4 * c + 2]),
+                     "=r"(w[4 * c + 3])
+                   : "r"(base + 16u * (c ^ sw)));
+    // word 2 ks + h holds, in its byte tg, codes 16 ks + 8 h + 2 tg (low
+    // nibble) and + 1 (high nibble)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t wd = w[2 * ks + h];
+        // the low nibble of byte tg to bits 0-3, the high one (a shifted
+        // copy's) to bits 16-19; 0x43 above each and the nibble's sign bit
+        // flipped: the bf16 pair 136 + code
+        const uint32_t d = __byte_perm(wd, wd >> 4, tg | ((4 + tg) << 8));
+        uint32_t v = (d & 0x000F000Fu) ^ 0x43084308u;
+        __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&v);
+        b = __hsub2(b, k136);
+        a[ks][i + 2 * h] = *reinterpret_cast<uint32_t*>(&b);
+      }
+  }
+}
+
+template <bool INT4>
+__global__ void __launch_bounds__(kWgThreads, 1)
+qmm_wgmma(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
+          const __grid_constant__ CUtensorMap wmap,   // codes [N][K'] u8
+          const float* __restrict__ scale,            // [N] or [N, G]
+          __nv_bfloat16* __restrict__ out,            // [M, N]
+          int M, int K, int N, int G) {
+  using C = Wg<INT4>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[C::STAGES], empty[C::STAGES];
+  // the swizzled tiles start 1024-byte aligned: x slots, then code slots
+  const uint32_t xs0 = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ws0 = xs0 + C::STAGES * C::XB;
+  const int nk = K / kWgTK;
+  const int m0 = blockIdx.x * C::BM, n0 = blockIdx.y * kWgTN;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < C::STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2 * 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread issues every copy
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % C::STAGES;
+        sm90::mbar_wait(&empty[s], ((kt / C::STAGES) & 1) ^ 1);
+        sm90::mbar_expect_tx(&full[s], C::XB + C::WB);
+        sm90::tma_load_2d(xs0 + s * C::XB, &xmap, &full[s], kt * kWgTK, m0);
+        sm90::tma_load_2d(ws0 + s * C::WB, &wmap, &full[s], kt * C::WROW,
+                          n0);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup c owns weight rows 64c..64c+63
+    sm90::setmaxnreg_inc<232>();
+    const int c = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int gr = lane >> 2, tg = lane & 3;
+    const int r = 64 * c + 16 * warp + gr;      // rows r, r + 8 of the tile
+    constexpr int ND = C::BM / 2;               // accumulators a thread
+    float acc[ND];
+    float part[INT4 ? ND : 1];
+#pragma unroll
+    for (int i = 0; i < ND; ++i) acc[i] = 0.f;
+    // int4: k steps a group, and the group's two row scales
+    const int spg = INT4 ? (K / G) / kWgTK : 1;
+    float gs0 = 0.f, gs1 = 0.f;
+
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % C::STAGES;
+      const bool first = INT4 && kt % spg == 0;
+      if (first) {
+        const int g = kt / spg;
+        gs0 = __ldg(scale + (size_t)(n0 + r) * G + g);
+        gs1 = __ldg(scale + (size_t)(n0 + r + 8) * G + g);
+      }
+      sm90::mbar_wait(&full[s], (kt / C::STAGES) & 1);
+      uint32_t a[4][4];
+      if constexpr (INT4)
+        widen4(ws0 + s * C::WB, r, tg, a);
+      else
+        widen8(ws0 + s * C::WB, r, tg, a);
+      const uint32_t xs = xs0 + s * C::XB;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint64_t desc = sm90::desc_k128(xs + 32u * ks);
+        if constexpr (INT4)
+          sm90::wgmma_rs(part, a[ks], desc, (first && ks == 0) ? 0 : 1);
+        else
+          sm90::wgmma_rs(acc, a[ks], desc, 1);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      if constexpr (INT4) {
+        sm90::fence_regs(part);
+      } else {
+        sm90::fence_regs(acc);
+      }
+      sm90::mbar_arrive(&empty[s]);
+      if constexpr (INT4) {
+        if ((kt + 1) % spg == 0) {              // the group is complete
+#pragma unroll
+          for (int i = 0; i < ND; ++i)
+            acc[i] = fmaf(part[i], (i & 2) ? gs1 : gs0, acc[i]);
+          sm90::fence_regs(acc);                // done before part is reused
+        }
+      }
+    }
+
+    // epilogue: thread holds y[m][n] for n = n0 + r (+ 8) and m = m0 + 8j
+    // + 2tg (+ 1); lanes gr and gr ^ 1 trade so each stores a column pair
+    float s0 = 1.f, s1 = 1.f;
+    if constexpr (!INT4) {
+      s0 = __ldg(scale + n0 + r);
+      s1 = __ldg(scale + n0 + r + 8);
+    }
+    const int odd = gr & 1;
+#pragma unroll
+    for (int j = 0; j < C::BM / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float sh = h ? s1 : s0;
+        const float v0 = acc[4 * j + 2 * h] * sh;       // row m, column n
+        const float v1 = acc[4 * j + 2 * h + 1] * sh;   // row m + 1
+        const float got = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
+        const int mm = m0 + 8 * j + 2 * tg + odd;
+        const int nn = n0 + r + 8 * h - odd;
+        if (mm < M)
+          *reinterpret_cast<uint32_t*>(out + (size_t)mm * N + nn) =
+              odd ? mma::pack_bf16(got, v1) : mma::pack_bf16(v0, got);
+      }
+    }
+  }
+}
+
+// ------------------------------------------ route 2: mma.sync, int4 only
 
 constexpr int TM = 128, TN = 128, TK = 32;
 constexpr int kThreads = 256;       // 8 warps: 2 along M x 4 along N
 constexpr int LDS = TK + 8;         // bf16 per shared row (80 bytes)
 
-// SUB: 0 for int8 and for int4 groups of 32k codes, else the int4 group
-// size (16 or 8).
-template <bool INT4, int SUB>
+// SUB: 0 for groups of 32 codes, else the group size (16 or 8).
+template <int SUB>
 __global__ void __launch_bounds__(kThreads, 1)
 qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
           const uint8_t* __restrict__ w,         // this layer's codes
-          const float* __restrict__ scale,       // [N] or [N, G]
+          const float* __restrict__ scale,       // [N, G]
           __nv_bfloat16* __restrict__ out,       // [M, N]
           int M, int K, int N, int G) {
   __shared__ __align__(16) __nv_bfloat16 As[2][TM * LDS];
@@ -71,12 +310,10 @@ qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
   const int gr = lane >> 2, tg = lane & 3;
   const int m0 = blockIdx.x * TM, n0 = blockIdx.y * TN;
   const int nk = K / TK;
-  const int chunks_per_group = INT4 && SUB == 0 ? (K / G) / TK : nk;
 
   // this thread's share of a weight chunk: 16 codes of column bcol
   const int bcol = tid >> 1, bhalf = tid & 1;
-  const uint8_t* wsrc =
-      w + (size_t)(n0 + bcol) * (INT4 ? K / 2 : K) + bhalf * (INT4 ? 8 : 16);
+  const uint8_t* wsrc = w + (size_t)(n0 + bcol) * (K / 2) + bhalf * 8;
 
   float acc[4][4][4], part[4][4][4];
 #pragma unroll
@@ -97,38 +334,21 @@ qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
       mma::cp_async16(&As[buf][r * LDS + c], src, row < M ? 16 : 0);
     }
   };
-  uint4 wraw;                                 // int8: 16 codes; int4: 8 bytes
+  uint2 wraw;                                 // 16 codes
   auto load_w = [&](int kt) {
-    if constexpr (INT4) {
-      const uint2 v = __ldg(reinterpret_cast<const uint2*>(wsrc + kt * 16));
-      wraw = make_uint4(v.x, v.y, 0u, 0u);
-    } else {
-      wraw = __ldg(reinterpret_cast<const uint4*>(wsrc + kt * 32));
-    }
+    wraw = __ldg(reinterpret_cast<const uint2*>(wsrc + kt * 16));
   };
   auto store_w = [&](int buf) {              // 16 codes → 16 exact bf16
     uint32_t p[8];
-    if constexpr (INT4) {
-      float c0[8], c1[8];
-      int4g::unpack8(wraw.x, c0);
-      int4g::unpack8(wraw.y, c1);
+    float c0[8], c1[8];
+    int4g::unpack8(wraw.x, c0);
+    int4g::unpack8(wraw.y, c1);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[j] = mma::exact_bf16_bits(c0[2 * j]) |
-               (mma::exact_bf16_bits(c0[2 * j + 1]) << 16);
-        p[4 + j] = mma::exact_bf16_bits(c1[2 * j]) |
-                   (mma::exact_bf16_bits(c1[2 * j + 1]) << 16);
-      }
-    } else {
-      const uint32_t words[4] = {wraw.x, wraw.y, wraw.z, wraw.w};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint32_t wd = words[j >> 1];
-        const int b0 = 2 * (j & 1);
-        const float lo = (float)(int8_t)(wd >> (8 * b0));
-        const float hi = (float)(int8_t)(wd >> (8 * b0 + 8));
-        p[j] = mma::exact_bf16_bits(lo) | (mma::exact_bf16_bits(hi) << 16);
-      }
+    for (int j = 0; j < 4; ++j) {
+      p[j] = mma::exact_bf16_bits(c0[2 * j]) |
+             (mma::exact_bf16_bits(c0[2 * j + 1]) << 16);
+      p[4 + j] = mma::exact_bf16_bits(c1[2 * j]) |
+                 (mma::exact_bf16_bits(c1[2 * j + 1]) << 16);
     }
     uint4* dst = reinterpret_cast<uint4*>(&Bs[buf][bcol * LDS + bhalf * 16]);
     dst[0] = make_uint4(p[0], p[1], p[2], p[3]);
@@ -180,7 +400,7 @@ qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
         af[mi][2] = mma::lds32(r0 + 8);
         af[mi][3] = mma::lds32(r1 + 8);
       }
-      if constexpr (INT4 && SUB == 8) {
+      if constexpr (SUB == 8) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {        // the product's two k-halves
 #pragma unroll
@@ -200,20 +420,13 @@ qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
           const __nv_bfloat16* bp = &Bs[buf][(wn + ni * 8 + gr) * LDS + c];
           const uint32_t b0 = mma::lds32(bp), b1 = mma::lds32(bp + 8);
 #pragma unroll
-          for (int mi = 0; mi < 4; ++mi) {
-            if constexpr (INT4)
-              mma::mma_16816(part[mi][ni], af[mi], b0, b1);
-            else
-              mma::mma_16816(acc[mi][ni], af[mi], b0, b1);
-          }
+          for (int mi = 0; mi < 4; ++mi)
+            mma::mma_16816(part[mi][ni], af[mi], b0, b1);
         }
-        if constexpr (INT4 && SUB == 16) fold(kt * 2 + ks);
+        if constexpr (SUB == 16) fold(kt * 2 + ks);
       }
     }
-    if constexpr (INT4 && SUB == 0) {
-      if ((kt + 1) % chunks_per_group == 0)  // the group is complete
-        fold(kt / chunks_per_group);
-    }
+    if constexpr (SUB == 0) fold(kt);        // a 32-code group is complete
     // the other buffer was last read before this iteration's barrier
     if (kt + 1 < nk) store_w(buf ^ 1);
     __syncthreads();
@@ -222,53 +435,112 @@ qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
     const int col = n0 + wn + ni * 8 + tg * 2;
-    float s0 = 1.f, s1 = 1.f;
-    if constexpr (!INT4) {
-      s0 = __ldg(scale + col);
-      s1 = __ldg(scale + col + 1);
-    }
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi) {
       const int row = m0 + wm + mi * 16 + gr;
       if (row < M)
         *reinterpret_cast<uint32_t*>(out + (size_t)row * N + col) =
-            mma::pack_bf16(acc[mi][ni][0] * s0, acc[mi][ni][1] * s1);
+            mma::pack_bf16(acc[mi][ni][0], acc[mi][ni][1]);
       if (row + 8 < M)
         *reinterpret_cast<uint32_t*>(out + (size_t)(row + 8) * N + col) =
-            mma::pack_bf16(acc[mi][ni][2] * s0, acc[mi][ni][3] * s1);
+            mma::pack_bf16(acc[mi][ni][2], acc[mi][ni][3]);
     }
   }
 }
 
+// ------------------------------------------------------------- host side
+
+using EncodeFn = decltype(&cuTensorMapEncodeTiled);
+
+EncodeFn encode_fn() {
+  static const EncodeFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeFn>(p);
+  }();
+  return fn;
+}
+
+// A 2-D row-major tensor [rows][cols] of `type` as TMA tiles [box_rows]
+// [box_cols]; false if the encoding is refused.
+bool encode(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+            const void* ptr, int rows, int cols, int box_rows, int box_cols,
+            CUtensorMapSwizzle swizzle) {
+  const EncodeFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool INT4>
+int launch_wgmma(const void* a, const void* w, const void* scale, void* out,
+                 int M, int K, int N, int G, cudaStream_t st) {
+  using C = Wg<INT4>;
+  CUtensorMap xmap, wmap;
+  if (!encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, M, K, C::BM,
+              kWgTK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, N,
+              INT4 ? K / 2 : K, kWgTN, C::WROW,
+              INT4 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      qmm_wgmma<INT4>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((M + C::BM - 1) / C::BM, N / kWgTN);
+  qmm_wgmma<INT4><<<grid, kWgThreads, C::SMEM, st>>>(
+      xmap, wmap, (const float*)scale, (__nv_bfloat16*)out, M, K, N, G);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// Which kernel qmm_tiled_launch runs for a layer's shape: 1 the wgmma
+// kernel (int8, int4 groups of a multiple of 64 codes), 0 the mma.sync
+// kernel (int4 groups of 8, 16 or 32 codes), -1 none (it would refuse).
+extern "C" int qmm_tiled_route(int K, int N, int G, int bits) {
+  if (K % kWgTK != 0 || N % kWgTN != 0 || (bits != 4 && bits != 8))
+    return -1;
+  if (bits == 8) return 1;
+  const int gsize = G >= 1 && K % G == 0 ? K / G : 0;
+  if (gsize % kWgTK == 0 && gsize > 0) return 1;
+  return gsize == 32 || gsize == 16 || gsize == 8 ? 0 : -1;
+}
+
 // a: bf16 rows [M, K]; w: ONE layer's codes (int8 [N, K] when bits == 8,
-// packed int4 [N, K/2] when bits == 4); scale: float32 [N] (int8) or
-// [N, G] (int4); out: bf16 [M, N]. Requires K % 32 == 0, N % 128 == 0 and,
-// for int4, groups of K / G codes a multiple of 32, or 16 or 8.
+// packed int4 [N, K/2] when bits == 4), 16-byte aligned; scale: float32
+// [N] (int8) or [N, G] (int4); out: bf16 [M, N]. Requires K % 64 == 0,
+// N % 128 == 0 and, for int4, groups of K / G codes a multiple of 64, or
+// 32, 16 or 8.
 extern "C" int qmm_tiled_launch(const void* a, const void* w,
                                 const void* scale, void* out, int M, int K,
                                 int N, int G, int bits, void* stream) {
-  if (M < 1 || K % TK != 0 || N % TN != 0 || (bits != 4 && bits != 8))
-    return (int)cudaErrorInvalidValue;
-  const int gsize = bits == 4 && G >= 1 && K % G == 0 ? K / G : 0;
-  if (bits == 4 && gsize % TK != 0 && gsize != 16 && gsize != 8)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((M + TM - 1) / TM, N / TN);
+  const int route = qmm_tiled_route(K, N, G, bits);
+  if (M < 1 || route < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (route == 1)
+    return bits == 8 ? launch_wgmma<false>(a, w, scale, out, M, K, N, G, st)
+                     : launch_wgmma<true>(a, w, scale, out, M, K, N, G, st);
+  dim3 grid((M + TM - 1) / TM, N / TN);
   const __nv_bfloat16* ap = (const __nv_bfloat16*)a;
   const uint8_t* wp = (const uint8_t*)w;
   const float* sp = (const float*)scale;
   __nv_bfloat16* op = (__nv_bfloat16*)out;
-  if (bits == 8)
-    qmm_tiled<false, 0><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N,
-                                                   1);
-  else if (gsize == 8)
-    qmm_tiled<true, 8><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N, G);
+  const int gsize = K / G;
+  if (gsize == 8)
+    qmm_tiled<8><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N, G);
   else if (gsize == 16)
-    qmm_tiled<true, 16><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N,
-                                                   G);
+    qmm_tiled<16><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N, G);
   else
-    qmm_tiled<true, 0><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N, G);
+    qmm_tiled<0><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N, G);
   return (int)cudaGetLastError();
 }

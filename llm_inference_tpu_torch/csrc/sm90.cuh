@@ -1,0 +1,240 @@
+// Hopper (sm_90a) primitives: the warpgroup MMA (wgmma), the Tensor Memory
+// Accelerator's 2-D tile copy (TMA), the shared-memory mbarrier that
+// counts its bytes, and the register hand-over between warpgroups
+// (setmaxnreg). K8 (quant_matmul_tiled.cu) is built on them.
+//
+// wgmma. Four warps (a warpgroup, warps 4i..4i+3 of the block) issue one
+// asynchronous D[64 x N] += A[64 x 16] * B[16 x N] with float32 D in
+// registers. B is read from shared memory through a matrix descriptor
+// (desc_k128); A here comes from registers (wgmma_rs, one overload for
+// each N, told apart by the size of d), laid out as mma.m16n8k16's A
+// fragment (mma.cuh) with warp w of the group holding rows 16w..16w+15.
+// With g = lane / 4 and t = lane % 4, thread (w, lane) holds
+//   a0 = A[16w+g][2t, 2t+1]     a1 = A[16w+g+8][2t, 2t+1]
+//   a2 = A[16w+g][2t+8, 2t+9]   a3 = A[16w+g+8][2t+8, 2t+9]
+//   d[4j], d[4j+1]   = D[16w+g][8j+2t, 8j+2t+1]
+//   d[4j+2], d[4j+3] = D[16w+g+8][8j+2t, 8j+2t+1]    for j < N / 8,
+// the lower-indexed element of a pair in the low 16 bits. scale_d = 0
+// makes the product overwrite D instead of adding to it.
+// The order of one group's work:
+//   wgmma_fence()   after any plain write of A or D registers and before
+//                   the wgmmas that read them;
+//   wgmma_rs(...)   one or more, all asynchronous;
+//   wgmma_commit()  closes a group of them;
+//   wgmma_wait<n>() until at most n groups are in flight; only then may D
+//                   be read, or A and B's shared memory be rewritten.
+// fence_regs() after the wait keeps the compiler from moving reads of D
+// above it (the asm statements name D only where they issue).
+//
+// desc_k128: a bf16 tile whose rows are 128 bytes (64 values along k),
+// stored as TMA writes it with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte
+// chunk c of row r sits at chunk c ^ (r % 8) of its row, rows of 8 form
+// 1024-byte atoms. The tile must start 1024-byte aligned. Fields: start
+// address / 16 (bits 0-13), leading byte offset 16 (unused by K-major
+// swizzled tiles, bits 16-29), stride byte offset 1024 / 16 between the
+// 8-row atoms (bits 32-45), layout 1 = 128-byte swizzle (bits 62-63). The
+// k-th 16-deep slice of the tile starts 32 k bytes further: the swizzle is
+// applied by the hardware to the final address.
+//
+// mbarrier. A 64-bit word in shared memory that completes a phase when it
+// has seen `count` arrivals and the bytes it was told to expect. Phases
+// alternate in parity from 0; mbar_wait(bar, p) returns once the phase of
+// parity p has completed, so a waiter that starts with p = 1 passes at
+// once (the "previous" phase) — a producer's first wait on an empty slot.
+// mbar_expect_tx arrives once and adds `bytes` to the phase's expected
+// transfer; tma_load_2d's bytes count against it as they land.
+// mbar_init runs on one thread, then fence_barrier_init and a block
+// barrier, before any other thread touches the barrier.
+//
+// tma_load_2d: one thread asks for the box of a CUtensorMap (built on the
+// host with cuTensorMapEncodeTiled, passed as a __grid_constant__ kernel
+// parameter) at coordinates (c0 innermost, c1) to be copied to shared
+// memory at dst; rows and columns outside the tensor arrive as zeros, and
+// the full box's bytes count on the barrier.
+//
+// fence_proxy_async: shared memory written by plain stores becomes
+// visible to the asynchronous proxy (wgmma, TMA stores) of this CTA.
+//
+// setmaxnreg: a warpgroup gives up (dec) or claims (inc) registers; the
+// counts are multiples of 8 in [24, 256]. All four warps of the group
+// execute it, and the roles must not reconverge afterwards, or ptxas
+// ignores it (warning C7508).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint64_t desc_k128(uint32_t smem_addr) {
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// m64n176k16
+__device__ __forceinline__ void wgmma_rs(float (&d)[88],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %93, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n176k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87"
+      "}, {%88, %89, %90, %91}, %92, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// m64n256k16
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n"
+      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+}  // namespace sm90

@@ -30,12 +30,14 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points: (name, argtypes); every one returns cudaError_t as int
+# C entry points: (name, argtypes); every one returns an int, cudaError_t
+# but for qmm_tiled_route (which K8 kernel a shape takes)
 SIGNATURES = {
     "qmm_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "qmm4_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "qmm_prologue_launch": [_P] * 5 + [_I, _I, _F, _P],
     "qmm_tiled_launch": [_P] * 4 + [_I] * 5 + [_P],
+    "qmm_tiled_route": [_I] * 4,
     "layer_tail_launch": [_P] * 13 + [_I] * 7 + [_F, _P],
     "ffn_fused_launch": [_P] * 10 + [_I] * 5 + [_F, _P],
     "layer_fused_launch": [_P] * 24 + [_I] * 11 + [_F, _F, _P],

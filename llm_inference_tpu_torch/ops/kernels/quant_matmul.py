@@ -40,8 +40,10 @@ returns None where the TPU package's ffn_fused does (more than 32 rows,
 weights that are not stacked grouped int4, groups under 8 codes).
 
 The int4 kernels take every group size of the TPU kernels' int4 paths
-that the port's layout can feed them: K1 groups of 8, 16, 32 or 64k
-codes, K6, K7, K8 and K12 groups of 8, 16 or 32k codes (small_groups_ok).
+that the port's layout can feed them: K1 and K8 groups of 8, 16, 32 or
+64k codes, K6, K7 and K12 groups of 8, 16 or 32k codes (small_groups_ok).
+K8 runs groups of 64k codes (and int8) on its wgmma kernel, groups of 8,
+16 or 32 on its mma.sync kernel (csrc/quant_matmul_tiled.cu).
 
 CUDA tensors go through `csrc/quant_matmul.cu` (K1),
 `csrc/quant_matmul_tiled.cu` (K8) and `csrc/layer_tail.cu` (K6, K7); CPU
@@ -62,10 +64,10 @@ _MAX_M = 128      # above this the TPU package runs its tiled kernel (K8)
 _GEMV_MAX_M = 8
 _GEMV_MAX_SMEM = 200 * 1024
 _TAIL_MAX_M = 32  # layer_tail_fused's row limit (quant_matmul.py:710)
-# K8's block owns 128 output columns and steps K by 32
+# K8's blocks own 128 output columns; its wgmma kernel steps K by 64
 # (csrc/quant_matmul_tiled.cu)
 _TILE_N = 128
-_TILE_K = 32
+_TILE_K = 64
 
 # kernel launches made by quant_matmul (K1, and K8 above 128 rows),
 # layer_tail_fused (K6) and ffn_fused (K7); the plain versions are not
@@ -190,8 +192,9 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
                 or (int4 and not small_groups_ok(qt.group_size, _TILE_K))):
             raise ValueError(
                 f"K8 needs K % {_TILE_K} == 0, N % {_TILE_N} == 0 and int4 "
-                f"groups of a multiple of {_TILE_K} codes, or of 8 or 16, "
-                f"got K={K} N={N} bits={qt.bits} group_size={qt.group_size}")
+                f"groups of a multiple of {_TILE_K} codes, or of 8, 16 or "
+                f"32, got K={K} N={N} bits={qt.bits} group_size="
+                f"{qt.group_size}")
     elif (K % 64 or N % 64
           or (int4 and not small_groups_ok(qt.group_size, 64))):
         raise ValueError(f"K1 needs K % 64 == 0, N % 64 == 0 and int4 groups "

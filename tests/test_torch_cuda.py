@@ -258,10 +258,14 @@ def test_k6_failed_launch_raises(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("M,K,N", [(256, 4096, 1024), (300, 4096, 1024),
-                                   (300, 11008, 512)])
+                                   (300, 11008, 512), (129, 4096, 384),
+                                   (1024, 4096, 1024), (1024, 11008, 512)])
 @pytest.mark.parametrize("prologue", [False, True])
 def test_k8_cuda_matches_plain(cuda, bits, M, K, N, prologue):
-    # M = 300: a partial 128-row tile; K = 11008: 86 int4 groups
+    # the wgmma kernel's row tile is 256 (int8) or 128 (int4) rows: M = 129
+    # and 300 end in a partial tile (TMA zero-fills the rows past M), 1024
+    # fills 4 or 8 whole ones; N = 384: three bands of 128 weight rows;
+    # K = 11008 (w_down): 172 k steps, 86 int4 groups
     g = torch.Generator().manual_seed(M + K + bits)
     if bits == 4:
         qt = _int4_weight(g, 2, N, K)
@@ -773,10 +777,10 @@ def test_k1_int4_small_groups_cuda_matches_plain(cuda, gsize, M):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("gsize", [8, 16])
+@pytest.mark.parametrize("gsize", [8, 16, 32])
 def test_k8_small_groups_cuda_matches_plain(cuda, gsize):
-    # groups of 16: a fold after each m16n8k16 product; of 8: after each
-    # m16n8k8 half
+    # the mma.sync kernel: groups of 32 fold after each 32-deep chunk, of
+    # 16 after each m16n8k16 product, of 8 after each m16n8k8 half
     g = torch.Generator().manual_seed(200 + gsize)
     M, K, N = 200, 1024, 256
     qt = _int4_weight(g, 2, N, K, gsize)
@@ -788,6 +792,63 @@ def test_k8_small_groups_cuda_matches_plain(cuda, gsize):
     assert t_qm.tiled_launches == before + 1
     err = (got.cpu().float() - want.float()).abs().max().item()
     assert err <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gsize", [64, 128, 4096])
+@pytest.mark.parametrize("M", [129, 1024])
+def test_k8_wgmma_groups_cuda_matches_plain(cuda, gsize, M):
+    # the wgmma kernel's int4 groups: one k step a group (64), two (128,
+    # the main paths'), or one group a column (4096 = K)
+    g = torch.Generator().manual_seed(400 + gsize + M)
+    K, N = 4096, 512
+    qt = _int4_weight(g, 2, N, K, gsize)
+    x = torch.randn((M, K), generator=g).to(BF16)
+    want = t_qm.quant_matmul(x, qt, 1)
+    before = t_qm.tiled_launches
+    got = t_qm.quant_matmul(x.to(cuda), qt.to(cuda), 1)
+    torch.cuda.synchronize()
+    assert t_qm.tiled_launches == before + 1
+    err = (got.cpu().float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_k8_routes(cuda):
+    # int8 and int4 groups of a multiple of 64 codes take the wgmma kernel
+    # (1), groups of 8, 16 and 32 the mma.sync kernel (0), and the C entry
+    # point refuses what neither takes (-1)
+    from llm_inference_tpu_torch.ops.kernels import _build
+    route = _build.lib().qmm_tiled_route
+    K, N = 4096, 1024
+    assert route(K, N, 1, 8) == 1
+    for gsize in (64, 128, K):
+        assert route(K, N, K // gsize, 4) == 1
+    for gsize in (8, 16, 32):
+        assert route(K, N, K // gsize, 4) == 0
+    assert route(4608, N, 4608 // 48, 4) == -1      # groups of 48 codes
+    assert route(K + 32, N, 1, 8) == -1
+    assert route(K, N + 64, 1, 8) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,K,N,gsize", [(4, 4608, 1024, 48),
+                                            (8, 4128, 1024, 0),
+                                            (8, 4096, 1088, 0)])
+def test_k8_rejects_what_no_route_takes(cuda, bits, K, N, gsize):
+    # groups of 48 codes, K not a multiple of 64, N not of 128: ValueError
+    # before any launch
+    g = torch.Generator().manual_seed(K + N)
+    if bits == 4:
+        qt = _int4_weight(g, 1, N, K, gsize)
+    else:
+        qt = QTensor(q=torch.zeros((1, N, K), dtype=torch.int8),
+                     scale=torch.ones((1, 1, N)))
+    x = torch.zeros((300, K), dtype=BF16, device=cuda)
+    before = t_qm.tiled_launches
+    with pytest.raises(ValueError, match="K8"):
+        t_qm.quant_matmul(x, qt.to(cuda), 0)
+    assert t_qm.tiled_launches == before
 
 
 @pytest.mark.cuda
