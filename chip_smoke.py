@@ -265,9 +265,10 @@ def k2_cases(gen, int8_cache):
     """K2 over [L, B, Hkv, S, 128] caches (bf16, or int8 codes with
     scales): B = 1 at pos 191, B = 4 at mixed positions and GQA G = 4 over
     512 slots, then B = 1 at pos 3060 over 4096 slots (the long request's
-    decode, each head's slots split over 8 blocks)."""
+    decode, each head's slots split over 8 blocks). Returns the first
+    case's numbers, the pos-3060 case's and the largest error."""
     Hkv, D = CFG.num_kv_heads, CFG.head_dim
-    err_max, first = 0.0, None
+    err_max, first, long = 0.0, None, None
     for B, G, positions, S in (
             (1, 1, [191], MAX_SEQ), (4, 1, [0, 77, 300, MAX_SEQ - 1], MAX_SEQ),
             (4, 4, [5, 128, 256, 400], MAX_SEQ), (1, 1, [3060], LONG_SEQ)):
@@ -335,10 +336,13 @@ def k2_cases(gen, int8_cache):
         say(f"  K2 {kind} B={B} G={G} S={S} pos={positions} err {err:.3g} "
             f"(tol {tol:.3g})  kernel {ms:.4f} ms  bound {bnd:.5f} ms ({by})  "
             f"plain {plain:.3f} ms  sdpa {lib:.4f} ms")
+        r = dict(ms=ms, plain=plain, lib=lib, bound=bnd, by=by)
         if first is None:
-            first = dict(ms=ms, plain=plain, lib=lib, bound=bnd, by=by)
+            first = r
+        if S == LONG_SEQ:
+            long = r
         del kc, vc, ks, vs, kd, vd
-    return first, err_max
+    return first, long, err_max
 
 
 def k3_cases(gen):
@@ -1043,6 +1047,15 @@ def entry(name, source, replaces, launches, err, r, per_step, work):
                 library_ms=per_step * r["lib"], work=work)
 
 
+def long_case(r):
+    """The decode attention kernels' pos-3060 case beside their first:
+    one decode step of 32 layers at B=1 over 4096 slots."""
+    return dict(ms=L * r["ms"], plain_ms=L * r["plain"],
+                bound_ms=L * r["bound"], bound_by=r["by"],
+                library_ms=L * r["lib"],
+                work="32 layers of one decode step at B=1, pos 3060, S=4096")
+
+
 def k1_entry(bits, launches, err, step, names):
     def total(key):
         return sum((1 if n == "lm_head" else L) * step[n][key]
@@ -1087,7 +1100,7 @@ def path_int8(gen):
     step, k1_err = k1_cases(params, gen, names)
     k8_r, k8_err = k8_cases(params, gen)
     k9_r, k9_err = k9_cases(gen, "bf16")
-    k2_step, k2_err = k2_cases(gen, int8_cache=False)
+    k2_step, k2_long, k2_err = k2_cases(gen, int8_cache=False)
     k3_step, k3_err = k3_cases(gen)
     phase_parity(QCFG8, BF16)
     total = phase_main_path(params, "int8", BF16)
@@ -1095,9 +1108,10 @@ def path_int8(gen):
         k1_entry(8, total["K1"], k1_err, step, names),
         k8_entry(8, total["K8"], k8_err, k8_r),
         k9_entry("bf16", total["K9"], k9_err, k9_r),
-        entry("K2 decode_attention (bf16 cache)", "decode_attention.cu",
-              "decode_attention.py:489", total["K2"], k2_err, k2_step, L,
-              "32 layers of one decode step at B=1, pos 191, S=512"),
+        dict(entry("K2 decode_attention (bf16 cache)", "decode_attention.cu",
+                   "decode_attention.py:489", total["K2"], k2_err, k2_step, L,
+                   "32 layers of one decode step at B=1, pos 191, S=512"),
+             pos3060=long_case(k2_long)),
         entry("K3 kv_write", "kv_write.cu", "kv_write.py:72", total["K3"],
               k3_err, k3_step, L, "32 layers of one decode step at B=1"),
     ]
@@ -1115,7 +1129,7 @@ def path_int4(gen):
                                           "w_down", "lm_head"))
     k8_r, k8_err = k8_cases(params, gen)
     k9_r, k9_err = k9_cases(gen, "int8")
-    k2_step, k2_err = k2_cases(gen, int8_cache=True)
+    k2_step, k2_long, k2_err = k2_cases(gen, int8_cache=True)
     k4_step, k4_err = k4_cases(gen)
     k6_step, k6_err = k6_cases(params, gen)
     phase_parity(QCFG4, "int8")
@@ -1126,9 +1140,10 @@ def path_int4(gen):
         k1_entry(4, total["K1"], k1_err, step, ("wqkv", "lm_head")),
         k8_entry(4, total["K8"], k8_err, k8_r),
         k9_entry("int8", total["K9"], k9_err, k9_r),
-        entry("K2 decode_attention (int8 cache)", "decode_attention.cu",
-              "decode_attention.py:489", total["K2"], k2_err, k2_step, L,
-              "32 layers of one decode step at B=1, pos 191, S=512"),
+        dict(entry("K2 decode_attention (int8 cache)", "decode_attention.cu",
+                   "decode_attention.py:489", total["K2"], k2_err, k2_step, L,
+                   "32 layers of one decode step at B=1, pos 191, S=512"),
+             pos3060=long_case(k2_long)),
         entry("K4 quantize_write_token (int8 KV write)", "kv_write.cu",
               "kv_write.py:152", total["K4"], k4_err, k4_step, L,
               "32 layers of one decode step at B=1"),

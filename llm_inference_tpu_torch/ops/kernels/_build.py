@@ -31,7 +31,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: (name, argtypes); every one returns an int, cudaError_t
-# but for qmm_tiled_route (which K8 kernel a shape takes)
+# but for qmm_tiled_route (which K8 kernel a shape takes) and
+# decode_attn_tile_slots (the K2/K5/K10 tile for a head size and cache kind)
 SIGNATURES = {
     "qmm_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "qmm4_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
@@ -42,6 +43,7 @@ SIGNATURES = {
     "ffn_fused_launch": [_P] * 10 + [_I] * 5 + [_F, _P],
     "layer_fused_launch": [_P] * 24 + [_I] * 11 + [_F, _F, _P],
     "decode_attn_launch": [_P] * 9 + [_I] * 7 + [_F, _F, _I, _P],
+    "decode_attn_tile_slots": [_I, _I],
     "flash_attn_launch": [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P],
     "paged_decode_attn_launch": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
     "paged_flash_attn_launch": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],

@@ -17,11 +17,19 @@ from llm_inference_tpu_torch.ops.quantization import unpack_kv4
 NEG_INF = -1e30
 _MAX_S = 16384
 _MAX_G = 8
-# the CUDA kernel gives each (sequence, kv head) one block per this many
-# cache slots, at most _MAX_SPLIT, and merges their softmax states
-_SPLIT_SLOTS = 512
-_MAX_SPLIT = 16
+# the CUDA kernel splits each (sequence, kv head)'s slots over blocks, at
+# most as many in all as the card holds at once (two a streaming
+# multiprocessor: 256 threads of at most 128 registers), and merges their
+# softmax states
+_BLOCKS_PER_SM = 2
+# ... and at least as many that no block walks more than this many slots
+# of the cache (positions differ between sequences: a block of a long one
+# must not hold up the rest of the step)
+_MAX_SHARE = 512
 _done = {}      # per device: the kernel's zeroed merge counters
+_part = {}      # per device: the float32 scratch of the split merge
+_sms = {}       # per device: its streaming multiprocessors
+_tiles = {}     # (D, cache kind): slots of the kernel's tile
 
 # kernel launches made by decode_attention: K2 (bf16 and int8 caches) and
 # K5 (int4 caches); the plain version is not counted
@@ -88,13 +96,62 @@ def decode_attention_ref(q, k_all, v_all, layer: int, positions,
     return (acc / l).to(bf16)
 
 
-def _counters(device, n: int) -> torch.Tensor:
-    """n zeroed int32 merge counters on `device`, kept between calls (the
-    kernel leaves them zero), grown as needed."""
-    buf = _done.get(device)
-    if buf is None or buf.numel() < n:
-        buf = _done[device] = torch.zeros(n, dtype=torch.int32, device=device)
-    return buf
+def splits(B: int, Hkv: int, S: int, tile: int, sms: int) -> int:
+    """Blocks a (sequence, kv head) for a card of `sms` SMs and a kernel
+    tile of `tile` slots: as many as fill one wave of the card's
+    _BLOCKS_PER_SM·sms resident blocks without starting a second (on an
+    H100, 9 splits of 32 heads leave 24 blocks for a second wave and take a
+    quarter longer than 8), but at least enough that a block walks at most
+    _MAX_SHARE slots of the cache, and no split of the S-slot cache shorter
+    than two tiles (so that a full share has a tile in flight behind the
+    one computed). The positions do not enter (reading them would sync the
+    host); a block whose share of the live slots is empty leaves a state of
+    weight 0 and ends at once."""
+    want = max(_BLOCKS_PER_SM * sms // (B * Hkv), -(-S // _MAX_SHARE))
+    return max(1, min(want, S // (2 * tile)))
+
+
+def scratch_floats(B: int, Hkv: int, G: int, D: int, nsplit: int) -> int:
+    """Float32 scratch of the split merge: a [G, D] accumulator, G maxima
+    and G sums for each of the B·Hkv·nsplit blocks."""
+    return B * Hkv * nsplit * G * (D + 2)
+
+
+def tile_slots(D: int, kind: int) -> int:
+    """Slots of the kernel's tile for head size D and cache kind (0 bf16,
+    1 int8, 2 packed int4), as the kernel's source sets it."""
+    key = (D, kind)
+    if key not in _tiles:
+        from llm_inference_tpu_torch.ops.kernels import _build
+        _tiles[key] = _build.lib().decode_attn_tile_slots(D, kind)
+    return _tiles[key]
+
+
+def split_buffers(device, B: int, Hkv: int, G: int, S: int, D: int,
+                  kind: int):
+    """(nsplit, part, done) for a launch on `device` (a CUDA device) over a
+    cache of `kind`: nsplit from `splits` with the kernel's tile and the
+    card's SM count, and pointers to the device's float32 scratch and
+    zeroed int32 merge counters, grown as needed and kept between calls
+    (launches on one stream run in order, and the kernel leaves the
+    counters zero); None for both when nsplit is 1."""
+    sms = _sms.get(device)
+    if sms is None:
+        sms = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    nsplit = splits(B, Hkv, S, tile_slots(D, kind), sms)
+    if nsplit == 1:
+        return 1, None, None
+    floats = scratch_floats(B, Hkv, G, D, nsplit)
+    part = _part.get(device)
+    if part is None or part.numel() < floats:
+        part = _part[device] = torch.empty(floats, dtype=torch.float32,
+                                           device=device)
+    done = _done.get(device)
+    if done is None or done.numel() < B * Hkv:
+        done = _done[device] = torch.zeros(B * Hkv, dtype=torch.int32,
+                                           device=device)
+    return nsplit, part.data_ptr(), done.data_ptr()
 
 
 def decode_attention(q, k_all, v_all, layer: int, positions,
@@ -152,13 +209,7 @@ def decode_attention(q, k_all, v_all, layer: int, positions,
     out = torch.empty((B, Hkv, G, D), dtype=torch.bfloat16, device=q.device)
     layer_bytes = B * Hkv * S * Dc * k_all.element_size()
     kind = 2 if packed else 1 if quantized else 0
-    nsplit = max(1, min(_MAX_SPLIT, S // _SPLIT_SLOTS))
-    part = done = None
-    if nsplit > 1:
-        scratch = torch.empty(B * Hkv * nsplit * G * (D + 2),
-                              dtype=torch.float32, device=q.device)
-        part = scratch.data_ptr()
-        done = _counters(q.device, B * Hkv).data_ptr()
+    nsplit, part, done = split_buffers(q.device, B, Hkv, G, S, D, kind)
     code = _build.lib().decode_attn_launch(
         qg.data_ptr(), k_all.data_ptr() + layer * layer_bytes,
         v_all.data_ptr() + layer * layer_bytes, ks, vs, pos.data_ptr(),

@@ -122,13 +122,8 @@ def paged_attention(q, k_pages, v_pages, page_table, layer: int, positions,
     out = torch.empty((B, Hkv, G, D), dtype=torch.bfloat16, device=q.device)
     layer_bytes = P * Hkv * ps * Dc * k_pages.element_size()
     kind = 2 if packed else 1 if quantized else 0
-    nsplit = max(1, min(k2._MAX_SPLIT, NB * ps // k2._SPLIT_SLOTS))
-    part = done = None
-    if nsplit > 1:
-        scratch = torch.empty(B * Hkv * nsplit * G * (D + 2),
-                              dtype=torch.float32, device=q.device)
-        part = scratch.data_ptr()
-        done = k2._counters(q.device, B * Hkv).data_ptr()
+    nsplit, part, done = k2.split_buffers(q.device, B, Hkv, G, NB * ps, D,
+                                          kind)
     code = _build.lib().paged_decode_attn_launch(
         qg.data_ptr(), k_pages.data_ptr() + layer * layer_bytes,
         v_pages.data_ptr() + layer * layer_bytes, ks, vs, pt.data_ptr(),

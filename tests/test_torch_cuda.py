@@ -389,6 +389,90 @@ def test_k2_split_cuda_matches_plain(cuda, kind, G, window, S):
         assert (got.cpu().float() - want.float()).abs().max().item() <= tol
 
 
+@pytest.mark.cuda
+def test_decode_tile_slots_cuda(cuda):
+    """The split rule takes the kernel's own tile (decode_attn_tile_slots):
+    32 or 64 slots of at most 16 KB of rows for every head size and cache
+    kind, 0 for a head size the kernel lacks, and on this card no split of
+    a cache shorter than two tiles."""
+    dev = torch.device(cuda.type, torch.cuda.current_device())
+    for D in (64, 128, 256):
+        for kind, row in enumerate((2 * D, D, D // 2)):
+            tile = t_dec.tile_slots(D, kind)
+            assert tile in (32, 64) and tile * row <= 16384
+            for B, S in ((1, 512), (1, 4096), (8, 512), (4, 16384)):
+                n = t_dec.split_buffers(dev, B, 32, 1, S, D, kind)[0]
+                assert n == 1 or S // n >= 2 * tile
+    from llm_inference_tpu_torch.ops.kernels import _build
+    assert _build.lib().decode_attn_tile_slots(96, 0) == 0
+
+
+def _on_card_of(monkeypatch, cuda, sms):
+    """Run the split rule as on a card of `sms` SMs: 1 gives every head one
+    block (its live slots cross tile edges), many give each head as many
+    splits as the cache has tiles (short and empty shares)."""
+    dev = torch.device(cuda.type, torch.cuda.current_device())
+    monkeypatch.setitem(t_dec._sms, dev, sms)
+
+
+def _nan_outside(k, v, ks, vs, b, lo, hi):
+    """NaN in sequence b's slots outside [lo, hi] (bf16 rows; the scales of
+    a quantized cache): stale rows a kernel must never read."""
+    for sl in (slice(0, lo), slice(hi + 1, None)):
+        if ks is None:
+            k[:, b, :, sl] = v[:, b, :, sl] = float("nan")
+        else:
+            ks[:, b, sl] = vs[:, b, sl] = float("nan")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("B,Hkv,G,D,S,positions,window,softcap,sms", [
+    (4, 2, 1, 128, 512, (63, 64, 65, 191), 0, 0.0, 1),     # tile edges
+    (4, 2, 1, 128, 1024, (0, 5, 40, 1023), 0, 0.0, 1000),  # short, empty
+    (2, 2, 8, 64, 256, (100, 255), 0, 0.0, 132),           # D = 64, G = 8
+    (4, 2, 2, 256, 256, (31, 32, 33, 200), 0, 30.0, 1),    # D = 256 edges
+    (2, 4, 4, 128, 512, (150, 300), 100, 0.0, 1),          # window mid-tile
+    (2, 2, 4, 256, 1024, (0, 700), 0, 0.0, 1000),          # D = 256 splits
+])
+def test_decode_tiles_cuda_matches_plain(cuda, monkeypatch, kind, B, Hkv, G,
+                                         D, S, positions, window, softcap,
+                                         sms):
+    """K2 (bf16, int8) and K5 (int4) at the edges of the tiled design: live
+    slots ending on a tile edge and one slot either side, shares shorter
+    than a tile and empty ones, D = 64 and 256, G = 8, a window starting
+    mid-tile, NaN in every slot outside the window, and two launches in a
+    row (the merge counters reset)."""
+    _on_card_of(monkeypatch, cuda, sms)
+    g = torch.Generator().manual_seed(S + D + G + sms)
+    L = 2
+    k, v, ks, vs = _flash_cache(g, kind, L, B, Hkv, S, D)
+    for b, p in enumerate(positions):
+        lo = max(0, p - window + 1) if window > 0 else 0
+        _nan_outside(k, v, ks, vs, b, lo, p)
+    q = torch.randn((B, 1, Hkv * G, D), generator=g).to(BF16)
+    pos = torch.tensor(positions, dtype=torch.int32)
+    kw = dict(logit_softcap=softcap, window=window)
+    want = t_dec.decode_attention(q, k, v, 1, pos, k_scale=ks, v_scale=vs,
+                                  **kw)
+    assert torch.isfinite(want).all()
+    dev = [None if t is None else t.to(cuda) for t in (k, v, ks, vs)]
+    before = (t_dec.launches, t_dec.int4_launches)
+    tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+    for _ in range(2):
+        got = t_dec.decode_attention(q.to(cuda), dev[0], dev[1], 1,
+                                     pos.to(cuda), k_scale=dev[2],
+                                     v_scale=dev[3], **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        # as test_k2_cuda_matches_plain: a few bf16 steps of the largest
+        # output (p rounds against another running max)
+        assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+    int4 = kind == "int4"
+    assert (t_dec.launches, t_dec.int4_launches) == (
+        before[0] + 2 * (not int4), before[1] + 2 * int4)
+
+
 # --------------------------------------------- int4 cache (K5, writes)
 
 @pytest.mark.cuda
@@ -525,6 +609,51 @@ def test_k10_cuda_matches_plain(cuda, kind, G, window, softcap, ps, NB):
         torch.cuda.synchronize()
         # as K2/K5: a few bf16 steps (2^-8 relative) of the largest output
         tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+        assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+    int4 = kind == "int4"
+    assert (t_pa.launches, t_pa.int4_launches) == (before[0] + 2 * (not int4),
+                                                   before[1] + 2 * int4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("B,Hkv,G,D,ps,NB,positions,window,softcap,sms", [
+    (4, 2, 1, 128, 16, 16, (63, 64, 65, 255), 0, 0.0, 1),   # tile edges
+    (4, 2, 1, 128, 128, 8, (0, 5, 40, 1063), 0, 0.0, 1000),  # short, empty
+    (2, 2, 8, 64, 8, 32, (100, 255), 0, 0.0, 132),          # D = 64, G = 8
+    (2, 2, 2, 256, 32, 8, (150, 255), 100, 30.0, 1),        # D = 256, window
+])
+def test_k10_tiles_cuda_matches_plain(cuda, monkeypatch, kind, B, Hkv, G, D,
+                                      ps, NB, positions, window, softcap,
+                                      sms):
+    """K10a/K10b at the edges of the tiled design: tiles that span several
+    pages, live slots ending on a tile edge and either side of it, short
+    and empty shares, D = 64 and 256, G = 8, a window starting mid-tile, a
+    position past the table, NaN in the null page, two launches in a
+    row."""
+    from llm_inference_tpu_torch.ops.kernels import paged_attention as t_pa
+    _on_card_of(monkeypatch, cuda, sms)
+    g = torch.Generator().manual_seed(NB * ps + D + G + sms)
+    L = 2
+    live = [min(p // ps + 1, NB) for p in positions]
+    P = sum(live) + 3
+    k, v, ks, vs = _paged_pool(g, kind, L, P, Hkv, ps, D)
+    pt = _scattered_table(g, B, NB, P, live)
+    q = torch.randn((B, 1, Hkv * G, D), generator=g).to(BF16)
+    pos = torch.tensor(positions, dtype=torch.int32)
+    kw = dict(logit_softcap=softcap, window=window)
+    want = t_pa.paged_attention(q, k, v, pt, 1, pos, k_scale=ks, v_scale=vs,
+                                **kw)
+    assert torch.isfinite(want).all()
+    dev = [None if t is None else t.to(cuda) for t in (k, v, ks, vs)]
+    before = (t_pa.launches, t_pa.int4_launches)
+    tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+    for _ in range(2):
+        got = t_pa.paged_attention(q.to(cuda), dev[0], dev[1], pt.to(cuda), 1,
+                                   pos.to(cuda), k_scale=dev[2],
+                                   v_scale=dev[3], **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
         assert (got.cpu().float() - want.float()).abs().max().item() <= tol
     int4 = kind == "int4"
     assert (t_pa.launches, t_pa.int4_launches) == (before[0] + 2 * (not int4),

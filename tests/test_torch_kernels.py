@@ -398,6 +398,44 @@ def test_k5_plain_matches_jax_kernel(S, Hkv, G, window, softcap):
                                atol=1e-2, rtol=0)
 
 
+# ------------------------------------------- K2/K5/K10 split rule
+
+@pytest.mark.parametrize("B,Hkv,S", [
+    (1, 32, 512), (1, 32, 4096), (8, 32, 512), (4, 8, 128), (1, 1, 16384),
+    (2, 4, 1024), (64, 32, 2048), (1, 8, 64), (3, 5, 640), (2, 32, 16384)])
+def test_decode_split_rule_fills_the_card(B, Hkv, S):
+    """The CUDA kernels' split of each head's slots (the same rule for the
+    dense and the paged wrapper): one wave of the card's resident blocks
+    (_BLOCKS_PER_SM an SM) filled to within one head's splits where S
+    allows it, a second wave begun only so that no block walks more than
+    _MAX_SHARE slots, no split shorter than two tiles, and the scratch the
+    wrapper allocates covering the kernel's states and no more than the
+    larger of one wave of them and the share cap's."""
+    # the kernel's tiles (csrc/decode_attention.cu, decode_attn_tile_slots)
+    for D, tile in ((64, 64), (128, 32), (128, 64), (256, 32), (256, 64)):
+        for sms in (1, 78, 132, 144):
+            n = t_dec.splits(B, Hkv, S, tile, sms)
+            wave = t_dec._BLOCKS_PER_SM * sms
+            capped = -(-S // t_dec._MAX_SHARE)
+            assert n >= 1
+            if S >= 2 * tile:
+                assert S // n >= 2 * tile
+            if S // (2 * tile) >= capped:
+                assert -(-S // n) <= t_dec._MAX_SHARE
+            if n > max(1, capped):
+                assert B * Hkv * n <= wave
+            if S // (2 * tile) * B * Hkv >= wave:
+                assert B * Hkv * n > wave - B * Hkv
+            # the kernel's last scratch index is inside the allocation,
+            # and the allocation within the larger bound
+            G = 8
+            state = G * (D + 2)
+            last = ((B * Hkv - 1) * n + n - 1) * state + state - 1
+            floats = t_dec.scratch_floats(B, Hkv, G, D, n)
+            assert last < floats
+            assert floats <= max(B * Hkv * capped, wave) * state
+
+
 # ------------------------------------------------ K8 (M > 128 rows)
 
 @pytest.mark.parametrize("bits", [8, 4])
