@@ -436,7 +436,8 @@ def k4_cases(gen):
 
 
 def k6_cases(params, gen):
-    """K6 on layer weights of an int4 model at M = 1 and M = 4."""
+    """K6 on layer weights of an int4 model at M = 1 (a decode step), 4
+    and 8 (the schedulers' batch); returns the M = 1 case."""
     lay = params["layers"]
     wo, gu, dn = lay["wo"], lay["w_gateup"], lay["w_down"]
     depth = wo.q.shape[0]
@@ -446,7 +447,7 @@ def k6_cases(params, gen):
     deq = [[dequantize(w.layer(i), BF16) for w in (wo, gu, dn)]
            for i in range(n_lib)]
     first, err_max = None, 0.0
-    for M in (1, 4):
+    for M in (1, 4, 8):
         h = torch.randn((M, H), generator=gen, device=DEV).to(BF16)
         attn = torch.randn((M, H), generator=gen, device=DEV).to(BF16)
         gamma = (1 + 0.1 * torch.randn((H,), generator=gen, device=DEV)
@@ -2285,7 +2286,7 @@ def small_group_cases(gen):
     """K1 and K8 (g = 8, 16, 32), K6 and K12 (g = 8, 16) against their
     plain versions on a 2-layer LLaMA-2-7B-width int4 model of each group
     size, each timed beside its plain version, bound and library call: K1
-    on wqkv at M = 1 (GEMV) and 32 (MMA), K6 at M = 1 and 4, K8 (its
+    on wqkv at M = 1 (GEMV) and 32 (MMA), K6 at M = 1, 4 and 8, K8 (its
     mma.sync kernel) on w_gateup at 2048 rows, K12 at pos 191 over an int8
     cache."""
     cfg2 = dataclasses.replace(CFG, num_layers=2)

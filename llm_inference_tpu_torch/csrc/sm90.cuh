@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives: the warpgroup MMA (wgmma), the Tensor Memory
 // Accelerator's 2-D tile copy (TMA), the shared-memory mbarrier that
 // counts its bytes, and the register hand-over between warpgroups
-// (setmaxnreg). K8 (quant_matmul_tiled.cu) is built on them.
+// (setmaxnreg). K8 (quant_matmul_tiled.cu) and K6/K7 (layer_tail.cu) are
+// built on them.
 //
 // wgmma. Four warps (a warpgroup, warps 4i..4i+3 of the block) issue one
 // asynchronous D[64 x N] += A[64 x 16] * B[16 x N] with float32 D in
@@ -54,6 +55,9 @@
 //
 // fence_proxy_async: shared memory written by plain stores becomes
 // visible to the asynchronous proxy (wgmma, TMA stores) of this CTA.
+// bulk_load, cp_async4 and cp_async_arrive (K6/K7, layer_tail.cu) feed an
+// mbarrier without a tensor map; tma_load_2d_hint is tma_load_2d with an
+// L2 cache policy: below.
 //
 // setmaxnreg: a warpgroup gives up (dec) or claims (inc) registers; the
 // counts are multiples of 8 in [24, 256]. All four warps of the group
@@ -223,8 +227,64 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
          "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
 }
 
+// The same copy with an L2 cache policy (policy_evict_first: data read
+// once, streamed past what the cache should keep).
+__device__ __forceinline__ void tma_load_2d_hint(uint32_t dst, const void* map,
+                                                 uint64_t* bar, int c0, int c1,
+                                                 uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "l"(policy) : "memory");
+}
+
+__device__ __forceinline__ uint64_t policy_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// bulk_load: one thread asks for `bytes` contiguous bytes at src (global,
+// 16-byte aligned, a multiple of 16 bytes) to be copied to shared memory at
+// dst (16-byte aligned) by the copy engine, the bytes counting against the
+// barrier's expected transfer as they land: a 1-D TMA copy, no tensor map.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// cp_async4: 4 bytes global -> shared by the issuing thread (cp.async);
+// cp_async_arrive: the barrier counts one more arrival, made when every
+// cp.async this thread issued so far has landed (the pending count is
+// raised at once, so the barrier's phase cannot complete before).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// The line of global memory at p is brought into L2 (a hint).
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
+}
+
+// Global memory written by plain stores becomes visible to the
+// asynchronous proxy (bulk copies) that reads it afterwards.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 template <int N>

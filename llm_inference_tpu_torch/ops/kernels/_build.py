@@ -32,7 +32,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: (name, argtypes); every one returns an int, cudaError_t
 # but for qmm_tiled_route (which K8 kernel a shape takes) and
-# decode_attn_tile_slots (the K2/K5/K10 tile for a head size and cache kind)
+# decode_attn_tile_slots (the K2/K5/K10 tile for a head size and cache
+# kind); layer_tail_plan writes K6/K7's ring plan into an int array
 SIGNATURES = {
     "qmm_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "qmm4_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
@@ -41,6 +42,7 @@ SIGNATURES = {
     "qmm_tiled_route": [_I] * 4,
     "layer_tail_launch": [_P] * 13 + [_I] * 7 + [_F, _P],
     "ffn_fused_launch": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "layer_tail_plan": [_I] * 9 + [_P],
     "layer_fused_launch": [_P] * 24 + [_I] * 11 + [_F, _F, _P],
     "decode_attn_launch": [_P] * 9 + [_I] * 7 + [_F, _F, _I, _P],
     "decode_attn_tile_slots": [_I, _I],

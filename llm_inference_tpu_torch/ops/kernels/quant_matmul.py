@@ -48,7 +48,9 @@ K8 runs groups of 64k codes (and int8) on its wgmma kernel, groups of 8,
 CUDA tensors go through `csrc/quant_matmul.cu` (K1),
 `csrc/quant_matmul_tiled.cu` (K8) and `csrc/layer_tail.cu` (K6, K7); CPU
 tensors through `quant_matmul_ref`, `layer_tail_fused_ref` and
-`ffn_fused_ref`, their plain versions.
+`ffn_fused_ref`, their plain versions. K6 and K7 are one cooperative
+launch of a persistent block an SM (the kernel plans its ring itself);
+`tail_scratch_floats` is their float32 scratch, kept per device and grown.
 """
 
 from __future__ import annotations
@@ -68,6 +70,13 @@ _TAIL_MAX_M = 32  # layer_tail_fused's row limit (quant_matmul.py:710)
 # (csrc/quant_matmul_tiled.cu)
 _TILE_N = 128
 _TILE_K = 64
+
+# K6/K7's scratch (csrc/layer_tail.cu): the header floats (the grid
+# barrier's counter first), then a partial sum of squares for each of 32
+# rows a block
+_TAIL_HEADER = 64
+_sms: dict = {}            # device -> SM count
+_tail_scratch: dict = {}   # device -> float32 scratch of K6/K7
 
 # kernel launches made by quant_matmul (K1, and K8 above 128 rows),
 # layer_tail_fused (K6) and ffn_fused (K7); the plain versions are not
@@ -260,6 +269,47 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
 
 # ------------------------------------------------------------------- K6
 
+def tail_scratch_floats(M: int, H: int, I: int, sms: int) -> int:
+    """Float32 scratch of K6/K7 (csrc/layer_tail.cu) on `sms` SMs: the
+    header (its first word the grid barrier's counter), the blocks' sums
+    of squares [sms, 32], act [M, I] and x32 = h + wo_out [M, H]."""
+    return _TAIL_HEADER + sms * _TAIL_MAX_M + M * I + M * H
+
+
+def _tail_buffers(device, M: int, H: int, I: int):
+    """(scratch pointer, x32 pointer) of the device's K6/K7 scratch, grown
+    as needed and kept between calls: zeros when allocated, so the grid
+    barrier's counter starts at 0, and every launch leaves it at a
+    multiple of 2^31 (launches on one stream run in order)."""
+    sms = _sms.get(device)
+    if sms is None:
+        sms = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    floats = tail_scratch_floats(M, H, I, sms)
+    buf = _tail_scratch.get(device)
+    if buf is None or buf.numel() < floats:
+        buf = _tail_scratch[device] = torch.zeros(
+            floats, dtype=torch.float32, device=device)
+    base = buf.data_ptr()
+    return base, base + 4 * (floats - M * H)
+
+
+def _aligned(t):
+    """t, or a copy of it where its data is not 16-byte aligned (K6 and
+    K7 copy attn and gamma with the copy engine)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_tail_weight(qt: QTensor, what: str):
+    _check_weight(qt, what)
+    if not small_groups_ok(qt.group_size, 32):
+        raise ValueError(f"{what} needs int4 groups of a multiple of 32 "
+                         f"codes, or of 8 or 16, got {qt.group_size}")
+    if qt.q.data_ptr() % 16:
+        raise ValueError(f"{what} needs 16-byte aligned codes (the copy "
+                         "engine reads them)")
+
+
 def _tail_ok(qt, K: int) -> bool:
     """The TPU package's _npair_ok_for_fuse (quant_matmul.py:692-696):
     stacked grouped symmetric int4 with K input rows."""
@@ -322,24 +372,20 @@ def layer_tail_fused(h, attn2d, wo: QTensor, gu: QTensor, dn: QTensor,
     from llm_inference_tpu_torch.ops.kernels import _build
     M, H, Ko, I = shapes
     for qt in (wo, gu, dn):
-        _check_weight(qt, "K6")
-        if not small_groups_ok(qt.group_size, 32):
-            raise ValueError(f"K6 needs int4 groups of a multiple of 32 "
-                             f"codes, or of 8 or 16, got {qt.group_size}")
+        _check_tail_weight(qt, "K6")
     if H % 32 or Ko % 32 or I % 32:
         raise ValueError(f"K6 needs widths that are multiples of 32, got "
                          f"H={H} Ko={Ko} I={I}")
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16 = torch.bfloat16
     if gamma.dtype != bf16:
         raise TypeError(f"K6 takes a bf16 gamma, got {gamma.dtype}")
     dev = h.device
     h2d = h.reshape(M, H).to(bf16).contiguous()
-    a2d = attn2d.reshape(M, Ko).to(bf16).contiguous()
-    gam = gamma.reshape(H).contiguous()
+    a2d = _aligned(attn2d.reshape(M, Ko).to(bf16).contiguous())
+    gam = _aligned(gamma.reshape(H).contiguous())
     y = torch.empty((M, H), dtype=bf16, device=dev)
     h2 = torch.empty((M, H), dtype=bf16, device=dev)
-    wo_out = torch.empty((M, H), dtype=f32, device=dev)      # scratch
-    act = torch.empty((M, I), dtype=f32, device=dev)         # scratch
+    scratch, x32 = _tail_buffers(dev, M, H, I)
     li = int(layer)
 
     def w(qt):
@@ -349,7 +395,7 @@ def layer_tail_fused(h, attn2d, wo: QTensor, gu: QTensor, dn: QTensor,
 
     code = _build.lib().layer_tail_launch(
         h2d.data_ptr(), a2d.data_ptr(), gam.data_ptr(), *w(wo), *w(gu),
-        *w(dn), wo_out.data_ptr(), act.data_ptr(), h2.data_ptr(),
+        *w(dn), x32, scratch, h2.data_ptr(),
         y.data_ptr(), M, H, Ko, I, wo.groups, gu.groups, dn.groups,
         float(eps), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "layer_tail_fused")
@@ -416,15 +462,12 @@ def ffn_fused(x, residual, gamma, eps: float, gu: QTensor, dn: QTensor,
     from llm_inference_tpu_torch.ops.kernels import _build
     M, K, I = shapes
     for qt in (gu, dn):
-        _check_weight(qt, "K7")
-        if not small_groups_ok(qt.group_size, 32):
-            raise ValueError(f"K7 needs int4 groups of a multiple of 32 "
-                             f"codes, or of 8 or 16, got {qt.group_size}")
+        _check_tail_weight(qt, "K7")
     if K % 32 or I % 32 or dn.out_features != K:
         raise ValueError(f"K7 needs widths that are multiples of 32 and a "
                          f"down projection back to K, got K={K} I={I} "
                          f"H={dn.out_features}")
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16 = torch.bfloat16
     for name, t in (("residual", residual), ("gamma", gamma)):
         if t.dtype != bf16:
             raise TypeError(f"K7 takes a bf16 {name}, got {t.dtype}")
@@ -432,10 +475,10 @@ def ffn_fused(x, residual, gamma, eps: float, gu: QTensor, dn: QTensor,
     H = dn.out_features
     x2 = x.reshape(M, K).to(bf16).contiguous()
     res = residual.reshape(M, K).contiguous()
-    gam = gamma.reshape(K).contiguous()
+    gam = _aligned(gamma.reshape(K).contiguous())
     y = torch.empty((M, H), dtype=bf16, device=dev)
     h2 = torch.empty((M, K), dtype=bf16, device=dev)
-    act = torch.empty((M, I), dtype=f32, device=dev)         # scratch
+    scratch, _ = _tail_buffers(dev, M, K, I)
     li = int(layer)
 
     def w(qt):
@@ -445,7 +488,7 @@ def ffn_fused(x, residual, gamma, eps: float, gu: QTensor, dn: QTensor,
 
     code = _build.lib().ffn_fused_launch(
         x2.data_ptr(), res.data_ptr(), gam.data_ptr(), *w(gu), *w(dn),
-        act.data_ptr(), h2.data_ptr(), y.data_ptr(), M, K, I, gu.groups,
+        scratch, h2.data_ptr(), y.data_ptr(), M, K, I, gu.groups,
         dn.groups, float(eps), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "ffn_fused")
     ffn_launches += 1

@@ -217,14 +217,18 @@ def test_k2_int8_cuda_matches_plain(cuda, G, window, softcap):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 2, 4, 7, 32])
+@pytest.mark.parametrize("M", [1, 2, 4, 7, 8, 16, 32])
 def test_k6_cuda_matches_plain(cuda, M):
-    # LLaMA-2-7B widths, one layer; M = 7 and 32 take several row passes
-    g = torch.Generator().manual_seed(60 + M)
+    # LLaMA-2-7B widths, one layer; M = 16 and 32 take passes of 8 rows
+    _k6_case(cuda, M, 128, 60 + M)
+
+
+def _k6_case(cuda, M, gsize, seed):
+    g = torch.Generator().manual_seed(seed)
     H, I = 4096, 11008
-    wo = _int4_weight(g, 1, H, H)
-    gu = _int4_weight(g, 1, 2 * I, H)
-    dn = _int4_weight(g, 1, H, I)
+    wo = _int4_weight(g, 1, H, H, gsize)
+    gu = _int4_weight(g, 1, 2 * I, H, gsize)
+    dn = _int4_weight(g, 1, H, I, gsize)
     h = torch.randn((M, H), generator=g).to(BF16)
     attn = torch.randn((M, H), generator=g).to(BF16)
     gamma = (1 + 0.1 * torch.randn((H,), generator=g)).to(BF16)
@@ -241,6 +245,90 @@ def test_k6_cuda_matches_plain(cuda, M):
     for got, want in ((got_y, want_y), (got_h2, want_h2)):
         err = (got.cpu().float() - want.float()).abs().max().item()
         assert err <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gsize", [32, 128])
+@pytest.mark.parametrize("M", [1, 8])
+def test_k6_groups_cuda_matches_plain(cuda, gsize, M):
+    # groups of 32 and of 128 codes: every 32-code chunk folds its
+    # group's scale
+    _k6_case(cuda, M, gsize, 500 + gsize + M)
+
+
+def _tail_inputs(g, kind, M):
+    """K6 (LLaMA-2-7B widths) or K7 (one tp = 2 shard) arguments on the
+    card, one layer of random int4 g = 128 weights."""
+    H, I = (4096, 11008) if kind == "K6" else (4096, 5504)
+    gu, dn = _int4_weight(g, 1, 2 * I, H), _int4_weight(g, 1, H, I)
+    x = torch.randn((M, H), generator=g).to(BF16)
+    other = torch.randn((M, H), generator=g).to(BF16)
+    gamma = (1 + 0.1 * torch.randn((H,), generator=g)).to(BF16)
+    if kind == "K6":
+        args = (x, other, _int4_weight(g, 1, H, H), gu, dn, gamma, 1e-5, 0)
+        fn = t_qm.layer_tail_fused
+    else:
+        args = (x, other, gamma, 1e-5, gu, dn, 0)
+        fn = t_qm.ffn_fused
+    dev = torch.device("cuda")
+    return fn, tuple(a.to(dev) if isinstance(a, (torch.Tensor, QTensor))
+                     else a for a in args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["K6", "K7"])
+@pytest.mark.parametrize("M", [1, 8])
+def test_tail_launches_repeat_bit_identical(cuda, kind, M):
+    # every sum is taken in a fixed order (no float atomics): two launches
+    # on the same inputs give the same bits
+    fn, args = _tail_inputs(torch.Generator().manual_seed(70 + M), kind, M)
+    y1, h1 = fn(*args)
+    y2, h2 = fn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    assert torch.isfinite(y1.float()).all()
+
+
+# (name, H, Ko, I, wo): K6 at LLaMA-2-7B width, K7 on one rank's shard at
+# tp = 2, K6 at the widths of the CPU tests and of the small-group card
+# tests
+_TAIL_CASES = [("7b", 4096, 4096, 11008, 1), ("tp2", 4096, 4096, 5504, 0),
+               ("tiny", 256, 256, 512, 1), ("small", 1024, 1024, 2816, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sms", [78, 132, 144])
+@pytest.mark.parametrize("case", _TAIL_CASES, ids=[c[0] for c in _TAIL_CASES])
+def test_tail_plan_balances_the_card(cuda, case, sms):
+    """K6/K7's ring plan as the kernel computes it (layer_tail_plan): every
+    SM takes the same units of each phase to within one (a column, or a
+    gate/up pair), at the LLaMA-2-7B and tp = 2 widths within one stage's
+    bytes; the block's shared memory fits the card with at least two
+    slots; at M <= 8 rows one pass over the weights (ceil(M / 8) above)."""
+    import ctypes
+    from llm_inference_tpu_torch.ops.kernels import _build
+    name, H, Ko, I, wo = case
+    out = (ctypes.c_int * 25)()
+    for M in (1, 2, 4, 7, 8, 16, 32):
+        for gs in (128, 32, 16, 8):
+            assert _build.lib().layer_tail_plan(
+                M, H, Ko, I, Ko // gs, H // gs, I // gs, sms, wo, out) == 0
+            R, slot, smem, passes = out[:4]
+            assert smem <= 232448 and R >= 2 and passes == -(-M // 8)
+            # (units, K, 1 or 2 columns a unit) of wo, gate-up and down
+            phases = [(H, Ko, 1), (I, H, 2), (H, I, 1)][1 - wo:]
+            for (units, K, per), i in zip(phases, range(1 - wo, 3)):
+                q, ub, cols, ncp, rows, lo, hi = out[4 + 7 * i:11 + 7 * i]
+                assert hi - lo <= 1 and lo * sms <= units <= hi * sms
+                assert 1 <= q <= 8 and 1 <= ub and cols == ub * per <= 192
+                assert ncp == -(-ub // 8) * 8 * per and rows >= ncp
+                # a unit's codes and scales against one stage's (the stage
+                # is 256 q codes of every column of a batch)
+                kt = min(256 * q, K)
+                unit = per * (K // 2 + 4 * (K // gs))
+                stage = cols * (kt // 2 + 4 * (kt // gs))
+                if name in ("7b", "tp2"):
+                    assert (hi - lo) * unit <= stage, (name, M, gs, i)
 
 
 @pytest.mark.cuda
@@ -1013,7 +1101,7 @@ def test_k12_small_groups_cuda_matches_plain(cuda, gsize):
 @pytest.mark.cuda
 @pytest.mark.parametrize("gsize,H,I", [(128, 4096, 5504), (32, 4096, 5504),
                                        (16, 1024, 2816), (8, 1024, 2816)])
-@pytest.mark.parametrize("M", [1, 8])
+@pytest.mark.parametrize("M", [1, 4, 8, 32])
 def test_k7_cuda_matches_plain(cuda, gsize, H, I, M):
     # H = 4096, I = 5504: one rank's shard of LLaMA-2-7B at tp = 2
     g = torch.Generator().manual_seed(400 + gsize + M)

@@ -60,7 +60,8 @@ def _assert_close(got, want):
 
 @pytest.mark.parametrize("gsize,M,dtype", [
     (32, 1, jnp.bfloat16), (32, 4, jnp.bfloat16), (32, 4, jnp.float32),
-    (8, 1, jnp.bfloat16), (8, 4, jnp.bfloat16)])
+    (8, 1, jnp.bfloat16), (8, 4, jnp.bfloat16), (128, 1, jnp.bfloat16),
+    (128, 8, jnp.bfloat16), (16, 8, jnp.bfloat16)])
 def test_k7_plain_matches_jax_kernel(gsize, M, dtype):
     jgu, tgu = _weights(K, 2 * I, gsize, seed=1)
     jdn, tdn = _weights(I, K, gsize, seed=2)

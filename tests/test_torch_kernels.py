@@ -227,18 +227,30 @@ def test_k1_int4_plain_prefill_path_matches_jax():
     _assert_bf16_close(to_numpy(got), want)
 
 
-def _tail_weights(H=256, I=512, seed=3):
-    wo = _int4_weights(K=H, N=H, seed=seed)
-    gu = _int4_weights(K=H, N=2 * I, seed=seed + 1)   # [gate | up] columns
-    dn = _int4_weights(K=I, N=H, seed=seed + 2)
+def _tail_weights(H=256, I=512, seed=3, gsize=128):
+    wo = _int4_weights(K=H, N=H, gsize=gsize, seed=seed)
+    # [gate | up] columns
+    gu = _int4_weights(K=H, N=2 * I, gsize=gsize, seed=seed + 1)
+    dn = _int4_weights(K=I, N=H, gsize=gsize, seed=seed + 2)
     return [w[0] for w in (wo, gu, dn)], [w[1] for w in (wo, gu, dn)]
 
 
-@pytest.mark.parametrize("M", [1, 4, 32])
+@pytest.mark.parametrize("M", [1, 4, 8, 32])
 def test_k6_plain_matches_jax_kernel(M):
-    rng = np.random.default_rng(60 + M)
+    _k6_against_jax(M, 128, 60 + M)
+
+
+@pytest.mark.parametrize("gsize", [32, 64])
+@pytest.mark.parametrize("M", [1, 8, 32])
+def test_k6_plain_matches_jax_kernel_groups(M, gsize):
+    # smaller groups: each group's partial sum takes its own scale
+    _k6_against_jax(M, gsize, 600 + gsize + M)
+
+
+def _k6_against_jax(M, gsize, seed):
+    rng = np.random.default_rng(seed)
     H = 256
-    jw, tw = _tail_weights()
+    jw, tw = _tail_weights(gsize=gsize)
     h = jnp.asarray(rng.standard_normal((M, H)), jnp.bfloat16)
     attn = jnp.asarray(rng.standard_normal((M, H)), jnp.bfloat16)
     gamma = jnp.asarray(1 + 0.1 * rng.standard_normal(H), jnp.bfloat16)
