@@ -26,9 +26,13 @@ codes dot float32 rows, each group's scale on its partial dot.
 `layer_decode_fused` returns None where the TPU package's function does
 (`supports`), and the caller runs the split path: a route, not a
 fallback. Otherwise CUDA tensors launch `csrc/layer_fused.cu` (a
-cooperative kernel; a refused launch raises) and then the row write
-(`kv_write.write_rows`, or `quantize_write_rows` over an int8 cache); CPU
-tensors run `layer_decode_fused_ref` and the row writes' plain versions.
+cooperative kernel of one block an SM on the weight ring it shares with
+K6, `csrc/weight_ring.cuh`; a refused launch raises) and then the row
+write (`kv_write.write_rows`, or `quantize_write_rows` over an int8
+cache); CPU tensors run `layer_decode_fused_ref` and the row writes'
+plain versions. The kernel's float32 scratch (`scratch_floats`) is kept
+per device and grown: zeros when allocated, and every launch leaves its
+grid barrier's and merge counters as it found them.
 """
 
 from __future__ import annotations
@@ -38,18 +42,48 @@ import torch
 from llm_inference_tpu_torch.ops import kvcache
 from llm_inference_tpu_torch.ops.kernels import kv_write
 from llm_inference_tpu_torch.ops.kernels.quant_matmul import (
-    _check_weight, _grouped_dot, small_groups_ok)
+    _aligned, _check_weight, _grouped_dot, small_groups_ok)
 from llm_inference_tpu_torch.ops.quantization import QTensor, quantize_kv
 
 NEG_INF = -1e30
 WEIGHTS = ("wqkv", "wo", "w_gateup", "w_down")
 _D = 128
-# the kernel's attention items take at least this many history slots; the
-# wrapper sizes the item-state scratch for S / _ITEM_SLOTS items a head
-_ITEM_SLOTS = 64
 
 # kernel launches made by layer_kernel (the plain version is not counted)
 launches = 0
+_sms: dict = {}        # device -> SM count
+_scratch: dict = {}    # device -> the kernel's float32 scratch
+
+
+def scratch_floats(H: int, Hq: int, Hkv: int, I: int, sms: int) -> int:
+    """Float32 scratch of K12 on `sms` SMs (one block an SM), as
+    csrc/layer_fused.cu lays it out, each part rounded up to 32 floats:
+    64 header floats (the grid barrier's counter first), the heads' merge
+    counters, the blocks' partial sums of squares [sms, 32], qkv, the
+    attention shares' states [Hkv, sms // Hkv, G, D + 2], attn, x32' and
+    act."""
+    def r(n):
+        return -(-n // 32) * 32
+    max_split = max(1, sms // Hkv)
+    return (64 + r(Hkv) + r(sms * 32) + r((Hq + 2 * Hkv) * _D)
+            + r(Hkv * max_split * (Hq // Hkv) * (_D + 2)) + r(Hq * _D)
+            + r(H) + r(I))
+
+
+def _scratch_buffer(device, H: int, Hq: int, Hkv: int, I: int):
+    """The device's K12 scratch, grown as needed and kept between calls
+    (its counters start at zero and every launch leaves them so; launches
+    on one stream run in order)."""
+    sms = _sms.get(device)
+    if sms is None:
+        sms = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    floats = scratch_floats(H, Hq, Hkv, I, sms)
+    buf = _scratch.get(device)
+    if buf is None or buf.numel() < floats:
+        buf = _scratch[device] = torch.zeros(floats, dtype=torch.float32,
+                                             device=device)
+    return buf
 
 
 def supports(cfg, h_shape, layers, cache) -> bool:
@@ -205,6 +239,9 @@ def layer_kernel(cfg, h, residual, layers, cache, layer: int, positions,
         if bits == 4 and not small_groups_ok(w.group_size, 32):
             raise ValueError(f"K12 needs int4 groups of a multiple of 32 "
                              f"codes, or of 8 or 16, got {w.group_size}")
+        if w.q.data_ptr() % 16:
+            raise ValueError("K12 needs 16-byte aligned codes (the copy "
+                             "engine reads them)")
     if H % 32 or I % 32 or Hq // Hkv > 8:
         raise ValueError(f"K12 needs H and I multiples of 32 and at most 8 "
                          f"query heads a kv head, got H={H} I={I} "
@@ -218,16 +255,15 @@ def layer_kernel(cfg, h, residual, layers, cache, layer: int, positions,
     if any(g.dtype != bf16 for g in gammas):
         raise TypeError(f"K12 takes bf16 norms, got {gammas[0].dtype}")
     dev = h.device
-    G = Hq // Hkv
-    max_split = max(1, S // _ITEM_SLOTS)
-    scratch = torch.empty((Hq + 2 * Hkv) * D + Hkv * max_split * G * (D + 2)
-                          + Hq * D + H + I, dtype=f32, device=dev)
+    scratch = _scratch_buffer(dev, H, Hq, Hkv, I)
     k_new = torch.empty((Hkv, D), dtype=bf16, device=dev)
     v_new = torch.empty((Hkv, D), dtype=bf16, device=dev)
     h2 = torch.empty((H,), dtype=bf16, device=dev)
     down = torch.empty((H,), dtype=bf16, device=dev)
-    hb = h.reshape(H).to(bf16).contiguous()
-    rb = residual.reshape(H).to(bf16).contiguous()
+    # h, res and the FFN norm are read in 16-byte pieces
+    hb = _aligned(h.reshape(H).to(bf16).contiguous())
+    rb = _aligned(residual.reshape(H).to(bf16).contiguous())
+    gf = _aligned(gammas[1].contiguous())
     c = cos.reshape(-1, D)[-1].to(f32).contiguous()
     s = sin.reshape(-1, D)[-1].to(f32).contiguous()
     pos = positions.reshape(-1)[-1:].to(torch.int32).contiguous()
@@ -243,12 +279,12 @@ def layer_kernel(cfg, h, residual, layers, cache, layer: int, positions,
         vs = cache.v_scale.data_ptr() + layer * S * Hkv * 4
     code = _build.lib().layer_fused_launch(
         hb.data_ptr(), rb.data_ptr(), gammas[0].contiguous().data_ptr(),
-        gammas[1].contiguous().data_ptr(), c.data_ptr(), s.data_ptr(),
+        gf.data_ptr(), c.data_ptr(), s.data_ptr(),
         *ptrs(ws[0]), *ptrs(ws[1]), *ptrs(ws[2]), *ptrs(ws[3]),
         cache.k.data_ptr() + layer * layer_bytes,
         cache.v.data_ptr() + layer * layer_bytes, ks, vs, pos.data_ptr(),
         scratch.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        h2.data_ptr(), down.data_ptr(), H, Hq, Hkv, S, I, max_split,
+        h2.data_ptr(), down.data_ptr(), H, Hq, Hkv, S, I, scratch.numel(),
         *(qt.groups for qt in ws), bits, float(cfg.rms_norm_eps),
         float(D ** -0.5), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "layer_fused (K12)")

@@ -862,14 +862,21 @@ def test_paged_scheduler_cuda_matches_cpu(cuda, cache_dtype):
     assert compared >= 12
 
 
-def _mega_layer(g, bits, kv, Hkv, S, pos, gsize=128):
+# (hidden, intermediate, query heads) of _mega_layer's models: the card
+# tests' small model, and LLaMA-2-7B's widths, where the int8 gate-up
+# phase's 84 pairs a block on 132 SMs take two ring batches of at most 48
+_MEGA_WIDTHS = {"small": (1024, 2816, 8), "7b": (4096, 11008, 32)}
+
+
+def _mega_layer(g, bits, kv, Hkv, S, pos, gsize=128, width="small"):
     """A 2-layer model's layer dict (random quantized weights, int4 in
     groups of gsize codes, random bf16 norms), a random cache of one
     sequence and the RoPE rows at pos."""
     from llm_inference_tpu_torch.config import QuantConfig, tiny_llama
     from llm_inference_tpu_torch.models import llama
     from llm_inference_tpu_torch.ops import kvcache
-    cfg = tiny_llama(hidden_size=1024, intermediate_size=2816, num_heads=8,
+    H, I, Hq = _MEGA_WIDTHS[width]
+    cfg = tiny_llama(hidden_size=H, intermediate_size=I, num_heads=Hq,
                      num_kv_heads=Hkv, head_dim=128, vocab_size=256,
                      dtype="bfloat16", max_position_embeddings=4096)
     qcfg = QuantConfig(weights=bits,
@@ -895,33 +902,57 @@ def _mega_layer(g, bits, kv, Hkv, S, pos, gsize=128):
     return cfg, layers, cache, cos[pos][None, None], sin[pos][None, None]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bits,kv,Hkv,S,pos", [
-    ("int8", "bf16", 8, 512, 191), ("int8", "bf16", 2, 1024, 900),
-    ("int4", "int8", 8, 512, 191), ("int4", "int8", 2, 1024, 0),
-    ("int8", "int8", 8, 256, 255), ("int4", "bf16", 4, 512, 64)])
-def test_k12_cuda_matches_plain(cuda, bits, kv, Hkv, S, pos, gsize=128):
+def _mega_inputs(bits, kv, Hkv, S, pos, gsize=128, width="small"):
+    """_mega_layer's model, cache and RoPE rows with random h and residual
+    rows and the position, on the CPU (plain) and on the card (kernel):
+    (cfg, CPU arguments of layer_kernel, card arguments)."""
     from llm_inference_tpu_torch.models import llama
-    from llm_inference_tpu_torch.ops.kernels import layer_fused as t_lf
     g = torch.Generator().manual_seed(pos + S)
     cfg, layers, cache, cos, sin = _mega_layer(g, bits, kv, Hkv, S, pos,
-                                               gsize)
+                                               gsize, width)
     H = cfg.hidden_size
     h = torch.randn((1, 1, H), generator=g).to(BF16)
     res = torch.randn((1, 1, H), generator=g).to(BF16)
     positions = torch.tensor([[pos]], dtype=torch.int32)
-    assert t_lf.supports(cfg, h.shape, layers, cache)
-    want = t_lf.layer_decode_fused_ref(cfg, h, res, layers, cache, 1,
-                                       positions, cos, sin)
-    dev_layers = llama.params_to(layers, cuda)
+    dev = torch.device("cuda")
     dev_cache = dataclasses.replace(cache, **{
-        f: getattr(cache, f).to(cuda) for f in ("k", "v", "k_scale",
-                                                "v_scale")
+        f: getattr(cache, f).to(dev) for f in ("k", "v", "k_scale",
+                                               "v_scale")
         if getattr(cache, f) is not None})
+    host = (h, res, layers, cache, 1, positions, cos, sin)
+    card = (h.to(dev), res.to(dev), llama.params_to(layers, dev), dev_cache,
+            1, positions.to(dev), cos.to(dev), sin.to(dev))
+    return cfg, host, card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,kv,Hkv,S,pos", [
+    ("int8", "bf16", 8, 512, 191), ("int8", "bf16", 2, 1024, 900),
+    ("int4", "int8", 8, 512, 191), ("int4", "int8", 2, 1024, 0),
+    ("int8", "int8", 8, 256, 255), ("int4", "bf16", 4, 512, 64),
+    # G = 8 (one kv head), the kernel's kMaxG
+    ("int4", "int8", 1, 512, 191), ("int8", "bf16", 1, 1024, 700),
+    # the last slot of the cache: every slot but one is history
+    ("int4", "bf16", 4, 512, 511)])
+def test_k12_cuda_matches_plain(cuda, bits, kv, Hkv, S, pos, gsize=128):
+    _k12_case(bits, kv, Hkv, S, pos, gsize, "small")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,kv", [("int8", "bf16"), ("int4", "int8")])
+def test_k12_7b_width_cuda_matches_plain(cuda, bits, kv):
+    # LLaMA-2-7B widths: on 132 SMs the int8 gate-up phase's 84 pairs a
+    # block take two ring batches
+    _k12_case(bits, kv, 32, 512, 191, 128, "7b")
+
+
+def _k12_case(bits, kv, Hkv, S, pos, gsize, width):
+    from llm_inference_tpu_torch.ops.kernels import layer_fused as t_lf
+    cfg, host, card = _mega_inputs(bits, kv, Hkv, S, pos, gsize, width)
+    assert t_lf.supports(cfg, host[0].shape, host[2], host[3])
+    want = t_lf.layer_decode_fused_ref(cfg, *host)
     before = t_lf.launches
-    got = t_lf.layer_kernel(cfg, h.to(cuda), res.to(cuda), dev_layers,
-                            dev_cache, 1, positions.to(cuda), cos.to(cuda),
-                            sin.to(cuda))
+    got = t_lf.layer_kernel(cfg, *card)
     torch.cuda.synchronize()
     assert t_lf.launches == before + 1
     for name, a, b in zip(("h2", "down", "k_new", "v_new"), got, want):
@@ -934,6 +965,35 @@ def test_k12_cuda_matches_plain(cuda, bits, kv, Hkv, S, pos, gsize=128):
         tol = (2.0 ** -7 if name in ("k_new", "v_new") else 4 * 2.0 ** -8
                ) * b.abs().max().item()
         assert (a - b).abs().max().item() <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,kv", [("int8", "bf16"), ("int8", "int8"),
+                                     ("int4", "int8"), ("int4", "bf16")])
+def test_k12_launches_repeat_bit_identical(cuda, bits, kv):
+    # every sum is taken in a fixed order (no float atomics; the merge
+    # takes the shares in share order): two launches on the same inputs
+    # give the same bits
+    from llm_inference_tpu_torch.ops.kernels import layer_fused as t_lf
+    cfg, _, card = _mega_inputs(bits, kv, 8, 1024, 700)
+    first = t_lf.layer_kernel(cfg, *card)
+    second = t_lf.layer_kernel(cfg, *card)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+        assert torch.isfinite(a.float()).all()
+
+
+@pytest.mark.cuda
+def test_k12_failed_launch_raises(cuda):
+    from llm_inference_tpu_torch.ops.kernels import _build
+    # nine query heads a kv head is refused by the C entry point; the
+    # wrapper's check raises
+    code = _build.lib().layer_fused_launch(*([None] * 24), 4096, 9, 1, 512,
+                                           11008, 0, 1, 1, 1, 1, 8, 1e-5,
+                                           0.1, None)
+    with pytest.raises(RuntimeError, match="K12"):
+        _build.check(code, "layer_fused (K12)")
 
 
 @pytest.mark.cuda

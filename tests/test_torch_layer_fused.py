@@ -219,6 +219,32 @@ def test_layer_decode_fused_declines_what_jax_declines():
     assert not layer_fused.supports(cfg, (1, 1, H), per_channel, dense)
 
 
+# (H, Hq, Hkv, I): LLaMA-2-7B, the card tests' model at G = 1 and G = 8,
+# and this file's
+@pytest.mark.parametrize("H,Hq,Hkv,I", [(4096, 32, 32, 11008),
+                                        (1024, 8, 8, 2816),
+                                        (1024, 8, 1, 2816),
+                                        (256, 4, 2, 512)])
+def test_k12_scratch_covers_the_kernel(H, Hq, Hkv, I):
+    """The wrapper's K12 scratch (kept per device, grown): the header and
+    the heads' merge counters, then every part the kernel writes, each
+    part's start a multiple of 32 floats, and room for the shares' states
+    of any split count the kernel picks (at most sms // Hkv a head, at
+    least one)."""
+    D = 128
+    for sms in (1, 78, 132, 144):
+        n = layer_fused.scratch_floats(H, Hq, Hkv, I, sms)
+        max_split = max(1, sms // Hkv)
+        parts = [Hkv, sms * 32, (Hq + 2 * Hkv) * D,
+                 Hkv * max_split * (Hq // Hkv) * (D + 2), Hq * D, H, I]
+        assert n == 64 + sum(-(-p // 32) * 32 for p in parts)
+        assert n >= 64 + sum(parts) and n % 32 == 0
+    # more SMs never shrink it (the buffer is grown, never cut)
+    sizes = [layer_fused.scratch_floats(H, Hq, Hkv, I, s)
+             for s in range(1, 200)]
+    assert sizes == sorted(sizes)
+
+
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 def test_row_writes_match_jax(kv):
     """write_rows: bit for bit the JAX kernel. quantize_write_rows: codes
