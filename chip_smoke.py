@@ -7,7 +7,8 @@ card (nvidia-smi name and power limit), torch/CUDA versions and the build
 time, then runs the port's three serving paths in turn, each through:
   2. its kernels held against their plain PyTorch versions on the card at
      LLaMA-2-7B shapes (decode, and 2048-row prefill chunks over a
-     4096-slot cache; K8 also at 1024 rows, the second chunk), and timed
+     4096-slot cache; K8 also at 1024 rows, the second chunk; K1's MMA
+     branch on every projection at 16, 64 and 128 rows), and timed
      beside the plain version and a library call;
   3. a 2-layer LLaMA-2-7B-width model through `forward` on the CPU (plain
      versions) and on the card (kernels): the logits of a 128-row prefill
@@ -235,14 +236,21 @@ def k1_case(name, qt, M, prologue, gen, reps_layers):
         f"{'norm+res' if prologue else 'plain   '} err {err:.3g} (tol "
         f"{tol:.3g})  kernel {ms:.4f} ms  bound {bnd:.4f} ms ({by})  plain "
         f"{plain:.3f} ms  torch.matmul(bf16) {lib:.4f} ms")
-    return dict(ms=ms, plain=plain, lib=lib, bound=bnd, err=err, by=by)
+    return dict(ms=ms, plain=plain, lib=lib, bound=bnd, err=err, by=by,
+                t_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
+                t_ops=2 * M * K * N / BF16_FLOPS * 1e3)
+
+
+PROJECTIONS = ("wqkv", "wo", "w_gateup", "w_down")
+PREFILL_ROWS = (16, 64, 128)        # K1's MMA branch: 8 < M <= 128
 
 
 def k1_cases(params, gen, names):
     """K1 on each weight the main path sends it, with the main path's
     prologue choice, at M = 1 (one decode step at B = 1) and M = 4 (the
-    batch request), then wqkv at M = 128 (prefill). Returns the M = 1
-    numbers by weight and the largest error."""
+    batch request), then wqkv at M = 128 (prefill), then its MMA branch on
+    each projection at each of PREFILL_ROWS. Returns the M = 1 numbers by
+    weight, the largest error and the MMA branch's numbers by (M, name)."""
     lay = params["layers"]
     prologue = {"wqkv": True, "wo": False, "w_gateup": True,
                 "w_down": False, "lm_head": False}
@@ -258,7 +266,26 @@ def k1_cases(params, gen, names):
     err = max(err, k1_case("wqkv", lay["wqkv"], 1, False, gen, L)["err"])
     for pro in (True, False):
         err = max(err, k1_case("wqkv", lay["wqkv"], 128, pro, gen, L)["err"])
-    return step, err
+    prefill = {}
+    for M in PREFILL_ROWS:
+        for name in PROJECTIONS:
+            r = prefill[(M, name)] = k1_case(name, lay[name], M,
+                                             prologue[name], gen, L)
+            err = max(err, r["err"])
+        t = prefill_chain(prefill, M)
+        say(f"  K1 MMA branch, {L} x ({', '.join(PROJECTIONS)}) at M={M}: "
+            f"kernel {t['ms']:.3f} ms, torch.matmul {t['lib']:.3f} ms, "
+            f"bound {t['bound']:.3f} ms ({t['by']})")
+    return step, err, prefill
+
+
+def prefill_chain(prefill, M):
+    """The MMA branch's numbers for one M-row prefill: L layers of the
+    four projections; the bound is the sum of each call's."""
+    r = {k: L * sum(prefill[(M, n)][k] for n in PROJECTIONS)
+         for k in ("ms", "plain", "lib", "bound", "t_bytes", "t_ops")}
+    r["by"] = "bytes" if r["t_bytes"] >= r["t_ops"] else "operations"
+    return r
 
 
 def k2_cases(gen, int8_cache):
@@ -870,6 +897,7 @@ def counts():
 
 def zero_counts():
     k1.launches = k1.tail_launches = k1.tiled_launches = 0
+    k1.mma_launches = 0
     k1.ffn_launches = 0
     k2.launches = k2.int4_launches = k9.launches = 0
     k3.launches = k3.quant_launches = k3.scale_launches = 0
@@ -932,6 +960,19 @@ def forward_launches(want, weights, cache_dtype, batch, rows, S, ps=0,
             want[c] += L
 
 
+def expected_mma_launches(weights, chunks):
+    """Those of a generate call's K1 launches that take its MMA branch
+    (k1.mma_launches): the projections of its prefill forwards of 8 < M <=
+    128 rows (forward_launches' rule; lm_head and the decode steps of at
+    most 8 rows whose rows fit the GEMV's shared memory run the GEMV)."""
+    n = 0
+    for batch, rows in chunks:
+        M = batch * rows
+        if 8 < M <= K1_MAX_ROWS:
+            n += (1 if weights == "int4" and M <= TAIL_MAX_ROWS else 4) * L
+    return n
+
+
 def expected_launches(weights, cache_dtype, chunks, S, steps, mega=False,
                       tp=False):
     """Kernel launches of one generate call over an S-slot cache: prefill
@@ -984,9 +1025,11 @@ def phase_main_path(params, weights, cache_dtype):
         for (name, lens, new, long), batch in zip(REQUESTS, prompts):
             eng = engines[long]
             before = counts()
+            before_mma = k1.mma_launches
             res = serve(eng, batch, new)
             torch.cuda.synchronize()
             d = {c: n - before[c] for c, n in counts().items()}
+            d_mma = k1.mma_launches - before_mma
             steps = new - 1                  # the first token is prefill's
             check(all(len(r.token_ids) == new for r in res),
                   f"{name}: length")
@@ -996,6 +1039,10 @@ def phase_main_path(params, weights, cache_dtype):
                                      prefill_chunks(eng, lens),
                                      eng.engine_cfg.max_seq_len, steps)
             check(d == want, f"{name}: launches {d} != expected {want}")
+            want_mma = expected_mma_launches(weights,
+                                             prefill_chunks(eng, lens))
+            check(d_mma == want_mma, f"{name}: K1 MMA branch launches "
+                  f"{d_mma} != expected {want_mma}")
             ids = [r.token_ids for r in res]
             check(tokens.setdefault(name, ids) == ids,
                   f"{name}: greedy tokens differ between passes")
@@ -1006,6 +1053,8 @@ def phase_main_path(params, weights, cache_dtype):
                 f"decode {r0.decode_tokens_per_s:.2f} tok/s (all rows), "
                 f"launches {d}; tokens {r0.token_ids[:8]}...")
     total = counts()
+    total["K1 MMA"] = k1.mma_launches
+    check(total["K1 MMA"] > 0, "K1's MMA branch never ran")
     for name, *_ in REQUESTS:
         say(f"  {name}: TTFT min/median/max {spread(ttft[name])} ms, "
             f"decode {spread(tps[name])} tok/s over {REPEATS} passes")
@@ -1070,6 +1119,14 @@ def k1_entry(bits, launches, err, step, names):
                  f"{L} x ({per_layer}) + lm_head, M=1")
 
 
+def k1_mma_entry(bits, launches, err, prefill):
+    return entry(f"K1 quant_matmul MMA branch (int{bits}, 8 < M <= 128)",
+                 "quant_matmul_tiled.cu", "quant_matmul.py:496", launches,
+                 err, prefill_chain(prefill, 128), 1,
+                 f"one 128-row prefill of LLaMA-2-7B int{bits}: {L} x "
+                 f"({', '.join(PROJECTIONS)}), M=128")
+
+
 def k8_entry(bits, launches, err, r):
     return entry(f"K8 quant_matmul tiled prefill GEMM (int{bits})",
                  "quant_matmul_tiled.cu", "quant_matmul.py:379", launches,
@@ -1098,7 +1155,7 @@ def path_int8(gen):
     say("phase 2 (int8 weights, bf16 cache): kernels vs plain versions on "
         "the card, LLaMA-2-7B shapes")
     names = ("wqkv", "wo", "w_gateup", "w_down", "lm_head")
-    step, k1_err = k1_cases(params, gen, names)
+    step, k1_err, k1_pre = k1_cases(params, gen, names)
     k8_r, k8_err = k8_cases(params, gen)
     k9_r, k9_err = k9_cases(gen, "bf16")
     k2_step, k2_long, k2_err = k2_cases(gen, int8_cache=False)
@@ -1107,6 +1164,7 @@ def path_int8(gen):
     total = phase_main_path(params, "int8", BF16)
     return params, [
         k1_entry(8, total["K1"], k1_err, step, names),
+        k1_mma_entry(8, total["K1 MMA"], k1_err, k1_pre),
         k8_entry(8, total["K8"], k8_err, k8_r),
         k9_entry("bf16", total["K9"], k9_err, k9_r),
         dict(entry("K2 decode_attention (bf16 cache)", "decode_attention.cu",
@@ -1126,8 +1184,8 @@ def path_int4(gen):
         "versions on the card, LLaMA-2-7B shapes")
     # decode runs K1 on wqkv and lm_head (the tail is K6); the prefill
     # chain (32 < M <= 128 rows) also runs wo, w_gateup and w_down
-    step, k1_err = k1_cases(params, gen, ("wqkv", "wo", "w_gateup",
-                                          "w_down", "lm_head"))
+    step, k1_err, k1_pre = k1_cases(params, gen, ("wqkv", "wo", "w_gateup",
+                                                  "w_down", "lm_head"))
     k8_r, k8_err = k8_cases(params, gen)
     k9_r, k9_err = k9_cases(gen, "int8")
     k2_step, k2_long, k2_err = k2_cases(gen, int8_cache=True)
@@ -1135,10 +1193,11 @@ def path_int4(gen):
     k6_step, k6_err = k6_cases(params, gen)
     phase_parity(QCFG4, "int8")
     total = phase_main_path(params, "int4", "int8")
-    shared = dict(params=params, step=step, k1_err=k1_err, k8_r=k8_r,
-                  k8_err=k8_err, k6_step=k6_step, k6_err=k6_err)
+    shared = dict(params=params, step=step, k1_err=k1_err, k1_pre=k1_pre,
+                  k8_r=k8_r, k8_err=k8_err, k6_step=k6_step, k6_err=k6_err)
     return [
         k1_entry(4, total["K1"], k1_err, step, ("wqkv", "lm_head")),
+        k1_mma_entry(4, total["K1 MMA"], k1_err, k1_pre),
         k8_entry(4, total["K8"], k8_err, k8_r),
         k9_entry("int8", total["K9"], k9_err, k9_r),
         dict(entry("K2 decode_attention (int8 cache)", "decode_attention.cu",
@@ -1171,6 +1230,8 @@ def path_int4_kv4(gen, shared):
     return [
         k1_entry(4, total["K1"], shared["k1_err"], shared["step"],
                  ("wqkv", "lm_head")),
+        k1_mma_entry(4, total["K1 MMA"], shared["k1_err"],
+                     shared["k1_pre"]),
         k8_entry(4, total["K8"], shared["k8_err"], shared["k8_r"]),
         k9_entry("int4", total["K9"], k9_err, k9_r),
         entry("K5 decode_attention (int4 cache)", "decode_attention.cu",
@@ -2286,7 +2347,7 @@ def small_group_cases(gen):
     """K1 and K8 (g = 8, 16, 32), K6 and K12 (g = 8, 16) against their
     plain versions on a 2-layer LLaMA-2-7B-width int4 model of each group
     size, each timed beside its plain version, bound and library call: K1
-    on wqkv at M = 1 (GEMV) and 32 (MMA), K6 at M = 1, 4 and 8, K8 (its
+    on wqkv at M = 1 (GEMV) and 16, 32 and 128 (MMA branch), K6 at M = 1, 4 and 8, K8 (its
     mma.sync kernel) on w_gateup at 2048 rows, K12 at pos 191 over an int8
     cache."""
     cfg2 = dataclasses.replace(CFG, num_layers=2)
@@ -2296,7 +2357,7 @@ def small_group_cases(gen):
             cfg2, QuantConfig(weights="int4", group_size=gs), seed=SEED + gs,
             device=DEV))
         lay = params["layers"]
-        for M in (1, 32):
+        for M in (1, 32, 16, 128):
             k1_case("wqkv", lay["wqkv"], M, True, gen, 2)
         # K8's mma.sync kernel takes groups of 8, 16 and 32 (its wgmma
         # kernel multiples of 64)

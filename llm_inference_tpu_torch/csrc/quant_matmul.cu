@@ -19,13 +19,17 @@
 //   4 output columns and streams their codes with 16-byte loads, lanes
 //   splitting K (the int8 core, int8_gemv.cuh, also K12's), and reduces
 //   with shuffles at the end. Each weight byte is read once from HBM.
-// - 8 < M <= 128 (prefill): a tiny pre-pass (qmm_rows_prologue, one block
-//   per row) writes the normalised bf16 rows and x_out once; then qmm_mma
-//   computes a 128 x 64 output tile per block, so a weight tile is read
-//   once for all M rows, as the TPU kernel keeps x whole in VMEM
-//   (quant_matmul.py:522). bf16 tensor-core products (wmma 16x16x16, f32
-//   accumulate) on tiles staged in shared memory with 16-byte loads. (A
-//   row-by-row GEMV would read the weights M times.)
+// - 8 < M <= 128 (prefill; and M <= 8 where the GEMV's rows overflow its
+//   shared memory): qmm_mma_launch in quant_matmul_tiled.cu. A pre-pass
+//   (qmm_rows_prologue below, one block per row) writes the normalised
+//   bf16 rows and x_out once; then K8's wgmma machinery (the codes widened
+//   into register A fragments, the rows as B by TMA, a TMA + mbarrier
+//   ring) runs with a row tile fitted to M (16, 32, 64 or 128 rows) over
+//   one persistent block an SM that cuts tiles x k steps evenly (stream-K;
+//   the tiles two blocks share are summed in a fixed order). A weight tile
+//   is read once for all M rows, as the TPU kernel keeps x whole in VMEM
+//   (quant_matmul.py:522). int4 groups of 8, 16 or 32 codes take K8's
+//   mma.sync kernel. (A row-by-row GEMV would read the weights M times.)
 // - M > 128 is the TPU's tiled prefill kernel (K8), quant_matmul_tiled.cu;
 //   it takes its rows from qmm_prologue_launch below.
 //
@@ -45,12 +49,11 @@
 // differ from int8's: the normed rows stay float32 (the TPU branch dots
 // float32 rows) and each group's scale hits its partial dot. M <= 8 runs
 // qmm4_gemv on the shared int4 core (int4_gemv.cuh, also K6's); larger M
-// runs qmm4_mma. At M = 1 the bound is half of int8's: LLaMA-2-7B wqkv
+// runs qmm_mma_launch on bf16 rows. At M = 1 the bound is half of int8's: LLaMA-2-7B wqkv
 // 25.2 MB codes + 1.6 MB scales -> 8.0 us, lm_head 65.5 + 4.1 MB -> 21 us.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "int4_gemv.cuh"
@@ -157,13 +160,7 @@ qmm_gemv(const __nv_bfloat16* __restrict__ x,      // [M, K]
   }
 }
 
-// ----------------------------------------------------------------- MMA
-constexpr int BM = 128, BN = 64, BK = 64;
-constexpr int LDA = BK + 8, LDB = BK + 8, LDC = BN + 4;
-constexpr int kStageBytes = (BM * LDA + BN * LDB) * 2;
-constexpr int kCBytes = BM * LDC * 4;
-constexpr int kMmaSmem = kStageBytes > kCBytes ? kStageBytes : kCBytes;
-
+// ------------------------------------------------------------ prologue
 // Prefill prologue, one block per row: xn = bf16(rms_norm(x + res) * gamma)
 // and x_out = bf16(x + res), so the MMA kernel streams ready bf16 rows.
 __global__ void __launch_bounds__(kThreads)
@@ -172,6 +169,9 @@ qmm_rows_prologue(const __nv_bfloat16* __restrict__ x,
                   const __nv_bfloat16* __restrict__ gamma,
                   __nv_bfloat16* __restrict__ xn,
                   __nv_bfloat16* __restrict__ xout, int K, float eps) {
+  // the GEMM behind it (a dependent launch) may start now: it streams its
+  // codes and waits for this grid's end before it reads xn
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   __shared__ float red[kWarps];
   const size_t row = (size_t)blockIdx.x * K;
   const __nv_bfloat16* rr = res ? res + row : nullptr;
@@ -183,93 +183,6 @@ qmm_rows_prologue(const __nv_bfloat16* __restrict__ x,
     if (rr) v += bf(rr[k]);
     if (gamma) v = v * rstd * bf(gamma[k]);
     xn[row + k] = __float2bfloat16(v);
-  }
-}
-
-// bf16 bits of a small integer code (exact: |code| <= 128 fits bf16)
-__device__ __forceinline__ uint32_t code_bf16_bits(uint32_t word, int byte) {
-  const int code = (int)(word << (24 - 8 * byte)) >> 24;
-  return __float_as_uint((float)code) >> 16;
-}
-
-__global__ void __launch_bounds__(kThreads)
-qmm_mma(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
-        const int8_t* __restrict__ w, const float* __restrict__ scale,
-        __nv_bfloat16* __restrict__ out, int M, int K, int N) {
-  using namespace nvcuda;
-  __shared__ __align__(128) unsigned char smem_raw[kMmaSmem];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Bs = As + BM * LDA;
-  float* Cs = reinterpret_cast<float*>(smem_raw);
-
-  const int warp = threadIdx.x / 32;
-  const int wm = warp & 3, wn = warp >> 2;  // 4 x 2 warps, 32 x 32 each
-  const int n0 = blockIdx.x * BN;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // x tile [BM, BK]: 8 bf16 per 16-byte load, rows >= M zero
-    for (int i = threadIdx.x; i < BM * (BK / 8); i += kThreads) {
-      const int r = i / (BK / 8), c8 = (i % (BK / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (r < M)
-        v = *reinterpret_cast<const uint4*>(a + (size_t)r * K + k0 + c8);
-      *reinterpret_cast<uint4*>(As + r * LDA + c8) = v;
-    }
-    // weight tile [BN, BK]: 16 codes per 16-byte load, widened to bf16
-    for (int i = threadIdx.x; i < BN * (BK / 16); i += kThreads) {
-      const int n = i / (BK / 16), c16 = (i % (BK / 16)) * 16;
-      const int4 wv = __ldg(reinterpret_cast<const int4*>(
-          w + (size_t)(n0 + n) * K + k0 + c16));
-      const uint32_t words[4] = {(uint32_t)wv.x, (uint32_t)wv.y,
-                                 (uint32_t)wv.z, (uint32_t)wv.w};
-      uint32_t packed[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        packed[j] = code_bf16_bits(words[j >> 1], 2 * (j & 1)) |
-                    (code_bf16_bits(words[j >> 1], 2 * (j & 1) + 1) << 16);
-      uint4* dst = reinterpret_cast<uint4*>(Bs + n * LDB + c16);
-      dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-      dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], As + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], Bs + (wn * 32 + j * 16) * LDB + kk, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(c[i][j], af[i], bfr[j], c[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              c[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * BN; i += kThreads) {
-    const int r = i / BN, cc = i % BN;
-    if (r < M)
-      out[(size_t)r * N + n0 + cc] =
-          __float2bfloat16(Cs[r * LDC + cc] * scale[n0 + cc]);
   }
 }
 
@@ -365,149 +278,6 @@ int launch_gemv4(const void* x, const void* res, const void* gamma,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------- int4 MMA
-// 8 < M <= 128: as qmm_mma, with the codes widened to bf16 tiles (exact)
-// and the group scales applied output-side. A wmma accumulator fragment
-// has no documented element -> column map, so each group's product goes
-// through shared memory: the block computes the group's 128 x 64 tile in
-// fresh fragments, stores it over the (then idle) staging tiles, and each
-// thread folds its 32 elements times their column's scale (the group's
-// 64 column scales staged in shared memory once) into its own float32
-// accumulators. A group of 64k codes is staged BK = 64 deep at a time; a
-// group of 8, 16 or 32 codes is staged whole (8 codes a 4-byte word below
-// 32), and a group of 8 is padded with 8 zero columns to the product's
-// depth of 16. The rows enter as bf16 (the prologue pre-pass rounds the
-// normed rows), where the TPU kernel dots float32 rows: the difference is
-// one bf16 rounding of each input, stated with the tolerance in
-// chip_smoke.py.
-constexpr int kAccPerThread = BM * BN / kThreads;   // 32
-
-__global__ void __launch_bounds__(kThreads)
-qmm4_mma(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
-         const uint8_t* __restrict__ w, const float* __restrict__ scale,
-         __nv_bfloat16* __restrict__ out, int M, int K, int N, int G) {
-  using namespace nvcuda;
-  __shared__ __align__(128) unsigned char smem_raw[kMmaSmem];
-  __shared__ float s_group[BN];             // this group's column scales
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Bs = As + BM * LDA;
-  float* Cs = reinterpret_cast<float*>(smem_raw);
-
-  const int warp = threadIdx.x / 32;
-  const int wm = warp & 3, wn = warp >> 2;  // 4 x 2 warps, 32 x 32 each
-  const int n0 = blockIdx.x * BN;
-  const int gsize = K / G;
-  const int bk = gsize < BK ? gsize : BK;   // codes staged per step
-  const int depth = bk < 16 ? 16 : bk;      // staged columns (zero-padded)
-  const size_t row_bytes = (size_t)K / 2;
-  float acc[kAccPerThread];
-#pragma unroll
-  for (int i = 0; i < kAccPerThread; ++i) acc[i] = 0.f;
-
-  for (int g = 0; g < G; ++g) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
-    for (int k0 = g * gsize; k0 < (g + 1) * gsize; k0 += bk) {
-      for (int i = threadIdx.x; i < BM * (depth / 8); i += kThreads) {
-        const int r = i / (depth / 8), c8 = (i % (depth / 8)) * 8;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (r < M && c8 < bk)
-          v = *reinterpret_cast<const uint4*>(a + (size_t)r * K + k0 + c8);
-        *reinterpret_cast<uint4*>(As + r * LDA + c8) = v;
-      }
-      if (bk >= 32) {
-        // weight tile [BN, bk]: 32 codes per 16-byte load, widened to bf16
-        for (int i = threadIdx.x; i < BN * (bk / 32); i += kThreads) {
-          const int n = i / (bk / 32), c32 = (i % (bk / 32)) * 32;
-          const uint4 wv = __ldg(reinterpret_cast<const uint4*>(
-              w + (size_t)(n0 + n) * row_bytes + (k0 + c32) / 2));
-          const uint32_t words[4] = {wv.x, wv.y, wv.z, wv.w};
-          uint4* dst = reinterpret_cast<uint4*>(Bs + n * LDB + c32);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            float cf[8];
-            int4g::unpack8(words[q], cf);
-            uint32_t packed[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j)     // codes are exact in bf16
-              packed[j] = (__float_as_uint(cf[2 * j]) >> 16) |
-                          (__float_as_uint(cf[2 * j + 1]) & 0xffff0000u);
-            dst[q] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-          }
-        }
-      } else {
-        // weight tile [BN, depth]: 8 codes per 4-byte word, zero past bk
-        for (int i = threadIdx.x; i < BN * (depth / 8); i += kThreads) {
-          const int n = i / (depth / 8), c8 = (i % (depth / 8)) * 8;
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (c8 < bk) {
-            float cf[8];
-            int4g::unpack8(__ldg(reinterpret_cast<const uint32_t*>(
-                               w + (size_t)(n0 + n) * row_bytes +
-                               (k0 + c8) / 2)),
-                           cf);
-            uint32_t packed[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              packed[j] = (__float_as_uint(cf[2 * j]) >> 16) |
-                          (__float_as_uint(cf[2 * j + 1]) & 0xffff0000u);
-            v = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-          }
-          *reinterpret_cast<uint4*>(Bs + n * LDB + c8) = v;
-        }
-      }
-      __syncthreads();
-      for (int kk = 0; kk < depth; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> af[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> bfr[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(af[i], As + (wm * 32 + i * 16) * LDA + kk,
-                                 LDA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(bfr[j], Bs + (wn * 32 + j * 16) * LDB + kk,
-                                 LDB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(c[i][j], af[i], bfr[j], c[i][j]);
-      }
-      __syncthreads();
-    }
-    // the group's tile through shared memory, scaled per column
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(
-            Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, c[i][j], LDC,
-            wmma::mem_row_major);
-    if (threadIdx.x < BN)
-      s_group[threadIdx.x] = __ldg(scale + (size_t)(n0 + threadIdx.x) * G + g);
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < kAccPerThread; ++t) {
-      const int e = threadIdx.x + t * kThreads;
-      const int r = e / BN, cc = e % BN;
-      if (r < M) acc[t] = fmaf(Cs[r * LDC + cc], s_group[cc], acc[t]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int t = 0; t < kAccPerThread; ++t) {
-    const int e = threadIdx.x + t * kThreads;
-    const int r = e / BN, cc = e % BN;
-    if (r < M) out[(size_t)r * N + n0 + cc] = __float2bfloat16(acc[t]);
-  }
-}
-
 }  // namespace
 
 // Largest M * K * 2 bytes of activations the GEMV keeps in shared memory.
@@ -515,44 +285,29 @@ qmm4_mma(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
 
 // x/res/out/xout bf16 row-major; gamma bf16 [K] or null (no norm); res and
 // xout may be null; w int8 [N, K] and scale f32 [N] of ONE layer (the
-// caller offsets the stacked pointers); xn a bf16 [M, K] scratch, needed
-// on the MMA path (M > 8, or M * K * 2 > QMM_GEMV_MAX_SMEM) when there is a
-// prologue, and ignored (may be null) on the GEMV path. Requires
-// K % 64 == 0, N % 64 == 0, 1 <= M <= 128.
+// caller offsets the stacked pointers). The GEMV: requires 1 <= M <= 8,
+// M * K * 2 <= QMM_GEMV_MAX_SMEM, K % 64 == 0 and N % 64 == 0; more rows
+// take qmm_mma_launch (quant_matmul_tiled.cu).
 extern "C" int qmm_launch(const void* x, const void* res, const void* gamma,
                           const void* w, const void* scale, void* out,
-                          void* xout, void* xn, int M, int K, int N,
-                          float eps, void* stream) {
-  if (M < 1 || M > BM || K % BK != 0 || N % BN != 0)
+                          void* xout, int M, int K, int N, float eps,
+                          void* stream) {
+  const size_t gemv_smem = (size_t)M * K * sizeof(__nv_bfloat16);
+  if (M < 1 || M > 8 || gemv_smem > QMM_GEMV_MAX_SMEM || K % 64 != 0 ||
+      N % 64 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t gemv_smem = (size_t)M * K * sizeof(__nv_bfloat16);
-  if (M <= 8 && gemv_smem <= QMM_GEMV_MAX_SMEM) {
-    if (M == 1)
-      return launch_gemv<1>(x, res, gamma, w, scale, out, xout, M, K, N,
-                            eps, st);
-    if (M == 2)
-      return launch_gemv<2>(x, res, gamma, w, scale, out, xout, M, K, N,
-                            eps, st);
-    if (M <= 4)
-      return launch_gemv<4>(x, res, gamma, w, scale, out, xout, M, K, N,
-                            eps, st);
-    return launch_gemv<8>(x, res, gamma, w, scale, out, xout, M, K, N, eps,
+  if (M == 1)
+    return launch_gemv<1>(x, res, gamma, w, scale, out, xout, M, K, N, eps,
                           st);
-  }
-  const void* a = x;
-  if (gamma || res || xout) {
-    if (!xn) return (int)cudaErrorInvalidValue;
-    qmm_rows_prologue<<<M, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)res,
-        (const __nv_bfloat16*)gamma, (__nv_bfloat16*)xn,
-        (__nv_bfloat16*)xout, K, eps);
-    a = xn;
-  }
-  qmm_mma<<<N / BN, kThreads, 0, st>>>(
-      (const __nv_bfloat16*)a, (const int8_t*)w, (const float*)scale,
-      (__nv_bfloat16*)out, M, K, N);
-  return (int)cudaGetLastError();
+  if (M == 2)
+    return launch_gemv<2>(x, res, gamma, w, scale, out, xout, M, K, N, eps,
+                          st);
+  if (M <= 4)
+    return launch_gemv<4>(x, res, gamma, w, scale, out, xout, M, K, N, eps,
+                          st);
+  return launch_gemv<8>(x, res, gamma, w, scale, out, xout, M, K, N, eps,
+                        st);
 }
 
 // The prologue alone, for K8 (quant_matmul_tiled.cu), whose GEMM takes
@@ -570,46 +325,32 @@ extern "C" int qmm_prologue_launch(const void* x, const void* res,
   return (int)cudaGetLastError();
 }
 
-// The int4 branch: w packed int4 [N, K/2] and scale f32 [N, G] of ONE
-// layer (ops/quantization.py); the other arguments as qmm_launch. The
-// GEMV path (M <= 8, M * K * 4 <= QMM_GEMV_MAX_SMEM) keeps float32 rows.
-// Requires K % 64 == 0, N % 64 == 0, groups of K / G codes a multiple of
-// 64 or 8, 16 or 32, and 1 <= M <= 128.
+// The int4 GEMV: w packed int4 [N, K/2] and scale f32 [N, G] of ONE
+// layer (ops/quantization.py); the other arguments as qmm_launch. It keeps
+// float32 rows: requires 1 <= M <= 8, M * K * 4 <= QMM_GEMV_MAX_SMEM,
+// K % 64 == 0, N % 64 == 0 and groups of K / G codes a multiple of 64 or
+// 8, 16 or 32.
 extern "C" int qmm4_launch(const void* x, const void* res, const void* gamma,
                            const void* w, const void* scale, void* out,
-                           void* xout, void* xn, int M, int K, int N, int G,
-                           float eps, void* stream) {
-  if (M < 1 || M > BM || K % BK != 0 || N % BN != 0 || G < 1 || K % G != 0)
+                           void* xout, int M, int K, int N, int G, float eps,
+                           void* stream) {
+  const size_t gemv_smem = (size_t)M * K * sizeof(float);
+  if (M < 1 || M > 8 || gemv_smem > QMM_GEMV_MAX_SMEM || K % 64 != 0 ||
+      N % 64 != 0 || G < 1 || K % G != 0)
     return (int)cudaErrorInvalidValue;
   const int gsize = K / G;
-  if (gsize % BK != 0 && gsize != 8 && gsize != 16 && gsize != 32)
+  if (gsize % 64 != 0 && gsize != 8 && gsize != 16 && gsize != 32)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t gemv_smem = (size_t)M * K * sizeof(float);
-  if (M <= 8 && gemv_smem <= QMM_GEMV_MAX_SMEM) {
-    if (M == 1)
-      return launch_gemv4<1>(x, res, gamma, w, scale, out, xout, M, K, N, G,
-                             eps, st);
-    if (M == 2)
-      return launch_gemv4<2>(x, res, gamma, w, scale, out, xout, M, K, N, G,
-                             eps, st);
-    if (M <= 4)
-      return launch_gemv4<4>(x, res, gamma, w, scale, out, xout, M, K, N, G,
-                             eps, st);
-    return launch_gemv4<8>(x, res, gamma, w, scale, out, xout, M, K, N, G,
+  if (M == 1)
+    return launch_gemv4<1>(x, res, gamma, w, scale, out, xout, M, K, N, G,
                            eps, st);
-  }
-  const void* a = x;
-  if (gamma || res || xout) {
-    if (!xn) return (int)cudaErrorInvalidValue;
-    qmm_rows_prologue<<<M, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)res,
-        (const __nv_bfloat16*)gamma, (__nv_bfloat16*)xn,
-        (__nv_bfloat16*)xout, K, eps);
-    a = xn;
-  }
-  qmm4_mma<<<N / BN, kThreads, 0, st>>>(
-      (const __nv_bfloat16*)a, (const uint8_t*)w, (const float*)scale,
-      (__nv_bfloat16*)out, M, K, N, G);
-  return (int)cudaGetLastError();
+  if (M == 2)
+    return launch_gemv4<2>(x, res, gamma, w, scale, out, xout, M, K, N, G,
+                           eps, st);
+  if (M <= 4)
+    return launch_gemv4<4>(x, res, gamma, w, scale, out, xout, M, K, N, G,
+                           eps, st);
+  return launch_gemv4<8>(x, res, gamma, w, scale, out, xout, M, K, N, G,
+                         eps, st);
 }

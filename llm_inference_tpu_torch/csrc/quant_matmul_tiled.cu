@@ -1,5 +1,6 @@
 // K8: the prefill GEMM for M > 128 rows, int8 per-channel or int4 grouped
-// weight-only quantized weights.
+// weight-only quantized weights; its kernels also carry K1's MMA branch
+// (8 < M <= 128, below).
 //
 // Replaces llm_inference_tpu/ops/pallas/quant_matmul.py:_quant_matmul_tiled
 // (_tiled_kernel). Same function and rounding points: the rows enter as
@@ -71,6 +72,47 @@
 //    m16n8k8 half. Rows past M are zero-filled and not stored.
 // N must be a multiple of 128 and K of 64 on both routes.
 //
+// K1's MMA branch (1 <= M <= 128 rows that its GEMV does not take,
+// quant_matmul.cu; qmm_mma_launch below) runs the same two kernels, so it
+// keeps their rounding points, with these changes to route 1
+// (qmm_wgmma_sk):
+// - a row tile fitted to M: the x rows are wgmma's N dimension, so the
+//   tile is the smallest of 16, 32, 64 and 128 rows that holds M (rows
+//   past M arrive as TMA zero fill and are not stored);
+// - a grid that fills the card: at M <= 128 the 32-172 weight tiles of
+//   LLaMA-2-7B's projections leave SMs idle or start a second wave, so
+//   one persistent block an SM takes an even share of tiles x units (a
+//   slot of two k steps; for int4 a group), stream-K. A tile covered by
+//   one block is stored at once; the partials of a tile that blocks share
+//   go to the device's scratch, and the tile's last block to finish (an
+//   acq_rel counter, as K2's merge) adds them in block order: the same
+//   bits every launch;
+// - a ring slot holds two k steps, so a TMA row of codes is 128 (int8)
+//   or 64 (int4) contiguous bytes and the second step widens under the
+//   first's products; four slots (a deeper ring streamed slower at small
+//   M); the codes read once (L2 evict-first), the rows by every tile;
+// - a dependent launch: the blocks start, and stream their first codes,
+//   while the prologue pre-pass ahead of them (which lets them) runs, and
+//   wait for its end before they read the rows.
+// Groups of 8, 16 or 32 codes take route 2 with its columns past N (a
+// multiple of 64) neither read nor stored. Bound at M = 128 (LLaMA-2-7B,
+// int8 codes): about 2 ms for a 128-row prefill's 32 x 4 projections,
+// bytes and operations alike (the codes 6.5 GB at 3.35 TB/s against
+// 1.66 TFLOP at 989 TFLOP/s); int4 halves the bytes and is bound by the
+// operations. Measured against this design, one change at a time
+// (PERF.md §6 PR 13): a ring of 6 to 16 slots, no L2 hint, four
+// accumulator chains at narrow tiles, the int4 scales loaded a unit
+// ahead, a fix-up whose last block writes no partial, no dependent
+// launch; none was faster by more than 7 % anywhere.
+// Why two wgmma kernels and not one: K8 run as a shape of qmm_wgmma_sk
+// (a row tile of 256 / 176 rows, one k step a slot, one block a tile,
+// no fix-up compiled, not a dependent launch) was timed against
+// qmm_wgmma in turns at 2048 and 1024 rows (PERF.md §6 PR 13, calls
+// 12-14): int4 0.92-1.01 of it, but int8 1.03-1.07, more than the 3 %
+// K8 may lose; the codes' issue order, where int8's scales load, the
+// dependent launch, the fix-up and the A-fragment fence each moved it
+// by under 1 %.
+//
 // The tensor maps of route 1 are encoded on the host for every call with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
 // library needs no link against libcuda.
@@ -102,16 +144,18 @@ struct Wg {
   static constexpr int SMEM = STAGES * (XB + WB) + 1024;   // + alignment
 };
 
-// Widen one k step of codes into the A fragments a[ks][0..3] of the four
-// 16-deep products: rows r and r + 8 of the slot's code tile.
-__device__ __forceinline__ void widen8(uint32_t wtile, int r, int tg,
+// Widen k step j of a code tile whose rows are RB bytes into the A
+// fragments a[ks][0..3] of the four 16-deep products: rows r and r + 8 of
+// the tile. A row holds RB / 64 int8 k steps or RB / 32 int4 ones, stored
+// as TMA writes it with the RB-byte swizzle: the 16-byte chunk c of row r
+// sits at chunk c ^ ((r RB / 128) mod (RB / 16)), the same for r + 8.
+template <int RB>
+__device__ __forceinline__ void widen8(uint32_t wtile, int r, int tg, int j,
                                        uint32_t (&a)[4][4]) {
-  // 64-byte swizzle: chunk c of row r sits at chunk c ^ ((r >> 1) & 3);
-  // rows r and r + 8 share it
-  const int sw = (r >> 1) & 3;
+  const int sw = ((r * RB) >> 7) & (RB / 16 - 1);
   const uint32_t sel = 0x7440u | (2u * (tg & 1));
-  const uint32_t row[2] = {wtile + r * 64u + 4u * (tg >> 1),
-                           wtile + (r + 8) * 64u + 4u * (tg >> 1)};
+  const uint32_t row[2] = {wtile + r * RB + 4u * (tg >> 1),
+                           wtile + (r + 8) * RB + 4u * (tg >> 1)};
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
@@ -120,7 +164,8 @@ __device__ __forceinline__ void widen8(uint32_t wtile, int r, int tg,
       for (int i = 0; i < 2; ++i) {
         uint32_t w;
         asm volatile("ld.shared.u32 %0, [%1];\n"
-                     : "=r"(w) : "r"(row[i] + 16u * (ks ^ sw) + 8u * h));
+                     : "=r"(w)
+                     : "r"(row[i] + 16u * ((4 * j + ks) ^ sw) + 8u * h));
         w ^= 0x80808080u;                       // code + 128 in each byte
         const float lo = __uint_as_float(__byte_perm(w, 0x4B000000u, sel)) -
                          8388736.0f;
@@ -131,21 +176,21 @@ __device__ __forceinline__ void widen8(uint32_t wtile, int r, int tg,
       }
 }
 
-__device__ __forceinline__ void widen4(uint32_t wtile, int r, int tg,
+template <int RB>
+__device__ __forceinline__ void widen4(uint32_t wtile, int r, int tg, int j,
                                        uint32_t (&a)[4][4]) {
-  // 32-byte swizzle: chunk c of row r sits at chunk c ^ ((r >> 2) & 1)
-  const int sw = (r >> 2) & 1;
+  const int sw = ((r * RB) >> 7) & (RB / 16 - 1);
   const __nv_bfloat162 k136 = __floats2bfloat162_rn(136.f, 136.f);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const uint32_t base = wtile + (r + 8 * i) * 32u;
+    const uint32_t base = wtile + (r + 8 * i) * RB;
     uint32_t w[8];
 #pragma unroll
     for (int c = 0; c < 2; ++c)
       asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
                    : "=r"(w[4 * c]), "=r"(w[4 * c + 1]), "=r"(w[4 * c + 2]),
                      "=r"(w[4 * c + 3])
-                   : "r"(base + 16u * (c ^ sw)));
+                   : "r"(base + 16u * ((2 * j + c) ^ sw)));
     // word 2 ks + h holds, in its byte tg, codes 16 ks + 8 h + 2 tg (low
     // nibble) and + 1 (high nibble)
 #pragma unroll
@@ -231,9 +276,9 @@ qmm_wgmma(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
       sm90::mbar_wait(&full[s], (kt / C::STAGES) & 1);
       uint32_t a[4][4];
       if constexpr (INT4)
-        widen4(ws0 + s * C::WB, r, tg, a);
+        widen4<32>(ws0 + s * C::WB, r, tg, 0, a);
       else
-        widen8(ws0 + s * C::WB, r, tg, a);
+        widen8<64>(ws0 + s * C::WB, r, tg, 0, a);
       const uint32_t xs = xs0 + s * C::XB;
       sm90::wgmma_fence();
 #pragma unroll
@@ -288,14 +333,315 @@ qmm_wgmma(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
   }
 }
 
+// ------------------------- route 1 for K1's 1 <= M <= 128 rows: stream-K
+
+// A slot holds two 64-deep k steps: the x tiles [BM][64] of both (128-byte
+// swizzle each) and the codes [128][2 steps] (int8 128-byte rows, int4
+// 64-byte rows), so each TMA row of codes is 128 or 64 contiguous bytes.
+template <bool INT4, int BM>
+struct Sk {
+  static constexpr int XB1 = BM * kWgTK * 2;       // one step's x tile
+  static constexpr int XB = 2 * XB1;
+  static constexpr int WROW = INT4 ? kWgTK : 2 * kWgTK;   // bytes a row
+  static constexpr int WB = kWgTN * WROW;          // code tile bytes
+  // four slots (or as many as fit): a deeper ring streamed the codes
+  // slower at M <= 64 (0.0498 against 0.0397 ms at 11 slots on int8
+  // w_gateup, M = 16, PERF.md), and no faster at 128
+  static constexpr int FIT = (232448 - 2048) / (XB + WB);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int SMEM = STAGES * (XB + WB) + 1024;   // + alignment
+};
+
+// The 256 consumer threads meet (named barrier 1; the producer warpgroup
+// does not take part).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// atomicAdd with release and acquire semantics at device scope (as K2's
+// merge, decode_tile.cuh)
+__device__ __forceinline__ int add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+// Keep the A fragments of a slot's two k steps in their registers until
+// here: a wgmma reads them after it is issued, so the second step's
+// widening must not take the first's registers before the wait.
+__device__ __forceinline__ void fence_a(uint32_t (&a)[2][4][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        asm volatile("" : "+r"(a[h][ks][i]) :: "memory");
+}
+
+// acc += a completed int4 group's sums times its scales (rows r, r + 8)
+template <int ND>
+__device__ __forceinline__ void fold(float (&acc)[ND], float (&grp)[ND],
+                                     float gs0, float gs1) {
+#pragma unroll
+  for (int i = 0; i < ND; ++i)
+    acc[i] = fmaf(grp[i], (i & 2) ? gs1 : gs0, acc[i]);
+  sm90::fence_regs(acc);                        // done before grp is reused
+}
+
+// Block b of a stream-K launch of P blocks over `total` units owns the
+// units [sk_first(b), sk_first(b + 1)); sk_block(u) is the owner of u.
+__device__ __forceinline__ int sk_first(int b, int P, int total) {
+  return (int)((long long)b * total / P);
+}
+
+__device__ __forceinline__ int sk_block(int u, int P, int total) {
+  return (int)(((long long)(u + 1) * P - 1) / total);
+}
+
+// The work is tiles x units: a tile is 128 weight rows (output columns),
+// a unit `spu` slots of two k steps (int8: one slot; int4: the slots of
+// one group, or of two groups of an odd number of steps), the k steps
+// past K zero-filled by TMA. Block b takes the units [b total / P,
+// (b + 1) total / P) in tile-major order through one TMA ring, as many as
+// every other block to within one. A tile it covers whole is stored at
+// once; a tile it shares writes its float32 partial (int8 unscaled, int4
+// with its groups' scales) to the block's slot in `part` (slot 2b for its
+// first tile, 2b + 1 for its last), and the tile's last block to finish
+// (an acq_rel count in done[tile], zero between launches and left so)
+// adds the partials in block order: the same bits every launch.
+template <bool INT4, int BM, bool ODD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+qmm_wgmma_sk(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
+             const __grid_constant__ CUtensorMap wmap,   // codes [N][K'] u8
+             const float* __restrict__ scale,            // [N] or [N, G]
+             __nv_bfloat16* __restrict__ out,            // [M, N]
+             float* __restrict__ part,                   // [2 P][BM 128]
+             int* __restrict__ done,                     // [tiles]
+             int M, int N, int G, int spg, int units, int spu, int total) {
+  using C = Sk<INT4, BM>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[C::STAGES], empty[C::STAGES];
+  __shared__ int s_last;
+  const uint32_t xs0 = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t ws0 = xs0 + C::STAGES * C::XB;
+  const int P = gridDim.x, b = blockIdx.x;
+  const int lo = sk_first(b, P, total), hi = sk_first(b + 1, P, total);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < C::STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2 * 128);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread issues every copy; the codes are read
+    // once (evict first), the rows by every tile (kept in L2)
+    sm90::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      const uint64_t policy = sm90::policy_evict_first();
+      sm90::prefetch_tensormap(&wmap);
+      sm90::prefetch_tensormap(&xmap);
+      // the codes of the first slots go out before the rows: they are
+      // weights, the rows the output of the kernel ahead on the stream,
+      // which may still run (a dependent launch) until
+      // grid_dependency_wait returns
+      int cnt = 0;
+      for (int u = lo; u < hi && cnt < C::STAGES; ++u) {
+        const int t = u / units;
+        const int q0 = (u - t * units) * spu;      // the unit's first slot
+        for (int j = 0; j < spu && cnt < C::STAGES; ++j, ++cnt) {
+          sm90::mbar_expect_tx(&full[cnt], C::XB + C::WB);
+          sm90::tma_load_2d_hint(ws0 + cnt * C::WB, &wmap, &full[cnt],
+                                 (q0 + j) * C::WROW, t * kWgTN, policy);
+        }
+      }
+      const int early = cnt;
+      sm90::grid_dependency_wait();
+      cnt = 0;
+      for (int u = lo; u < hi; ++u) {
+        const int t = u / units;
+        const int q0 = (u - t * units) * spu;
+        for (int j = 0; j < spu; ++j, ++cnt) {
+          const int s = cnt % C::STAGES;
+          const int k0 = 2 * (q0 + j) * kWgTK;
+          if (cnt >= early) {
+            sm90::mbar_wait(&empty[s], ((cnt / C::STAGES) & 1) ^ 1);
+            sm90::mbar_expect_tx(&full[s], C::XB + C::WB);
+            sm90::tma_load_2d_hint(ws0 + s * C::WB, &wmap, &full[s],
+                                   (q0 + j) * C::WROW, t * kWgTN, policy);
+          }
+          sm90::tma_load_2d(xs0 + s * C::XB, &xmap, &full[s], k0, 0);
+          sm90::tma_load_2d(xs0 + s * C::XB + C::XB1, &xmap, &full[s],
+                            k0 + kWgTK, 0);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup c owns weight rows 64c..64c+63 of a tile
+    sm90::setmaxnreg_inc<232>();
+    const int ct = threadIdx.x - 128;
+    const int c = ct / 128;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int gr = lane >> 2, tg = lane & 3;
+    const int r = 64 * c + 16 * warp + gr;      // rows r, r + 8 of the tile
+    constexpr int ND = BM / 2;                  // accumulators a thread
+    float acc[ND];
+    float grp[INT4 ? ND : 1];
+    // The scales come from valid addresses for the rows past N and the
+    // steps past K (whose sums are not stored, or are zero), so no branch
+    // that differs between threads sits among the products (ptxas then
+    // serialises the wgmmas, C7520): a tile's row scales (int8) as it
+    // starts, a group's (int4) as the group starts.
+    float gs0 = 0.f, gs1 = 0.f;
+    int cnt = 0;
+    for (int u = lo; u < hi;) {
+      const int t = u / units, n0 = t * kWgTN;
+      const int ufirst = u;
+      const int uend = min(hi, (t + 1) * units);
+      // this warpgroup's 64 weight rows exist (N is a multiple of 64)
+      const bool rows_in = n0 + 64 * c < N;
+      const size_t row = rows_in ? (size_t)n0 + r : 0;
+      float s0 = 1.f, s1 = 1.f;
+      if constexpr (!INT4) {
+        s0 = __ldg(scale + row);
+        s1 = __ldg(scale + row + 8);
+      }
+#pragma unroll
+      for (int i = 0; i < ND; ++i) acc[i] = 0.f;
+      for (; u < uend; ++u) {
+        const int q0 = (u - t * units) * spu;
+        for (int j = 0; j < spu; ++j, ++cnt) {
+          const int s = cnt % C::STAGES;
+          const uint32_t xs = xs0 + s * C::XB, ws = ws0 + s * C::WB;
+          sm90::mbar_wait(&full[s], (cnt / C::STAGES) & 1);
+          uint32_t a[2][4][4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {         // the slot's two k steps
+            const int kt = 2 * (q0 + j) + h;
+            // a group starts at the slot's first step unless a group is an
+            // odd number of steps (ODD)
+            const bool first = INT4 && (ODD || h == 0) && kt % spg == 0;
+            if (first) {
+              const int g = min(kt / spg, G - 1);
+              gs0 = __ldg(scale + row * G + g);
+              gs1 = __ldg(scale + (row + 8) * G + g);
+            }
+            if constexpr (INT4)
+              widen4<C::WROW>(ws, r, tg, h, a[h]);
+            else
+              widen8<C::WROW>(ws, r, tg, h, a[h]);
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks) {
+              const uint64_t desc =
+                  sm90::desc_k128(xs + h * C::XB1 + 32u * ks);
+              if constexpr (INT4)             // a group's first product
+                sm90::wgmma_rs(grp, a[h][ks], desc,    // overwrites grp
+                               (first && ks == 0) ? 0 : 1);
+              else
+                sm90::wgmma_rs(acc, a[h][ks], desc, 1);
+            }
+            if constexpr (ODD) {                // a group may end here
+              sm90::wgmma_commit();
+              sm90::wgmma_wait<0>();
+              sm90::fence_regs(grp);
+              if ((kt + 1) % spg == 0) fold(acc, grp, gs0, gs1);
+            }
+          }
+          if constexpr (!ODD) {
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+          }
+          fence_a(a);
+          if constexpr (INT4) {
+            sm90::fence_regs(grp);
+            // groups of an even number of steps end with a slot
+            if (!ODD && (2 * (q0 + j) + 2) % spg == 0)
+              fold(acc, grp, gs0, gs1);
+          } else {
+            sm90::fence_regs(acc);
+          }
+          sm90::mbar_arrive(&empty[s]);
+        }
+      }
+
+      if (ufirst != t * units || uend != (t + 1) * units) {
+        // a shared tile: this block's partial to its slot; the tile's last
+        // block adds the partials of its blocks in block order
+        float4* mine = reinterpret_cast<float4*>(
+            part + (size_t)(2 * b + (ufirst == lo ? 0 : 1)) * (BM * kWgTN));
+#pragma unroll
+        for (int q = 0; q < ND / 4; ++q)
+          __stcg(mine + q * 256 + ct, make_float4(acc[4 * q], acc[4 * q + 1],
+                                                  acc[4 * q + 2],
+                                                  acc[4 * q + 3]));
+        const int b_lo = sk_block(t * units, P, total);
+        const int b_hi = sk_block((t + 1) * units - 1, P, total);
+        consumer_sync();                        // the partial is written;
+        if (ct == 0)                            // released to the tile's
+          s_last = add_acq_rel(done + t, 1) == b_hi - b_lo;   // other
+        consumer_sync();                        // blocks, theirs acquired
+        if (!s_last) continue;
+#pragma unroll
+        for (int i = 0; i < ND; ++i) acc[i] = -0.f;
+        for (int bb = b_lo; bb <= b_hi; ++bb) {
+          const int slot =
+              2 * bb + (sk_first(bb, P, total) / units == t ? 0 : 1);
+          const float4* p = reinterpret_cast<const float4*>(
+                                part + (size_t)slot * (BM * kWgTN)) + ct;
+          float4 v[ND / 4];                     // all loads in flight
+#pragma unroll
+          for (int q = 0; q < ND / 4; ++q) v[q] = __ldcg(p + q * 256);
+#pragma unroll
+          for (int q = 0; q < ND / 4; ++q) {
+            acc[4 * q] += v[q].x;
+            acc[4 * q + 1] += v[q].y;
+            acc[4 * q + 2] += v[q].z;
+            acc[4 * q + 3] += v[q].w;
+          }
+        }
+        if (ct == 0) done[t] = 0;               // ready for the next launch
+      }
+
+      // the tile's output, as qmm_wgmma's epilogue, for rows below M and
+      // weight rows below N
+      if (!rows_in) continue;
+      const int odd = gr & 1;
+#pragma unroll
+      for (int jj = 0; jj < BM / 8; ++jj) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float sh = h ? s1 : s0;
+          const float v0 = acc[4 * jj + 2 * h] * sh;
+          const float v1 = acc[4 * jj + 2 * h + 1] * sh;
+          const float got = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
+          const int mm = 8 * jj + 2 * tg + odd;
+          const int nn = n0 + r + 8 * h - odd;
+          if (mm < M)
+            *reinterpret_cast<uint32_t*>(out + (size_t)mm * N + nn) =
+                odd ? mma::pack_bf16(got, v1) : mma::pack_bf16(v0, got);
+        }
+      }
+    }
+  }
+}
+
 // ------------------------------------------ route 2: mma.sync, int4 only
 
 constexpr int TM = 128, TN = 128, TK = 32;
 constexpr int kThreads = 256;       // 8 warps: 2 along M x 4 along N
 constexpr int LDS = TK + 8;         // bf16 per shared row (80 bytes)
 
-// SUB: 0 for groups of 32 codes, else the group size (16 or 8).
-template <int SUB>
+// SUB: 0 for groups of 32 codes, else the group size (16 or 8). EDGE: N
+// is a multiple of 64 only, and the last tile's columns past N are
+// neither read nor stored (K1's branch; K8 takes N a multiple of 128).
+template <int SUB, bool EDGE>
 __global__ void __launch_bounds__(kThreads, 1)
 qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
           const uint8_t* __restrict__ w,         // this layer's codes
@@ -335,8 +681,10 @@ qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
     }
   };
   uint2 wraw;                                 // 16 codes
+  const bool col_in = !EDGE || n0 + bcol < N;
   auto load_w = [&](int kt) {
-    wraw = __ldg(reinterpret_cast<const uint2*>(wsrc + kt * 16));
+    wraw = col_in ? __ldg(reinterpret_cast<const uint2*>(wsrc + kt * 16))
+                  : make_uint2(0u, 0u);
   };
   auto store_w = [&](int buf) {              // 16 codes → 16 exact bf16
     uint32_t p[8];
@@ -360,6 +708,7 @@ qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
       const int col = n0 + wn + ni * 8 + tg * 2;
+      if (EDGE && col >= N) continue;
       const float s0 = __ldg(scale + (size_t)col * G + g);
       const float s1 = __ldg(scale + (size_t)(col + 1) * G + g);
 #pragma unroll
@@ -435,6 +784,7 @@ qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
     const int col = n0 + wn + ni * 8 + tg * 2;
+    if (EDGE && col >= N) continue;
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi) {
       const int row = m0 + wm + mi * 16 + gr;
@@ -502,6 +852,102 @@ int launch_wgmma(const void* a, const void* w, const void* scale, void* out,
   return (int)cudaGetLastError();
 }
 
+template <bool INT4, int BM, bool ODD>
+int launch_sk(const void* a, const void* w, const void* scale, void* out,
+              void* part, void* done, int M, int K, int N, int G, int grid,
+              int spg, int units, int spu, int total, cudaStream_t st) {
+  using C = Sk<INT4, BM>;
+  auto kernel = qmm_wgmma_sk<INT4, BM, ODD>;
+  CUtensorMap xmap, wmap;
+  if (!encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, M, K, BM,
+              kWgTK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, N,
+              INT4 ? K / 2 : K, kWgTN, C::WROW,
+              INT4 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  // the shared memory limit is set once a device (bit d of `set`)
+  static unsigned set = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 32 || !(set & (1u << dev))) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 32) set |= 1u << dev;
+  }
+  // a dependent launch: the blocks start, and stream their first codes,
+  // while the kernel ahead (the prologue pre-pass, which lets them) ends
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, xmap, wmap,
+                         (const float*)scale, (__nv_bfloat16*)out,
+                         (float*)part, (int*)done, M, N, G, spg, units, spu,
+                         total);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+template <bool INT4, bool ODD>
+int launch_sk_rows(const void* a, const void* w, const void* scale,
+                   void* out, void* part, void* done, int M, int K, int N,
+                   int G, int bm, int grid, int spg, int units, int spu,
+                   int total, cudaStream_t st) {
+  switch (bm) {
+    case 16:
+      return launch_sk<INT4, 16, ODD>(a, w, scale, out, part, done, M, K, N,
+                                      G, grid, spg, units, spu, total, st);
+    case 32:
+      return launch_sk<INT4, 32, ODD>(a, w, scale, out, part, done, M, K, N,
+                                      G, grid, spg, units, spu, total, st);
+    case 64:
+      return launch_sk<INT4, 64, ODD>(a, w, scale, out, part, done, M, K, N,
+                                      G, grid, spg, units, spu, total, st);
+    case 128:
+      return launch_sk<INT4, 128, ODD>(a, w, scale, out, part, done, M, K,
+                                       N, G, grid, spg, units, spu, total,
+                                       st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool EDGE>
+int launch_tiled(const void* a, const void* w, const void* scale, void* out,
+                 int M, int K, int N, int G, cudaStream_t st) {
+  dim3 grid((M + TM - 1) / TM, (N + TN - 1) / TN);
+  const __nv_bfloat16* ap = (const __nv_bfloat16*)a;
+  const uint8_t* wp = (const uint8_t*)w;
+  const float* sp = (const float*)scale;
+  __nv_bfloat16* op = (__nv_bfloat16*)out;
+  const int gsize = K / G;
+  if (gsize == 8)
+    qmm_tiled<8, EDGE><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N,
+                                                  G);
+  else if (gsize == 16)
+    qmm_tiled<16, EDGE><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N,
+                                                   G);
+  else
+    qmm_tiled<0, EDGE><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N,
+                                                  G);
+  return (int)cudaGetLastError();
+}
+
+// qmm_tiled for groups of 8, 16 or 32 codes; N a multiple of 64
+int launch_small_groups(const void* a, const void* w, const void* scale,
+                        void* out, int M, int K, int N, int G,
+                        cudaStream_t st) {
+  return N % TN == 0
+             ? launch_tiled<false>(a, w, scale, out, M, K, N, G, st)
+             : launch_tiled<true>(a, w, scale, out, M, K, N, G, st);
+}
+
 }  // namespace
 
 // Which kernel qmm_tiled_launch runs for a layer's shape: 1 the wgmma
@@ -530,17 +976,74 @@ extern "C" int qmm_tiled_launch(const void* a, const void* w,
   if (route == 1)
     return bits == 8 ? launch_wgmma<false>(a, w, scale, out, M, K, N, G, st)
                      : launch_wgmma<true>(a, w, scale, out, M, K, N, G, st);
-  dim3 grid((M + TM - 1) / TM, N / TN);
-  const __nv_bfloat16* ap = (const __nv_bfloat16*)a;
-  const uint8_t* wp = (const uint8_t*)w;
-  const float* sp = (const float*)scale;
-  __nv_bfloat16* op = (__nv_bfloat16*)out;
-  const int gsize = K / G;
-  if (gsize == 8)
-    qmm_tiled<8><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N, G);
-  else if (gsize == 16)
-    qmm_tiled<16><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N, G);
-  else
-    qmm_tiled<0><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N, G);
-  return (int)cudaGetLastError();
+  return launch_small_groups(a, w, scale, out, M, K, N, G, st);
+}
+
+extern "C" int qmm_prologue_launch(const void* x, const void* res,
+                                   const void* gamma, void* xn, void* xout,
+                                   int M, int K, float eps, void* stream);
+
+// K1's branch for 1 <= M <= 128 rows that the GEMV does not take
+// (quant_matmul.cu): the prologue pre-pass when there is one (gamma, res
+// or xout given: xn = bf16(rms_norm(x + res) * gamma), xout = bf16(x +
+// res); xn a bf16 [M, K] scratch), then the product on xn (else on x):
+// int8 and int4 groups of a multiple of 64 codes on qmm_wgmma_sk,
+// int4 groups of 8, 16 or 32 codes on qmm_tiled. plan: int64 {M, K, N, G,
+// bits, bm, grid, part, done, spg, units, spu, total}
+// (ops/kernels/quant_matmul.py, mma_plan): a row tile of bm rows (16, 32,
+// 64 or 128, at least M), `grid` persistent blocks over `total` units of
+// spu two-step slots, `units` a tile, spg k steps an int4 group; part
+// float32 [2 grid][bm 128], done int32 [ceil(N / 128)] zeros, left so
+// (neither used by qmm_tiled). One array, kept by the caller per shape,
+// in place of thirteen arguments a call. Requires K % 64 == 0,
+// N % 64 == 0.
+extern "C" int qmm_mma_launch(const void* x, const void* res,
+                              const void* gamma, void* xn, void* xout,
+                              const void* w, const void* scale, void* out,
+                              const long long* plan, float eps,
+                              void* stream) {
+  if (plan == nullptr) return (int)cudaErrorInvalidValue;
+  const int M = (int)plan[0], K = (int)plan[1], N = (int)plan[2];
+  const int G = (int)plan[3], bits = (int)plan[4], bm = (int)plan[5];
+  const int grid = (int)plan[6];
+  void* part = reinterpret_cast<void*>(plan[7]);
+  void* done = reinterpret_cast<void*>(plan[8]);
+  const int spg = (int)plan[9], units = (int)plan[10], spu = (int)plan[11];
+  const int total = (int)plan[12];
+  if (M < 1 || M > 128 || M > bm || K % kWgTK != 0 || N % 64 != 0 ||
+      (bits != 4 && bits != 8) || (bits == 4 && (G < 1 || K % G != 0)))
+    return (int)cudaErrorInvalidValue;
+  const int gsize = bits == 4 ? K / G : 0;
+  const bool wg = bits == 8 || gsize % kWgTK == 0;
+  if (!wg && gsize != 8 && gsize != 16 && gsize != 32)
+    return (int)cudaErrorInvalidValue;
+  // the plan covers the shape: every k step of every tile once
+  if (wg && (part == nullptr || done == nullptr || spu < 1 || units < 1 ||
+             grid < 1 || grid > total ||
+             total != (N + kWgTN - 1) / kWgTN * units ||
+             (long long)units * spu * 2 * kWgTK < K ||
+             (long long)(units - 1) * spu * 2 * kWgTK >= K ||
+             (bits == 4 && spg * kWgTK != gsize)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const void* a = x;
+  if (gamma || res || xout) {
+    const int e = qmm_prologue_launch(x, res, gamma, xn, xout, M, K, eps,
+                                      stream);
+    if (e != 0) return e;
+    a = xn;
+  }
+  if (!wg) return launch_small_groups(a, w, scale, out, M, K, N, G, st);
+  if (bits == 8)
+    return launch_sk_rows<false, false>(a, w, scale, out, part, done, M, K,
+                                        N, G, bm, grid, 1, units, spu, total,
+                                        st);
+  // groups of an odd number of k steps end inside a slot (a wait there)
+  if (spg % 2)
+    return launch_sk_rows<true, true>(a, w, scale, out, part, done, M, K, N,
+                                      G, bm, grid, spg, units, spu, total,
+                                      st);
+  return launch_sk_rows<true, false>(a, w, scale, out, part, done, M, K, N,
+                                     G, bm, grid, spg, units, spu, total,
+                                     st);
 }

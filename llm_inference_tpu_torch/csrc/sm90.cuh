@@ -1,15 +1,16 @@
 // Hopper (sm_90a) primitives: the warpgroup MMA (wgmma), the Tensor Memory
 // Accelerator's 2-D tile copy (TMA), the shared-memory mbarrier that
 // counts its bytes, and the register hand-over between warpgroups
-// (setmaxnreg). K8 (quant_matmul_tiled.cu) and K6/K7 (layer_tail.cu) are
-// built on them.
+// (setmaxnreg). K8 and K1's MMA branch (quant_matmul_tiled.cu), K6/K7
+// (layer_tail.cu) and K12 (layer_fused.cu) are built on them.
 //
 // wgmma. Four warps (a warpgroup, warps 4i..4i+3 of the block) issue one
 // asynchronous D[64 x N] += A[64 x 16] * B[16 x N] with float32 D in
 // registers. B is read from shared memory through a matrix descriptor
 // (desc_k128); A here comes from registers (wgmma_rs, one overload for
-// each N, told apart by the size of d), laid out as mma.m16n8k16's A
-// fragment (mma.cuh) with warp w of the group holding rows 16w..16w+15.
+// each N of 16, 32, 64, 128, 176 and 256, told apart by the size of d),
+// laid out as mma.m16n8k16's A fragment (mma.cuh) with warp w of the
+// group holding rows 16w..16w+15.
 // With g = lane / 4 and t = lane % 4, thread (w, lane) holds
 //   a0 = A[16w+g][2t, 2t+1]     a1 = A[16w+g+8][2t, 2t+1]
 //   a2 = A[16w+g][2t+8, 2t+9]   a3 = A[16w+g+8][2t+8, 2t+9]
@@ -188,6 +189,95 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
         "r"(scale_d));
 }
 
+// m64n16k16
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// m64n32k16
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// m64n64k16
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// m64n128k16
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
@@ -285,6 +375,27 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 // asynchronous proxy (bulk copies) that reads it afterwards.
 __device__ __forceinline__ void fence_proxy_async_global() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// Programmatic dependent launch: a kernel launched with the programmatic
+// stream serialization attribute may start before the kernel ahead of it
+// on the stream has finished; grid_dependency_wait() returns once that
+// kernel has finished and its writes are visible (at once without the
+// attribute). A kernel that calls grid_launch_dependents() lets the next
+// such launch start from then on rather than from its own end.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// The TMA descriptor at map (a __grid_constant__ parameter) is fetched
+// ahead of its first copy.
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 template <int N>

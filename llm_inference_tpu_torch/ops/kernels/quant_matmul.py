@@ -43,7 +43,10 @@ The int4 kernels take every group size of the TPU kernels' int4 paths
 that the port's layout can feed them: K1 and K8 groups of 8, 16, 32 or
 64k codes, K6, K7 and K12 groups of 8, 16 or 32k codes (small_groups_ok).
 K8 runs groups of 64k codes (and int8) on its wgmma kernel, groups of 8,
-16 or 32 on its mma.sync kernel (csrc/quant_matmul_tiled.cu).
+16 or 32 on its mma.sync kernel (csrc/quant_matmul_tiled.cu). K1 runs a
+GEMV up to 8 rows (csrc/quant_matmul.cu) and above them K8's two kernels:
+the wgmma one with a row tile fitted to M over one persistent block an
+SM (`mma_plan`), the mma.sync one for groups of 8, 16 or 32 codes.
 
 CUDA tensors go through `csrc/quant_matmul.cu` (K1),
 `csrc/quant_matmul_tiled.cu` (K8) and `csrc/layer_tail.cu` (K6, K7); CPU
@@ -54,6 +57,9 @@ launch of a persistent block an SM (the kernel plans its ring itself);
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -70,6 +76,8 @@ _TAIL_MAX_M = 32  # layer_tail_fused's row limit (quant_matmul.py:710)
 # (csrc/quant_matmul_tiled.cu)
 _TILE_N = 128
 _TILE_K = 64
+# the row tiles of K1's MMA branch (qmm_wgmma_sk): the smallest that holds M
+_ROW_TILES = (16, 32, 64, 128)
 
 # K6/K7's scratch (csrc/layer_tail.cu): the header floats (the grid
 # barrier's counter first), then a partial sum of squares for each of 32
@@ -77,11 +85,16 @@ _TILE_K = 64
 _TAIL_HEADER = 64
 _sms: dict = {}            # device -> SM count
 _tail_scratch: dict = {}   # device -> float32 scratch of K6/K7
+_mma_part: dict = {}       # device -> float32 partial tiles of K1's MMA branch
+_mma_done: dict = {}       # device -> its zeroed int32 tile counters
+_mma_plans: dict = {}      # (device, M, K, N, groups, bits) -> launch plan
 
 # kernel launches made by quant_matmul (K1, and K8 above 128 rows),
 # layer_tail_fused (K6) and ffn_fused (K7); the plain versions are not
-# counted
+# counted. mma_launches: those of K1's launches that took its MMA branch
+# (also counted in `launches`)
 launches = 0
+mma_launches = 0
 tiled_launches = 0
 tail_launches = 0
 ffn_launches = 0
@@ -176,6 +189,83 @@ def small_groups_ok(group_size: int, multiple: int) -> bool:
     return group_size % multiple == 0 or group_size in (8, 16, 32)
 
 
+class MmaPlan(NamedTuple):
+    """K1's MMA branch for one shape (`mma_plan`)."""
+    bm: int        # row tile: the smallest of _ROW_TILES that holds M
+    grid: int      # persistent blocks
+    floats: int    # scratch: two partial tiles (bm x 128 floats) a block
+    tiles: int     # 128-row weight tiles (the last maybe 64 rows)
+    spg: int       # k steps an int4 group (1 for int8)
+    units: int     # units a tile
+    spu: int       # ring slots (two 64-deep k steps each) a unit
+    total: int     # units in all: tiles x units
+
+
+def mma_plan(M: int, K: int, N: int, groups: int, bits: int,
+             sms: int) -> MmaPlan:
+    """The plan of K1's MMA branch (csrc/quant_matmul_tiled.cu,
+    qmm_wgmma_sk) for M rows on a card of `sms` SMs, int8 or int4 groups
+    of a multiple of 64 codes; the kernel takes every count from it. The
+    work is tiles x units (a ring slot of two 64-deep k steps; for int4
+    the slots of one group, or of two groups of an odd number of steps),
+    cut into `grid` ranges of whole units that differ by at most one unit:
+    one persistent block an SM, or one a unit where there are fewer units
+    than SMs. A tile two or more blocks share is summed through the
+    scratch."""
+    bm = next(b for b in _ROW_TILES if b >= M)
+    tiles = -(-N // _TILE_N)
+    slots = -(-K // (2 * _TILE_K))
+    spg = spu = 1
+    if bits == 4:
+        spg = K // groups // _TILE_K
+        spu = spg // 2 if spg % 2 == 0 else spg
+    units = -(-slots // spu)
+    total = tiles * units
+    grid = min(sms, total)
+    return MmaPlan(bm, grid, 2 * grid * bm * _TILE_N, tiles, spg, units,
+                   spu, total)
+
+
+def _mma_launch_plan(device, M: int, K: int, N: int, groups: int,
+                     bits: int) -> int:
+    """Address of the launch plan of K1's MMA branch on `device`, the int64
+    array {M, K, N, groups, bits, bm, grid, partials, counters, spg,
+    units, spu, total} that qmm_mma_launch reads in place of thirteen
+    arguments: `mma_plan` for the card's SM count, and the device's
+    float32 partials and int32 tile counters, grown as needed and kept
+    between calls (zeros when allocated; the tile's last block leaves its
+    counter zero, and launches on one stream run in order). Kept by shape
+    until a buffer grows. Int4 groups of 8, 16 or 32 codes take the
+    mma.sync kernel, which needs no plan but the shape."""
+    key = (device, M, K, N, groups, bits)
+    plan = _mma_plans.get(key)
+    if plan is not None:
+        return plan[1]
+    if bits == 4 and (K // groups) % _TILE_K:
+        vals = (M, K, N, groups, bits, _MAX_M) + (0,) * 7
+    else:
+        sms = _sms.get(device)
+        if sms is None:
+            sms = _sms[device] = torch.cuda.get_device_properties(
+                device).multi_processor_count
+        p = mma_plan(M, K, N, groups, bits, sms)
+        part = _mma_part.get(device)
+        done = _mma_done.get(device)
+        if part is None or part.numel() < p.floats:
+            part = _mma_part[device] = torch.empty(
+                p.floats, dtype=torch.float32, device=device)
+            _mma_plans.clear()
+        if done is None or done.numel() < p.tiles:
+            done = _mma_done[device] = torch.zeros(
+                p.tiles, dtype=torch.int32, device=device)
+            _mma_plans.clear()
+        vals = (M, K, N, groups, bits, p.bm, p.grid, part.data_ptr(),
+                done.data_ptr(), p.spg, p.units, p.spu, p.total)
+    arr = (ctypes.c_int64 * 13)(*vals)
+    _mma_plans[key] = (arr, ctypes.addressof(arr))
+    return ctypes.addressof(arr)
+
+
 def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
                  norm_eps: float = 1e-5, residual=None,
                  want_x_out: bool = False):
@@ -188,7 +278,7 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
         return quant_matmul_ref(x, qt, layer, norm_gamma=norm_gamma,
                                 norm_eps=norm_eps, residual=residual,
                                 want_x_out=want_x_out)
-    global launches, tiled_launches
+    global launches, mma_launches, tiled_launches
     from llm_inference_tpu_torch.ops.kernels import _build
     lead, M, K = _rows(x)
     N = qt.out_features
@@ -231,8 +321,8 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
         raise ValueError("layer given for an unstacked weight")
     ptrs = (x2.data_ptr(), None if res is None else res.data_ptr(),
             None if gam is None else gam.data_ptr())
-    outs = (out.data_ptr(), None if x_out is None else x_out.data_ptr(),
-            None if xn is None else xn.data_ptr())
+    xn_ptr = None if xn is None else xn.data_ptr()
+    xo_ptr = None if x_out is None else x_out.data_ptr()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     G = qt.groups
     w_ptr = qt.q.data_ptr() + li * N * (K // 2 if int4 else K)
@@ -243,7 +333,7 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
         a = x2
         if fused:
             _build.check(_build.lib().qmm_prologue_launch(
-                *ptrs, outs[2], outs[1], M, K, float(norm_eps), stream),
+                *ptrs, xn_ptr, xo_ptr, M, K, float(norm_eps), stream),
                 "quant_matmul prologue")
             a = xn
         _build.check(_build.lib().qmm_tiled_launch(
@@ -251,14 +341,28 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
             stream), "quant_matmul tiled")
         tiled_launches += 1
     else:
-        if int4:
-            code = _build.lib().qmm4_launch(*ptrs, w_ptr, s_ptr, *outs, M, K,
+        if mma:
+            # the prologue pre-pass (when fused), then the product on
+            # wgmma with a row tile fitted to M (csrc/quant_matmul_tiled.cu),
+            # whose TMA reads the rows from a 16-byte aligned address
+            if not fused and ptrs[0] % 16:
+                x2 = x2.clone()
+                ptrs = (x2.data_ptr(),) + ptrs[1:]
+            code = _build.lib().qmm_mma_launch(
+                *ptrs, xn_ptr, xo_ptr, w_ptr, s_ptr, out.data_ptr(),
+                _mma_launch_plan(x.device, M, K, N, G, qt.bits),
+                float(norm_eps), stream)
+        elif int4:
+            code = _build.lib().qmm4_launch(*ptrs, w_ptr, s_ptr,
+                                            out.data_ptr(), xo_ptr, M, K,
                                             N, G, float(norm_eps), stream)
         else:
-            code = _build.lib().qmm_launch(*ptrs, w_ptr, s_ptr, *outs, M, K,
+            code = _build.lib().qmm_launch(*ptrs, w_ptr, s_ptr,
+                                           out.data_ptr(), xo_ptr, M, K,
                                            N, float(norm_eps), stream)
         _build.check(code, "quant_matmul")
         launches += 1
+        mma_launches += mma
     y = out.reshape(*lead, N).to(x.dtype)
     if not want_x_out:
         return y

@@ -31,10 +31,14 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K", [(1, 4096), (4, 4096), (4, 11008),
-                                 (32, 4096), (128, 4096)])
+                                 (32, 4096), (128, 4096), (9, 4096),
+                                 (16, 4096), (17, 4096), (64, 4096),
+                                 (100, 4096), (8, 13312)])
 @pytest.mark.parametrize("prologue", [False, True])
 def test_k1_cuda_matches_plain(cuda, M, K, prologue):
-    # M = 4 at K = 11008 keeps 88 KB of rows in the GEMV's shared memory
+    # M = 4 at K = 11008 keeps 88 KB of rows in the GEMV's shared memory;
+    # M = 8 at K = 13312 (208 KB) and M > 8 take the MMA branch, whose row
+    # tile (16, 32, 64 or 128) leaves rows past M to TMA zero fill
     g = torch.Generator().manual_seed(M)
     N = 1024
     qt = QTensor(q=torch.randint(-128, 128, (2, N, K), generator=g,
@@ -130,11 +134,14 @@ def _to(kw, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K", [(1, 4096), (4, 4096), (4, 11008),
                                  (8, 4096), (32, 4096), (128, 4096),
-                                 (128, 11008)])
+                                 (128, 11008), (9, 4096), (16, 4096),
+                                 (17, 4096), (64, 4096), (100, 4096),
+                                 (8, 11008)])
 @pytest.mark.parametrize("prologue", [False, True])
 def test_k1_int4_cuda_matches_plain(cuda, M, K, prologue):
     # M <= 8 (and M * K * 4 <= 200 KiB) runs the float32-row GEMV, the
-    # rest the MMA path, whose rows enter as bf16
+    # rest the MMA path, whose rows enter as bf16 (M = 8 at K = 11008:
+    # 344 KB of float32 rows, too many for the GEMV)
     g = torch.Generator().manual_seed(M + K)
     N = 1024
     qt = _int4_weight(g, 2, N, K)
@@ -156,6 +163,109 @@ def test_k1_int4_cuda_matches_plain(cuda, M, K, prologue):
     # over K): one bf16 step of the largest output (2^-7 of it)
     err = (got.cpu().float() - want.float()).abs().max().item()
     assert err <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+def _k1_weight(g, bits, N, K, gsize=128):
+    if bits == 4:
+        return _int4_weight(g, 2, N, K, gsize)
+    return QTensor(q=torch.randint(-128, 128, (2, N, K), generator=g,
+                                   dtype=torch.int8),
+                   scale=torch.rand((2, 1, N), generator=g) * 1e-3)
+
+
+def _k1_check(cuda, qt, M, K, prologue, seed, mma=True):
+    """K1 on the card against its plain version on the CPU at M rows of
+    width K; the MMA branch (or the GEMV) counted once."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((M, K), generator=g).to(BF16)
+    kw = {}
+    if prologue:
+        kw = dict(norm_gamma=(1 + 0.1 * torch.randn((K,), generator=g)
+                              ).to(BF16),
+                  residual=torch.randn((M, K), generator=g).to(BF16),
+                  want_x_out=True)
+    want = t_qm.quant_matmul(x, qt, 1, **kw)
+    before = (t_qm.launches, t_qm.mma_launches)
+    got = t_qm.quant_matmul(x.to(cuda), qt.to(cuda), 1, **_to(kw, cuda))
+    torch.cuda.synchronize()
+    assert (t_qm.launches, t_qm.mma_launches) == (before[0] + 1,
+                                                  before[1] + mma)
+    if prologue:
+        (want, want_x), (got, got_x) = want, got
+        assert torch.equal(got_x.cpu(), want_x)
+    # as test_k1_cuda_matches_plain: one bf16 step of the largest output
+    err = (got.cpu().float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 12288), (11008, 4096),
+                                 (11008, 12288)])
+@pytest.mark.parametrize("M", [16, 64, 128])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_k1_mma_7b_widths_cuda_matches_plain(cuda, bits, K, N, M, prologue):
+    # the MMA branch's stream-K plans at LLaMA-2-7B widths: 32 or 96 tiles
+    # of 128 weight rows over 64 or 172 k steps (int4: 32 or 86 groups),
+    # tiles shared by two or three blocks, row tiles of 16, 64 and 128
+    g = torch.Generator().manual_seed(K + N + bits)
+    _k1_check(cuda, _k1_weight(g, bits, N, K), M, K, prologue,
+              seed=M + K + N + bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,gsize", [(8, 0), (4, 128), (4, 64), (4, 32),
+                                        (4, 8)])
+@pytest.mark.parametrize("M", [9, 100])
+def test_k1_mma_narrow_edge_cuda_matches_plain(cuda, bits, gsize, M):
+    # N = 320: the last tile of 128 weight rows holds 64 (their codes
+    # arrive as TMA zero fill or are not read, nothing past N is stored);
+    # groups of 8 and 32 take the mma.sync kernel
+    g = torch.Generator().manual_seed(300 + bits + gsize + M)
+    K, N = 1024, 320
+    _k1_check(cuda, _k1_weight(g, bits, N, K, gsize or 128), M, K, True,
+              seed=M + gsize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [16, 128])
+def test_k1_prefill_launches_repeat_bit_identical(cuda, bits, M):
+    # the tiles that blocks share are summed in block order (no float
+    # atomics): two launches on the same inputs give the same bits, and
+    # the tile counters are left at zero for the next
+    g = torch.Generator().manual_seed(90 + bits + M)
+    K, N = 11008, 4096
+    qt = _k1_weight(g, bits, N, K).to(cuda)
+    x = torch.randn((M, K), generator=g).to(BF16).to(cuda)
+    gamma = (1 + 0.1 * torch.randn((K,), generator=g)).to(BF16).to(cuda)
+    y1 = t_qm.quant_matmul(x, qt, 1, norm_gamma=gamma)
+    y2 = t_qm.quant_matmul(x, qt, 1, norm_gamma=gamma)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.isfinite(y1.float()).all()
+    assert not t_qm._mma_done[x.device].any()
+
+
+@pytest.mark.cuda
+def test_k1_mma_failed_launch_raises(cuda):
+    import ctypes
+    from llm_inference_tpu_torch.ops.kernels import _build
+    lib = _build.lib()
+    part = torch.empty(2 * 600 * 16 * 128, device=cuda)
+    done = torch.zeros(8, dtype=torch.int32, device=cuda)
+    # more rows than the row tile, a grid larger than the units of work
+    # (8 tiles x 32 slots of two k steps), and units that do not cover K
+    # are refused by the C entry point before any launch; the wrapper's
+    # check raises
+    for M, bm, grid, units in ((17, 16, 132, 32), (16, 16, 8 * 32 + 1, 32),
+                               (16, 16, 132, 31)):
+        plan = (ctypes.c_int64 * 13)(M, 4096, 1024, 1, 8, bm, grid,
+                                     part.data_ptr(), done.data_ptr(), 1,
+                                     units, 1, 8 * units)
+        code = lib.qmm_mma_launch(*([None] * 8), ctypes.addressof(plan),
+                                  1e-5, None)
+        with pytest.raises(RuntimeError, match="quant_matmul"):
+            _build.check(code, "quant_matmul")
 
 
 @pytest.mark.cuda
@@ -1030,10 +1140,11 @@ def test_row_writes_cuda_match_plain_exactly(cuda, kv):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("gsize", [8, 16, 32])
-@pytest.mark.parametrize("M", [1, 4, 32])
+@pytest.mark.parametrize("M", [1, 4, 32, 16, 128])
 def test_k1_int4_small_groups_cuda_matches_plain(cuda, gsize, M):
     # M <= 8: the GEMV (a scale per 8-code word for groups of 8 and 16);
-    # M = 32: the MMA path, a group staged whole (8 zero-padded to 16)
+    # M > 8: the MMA branch's mma.sync kernel (K8's qmm_tiled: a fold per
+    # 32-code chunk, per m16n8k16 product, or per m16n8k8 half)
     g = torch.Generator().manual_seed(100 + gsize + M)
     K, N = 1024, 512
     qt = _int4_weight(g, 2, N, K, gsize)

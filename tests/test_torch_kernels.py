@@ -49,7 +49,7 @@ def _weights(L=2, K=128, N=256, seed=0):
 # ---------------------------------------------------------------- K1
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M", [1, 16])
+@pytest.mark.parametrize("M", [1, 16, 128])
 @pytest.mark.parametrize("prologue", ["none", "norm", "norm_res_xout",
                                       "res_xout"])
 def test_k1_plain_matches_jax_kernel(prologue, M, dtype):
@@ -79,7 +79,23 @@ def test_k1_plain_matches_jax_kernel(prologue, M, dtype):
     assert got.dtype == to_torch(want).dtype and got.shape == want.shape
     # bf16 outputs of the same products; the float32 sum order differs, so
     # a result may land one bf16 rounding step away
-    assert _bf16_ulps(to_numpy(got), want).max() <= 1.0
+    ulps = _bf16_ulps(to_numpy(got), want)
+    if M <= 16 or "norm" not in prologue:
+        assert ulps.max() <= 1.0
+    else:
+        # 128 normalised rows: the norm's float32 mean, summed in another
+        # order, may carry a row element across a bf16 rounding boundary
+        # (one bf16 step of it), which moves each output of that row by the
+        # step times the element's weight: many ulps of an output near 0
+        x32 = to_torch(x).to(torch.bfloat16).float()
+        if "res" in prologue:
+            x32 = x32 + to_torch(res).float()
+        xn = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + 1e-5)
+        xn = xn * to_torch(gamma).float()
+        w = tqt.q[1].float() * tqt.scale[1].reshape(-1, 1)
+        step = 2.0 ** -8 * xn.abs().max().item() * w.abs().max().item()
+        err = np.abs(to_numpy(got) - np.asarray(want, np.float32))
+        assert np.all((ulps <= 1.0) | (err <= step))
 
 
 def test_k1_plain_prefill_path_matches_jax():
@@ -446,6 +462,71 @@ def test_decode_split_rule_fills_the_card(B, Hkv, S):
             floats = t_dec.scratch_floats(B, Hkv, G, D, n)
             assert last < floats
             assert floats <= max(B * Hkv * capped, wave) * state
+
+
+# ------------------------------------------- K1's MMA branch plan
+
+# (K, N) of LLaMA-2-7B's four projections: wqkv, wo, w_gateup, w_down
+_7B_PROJ = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096)]
+
+
+@pytest.mark.parametrize("sms", [78, 132, 144])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("K,N", _7B_PROJ)
+def test_k1_prefill_plan_fills_the_card(K, N, bits, sms):
+    """K1's MMA branch (csrc/quant_matmul_tiled.cu, qmm_wgmma_sk) as
+    mma_plan lays it out for 9 <= M <= 128 rows: the row tile is the
+    smallest that holds M; the units cover K once (a unit is two k steps,
+    an int4 group of 128); the grid is one wave of the card (a block an
+    SM) whose blocks take units of work that differ by at most one, split
+    as the kernel splits them (block b from unit b total / grid); the
+    blocks that share a tile, found as the kernel finds them (the owner of
+    unit u is ((u + 1) grid - 1) // total), are those whose ranges meet
+    it, each with its own scratch slot; the scratch and the tile counters
+    cover the kernel's last index."""
+    G = K // 128 if bits == 4 else 1
+    units = K // 128          # a unit is two k steps: an int4 group of 128
+    tiles = -(-N // 128)
+    total = tiles * units
+    plan = t_qm.mma_plan(9, K, N, G, bits, sms)
+    grid = plan.grid
+    assert grid == min(sms, total) and plan.tiles == tiles
+    assert (plan.units, plan.total, plan.spu) == (units, total, 1)
+    assert plan.spg == (2 if bits == 4 else 1)
+
+    def first(b):                      # sk_first: block b's first unit
+        return b * total // grid
+
+    def block_of(u):                   # sk_block: the block owning unit u
+        return ((u + 1) * grid - 1) // total
+
+    share = [first(b + 1) - first(b) for b in range(grid)]
+    assert min(share) >= 1 and max(share) - min(share) <= 1
+    for t in range(tiles):
+        u0, u1 = t * units, (t + 1) * units
+        meet = [b for b in range(grid) if first(b) < u1 and first(b + 1) > u0]
+        assert meet == list(range(block_of(u0), block_of(u1 - 1) + 1))
+        if len(meet) == 1:             # the tile is stored at once
+            continue
+        # a shared tile is the first or the last of each block that meets
+        # it: slot 2b for its first tile, 2b + 1 for its last
+        slots = [2 * b + (first(b) // units != t) for b in meet]
+        assert len(set(slots)) == len(slots)
+        for b, slot in zip(meet, slots):
+            assert slot // 2 == b and (slot % 2 == 0
+                                       or (first(b + 1) - 1) // units == t)
+    prev = 0
+    for M in range(9, 129):
+        p = t_qm.mma_plan(M, K, N, G, bits, sms)
+        bm, floats = p.bm, p.floats
+        assert p._replace(bm=0, floats=0) == plan._replace(bm=0, floats=0)
+        assert bm in t_qm._ROW_TILES and M <= bm and bm >= prev
+        assert bm == 16 or bm // 2 < M
+        prev = bm
+        # float4 q of consumer thread ct of slot 2 grid - 1: the last
+        last = ((2 * grid - 1) * bm * 128 + ((bm // 2) // 4 - 1) * 256 * 4
+                + 255 * 4 + 3)
+        assert last < floats <= 2 * grid * bm * 128
 
 
 # ------------------------------------------------ K8 (M > 128 rows)
