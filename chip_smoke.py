@@ -248,21 +248,34 @@ PREFILL_ROWS = (16, 64, 128)        # K1's MMA branch: 8 < M <= 128
 def k1_cases(params, gen, names):
     """K1 on each weight the main path sends it, with the main path's
     prologue choice, at M = 1 (one decode step at B = 1) and M = 4 (the
-    batch request), then wqkv at M = 128 (prefill), then its MMA branch on
-    each projection at each of PREFILL_ROWS. Returns the M = 1 numbers by
-    weight, the largest error and the MMA branch's numbers by (M, name)."""
+    batch request), int4's wqkv and lm_head also at M = 8 (the serving
+    batch of path (iv)), then wqkv at M = 128 (prefill), then its MMA
+    branch on each projection at each of PREFILL_ROWS. Returns the M = 1
+    numbers by weight, the largest error and the MMA branch's numbers by
+    (M, name)."""
     lay = params["layers"]
     prologue = {"wqkv": True, "wo": False, "w_gateup": True,
                 "w_down": False, "lm_head": False}
-    step, err = {}, 0.0
-    for M in (1, 4):
+    int4 = lay["wqkv"].bits == 4
+    step, err, gemv = {}, 0.0, {}
+    for M in (1, 4, 8):
         for name in names:
+            if M == 8 and not (int4 and name in ("wqkv", "lm_head")):
+                continue
             qt = params["lm_head"] if name == "lm_head" else lay[name]
-            r = k1_case(name, qt, M, prologue[name], gen,
-                        L if qt.stacked else 1)
+            r = gemv[(M, name)] = k1_case(name, qt, M, prologue[name], gen,
+                                          L if qt.stacked else 1)
             err = max(err, r["err"])
             if M == 1:
                 step[name] = r
+    if int4:
+        for name in ("wqkv", "lm_head"):
+            say(f"  K1 int4 GEMV {name} M = 1 / 4 / 8: kernel " + " / ".join(
+                f"{gemv[(M, name)]['ms']:.4f}" for M in (1, 4, 8))
+                + " ms, bound " + " / ".join(
+                f"{gemv[(M, name)]['bound']:.4f}" for M in (1, 4, 8))
+                + ", torch.matmul " + " / ".join(
+                f"{gemv[(M, name)]['lib']:.4f}" for M in (1, 4, 8)))
     err = max(err, k1_case("wqkv", lay["wqkv"], 1, False, gen, L)["err"])
     for pro in (True, False):
         err = max(err, k1_case("wqkv", lay["wqkv"], 128, pro, gen, L)["err"])
@@ -1114,7 +1127,8 @@ def k1_entry(bits, launches, err, step, names):
     r["by"] = "bytes"
     per_layer = ", ".join(n for n in names if n != "lm_head")
     return entry(f"K1 quant_matmul (int{bits} fused-norm GEMV/GEMM)",
-                 "quant_matmul.cu", "quant_matmul.py:496", launches, err, r,
+                 "quant_matmul.cu" if bits == 8 else "qmm4_gemv.cu",
+                 "quant_matmul.py:496", launches, err, r,
                  1, f"one decode step of LLaMA-2-7B int{bits} at B=1: "
                  f"{L} x ({per_layer}) + lm_head, M=1")
 

@@ -500,7 +500,7 @@ int launch(Args& a, const void* const (&w)[4], const void* const (&s)[4],
       a.ks == nullptr
           ? (g == 1 ? att_bytes<kBf16, 1>(g) : att_bytes<kBf16, kMaxG>(g))
           : (g == 1 ? att_bytes<kInt8, 1>(g) : att_bytes<kInt8, kMaxG>(g));
-  code = make_plan(a.r.pl, 1, nblk, a.H * 4, att);
+  code = make_plan_qw2(a.r.pl, 1, nblk, a.H * 4, att);
   if (code) return code;
   if (!encode_plan(a.r.pl)) return (int)cudaErrorInvalidValue;
   void* args[] = {&a};

@@ -182,7 +182,7 @@ int launch(Args& a, float* scratch, cudaStream_t stream) {
   int code = card_blocks(layer_tail_kernel<WO>, sms, nblk);
   if (code) return code;
   a.r.M = a.M;
-  code = make_plan(a.r.pl, a.M, nblk, 0, 0);
+  code = make_plan_qw2(a.r.pl, a.M, nblk, 0, 0);
   if (code) return code;
   if (!encode_plan(a.r.pl)) return (int)cudaErrorInvalidValue;
   set_masks(a.r);
@@ -278,7 +278,7 @@ extern "C" int layer_tail_plan(int M, int H, int Ko, int I, int Go, int Gg,
   // any non-null pointer marks the wo phase
   set_tail(pl, wo ? &pl : nullptr, nullptr, nullptr, nullptr, nullptr,
            nullptr, nullptr, &pl, H, Ko, I, wo ? Go : 1, Gg, Gd);
-  const int code = make_plan(pl, M, nblk, 0, 0);
+  const int code = make_plan_qw2(pl, M, nblk, 0, 0);
   if (code) return code;
   out[0] = pl.R;
   out[1] = pl.slot;

@@ -44,19 +44,21 @@
 //
 // The int4 branch (qmm4_launch) replaces the same TPU kernel's N-pair
 // int4 branch (grouped symmetric scales: groups of 64k codes, or 8, 16 or
-// 32, as the TPU kernel takes any group of at least 8): codes [N, K/2] with two
-// K-adjacent nibbles per byte, float32 scales [N, G]. Its rounding points
-// differ from int8's: the normed rows stay float32 (the TPU branch dots
-// float32 rows) and each group's scale hits its partial dot. M <= 8 runs
-// qmm4_gemv on the shared int4 core (int4_gemv.cuh, also K6's); larger M
-// runs qmm_mma_launch on bf16 rows. At M = 1 the bound is half of int8's: LLaMA-2-7B wqkv
-// 25.2 MB codes + 1.6 MB scales -> 8.0 us, lm_head 65.5 + 4.1 MB -> 21 us.
+// 32, as the TPU kernel takes any group of at least 8): codes [N, K/2] with
+// two K-adjacent nibbles per byte, float32 scales [N, G]. Its rounding
+// points differ from int8's: each group's scale hits its partial dot, and
+// M <= 8 (qmm4_gemv.cu, the weight ring of K6 in a one-phase instance)
+// keeps more than bf16 of the rows (the TPU branch dots float32 rows):
+// x32 times gamma as a bf16 hi plus a bf16 remainder, about 16 bits of
+// mantissa, with rstd taken on the float32 sums and, in groups of 32k
+// codes, 136 * sum(x) of each chunk off its dot (the codes enter as
+// bf16(136 + code)); qmm4_gemv.cu states them in full. Larger M runs
+// qmm_mma_launch on bf16 rows.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "int4_gemv.cuh"
 #include "int8_gemv.cuh"
 
 namespace {
@@ -203,81 +205,6 @@ int launch_gemv(const void* x, const void* res, const void* gamma,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------ int4 GEMV
-// As qmm_gemv, but the rows stay float32 in shared memory (the TPU
-// kernel's N-pair branch dots float32 normed rows) and the int4 core
-// (int4_gemv.cuh) applies each group's scale to its partial dot.
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-qmm4_gemv(const __nv_bfloat16* __restrict__ x,      // [M, K]
-          const __nv_bfloat16* __restrict__ res,    // [M, K] or null
-          const __nv_bfloat16* __restrict__ gamma,  // [K] or null
-          const uint8_t* __restrict__ w,            // [N, K/2] (this layer)
-          const float* __restrict__ scale,          // [N, G]
-          __nv_bfloat16* __restrict__ out,          // [M, N]
-          __nv_bfloat16* __restrict__ xout,         // [M, K] or null
-          int M, int K, int N, int G, float eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* xs = reinterpret_cast<float*>(smem_raw);    // [M][K], swizzled
-  __shared__ float red[kWarps];
-
-  for (int m = 0; m < M; ++m) {
-    const __nv_bfloat16* xr = x + (size_t)m * K;
-    const __nv_bfloat16* rr = res ? res + (size_t)m * K : nullptr;
-    float rstd = 1.f;
-    if (gamma || res || xout) {
-      const float ss = row_prologue(xr, rr, xout ? xout + (size_t)m * K
-                                                  : nullptr,
-                                    blockIdx.x == 0, K, red);
-      if (gamma) rstd = rsqrtf(ss / (float)K + eps);
-    }
-    for (int k = threadIdx.x; k < K; k += kThreads) {
-      float v = bf(xr[k]);
-      if (rr) v += bf(rr[k]);
-      if (gamma) v = v * rstd * bf(gamma[k]);
-      xs[(size_t)m * K + int4g::swz(k)] = v;
-    }
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n0 = blockIdx.x * kColsPerBlock + warp * int4g::kCols;
-  float acc[int4g::kCols][MT];
-#pragma unroll
-  for (int c = 0; c < int4g::kCols; ++c)
-#pragma unroll
-    for (int m = 0; m < MT; ++m) acc[c][m] = 0.f;
-  int4g::gemv_cols<MT>(xs, K, M, w, scale, K, G, n0, lane, acc);
-#pragma unroll
-  for (int c = 0; c < int4g::kCols; ++c) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < M) {
-        const float tot = int4g::warp_sum(acc[c][m]);
-        if (lane == 0) out[(size_t)m * N + n0 + c] = __float2bfloat16(tot);
-      }
-    }
-  }
-}
-
-template <int MT>
-int launch_gemv4(const void* x, const void* res, const void* gamma,
-                 const void* w, const void* scale, void* out, void* xout,
-                 int M, int K, int N, int G, float eps, cudaStream_t stream) {
-  const size_t smem = (size_t)M * K * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        qmm4_gemv<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  qmm4_gemv<MT><<<N / kColsPerBlock, kThreads, smem, stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)res,
-      (const __nv_bfloat16*)gamma, (const uint8_t*)w, (const float*)scale,
-      (__nv_bfloat16*)out, (__nv_bfloat16*)xout, M, K, N, G, eps);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Largest M * K * 2 bytes of activations the GEMV keeps in shared memory.
@@ -323,34 +250,4 @@ extern "C" int qmm_prologue_launch(const void* x, const void* res,
       (const __nv_bfloat16*)gamma, (__nv_bfloat16*)xn, (__nv_bfloat16*)xout,
       K, eps);
   return (int)cudaGetLastError();
-}
-
-// The int4 GEMV: w packed int4 [N, K/2] and scale f32 [N, G] of ONE
-// layer (ops/quantization.py); the other arguments as qmm_launch. It keeps
-// float32 rows: requires 1 <= M <= 8, M * K * 4 <= QMM_GEMV_MAX_SMEM,
-// K % 64 == 0, N % 64 == 0 and groups of K / G codes a multiple of 64 or
-// 8, 16 or 32.
-extern "C" int qmm4_launch(const void* x, const void* res, const void* gamma,
-                           const void* w, const void* scale, void* out,
-                           void* xout, int M, int K, int N, int G, float eps,
-                           void* stream) {
-  const size_t gemv_smem = (size_t)M * K * sizeof(float);
-  if (M < 1 || M > 8 || gemv_smem > QMM_GEMV_MAX_SMEM || K % 64 != 0 ||
-      N % 64 != 0 || G < 1 || K % G != 0)
-    return (int)cudaErrorInvalidValue;
-  const int gsize = K / G;
-  if (gsize % 64 != 0 && gsize != 8 && gsize != 16 && gsize != 32)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (M == 1)
-    return launch_gemv4<1>(x, res, gamma, w, scale, out, xout, M, K, N, G,
-                           eps, st);
-  if (M == 2)
-    return launch_gemv4<2>(x, res, gamma, w, scale, out, xout, M, K, N, G,
-                           eps, st);
-  if (M <= 4)
-    return launch_gemv4<4>(x, res, gamma, w, scale, out, xout, M, K, N, G,
-                           eps, st);
-  return launch_gemv4<8>(x, res, gamma, w, scale, out, xout, M, K, N, G,
-                         eps, st);
 }

@@ -1,9 +1,10 @@
 // The weight ring of the cooperative layer kernels: K6/K7 (layer_tail.cu)
-// and K12 (layer_fused.cu). One persistent block an SM streams a layer's
-// quantized weights, phase after phase, through a ring of shared-memory
-// slots and multiplies them by one to 32 activation rows on the tensor
-// cores. What the kernels add is their phases' epilogues, the work between
-// the phases and the grid barriers that separate them.
+// and K12 (layer_fused.cu), and in a one-phase instance without a grid
+// barrier K1's int4 GEMV (qmm4_gemv.cu). One persistent block an SM
+// streams a layer's quantized weights, phase after phase, through a ring
+// of shared-memory slots and multiplies them by one to 32 activation rows
+// on the tensor cores. What the kernels add is their phases' epilogues,
+// the work between the phases and the grid barriers that separate them.
 //
 // The block: ten warps.
 // - A weight producer warp streams the block's weights, phase after phase,
@@ -20,9 +21,10 @@
 // - An activation producer warp copies each stage's activation rows (and a
 //   norm phase's gamma) beside the weights, on a second mbarrier a slot;
 //   before a phase whose rows a grid barrier makes it first waits for that
-//   barrier (Phase::gate). A phase whose row the consumers hold in shared
-//   memory (Phase::eb == 0, Smem::xs: K12's first phase, M = 1) only
-//   arrives on the slot's barrier, which keeps the two producers in step.
+//   barrier (Phase::gate). A phase whose rows the consumers hold in shared
+//   memory (Phase::eb == 0, Smem::xs at a pitch of Phase::ap bytes: K12's
+//   first phase, M = 1; K1's GEMV, M <= 8) only arrives on the slot's
+//   barrier, which keeps the two producers in step.
 // - Eight consumer warps split each stage's K among themselves (one 32-code
 //   chunk each, q chunks for a stage of 256 q codes), each holding the sums
 //   of every column of the batch, and release the slot. They bound the
@@ -33,8 +35,12 @@
 // are cut into nblk contiguous ranges that differ by at most one column,
 // so every SM streams the same bytes of each phase to within one column,
 // less than one stage. More columns a block than a batch holds (192 int4,
-// 128 int4 in groups of 16 or 8, 96 int8 columns) run in batches. At M <= 8 rows every weight byte is
-// streamed once; rows beyond come in passes of 8.
+// 128 int4 in groups of 16 or 8, 96 int8 columns) run in batches; a
+// phase with a cap (K1's GEMV) runs batches of sizes within one unit of
+// each other, at most the cap (a batch computes every tile its
+// instantiation holds: 243 columns as 192 + 51 compute 48 tiles, as
+// 122 + 121 32). At M <= 8 rows every weight byte is streamed once; rows
+// beyond come in passes of 8.
 //
 // Products on the tensor cores: mma.sync.m16n8k16 with the activations as
 // A and the codes as B (8 output columns x 16 k), widened exactly to bf16
@@ -134,6 +140,10 @@ struct Phase {
   int eb;              // bytes of an activation; 0: the row is Smem::xs
   int norm;            // kFormNorm: gamma rides beside the rows
   int gate;            // grid barriers passed before the rows exist
+  int cap;             // > 0: batches of even sizes, at most cap units
+                       // (0: the ring's limit, the last batch the rest)
+  int qw;              // > 1: the slot holds a stage of qw chunks a warp
+                       // (K1 GEMV's search; make_plan_qw2)
   // the ring plan (make_plan)
   int q;               // chunks a consumer warp a stage
   int ub;              // units a batch (the boxes' rows)
@@ -144,12 +154,16 @@ struct Phase {
                        // instantiation (run_phase) when more
   int var;             // kVar32, kVar16, kVar8 or kVarI8
   int off_sc, off_act, off_gam, ap;   // slot offsets, act row pitch
+                                      // (eb == 0: Smem::xs's, set by the
+                                      // kernel after make_plan; 0 at M = 1)
   int bg;              // groups of 16 or 8: a 256-code unit's groups
 };
 
 struct Plan {
   Phase ph[kMaxPhases];
   int ph0, nph;        // the phases [ph0, nph) run
+  int red_warps;       // > 0: the warps whose partials Smem::red holds
+                       // (0: kConsumers)
   int R, slot, red_cols, xs_off, fixed, smem;
 };
 
@@ -207,8 +221,9 @@ inline int slot_bytes(const Phase& p, int q, int Mp) {
 }
 
 // The ring plan of phases [ph0, nph) for nblk blocks: each phase's batch,
-// the slot (the largest one-q stage, 256 codes a column), each phase's q
-// (as many chunks as fit that slot), the number of slots. The fixed part
+// the slot (the largest one-q stage, 256 codes a column, or qw-q stage of
+// a phase that asks for one), each phase's q (as many chunks as fit that
+// slot), the number of slots. The fixed part
 // holds the misc area and the larger of the consumers' partial sums plus
 // xs_bytes (Smem::xs) and extra bytes of the kernel's own. Returns 0 or
 // cudaErrorInvalidValue.
@@ -223,7 +238,13 @@ inline int make_plan(Plan& pl, int M, int nblk, int xs_bytes, int extra) {
     // (16), of 32k codes 192 (24); run_phase's instantiations cover them
     const int cmax = p.bits == 8 ? kMaxCols / 2
                      : p.gs % 32 ? kMaxCols * 2 / 3 : kMaxCols;
-    p.ub = umax < cmax / per ? umax : cmax / per;
+    if (p.cap > 0) {   // batches of even sizes, at most cap units
+      const int lim = p.cap < cmax / per ? p.cap : cmax / per;
+      const int nb = umax > lim ? (umax + lim - 1) / lim : 1;
+      p.ub = (umax + nb - 1) / nb;
+    } else {
+      p.ub = umax < cmax / per ? umax : cmax / per;
+    }
     if (p.ub < 1) p.ub = 1;
     p.cols = p.ub * per;
     p.ncp = round_up(p.ub, 8) * per;
@@ -234,7 +255,7 @@ inline int make_plan(Plan& pl, int M, int nblk, int xs_bytes, int extra) {
     const bool wide = p.var == kVar32 || p.var == kVarI8;
     p.rows = wide && tiles_of(p.ncp / 8) * 8 > p.ncp ? tiles_of(p.ncp / 8) * 8
                                                      : p.ncp;
-    const int sz = slot_bytes(p, 1, Mp);
+    const int sz = slot_bytes(p, p.qw > 1 ? p.qw : 1, Mp);
     if (sz > s1) s1 = sz;
     if (p.ncp > red) red = p.ncp;
   }
@@ -252,7 +273,8 @@ inline int make_plan(Plan& pl, int M, int nblk, int xs_bytes, int extra) {
   }
   pl.slot = round_up(s1, kAlign);
   pl.red_cols = red;
-  const int red_bytes = kConsumers * red * kRows * 4;
+  const int red_bytes =
+      (pl.red_warps > 0 ? pl.red_warps : kConsumers) * red * kRows * 4;
   pl.xs_off = kMisc + red_bytes;
   const int area = red_bytes + xs_bytes > extra ? red_bytes + xs_bytes : extra;
   pl.fixed = round_up(kMisc + area, kAlign);
@@ -262,6 +284,21 @@ inline int make_plan(Plan& pl, int M, int nblk, int xs_bytes, int extra) {
   if (pl.R < 2) return (int)cudaErrorInvalidValue;
   pl.smem = kAlign + pl.fixed + pl.R * pl.slot;
   return 0;
+}
+
+// K6/K7's and K12's plan: an int4 phase's slot holds a stage of two
+// chunks a consumer warp (Phase::qw; a slot's barriers and its copies'
+// issue spread over twice the bytes) where that keeps two slots, else
+// one chunk. On the H100 (tools/ring_variants.py) K6 ran 7-21 % and K12
+// int4 5 % faster than on stages of one chunk, K12 int8 (two slabs a
+// chunk) 3 % slower: int8 phases keep one.
+inline int make_plan_qw2(Plan& pl, int M, int nblk, int xs_bytes,
+                         int extra) {
+  for (int i = pl.ph0; i < pl.nph; ++i)
+    pl.ph[i].qw = pl.ph[i].bits == 4 ? 2 : 1;
+  if (make_plan(pl, M, nblk, xs_bytes, extra) == 0) return 0;
+  for (int i = pl.ph0; i < pl.nph; ++i) pl.ph[i].qw = 1;
+  return make_plan(pl, M, nblk, xs_bytes, extra);
 }
 
 // The first unit of block b of nblk: nblk contiguous ranges of a phase's
@@ -966,8 +1003,9 @@ __device__ __forceinline__ void run(const Ring& r, int pi, const Smem& S,
         sm90::mbar_wait(S.afull + cur.slot, cur.par);
         const unsigned char* base = S.ring + (size_t)cur.slot * r.pl.slot;
         const uint8_t* xrow =
-            !XS || p.eb ? base + p.off_act + gr * p.ap
-                        : reinterpret_cast<const uint8_t*>(S.xs + k0);
+            (!XS || p.eb ? base + p.off_act
+                         : reinterpret_cast<const uint8_t*>(S.xs + k0)) +
+            gr * p.ap;
         const int nch = min(kt, p.K - k0) >> 5;
         int c = nch * warp / kConsumers;
         const int c_hi = nch * (warp + 1) / kConsumers;

@@ -33,10 +33,12 @@ _F = ctypes.c_float
 # C entry points: (name, argtypes); every one returns an int, cudaError_t
 # but for qmm_tiled_route (which K8 kernel a shape takes) and
 # decode_attn_tile_slots (the K2/K5/K10 tile for a head size and cache
-# kind); layer_tail_plan writes K6/K7's ring plan into an int array
+# kind); layer_tail_plan and qmm4_gemv_plan write K6/K7's and K1 int4
+# GEMV's ring plans into an int array
 SIGNATURES = {
     "qmm_launch": [_P] * 7 + [_I] * 3 + [_F, _P],
     "qmm4_launch": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "qmm4_gemv_plan": [_I] * 5 + [_P],
     "qmm_mma_launch": [_P] * 9 + [_F, _P],
     "qmm_prologue_launch": [_P] * 5 + [_I, _I, _F, _P],
     "qmm_tiled_launch": [_P] * 4 + [_I] * 5 + [_P],

@@ -44,11 +44,13 @@ that the port's layout can feed them: K1 and K8 groups of 8, 16, 32 or
 64k codes, K6, K7 and K12 groups of 8, 16 or 32k codes (small_groups_ok).
 K8 runs groups of 64k codes (and int8) on its wgmma kernel, groups of 8,
 16 or 32 on its mma.sync kernel (csrc/quant_matmul_tiled.cu). K1 runs a
-GEMV up to 8 rows (csrc/quant_matmul.cu) and above them K8's two kernels:
-the wgmma one with a row tile fitted to M over one persistent block an
-SM (`mma_plan`), the mma.sync one for groups of 8, 16 or 32 codes.
+GEMV up to 8 rows (int8: csrc/quant_matmul.cu; int4: csrc/qmm4_gemv.cu,
+K6's weight ring in a one-phase instance, one persistent block an SM that
+normalises its rows while its first codes stream) and above them K8's two
+kernels: the wgmma one with a row tile fitted to M over one persistent
+block an SM (`mma_plan`), the mma.sync one for groups of 8, 16 or 32 codes.
 
-CUDA tensors go through `csrc/quant_matmul.cu` (K1),
+CUDA tensors go through `csrc/quant_matmul.cu` and `csrc/qmm4_gemv.cu` (K1),
 `csrc/quant_matmul_tiled.cu` (K8) and `csrc/layer_tail.cu` (K6, K7); CPU
 tensors through `quant_matmul_ref`, `layer_tail_fused_ref` and
 `ffn_fused_ref`, their plain versions. K6 and K7 are one cooperative
@@ -185,7 +187,7 @@ def _check_weight(qt: QTensor, what: str):
 def small_groups_ok(group_size: int, multiple: int) -> bool:
     """Whether an int4 kernel whose groups come in multiples of `multiple`
     codes takes `group_size`: such a multiple, or 8, 16 or 32 codes (the
-    GEMV core applies a scale per 8-code word, int4_gemv.cuh)."""
+    int4 GEMV takes them as the weight ring does, csrc/weight_ring.cuh)."""
     return group_size % multiple == 0 or group_size in (8, 16, 32)
 
 
@@ -353,6 +355,13 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
                 _mma_launch_plan(x.device, M, K, N, G, qt.bits),
                 float(norm_eps), stream)
         elif int4:
+            # the rows are read 16 bytes at a time, the codes by TMA
+            if w_ptr % 16:
+                raise ValueError("K1 needs 16-byte aligned int4 codes")
+            x2, res, gam = (None if t is None else _aligned(t)
+                            for t in (x2, res, gam))
+            ptrs = tuple(None if t is None else t.data_ptr()
+                         for t in (x2, res, gam))
             code = _build.lib().qmm4_launch(*ptrs, w_ptr, s_ptr,
                                             out.data_ptr(), xo_ptr, M, K,
                                             N, G, float(norm_eps), stream)
@@ -400,7 +409,8 @@ def _tail_buffers(device, M: int, H: int, I: int):
 
 def _aligned(t):
     """t, or a copy of it where its data is not 16-byte aligned (K6 and
-    K7 copy attn and gamma with the copy engine)."""
+    K7 copy attn and gamma with the copy engine; K1's int4 GEMV reads its
+    rows 16 bytes at a time)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 

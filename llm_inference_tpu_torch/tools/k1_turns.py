@@ -1,14 +1,15 @@
 """K1 (quant_matmul) against a baseline tree's K1, in turns, on the card.
 
     python -m llm_inference_tpu_torch.tools.k1_turns --baseline DIR
-        [--parts gemv,k1,small,k8,host,ttft] [--seed 0]
+        [--parts gemv,gemv4,decode,k1,small,k8,host,ttft] [--seed 0]
 
-DIR holds another tree's `quant_matmul.cu`, `quant_matmul_tiled.cu`, the
-headers they include (`int4_gemv.cuh`, `int8_gemv.cuh`, `mma.cuh`,
-`sm90.cuh`), its `ops/kernels/quant_matmul.py` wrapper and its
+DIR holds another tree's `quant_matmul.cu`, `quant_matmul_tiled.cu` and,
+where the tree has it, `qmm4_gemv.cu`, the headers they include
+(`int4_gemv.cuh`, `int8_gemv.cuh`, `mma.cuh`, `sm90.cuh`,
+`weight_ring.cuh`), its `ops/kernels/quant_matmul.py` wrapper and its
 `ops/kernels/_build.py`, side by side (for a commit: `git show
 REV:llm_inference_tpu_torch/csrc/quant_matmul.cu > DIR/quant_matmul.cu`
-and so on). The two `.cu` files are built into a library of their own,
+and so on). The `.cu` files are built into a library of their own,
 typed by that tree's own `_build.SIGNATURES`; the wrapper's source is run
 with that library in place of its kernels (K8's `qmm_tiled_launch` is
 called directly, with the arguments it has taken since it was written).
@@ -16,20 +17,34 @@ Both trees' `quant_matmul` are called on the same LLaMA-2-7B-width
 weights (8 random layers; a layer a call in turn, so the codes come from
 HBM) and rows, in these parts (`--parts`, all by default):
 
-  1. gemv: the GEMVs (M = 1, 4, 8, fused prologue): equal bits or not;
-  2. k1: K1's MMA branch on wqkv, wo, w_gateup and w_down at M = 16, 64, 128,
+  1. gemv: the GEMVs (M = 1, 4, 8, fused prologue): int8 equal bits or
+     not, int4 (whose sums may be taken in another order) x_out's bits and
+     the largest difference against K1's tolerance (2^-7 of the largest
+     output);
+  2. gemv4: the int4 GEMV (M <= 8, groups of 128) on LLaMA-2-7B's wqkv and
+     lm_head and one tp = 2 rank's wqkv and wo shards at M = 1, 2, 4, 8
+     with the main path's prologue choice, in turns as in k1 below, beside
+     `torch.matmul` and the bound; the decode step's entry (32 wqkv +
+     lm_head at M = 1); wqkv in groups of 32, 16 and 8 at M = 1 and 8;
+  3. decode: on full-depth LLaMA-2-7B int4 g=128 + int8 KV (prompt 128,
+     512 slots), the decode step at B = 1 (the split route: K1 on wqkv and
+     lm_head) and B = 8 with the baseline's `quant_matmul` and this tree's
+     in turns, twice: device busy ms a step, kernels a step, the idle
+     share of the step's wall and K1's device ms a step
+     (`profile_decode.profile_steps`);
+  4. k1: K1's MMA branch on wqkv, wo, w_gateup and w_down at M = 16, 64, 128,
      int8 and int4 in groups of 128, with the main path's prologue choice:
      device ms a call (CUDA events, the stream parked, as
      `chip_smoke.time_ms`) in turns baseline, this tree, this tree,
      baseline, beside `torch.matmul` on the bf16-dequantized weight and
      the bound (bytes at 3.35 TB/s or operations at 989 TFLOP/s), and the
      32 x 4 projections' chain;
-  3. small: int4 groups of 8, 16 and 32 codes on wqkv at M = 16 and 128;
-  4. k8: K8 (`qmm_tiled_launch`) at 2048 and 1024 rows, both libraries;
-  5. host: the wrapper's host cost a call: 16 rounds of 64 calls each, the
+  5. small: int4 groups of 8, 16 and 32 codes on wqkv at M = 16 and 128;
+  6. k8: K8 (`qmm_tiled_launch`) at 2048 and 1024 rows, both libraries;
+  7. host: the wrapper's host cost a call: 16 rounds of 64 calls each, the
      stream parked, the two trees' rounds in turn (minimum, median,
      maximum);
-  6. ttft: on full-depth LLaMA-2-7B int8 + bf16 KV and int4 g=128 +
+  8. ttft: on full-depth LLaMA-2-7B int8 + bf16 KV and int4 g=128 +
      int8 KV (512-slot cache, buckets 32 and 128), the baseline's
      `quant_matmul` and this tree's in turns, 10 rounds of each: the TTFT
      of `InferenceEngine.generate` for a 128-token prompt, a 100-token
@@ -68,7 +83,10 @@ DEPTH = 8
 # (K, N) and the main path's prologue choice of LLaMA-2-7B's projections
 SHAPES = {"wqkv": (4096, 12288, True), "wo": (4096, 4096, False),
           "w_gateup": (4096, 22016, True), "w_down": (11008, 4096, False)}
-PARTS = ("gemv", "k1", "small", "k8", "host", "ttft")
+PARTS = ("gemv", "gemv4", "decode", "k1", "small", "k8", "host", "ttft")
+# the int4 GEMV's decode shapes: (K, N, the main path's prologue choice)
+GEMV4 = {"wqkv": (4096, 12288, True), "lm_head": (4096, 32000, False),
+         "tp2 wqkv": (4096, 6144, True), "tp2 wo": (2048, 4096, False)}
 
 
 def say(*a):
@@ -108,7 +126,10 @@ def baseline(src: Path):
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     objs, procs = [], []
-    for name in ("quant_matmul.cu", "quant_matmul_tiled.cu"):
+    for name in ("quant_matmul.cu", "quant_matmul_tiled.cu",
+                 "qmm4_gemv.cu"):
+        if not (src / name).exists():
+            continue
         obj = out / (name + ".o")
         objs.append(str(obj))
         procs.append(subprocess.Popen(
@@ -175,8 +196,102 @@ def gemv_bits(base, gen):
             a = base.quant_matmul(x, qt, 1, **kw)
             b = k1.quant_matmul(x, qt, 1, **kw)
             torch.cuda.synchronize()
-            say(f"GEMV int{bits} M={M}: equal bits "
-                f"{torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])}")
+            same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            if bits == 8:
+                say(f"GEMV int8 M={M}: equal bits {same}")
+                continue
+            err = (a[0].float() - b[0].float()).abs().max().item()
+            tol = 2.0 ** -7 * a[0].float().abs().max().item()
+            say(f"GEMV int4 M={M}: equal bits {same}, x_out equal "
+                f"{torch.equal(a[1], b[1])}, max diff {err:.3g} against "
+                f"the K1 tolerance {tol:.3g}: "
+                f"{'within' if err <= tol else 'OUTSIDE'}")
+
+
+def gemv_bound(qt, M, K, N, pro):
+    """(bound ms, by) of one K1 call: one layer's codes and scales, the
+    rows in and out (and the prologue's residual, gamma and x_out)."""
+    nbytes = (qt.layer(0).q.numel() + qt.layer(0).scale.numel() * 4
+              + M * K * 2 + M * N * 2 + (2 * M * K * 2 + K * 2 if pro
+                                         else 0))
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = 2 * M * K * N / BF16_FLOPS * 1e3
+    return max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
+def gemv4(base, gen):
+    step = {}
+    for name, (K, N, pro) in GEMV4.items():
+        depth = 2 if name == "lm_head" else DEPTH   # past L2 either way
+        qt = weight(4, K, N, gen, depth=depth)
+        deq = [dequantize(qt.layer(i), BF16) for i in range(2)]
+        for M in (1, 2, 4, 8):
+            x, kw = rows(M, K, pro, gen)
+            b, n = turns(lambda i: base.quant_matmul(x, qt, i % depth, **kw),
+                         lambda i: k1.quant_matmul(x, qt, i % depth, **kw))
+            lib = time_ms(lambda i: torch.matmul(x, deq[i % 2]))
+            bound, by = gemv_bound(qt, M, K, N, pro)
+            step[(name, M)] = (b, n, lib, bound)
+            say(f"int4 GEMV {name:8s} M={M}: baseline {b:.4f} this {n:.4f} "
+                f"ms ({n / b:.3f}x)  torch.matmul {lib:.4f}  bound "
+                f"{bound:.4f} ({by}; {n / bound:.2f}x)")
+        del qt, deq
+        torch.cuda.empty_cache()
+    for M in (1, 8):
+        t = [32 * step[("wqkv", M)][j] + step[("lm_head", M)][j]
+             for j in range(4)]
+        say(f"int4 decode step's K1 (32 wqkv + lm_head) at M={M}: baseline "
+            f"{t[0]:.4f} this {t[1]:.4f} torch.matmul {t[2]:.4f} bound "
+            f"{t[3]:.4f} ms")
+    K, N, _ = GEMV4["wqkv"]
+    for gs in (32, 16, 8):
+        qt = weight(4, K, N, gen, gs=gs, depth=4)
+        for M in (1, 8):
+            x, kw = rows(M, K, True, gen)
+            b, n = turns(lambda i: base.quant_matmul(x, qt, i % 4, **kw),
+                         lambda i: k1.quant_matmul(x, qt, i % 4, **kw))
+            say(f"int4 GEMV g={gs} wqkv M={M}: baseline {b:.4f} this "
+                f"{n:.4f} ms ({n / b:.3f}x)")
+
+
+def decode(base, seed):
+    from llm_inference_tpu_torch.models import llama
+    from llm_inference_tpu_torch.tools.profile_decode import (decode_steps,
+                                                              profile_steps)
+    cfg = llama2_7b()
+    qcfg = QuantConfig(weights="int4", group_size=128,
+                       quantize_embedding=True)
+    params = llama.prepare_params(llama.init_params_quantized(
+        cfg, qcfg, seed=seed, device="cuda"))
+    this = k1.quant_matmul
+    try:
+        for B in (1, 8):
+            step = decode_steps(cfg, params, B, 128, 512, "int8", 0, seed,
+                                torch.device("cuda"))
+            got = {}
+            for _ in range(2):
+                for tag, fn in (("baseline", base.quant_matmul),
+                                ("this", this), ("this", this),
+                                ("baseline", base.quant_matmul)):
+                    k1.quant_matmul = fn
+                    r = profile_steps(step, 8)
+                    k1_us = sum(e.time_range.end - e.time_range.start
+                                for e in r["kernels"]
+                                if "qmm" in e.name) / 8
+                    got.setdefault(tag, []).append(
+                        (r["busy_ms"], len(r["kernels"]) / 8,
+                         1 - r["busy_ms"] / r["wall_ms"], k1_us / 1e3))
+            for tag, v in got.items():
+                say(f"decode int4 + int8 KV B={B} {tag}: busy " + " / ".join(
+                    f"{b:.3f}" for b, *_ in v) + " ms, kernels " + " / ".join(
+                    f"{k:.0f}" for _, k, *_ in v) + ", idle share "
+                    + " / ".join(f"{i:.3f}" for _, _, i, _ in v)
+                    + ", K1 (qmm*) " + " / ".join(
+                    f"{q:.3f}" for *_, q in v) + " ms a step")
+            del step
+            torch.cuda.empty_cache()
+    finally:
+        k1.quant_matmul = this
 
 
 def projections(base, gen):
@@ -384,6 +499,10 @@ def main(argv=None):
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     if "gemv" in parts:
         gemv_bits(base, gen)
+    if "gemv4" in parts:
+        gemv4(base, gen)
+    if "decode" in parts:
+        decode(base, args.seed)
     if "k1" in parts:
         projections(base, gen)
     if "small" in parts:

@@ -79,72 +79,26 @@ def main(argv=None):
     S = max(512, -(-(T + args.steps + 8) // 128) * 128)
     kv = torch.bfloat16 if args.kv == "bf16" else args.kv
     ps = args.page_size
-    if ps:
-        if T % ps or S % ps:
-            raise SystemExit(f"--prompt {T} and the {S} slots must be "
-                             f"multiples of --page-size {ps}")
-        NB = S // ps
-        cache = paged_kvcache.init_paged_cache(
-            cfg.num_layers, B * NB + 1, cfg.num_kv_heads, ps, cfg.head_dim,
-            B, NB, kv, device=dev)
-        cache.page_table.copy_(1 + torch.arange(
-            B * NB, device=dev, dtype=torch.int32).reshape(B, NB))
-    else:
-        cache = kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads, S,
-                                   cfg.head_dim, kv, device=dev)
-    rope = llama.rope_table(cfg, S, dev)
-    g = torch.Generator(device=dev).manual_seed(args.seed)
-    ids = torch.randint(1, cfg.vocab_size, (B, T), generator=g, device=dev,
-                        dtype=torch.int32)
-    pos = torch.arange(T, device=dev, dtype=torch.int32)[None].repeat(B, 1)
-    zeros = torch.zeros((B,), dtype=torch.long, device=dev)
+    if ps and (T % ps or S % ps):
+        raise SystemExit(f"--prompt {T} and the {S} slots must be "
+                         f"multiples of --page-size {ps}")
+    step = decode_steps(cfg, params, B, T, S, kv, ps, args.seed, dev)
+    r = profile_steps(step, args.steps)
+    wall_ms, prof_wall_ms, prof = r["wall_ms"], r["prof_wall_ms"], r["prof"]
 
-    with torch.no_grad():
-        logits, cache = llama.forward(cfg, params, ids, pos, cache,
-                                      rope_tables=rope)
-        tok = sampling.sample(logits, None, greedy=True)
-        nxt = torch.full((B,), T, dtype=torch.int32, device=dev)
-
-        def step():
-            nonlocal tok, nxt, cache
-            out, cache = llama.forward(cfg, params, tok[:, None],
-                                       nxt[:, None], cache, last_idx=zeros,
-                                       rope_tables=rope)
-            tok = sampling.sample(out, None, greedy=True)
-            nxt = nxt + 1
-
-        for _ in range(3):                   # warm-up
+    torch.cuda.synchronize()
+    with torch.no_grad(), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
             step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "called a synchronizing" in str(w.message)]
 
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(args.steps):
-                step()
-            torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                step()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        syncs = [str(w.message).splitlines()[0] for w in caught
-                 if "called a synchronizing" in str(w.message)]
-
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = _union_us([(e.time_range.start, e.time_range.end)
-                         for e in kernels]) / 1e3 / args.steps
+    kernels = r["kernels"]
+    busy_ms = r["busy_ms"]
     print(f"decode step wall {wall_ms:.3f} ms ({1e3 / wall_ms:.1f} tok/s "
           f"per row, B={B}); under the profiler {prof_wall_ms:.3f} ms")
     print(f"device busy {busy_ms:.3f} ms/step, idle share "
@@ -174,9 +128,74 @@ def main(argv=None):
                "idle_share": 1 - busy_ms / wall_ms,
                "host_syncs_per_step": len(syncs),
                "kernels_per_step": len(kernels) / args.steps}
-    del cache
+    del step
     summary.update(_prefill_profile(cfg, params, kv, args.seed, dev))
     print(json.dumps(summary))
+
+
+def decode_steps(cfg, params, B, T, S, kv, ps, seed, dev):
+    """Prefill B random prompts of T tokens over an S-slot cache (dense,
+    or paged with pages of ps tokens when ps), and return step(): one
+    greedy decode step through the engine's forward."""
+    if ps:
+        NB = S // ps
+        cache = paged_kvcache.init_paged_cache(
+            cfg.num_layers, B * NB + 1, cfg.num_kv_heads, ps, cfg.head_dim,
+            B, NB, kv, device=dev)
+        cache.page_table.copy_(1 + torch.arange(
+            B * NB, device=dev, dtype=torch.int32).reshape(B, NB))
+    else:
+        cache = kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads, S,
+                                   cfg.head_dim, kv, device=dev)
+    rope = llama.rope_table(cfg, S, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(1, cfg.vocab_size, (B, T), generator=g, device=dev,
+                        dtype=torch.int32)
+    pos = torch.arange(T, device=dev, dtype=torch.int32)[None].repeat(B, 1)
+    zeros = torch.zeros((B,), dtype=torch.long, device=dev)
+    with torch.no_grad():
+        logits, cache = llama.forward(cfg, params, ids, pos, cache,
+                                      rope_tables=rope)
+    tok = sampling.sample(logits, None, greedy=True)
+    nxt = torch.full((B,), T, dtype=torch.int32, device=dev)
+
+    def step():
+        nonlocal tok, nxt, cache
+        with torch.no_grad():
+            out, cache = llama.forward(cfg, params, tok[:, None],
+                                       nxt[:, None], cache, last_idx=zeros,
+                                       rope_tables=rope)
+        tok = sampling.sample(out, None, greedy=True)
+        nxt = nxt + 1
+    return step
+
+
+def profile_steps(step, steps, warmup=3):
+    """`warmup` steps, then `steps` timed on the host clock (synchronised),
+    then `steps` more under torch.profiler: wall_ms and prof_wall_ms a
+    step, the device's busy ms a step (the union of kernel intervals), the
+    kernels' events and the profile."""
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end)
+                         for e in kernels]) / 1e3 / steps
+    return dict(wall_ms=wall_ms, prof_wall_ms=prof_wall_ms, busy_ms=busy_ms,
+                kernels=kernels, prof=prof)
 
 
 def _prefill_profile(cfg, params, kv, seed, dev, rows=2048, S=4096):

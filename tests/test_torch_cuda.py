@@ -165,6 +165,106 @@ def test_k1_int4_cuda_matches_plain(cuda, M, K, prologue):
     assert err <= 2.0 ** -7 * want.float().abs().max().item()
 
 
+# (K, N) of the int4 GEMV's decode shapes: LLaMA-2-7B wqkv and lm_head,
+# one tp = 2 rank's wqkv and wo shards, and narrow N (2 or 3 columns a
+# block; and fewer columns than SMs, so that blocks without columns write
+# their slice of x_out alone)
+_GEMV4_SHAPES = [(4096, 12288), (4096, 32000), (4096, 6144), (2048, 4096),
+                 (4096, 320), (1024, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", _GEMV4_SHAPES)
+@pytest.mark.parametrize("M", [1, 2, 4, 8])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_k1_int4_decode_shapes_cuda_matches_plain(cuda, K, N, M, prologue):
+    # the GEMV (csrc/qmm4_gemv.cu) at the decode shapes: one persistent
+    # block an SM over an even cut of N (lm_head's 243 columns a block in
+    # two batches), rows in shared memory, products on mma.sync
+    g = torch.Generator().manual_seed(K + N + M)
+    _k1_check(cuda, _int4_weight(g, 2, N, K), M, K, prologue,
+              seed=K + N + M + prologue, mma=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gsize", [128, 8])
+@pytest.mark.parametrize("M", [1, 8])
+def test_k1_gemv4_launches_repeat_bit_identical(cuda, gsize, M):
+    # every sum in a fixed order (no float atomics, no split of K across
+    # blocks): two launches on the same inputs give the same bits
+    g = torch.Generator().manual_seed(70 + gsize + M)
+    K, N = 4096, 12288
+    qt = _int4_weight(g, 2, N, K, gsize).to(cuda)
+    x = torch.randn((M, K), generator=g).to(BF16).to(cuda)
+    res = torch.randn((M, K), generator=g).to(BF16).to(cuda)
+    gamma = (1 + 0.1 * torch.randn((K,), generator=g)).to(BF16).to(cuda)
+    y1, h1 = t_qm.quant_matmul(x, qt, 1, norm_gamma=gamma, residual=res,
+                               want_x_out=True)
+    y2, h2 = t_qm.quant_matmul(x, qt, 1, norm_gamma=gamma, residual=res,
+                               want_x_out=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    assert torch.isfinite(y1.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8])
+def test_k1_gemv4_dependent_launch_same_bits(cuda, M):
+    # the GEMV is a dependent launch: every thread waits for the kernel
+    # ahead before it touches global memory, so launched right behind the
+    # kernels that write its rows it gives the bits it gives on rows
+    # written before a synchronize
+    g = torch.Generator().manual_seed(80 + M)
+    K, N = 4096, 6144
+    qt = _int4_weight(g, 2, N, K).to(cuda)
+    x = torch.randn((M, K), generator=g).to(cuda)
+    gamma = (1 + 0.1 * torch.randn((K,), generator=g)).to(BF16).to(cuda)
+    rows = (x * 2).to(BF16)
+    torch.cuda.synchronize()
+    want = t_qm.quant_matmul(rows, qt, 1, norm_gamma=gamma)
+    torch.cuda.synchronize()
+    buf = torch.zeros((M, K), dtype=BF16, device=cuda)
+    torch.cuda.synchronize()
+    buf.copy_((x * 2).to(BF16))
+    got = t_qm.quant_matmul(buf, qt, 1, norm_gamma=gamma)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sms", [78, 132, 144])
+@pytest.mark.parametrize("K,N", _GEMV4_SHAPES[:4] + [(11008, 4096)])
+def test_k1_gemv4_plan_balances_the_card(cuda, K, N, sms):
+    """The int4 GEMV's ring plan as the kernel computes it
+    (qmm4_gemv_plan): the blocks' column ranges differ by at most one and
+    cover N once; a block's batches hold its columns, each batch within
+    the ring's 192 columns (128 for groups of 16 or 8); the rows and at
+    least two slots fit the card's shared memory; one pass over the
+    weights at M <= 8 rows."""
+    import ctypes
+    from llm_inference_tpu_torch.ops.kernels import _build
+    out = (ctypes.c_int * 10)()
+    for M in (1, 2, 4, 8):
+        if M * K * 4 > t_qm._GEMV_MAX_SMEM:
+            continue
+        for gs in (128, 32, 16, 8):
+            assert _build.lib().qmm4_gemv_plan(M, K, N, K // gs, sms,
+                                               out) == 0
+            R, slot, smem, passes, q, ub, ncp, rows, lo, hi = out
+            assert smem <= 232448 and R >= 2 and passes == 1
+            assert M * (K * 4 + 16) + R * slot <= smem
+            cuts = [N * b // sms for b in range(sms + 1)]
+            sizes = [b - a for a, b in zip(cuts, cuts[1:])]
+            assert (min(sizes), max(sizes)) == (lo, hi) and sum(sizes) == N
+            assert hi - lo <= 1
+            # batches of sizes within one unit of each other: the last
+            # holds at least ub - (batches - 1) columns
+            batches = -(-hi // ub)
+            assert 1 <= ub <= (192 if gs % 32 == 0 else 128)
+            assert hi - (batches - 1) * ub >= ub - (batches - 1)
+            assert ncp == -(-ub // 8) * 8 and rows >= ncp and q >= 1
+
+
 def _k1_weight(g, bits, N, K, gsize=128):
     if bits == 4:
         return _int4_weight(g, 2, N, K, gsize)
@@ -1140,9 +1240,10 @@ def test_row_writes_cuda_match_plain_exactly(cuda, kv):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("gsize", [8, 16, 32])
-@pytest.mark.parametrize("M", [1, 4, 32, 16, 128])
+@pytest.mark.parametrize("M", [1, 4, 8, 32, 16, 128])
 def test_k1_int4_small_groups_cuda_matches_plain(cuda, gsize, M):
-    # M <= 8: the GEMV (a scale per 8-code word for groups of 8 and 16);
+    # M <= 8: the GEMV (the weight ring: a fold per m16n8k16 product for
+    # groups of 16, per m16n8k8 half for 8, per 32-code chunk for 32);
     # M > 8: the MMA branch's mma.sync kernel (K8's qmm_tiled: a fold per
     # 32-code chunk, per m16n8k16 product, or per m16n8k8 half)
     g = torch.Generator().manual_seed(100 + gsize + M)

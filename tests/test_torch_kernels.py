@@ -196,7 +196,7 @@ def _assert_bf16_close(got, want):
             + 2.0 ** -16 * np.abs(want).max()).all(), err.max()
 
 
-@pytest.mark.parametrize("M", [1, 4, 128])
+@pytest.mark.parametrize("M", [1, 4, 8, 128])
 @pytest.mark.parametrize("prologue", ["none", "norm", "norm_res_xout"])
 def test_k1_int4_plain_matches_jax_kernel(prologue, M):
     rng = np.random.default_rng(40 + M)
