@@ -22,10 +22,15 @@ time, then runs the port's three serving paths in turn, each through:
      against the configuration's, TTFT, tokens/s and their spread), then an
      untimed pass that checks every logit is finite and the tokens repeat.
 The paths: (i) int8 per-channel weights and lm_head over a bf16 KV cache
-(K1, K8 int8, K9 bf16, K2 bf16, K3), (ii) int4 g=128 weights and lm_head
-over an int8 KV cache (K1, K8 int4, K9 int8, K2 int8, K4, K6), (iii) the
-same weights over an int4 KV cache (K1, K8 int4, K9 int4, K5, K3 on packed
-rows and the scale write, K6), and (iv) the continuous-batching
+(K1, K8 int8, K9 bf16, K2 bf16), (ii) int4 g=128 weights and lm_head
+over an int8 KV cache (K1, K8 int4, K9 int8, K2 int8, K6), (iii) the
+same weights over an int4 KV cache (K1, K8 int4, K9 int4, K5, K6); every
+forward of the three rotates q and k and writes the dense cache in one
+launch a layer (rope_write, the redesigned K3/K4), which phase 2 holds to
+its plain version at decode (B = 1, and B = 4 with an offset past the
+end), a 128-row prefill and a 2048-row chunk in each cache kind, beside
+K3, K4 (and K3 on packed int4 rows, the scale write) as their own entry
+points still run them; and (iv) the continuous-batching
 schedulers on the weights of (ii): phase 2 holds K10a (bf16 and int8
 pages), K10b (int4 pages) and K11 (three bodies) to their plain versions
 over scattered pages; phase 3 runs a 2-layer model through the paged
@@ -803,6 +808,113 @@ def int4_write_cases(gen):
     return out
 
 
+KV_BITS = {"bf16": 16, "int8": 8, "int4": 4}
+# (B, T, offsets, slots) of the RoPE-and-write cases: decode at B = 1 and
+# at B = 4 with an offset past the end, a 128-row prefill and a 2048-row
+# chunk
+ROPE_WRITE_CASES = ((1, 1, [191], MAX_SEQ),
+                    (4, 1, [0, 77, MAX_SEQ - 1, MAX_SEQ + 9], MAX_SEQ),
+                    (1, 128, [0], MAX_SEQ), (1, CHUNK, [0], LONG_SEQ))
+
+
+def rope_write_cases(gen, kind):
+    """The RoPE and KV write (`rope_write`, the redesigned K3/K4) over a
+    4-layer cache of `kind` at LLaMA-2-7B widths, q, k and v the column
+    slices of one qkv projection, in ROPE_WRITE_CASES: the rotated q,
+    codes or rows and scales equal to the plain version's bit for bit;
+    timed beside the plain version and the torch chain the kernel
+    replaces (the RoPE ops on q and k at once, the torch quantize ops for
+    a quantized cache, then index writes). Returns the numbers by (B, T)."""
+    H, Hkv, D = CFG.num_heads, CFG.num_kv_heads, CFG.head_dim
+    bits = KV_BITS[kind]
+    half = D // 2
+    out = {}
+    for B, T, offs, S in ROPE_WRITE_CASES:
+        kc, vc, ks, vs = random_cache(gen, kind, 4, B, S)
+        ref = [None if t is None else t.clone() for t in (kc, vc, ks, vs)]
+        qkv = torch.randn((B, T, (H + 2 * Hkv) * D), generator=gen,
+                          device=DEV).to(BF16)
+        q, k, v = (qkv[..., lo * D:(lo + n) * D].reshape(B, T, n, D)
+                   for lo, n in ((0, H), (H, Hkv), (H + Hkv, Hkv)))
+        off = torch.tensor(offs, dtype=torch.int32, device=DEV)
+        start = torch.clamp(off.long(), 0, S - T)
+        slots = start[:, None] + torch.arange(T, device=DEV)      # [B, T]
+        cos_t, sin_t = llama.rope_table(CFG, S, DEV)
+        cos, sin = cos_t[slots], sin_t[slots]
+        got = k3.rope_write(q, k, v, cos, sin, off, kc, vc, 2, ks, vs, bits)
+        want = k3.rope_write_ref(q, k, v, cos, sin, off, ref[0], ref[1], 2,
+                                 ref[2], ref[3], bits)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want) and all(
+            a is None or torch.equal(a, b)
+            for a, b in zip((kc, vc, ks, vs), ref)),
+            f"rope_write {kind} B={B} T={T}: differs from the plain version")
+        ms = time_ms(lambda i: k3.rope_write(q, k, v, cos, sin, off, kc, vc,
+                                             i % 4, ks, vs, bits))
+        plain = plain_ms(lambda i: k3.rope_write_ref(
+            q, k, v, cos, sin, off, ref[0], ref[1], i % 4, ref[2], ref[3],
+            bits))
+        rows = torch.arange(B, device=DEV)[:, None]
+        c1, c2 = cos[:, :, None, :half], cos[:, :, None, half:]
+        s1, s2 = sin[:, :, None, :half], sin[:, :, None, half:]
+
+        def lib_chain(i):
+            qk = qkv[..., :(H + Hkv) * D].reshape(B, T, H + Hkv, D).float()
+            x1, x2 = qk[..., :half], qk[..., half:]
+            rot = torch.cat([x1 * c1 - x2 * s1, x2 * c2 + x1 * s2],
+                            -1).to(BF16)
+            kv = torch.stack([rot[:, :, H:], v])       # [2, B, T, Hkv, D]
+            if bits != 16:
+                qmax = 127.0 if bits == 8 else 7.0
+                x = kv.float()
+                sc = torch.clamp(x.abs().amax(-1, keepdim=True)
+                                 / torch.full_like(x[..., :1], qmax),
+                                 min=1e-8)
+                kv = torch.clamp(torch.round(x / sc), -qmax - 1, qmax)
+                if bits == 4:
+                    kv = kv[..., half:] * 16 + kv[..., :half] + 8
+                kv = kv.to(torch.int8)
+                ref[2][i % 4][rows, slots] = sc[0, ..., 0]
+                ref[3][i % 4][rows, slots] = sc[1, ..., 0]
+            ref[0][i % 4][rows, :, slots] = kv[0]
+            ref[1][i % 4][rows, :, slots] = kv[1]
+            return rot[:, :, :H]
+        lib = time_ms(lib_chain, reps=4 if T > 1 else 20)
+        dc = D // 2 if bits == 4 else D * (2 if bits == 16 else 1)
+        nbytes = (B * T * (H + 2 * Hkv) * D * 2 + 2 * B * T * D * 4 + B * 4
+                  + B * T * H * D * 2 + 2 * B * T * Hkv * dc
+                  + (2 * B * T * Hkv * 4 if bits != 16 else 0))
+        # float32 RoPE: two products and a sum per rotated value; the
+        # quantizer's |x|, max, divide, round and clamp per K and V value
+        flops = (3 * B * T * (H + Hkv) * D
+                 + (5 * 2 * B * T * Hkv * D if bits != 16 else 0))
+        bnd, by = bound_ms(nbytes, flops, FP32_FLOPS)
+        say(f"  rope_write {kind} B={B} T={T} offsets={offs} exact  kernel "
+            f"{ms:.4f} ms  bound {bnd:.6f} ms ({by})  plain {plain:.4f} ms  "
+            f"torch chain {lib:.4f} ms")
+        out[(B, T)] = dict(ms=ms, plain=plain, lib=lib, bound=bnd, by=by)
+        del kc, vc, ks, vs, ref, qkv
+    return out
+
+
+def rope_write_entry(kind, launches, r, replaces):
+    """The kernels line's entry of the RoPE and KV write over a `kind`
+    cache: one decode step at B = 1 (32 calls), with the 128-row prefill
+    and the 2048-row chunk beside it."""
+    def chain(case, what):
+        c = r[case]
+        return dict(ms=L * c["ms"], plain_ms=L * c["plain"],
+                    bound_ms=L * c["bound"], bound_by=c["by"],
+                    library_ms=L * c["lib"], work=what)
+    return dict(
+        entry(f"K3/K4 rope_write (RoPE of q and k + {kind} KV write)",
+              "kv_write.cu", replaces, launches, 0.0, r[(1, 1)], L,
+              "32 layers of one decode step at B=1"),
+        prefill128=chain((1, 128), "32 layers of a 128-row prefill, B=1"),
+        chunk=chain((1, CHUNK), "32 layers of a 2048-row prefill chunk, "
+                    "B=1"))
+
+
 # ------------------------------------------------------------------ phase 3
 
 def phase_parity(qcfg, cache_dtype):
@@ -895,7 +1007,7 @@ REQUESTS = (  # (name, prompt lengths, max_new_tokens, long engine)
 REPEATS = 3       # timed passes over the requests
 BUCKETS = (32, 128)                 # the short requests' engine
 COUNTERS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "KS",
-            "K10a", "K10b", "K11", "K12", "RW", "QRW")
+            "K10a", "K10b", "K11", "K12", "RW", "QRW", "KR")
 
 
 def counts():
@@ -905,7 +1017,8 @@ def counts():
                 K8=k1.tiled_launches, K9=k9.launches,
                 KS=k3.scale_launches, K10a=k10.launches,
                 K10b=k10.int4_launches, K11=k11.launches, K12=k12.launches,
-                RW=k3.rows_launches, QRW=k3.qrows_launches)
+                RW=k3.rows_launches, QRW=k3.qrows_launches,
+                KR=k3.rope_launches)
 
 
 def zero_counts():
@@ -914,6 +1027,7 @@ def zero_counts():
     k1.ffn_launches = 0
     k2.launches = k2.int4_launches = k9.launches = 0
     k3.launches = k3.quant_launches = k3.scale_launches = 0
+    k3.rope_launches = 0
     k10.launches = k10.int4_launches = k11.launches = 0
     k12.launches = k3.rows_launches = k3.qrows_launches = 0
 
@@ -939,10 +1053,11 @@ def forward_launches(want, weights, cache_dtype, batch, rows, S, ps=0,
     128 rows and K1 below: wqkv in every layer, and wo, gate-up, down
     unless the layer tail is K6 (int4 weights, <= 32 rows); lm_head is K1
     on the batch's last rows; attention is K9, K2 or K5, K10a, K10b or K11
-    where llama.attention_route says (plain otherwise). A dense decode
-    step also writes the cache: K3 (bf16), K4 (int8), or K3 on packed rows
-    and the scale write (int4); prefill and every paged write are plain
-    PyTorch. On the mega route (`mega`: llama.layer_route says "mega")
+    where llama.attention_route says (plain otherwise). Every dense
+    forward rotates q and k and writes the cache in one launch a layer
+    (rope_write, "KR": the redesigned K3/K4, any cache kind, any rows);
+    every paged write and its RoPE are plain PyTorch, and K3, K4 and the
+    scale write run only in their own phase-2 cases. On the mega route (`mega`: llama.layer_route says "mega")
     every layer is K12 and its row write (write_rows over a bf16 cache,
     quantize_write_rows over an int8 one), and lm_head is K1. One rank of a
     tensor-parallel forward (`tp`) runs wo as K1 and the FFN block as K7
@@ -967,10 +1082,8 @@ def forward_launches(want, weights, cache_dtype, batch, rows, S, ps=0,
               "paged_decode": "K10b" if int4 else "K10a"}.get(route)
     if kernel:
         want[kernel] += L
-    if rows == 1 and not ps:
-        for c in {BF16: ("K3",), "int8": ("K4",),
-                  "int4": ("K3", "KS")}[cache_dtype]:
-            want[c] += L
+    if not ps:
+        want["KR"] += L
 
 
 def expected_mma_launches(weights, chunks):
@@ -1174,6 +1287,7 @@ def path_int8(gen):
     k9_r, k9_err = k9_cases(gen, "bf16")
     k2_step, k2_long, k2_err = k2_cases(gen, int8_cache=False)
     k3_step, k3_err = k3_cases(gen)
+    kr = rope_write_cases(gen, "bf16")
     phase_parity(QCFG8, BF16)
     total = phase_main_path(params, "int8", BF16)
     return params, [
@@ -1185,6 +1299,7 @@ def path_int8(gen):
                    "decode_attention.py:489", total["K2"], k2_err, k2_step, L,
                    "32 layers of one decode step at B=1, pos 191, S=512"),
              pos3060=long_case(k2_long)),
+        rope_write_entry("bf16", total["KR"], kr, "kv_write.py:72"),
         entry("K3 kv_write", "kv_write.cu", "kv_write.py:72", total["K3"],
               k3_err, k3_step, L, "32 layers of one decode step at B=1"),
     ]
@@ -1204,6 +1319,7 @@ def path_int4(gen):
     k9_r, k9_err = k9_cases(gen, "int8")
     k2_step, k2_long, k2_err = k2_cases(gen, int8_cache=True)
     k4_step, k4_err = k4_cases(gen)
+    kr = rope_write_cases(gen, "int8")
     k6_step, k6_err = k6_cases(params, gen)
     phase_parity(QCFG4, "int8")
     total = phase_main_path(params, "int4", "int8")
@@ -1218,6 +1334,7 @@ def path_int4(gen):
                    "decode_attention.py:489", total["K2"], k2_err, k2_step, L,
                    "32 layers of one decode step at B=1, pos 191, S=512"),
              pos3060=long_case(k2_long)),
+        rope_write_entry("int8", total["KR"], kr, "kv_write.py:152"),
         entry("K4 quantize_write_token (int8 KV write)", "kv_write.cu",
               "kv_write.py:152", total["K4"], k4_err, k4_step, L,
               "32 layers of one decode step at B=1"),
@@ -1238,6 +1355,7 @@ def path_int4_kv4(gen, shared):
     k9_r, k9_err = k9_cases(gen, "int4")
     k5_r, k5_err = k5_cases(gen)
     writes = int4_write_cases(gen)
+    kr = rope_write_cases(gen, "int4")
     phase_parity(QCFG4, "int4")
     total = phase_main_path(params, "int4", "int4")
     del params
@@ -1251,6 +1369,7 @@ def path_int4_kv4(gen, shared):
         entry("K5 decode_attention (int4 cache)", "decode_attention.cu",
               "decode_attention.py:424", total["K5"], k5_err, k5_r, L,
               "32 layers of one decode step at B=1, pos 3060, S=4096"),
+        rope_write_entry("int4", total["KR"], kr, "kv_write.py:72"),
         entry("K3 kv_write (int4 packed rows)", "kv_write.cu",
               "kv_write.py:72", total["K3"], 0.0, writes["K3 packed rows"],
               L, "32 layers of one decode step at B=1"),
@@ -1695,7 +1814,7 @@ def phase_serving(params):
             distinct[:4] + sharing[:4])
         add(kv, n)
         check(st["hits"] > 0, f"(c) {kv}: no prefix hit tokens")
-    used = ("K1", "K2", "K4", "K6", "K8", "K10a", "K10b", "K11")
+    used = ("K1", "K2", "KR", "K6", "K8", "K10a", "K10b", "K11")
     check(all(total[c] > 0 for c in used), f"a kernel never ran: {total}")
     del engines
     return by_kind

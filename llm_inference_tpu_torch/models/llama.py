@@ -9,12 +9,15 @@ runs the JAX package's pair-carry protocol (llama.py:930-953): each
 layer's down-projection delta folds into the next layer's qkv prologue,
 so every layer is
 
-    wqkv (norm + residual fused) → RoPE → KV write → attention
+    wqkv (norm + residual fused) → RoPE + KV write → attention
     → layer tail
 
-The projections are K1 up to 128 rows and K8 above. The KV write is K3
-(bf16 cache), K4 (int8 cache, quantizing) or K3 + the scale write (int4
-cache) at decode. Attention is K2 (K5 over an int4 cache) at decode, K9
+The projections are K1 up to 128 rows and K8 above. Over a dense cache
+the RoPE of q and k and the KV write are one launch a layer for every T
+(kvcache.rope_update_cache_layer: kv_write.rope_write, the redesigned
+K3/K4, which quantizes for an int8 or int4 cache); with qk-norm, float32
+activations or a paged cache the RoPE is plain PyTorch before the write
+(`_rope_in_write`). Attention is K2 (K5 over an int4 cache) at decode, K9
 for prefills that flash_attention.supports takes, else the plain `attend`
 (`attention_route`). Over a paged cache (ops/paged_kvcache.py) the write
 is plain indexing into the pool and attention is K10a/K10b at decode, K11
@@ -62,6 +65,7 @@ from llm_inference_tpu_torch.ops import activations, attention, embedding
 from llm_inference_tpu_torch.ops import kvcache, norms, paged_kvcache, rope
 from llm_inference_tpu_torch.ops.kernels import decode_attention
 from llm_inference_tpu_torch.ops.kernels import flash_attention
+from llm_inference_tpu_torch.ops.kernels import kv_write
 from llm_inference_tpu_torch.ops.kernels import layer_fused
 from llm_inference_tpu_torch.ops.kernels import paged_attention
 from llm_inference_tpu_torch.ops.kernels import paged_flash
@@ -474,12 +478,15 @@ def _paged_attention(cfg: ModelConfig, q, k, v,
 
 def cached_attention(cfg: ModelConfig, q, k, v, cache, layer: int,
                      positions, write_offsets, mask,
-                     route: Optional[str] = None):
+                     route: Optional[str] = None, rope_rows=None):
     """Write this layer's K/V into the dense or paged cache, then attend
     as `route` says (by default attention_route's choice for a dense cache
     or a first paged chunk), with a quantized cache's scales; `mask` (from
     make_attention_mask) is needed on the plain routes only. q/k/v:
-    [B, T, H*, D] (post-RoPE). Returns [B, T, Hq, D]."""
+    [B, T, H*, D], post-RoPE; with rope_rows, the (cos, sin) rows [B, T,
+    D] at the positions, q and k come unrotated and the dense cache's
+    write rotates them (kvcache.rope_update_cache_layer). Returns
+    [B, T, Hq, D]."""
     paged = isinstance(cache, paged_kvcache.PagedKVCache)
     if route is None:
         route = attention_route(
@@ -489,7 +496,11 @@ def cached_attention(cfg: ModelConfig, q, k, v, cache, layer: int,
     if paged:
         return _paged_attention(cfg, q, k, v, cache, layer, positions,
                                 write_offsets, mask, route)
-    kvcache.update_cache_layer(cache, layer, k, v, write_offsets)
+    if rope_rows is not None:
+        q = kvcache.rope_update_cache_layer(cache, layer, q, k, v,
+                                            *rope_rows, write_offsets)
+    else:
+        kvcache.update_cache_layer(cache, layer, k, v, write_offsets)
     if route == "decode":
         return decode_attention.decode_attention(
             q, cache.k, cache.v, layer, positions[:, -1],
@@ -508,6 +519,17 @@ def cached_attention(cfg: ModelConfig, q, k, v, cache, layer: int,
                             v_scale=None if vs is None else vs[layer])
 
 
+def _rope_in_write(cfg: ModelConfig, cache, dtype) -> bool:
+    """Whether the layer's KV write applies the RoPE too, one launch for q
+    and k's rotation and the write (kvcache.rope_update_cache_layer): over
+    a dense cache, without qk-norm, where kv_write.rope_supports takes the
+    rows (bf16) and the cache. Else `_rope_heads` rotates q and k in plain
+    PyTorch before the write."""
+    return (isinstance(cache, kvcache.KVCache) and not cfg.qk_norm
+            and kv_write.rope_supports(dtype, cfg.head_dim, cache.k,
+                                       cache.bits))
+
+
 def _rope_heads(cfg: ModelConfig, layers, l, q, k, cos, sin):
     """The optional qk-norm, then RoPE, on q/k [B, T, H*, D]; cos/sin are
     the tables gathered at the positions, [B, T, D]."""
@@ -518,20 +540,22 @@ def _rope_heads(cfg: ModelConfig, layers, l, q, k, cos, sin):
             rope.apply_rope_gathered(k, cos, sin))
 
 
-def _fused_qkv_heads(cfg: ModelConfig, layers, l, qkv, cos, sin):
-    """Post-RoPE q, k and v [B, T, H*, D] from a fused [q|k|v] projection.
-    q and k are adjacent columns, so without qk-norm one RoPE pass covers
-    both (the same elementwise math, half the launches)."""
+def _fused_qkv_heads(cfg: ModelConfig, layers, l, qkv, cos, sin, rotate):
+    """q, k and v [B, T, H*, D] from a fused [q|k|v] projection: column
+    views of it, with q and k rotated when `rotate` (else the KV write
+    rotates them). q and k are adjacent columns, so without qk-norm one
+    RoPE pass covers both (the same elementwise math, half the
+    launches)."""
     B, T, n = qkv.shape
     D = cfg.head_dim
     nq = n * cfg.num_heads // (cfg.num_heads + 2 * cfg.num_kv_heads)
     nkv = (n - nq) // 2
     v = qkv[..., nq + nkv:].reshape(B, T, -1, D)
-    if cfg.qk_norm:
-        q, k = _rope_heads(cfg, layers, l,
-                           qkv[..., :nq].reshape(B, T, -1, D),
-                           qkv[..., nq:nq + nkv].reshape(B, T, -1, D),
-                           cos, sin)
+    if not rotate or cfg.qk_norm:
+        q = qkv[..., :nq].reshape(B, T, -1, D)
+        k = qkv[..., nq:nq + nkv].reshape(B, T, -1, D)
+        if rotate:
+            q, k = _rope_heads(cfg, layers, l, q, k, cos, sin)
         return q, k, v
     qk = rope.apply_rope_gathered(qkv[..., :nq + nkv].reshape(B, T, -1, D),
                                   cos, sin)
@@ -539,10 +563,10 @@ def _fused_qkv_heads(cfg: ModelConfig, layers, l, qkv, cos, sin):
 
 
 def _attend_block(cfg, l, q, k, v, cache, positions, write_offsets, mask,
-                  route):
+                  route, rope_rows=None):
     B, T = q.shape[:2]
     attn = cached_attention(cfg, q, k, v, cache, l, positions, write_offsets,
-                            mask, route)
+                            mask, route, rope_rows)
     return attn.reshape(B, T, -1)
 
 
@@ -584,9 +608,10 @@ def _layer_pair(cfg, layers, l, h, d, cache, positions, write_offsets, mask,
     qkv, h = norm_matmul(h, layers["wqkv"], layers["attn_norm"][l], eps,
                          bias=None if bqkv is None else bqkv[l], layer=l,
                          residual=d, want_x_out=True)
-    q, k, v = _fused_qkv_heads(cfg, layers, l, qkv, cos, sin)
+    fused = _rope_in_write(cfg, cache, qkv.dtype)
+    q, k, v = _fused_qkv_heads(cfg, layers, l, qkv, cos, sin, not fused)
     attn2d = _attend_block(cfg, l, q, k, v, cache, positions, write_offsets,
-                           mask, route)
+                           mask, route, (cos, sin) if fused else None)
     gamma = layers["ffn_norm"][l]
     if tp is None:
         tail = qm.layer_tail_fused(h, attn2d, layers["wo"],
@@ -623,17 +648,19 @@ def _layer_plain(cfg, layers, l, h, cache, positions, write_offsets, mask,
 
     normed = norms.rms_norm(h, layers["attn_norm"][l], eps)
     if "wqkv" in layers:
-        q, k, v = _fused_qkv_heads(cfg, layers, l,
-                                   mm("wqkv", normed, "bqkv"), cos, sin)
+        qkv = mm("wqkv", normed, "bqkv")
+        fused = _rope_in_write(cfg, cache, qkv.dtype)
+        q, k, v = _fused_qkv_heads(cfg, layers, l, qkv, cos, sin, not fused)
     else:
         D = cfg.head_dim
-        q, k = _rope_heads(cfg, layers, l,
-                           mm("wq", normed, "bq").reshape(B, T, -1, D),
-                           mm("wk", normed, "bk").reshape(B, T, -1, D),
-                           cos, sin)
+        q = mm("wq", normed, "bq").reshape(B, T, -1, D)
+        k = mm("wk", normed, "bk").reshape(B, T, -1, D)
         v = mm("wv", normed, "bv").reshape(B, T, -1, D)
+        fused = _rope_in_write(cfg, cache, q.dtype)
+        if not fused:
+            q, k = _rope_heads(cfg, layers, l, q, k, cos, sin)
     attn2d = _attend_block(cfg, l, q, k, v, cache, positions, write_offsets,
-                           mask, route)
+                           mask, route, (cos, sin) if fused else None)
     h = h + _psum(mm("wo", attn2d), tp)
     normed = norms.rms_norm(h, layers["ffn_norm"][l], eps)
     if "w_gateup" in layers:

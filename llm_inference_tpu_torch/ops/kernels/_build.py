@@ -30,6 +30,7 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # C entry points: (name, argtypes); every one returns an int, cudaError_t
 # but for qmm_tiled_route (which K8 kernel a shape takes) and
 # decode_attn_tile_slots (the K2/K5/K10 tile for a head size and cache
@@ -52,9 +53,8 @@ SIGNATURES = {
     "flash_attn_launch": [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P],
     "paged_decode_attn_launch": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
     "paged_flash_attn_launch": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
-    "kv_write_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "kv_rope_write_launch": [_P] * 11 + [_LL] * 9 + [_I] * 8 + [_P],
     "kv_scale_write_launch": [_P] * 5 + [_I] * 3 + [_P],
-    "kv_quant_write_launch": [_P] * 7 + [_I] * 9 + [_P],
 }
 
 _lib = None

@@ -8,13 +8,17 @@ compare element for element. An int4 cache (bits 4) holds the packed
 codes of quantization.quantize_kv4, [layers, batch, kv_heads, max_seq,
 head_dim / 2], with the same scales. Where the JAX package threads the
 cache functionally and relies on buffer donation, the port writes the
-tensors in place: a decode step (T == 1) is one launch for the whole batch
-(K3, or K4 which quantizes too; an int4 cache quantizes in plain PyTorch,
-as XLA does in the JAX package, then writes the packed rows with K3 and
-the scales with `write_token_scales`); a prefill write (T > 1) is one
-in-place slice write per sequence, of codes and scales after the plain
-quantizer for a quantized cache. Offsets are per sequence.
-"""
+tensors in place. The model's layers write through
+`rope_update_cache_layer`: the RoPE of q and k and the write of k and v
+in any kind, quantized where the cache is, in one launch for every T
+(kv_write.rope_write). `update_cache_layer` writes rows that are already
+rotated (a model with qk-norm, or float32 activations): a decode step
+(T == 1) is one launch for the whole batch (K3, or K4 which quantizes
+too; an int4 cache quantizes in plain PyTorch, as XLA does in the JAX
+package, then writes the packed rows with K3 and the scales with
+`write_token_scales`); a prefill write (T > 1) is one in-place slice
+write per sequence, of codes and scales after the plain quantizer for a
+quantized cache. Offsets are per sequence."""
 
 from __future__ import annotations
 
@@ -25,8 +29,7 @@ import torch
 
 from llm_inference_tpu_torch import resolve_device
 from llm_inference_tpu_torch.ops.kernels import kv_write
-from llm_inference_tpu_torch.ops.quantization import (quantize_kv,
-                                                      quantize_kv4)
+from llm_inference_tpu_torch.ops.quantization import quantize_kv4
 
 
 @dataclasses.dataclass
@@ -79,9 +82,7 @@ def update_cache_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
                        v_new: torch.Tensor, offsets: torch.Tensor) -> KVCache:
     """Write T new tokens per sequence (k_new/v_new [B, T, Hkv, D]) into
     ONE layer of the stacked cache at offsets[b], in place."""
-    B, T = k_new.shape[:2]
-    quantize = quantize_kv4 if cache.bits == 4 else quantize_kv
-    if T == 1:
+    if k_new.shape[1] == 1:
         kt, vt = k_new.transpose(1, 2), v_new.transpose(1, 2)
         if cache.bits == 8:
             kv_write.quantize_write_token(cache.k, cache.v, cache.k_scale,
@@ -89,7 +90,7 @@ def update_cache_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
                                           offsets)
         elif cache.bits == 4:
             # K and V rows quantized together (one set of launches)
-            q, s = quantize(torch.stack([kt, vt]))
+            q, s = quantize_kv4(torch.stack([kt, vt]))
             kv_write.write_token(cache.k, cache.v, layer, q[0], q[1],
                                  offsets)
             # scales [B, Hkv, 1, 1] → one slot-major row [B, 1, Hkv]
@@ -100,21 +101,21 @@ def update_cache_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
         else:
             kv_write.write_token(cache.k, cache.v, layer, kt, vt, offsets)
         return cache
-    S = cache.max_seq_len
-    # dynamic_update_slice semantics: the window start clamps to [0, S - T]
-    start = torch.clamp(offsets.reshape(B).long(), 0, S - T)
-    steps = torch.arange(T, device=offsets.device)
-    kn = k_new.transpose(1, 2)                                # [B, Hkv, T, D]
-    vn = v_new.transpose(1, 2)
-    if cache.quantized:
-        (kn, ks), (vn, vs) = quantize(kn), quantize(vn)
-        # scales [B, Hkv, T, 1] → slot-major [B, T, Hkv]
-        for s_all, s_new in ((cache.k_scale, ks), (cache.v_scale, vs)):
-            s_new = s_new[..., 0].transpose(1, 2)
-            for b in range(B):
-                s_all[layer, b].index_copy_(0, start[b] + steps, s_new[b])
-    for c_all, new in ((cache.k, kn), (cache.v, vn)):
-        new = new.to(c_all.dtype)
-        for b in range(B):
-            c_all[layer, b].index_copy_(1, start[b] + steps, new[b])
+    kv_write.window_write_ref(cache.k, cache.v, cache.k_scale, cache.v_scale,
+                              layer, k_new, v_new, offsets, cache.bits)
     return cache
+
+
+def rope_update_cache_layer(cache: KVCache, layer: int, q: torch.Tensor,
+                            k_new: torch.Tensor, v_new: torch.Tensor,
+                            cos: torch.Tensor, sin: torch.Tensor,
+                            offsets: torch.Tensor) -> torch.Tensor:
+    """The RoPE on q [B, T, H, D] and k_new [B, T, Hkv, D], both unrotated,
+    at the rows cos/sin [B, T, D] gathered at the positions, then
+    update_cache_layer's write of the rotated k_new and of v_new into ONE
+    layer, in place, in one launch for every T (kv_write.rope_write;
+    kv_write.rope_supports says which rows and caches it takes). Returns
+    the rotated q [B, T, H, D]."""
+    return kv_write.rope_write(q, k_new, v_new, cos, sin, offsets, cache.k,
+                               cache.v, layer, cache.k_scale, cache.v_scale,
+                               cache.bits)

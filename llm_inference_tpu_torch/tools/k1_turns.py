@@ -119,15 +119,17 @@ def turns(fb, fn, reps=20):
     return (b1 + b2) / 2, (n1 + n2) / 2
 
 
-def baseline(src: Path):
-    """The baseline's library (built beside this tree's kernels) and its
-    wrapper module bound to it."""
-    out = _build.BUILD_DIR.parent / "k1_baseline"
+def baseline(src: Path, sources=("quant_matmul.cu", "quant_matmul_tiled.cu",
+                                  "qmm4_gemv.cu"),
+             wrapper="quant_matmul.py", into="k1_baseline"):
+    """The baseline's library of `sources` (those DIR has; built beside
+    this tree's kernels, into build/<into>) and its `wrapper` module
+    bound to it."""
+    out = _build.BUILD_DIR.parent / into
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     objs, procs = [], []
-    for name in ("quant_matmul.cu", "quant_matmul_tiled.cu",
-                 "qmm4_gemv.cu"):
+    for name in sources:
         if not (src / name).exists():
             continue
         obj = out / (name + ".o")
@@ -155,13 +157,13 @@ def baseline(src: Path):
     def check(code, what):
         if code != 0:
             raise RuntimeError(f"baseline {what}: CUDA error {code}")
-    text = (src / "quant_matmul.py").read_text().replace(
+    text = (src / wrapper).read_text().replace(
         "from llm_inference_tpu_torch.ops.kernels import _build",
         "_build = _BASELINE_BUILD")
-    mod = types.ModuleType("baseline_quant_matmul")
+    mod = types.ModuleType("baseline_" + wrapper[:-3])
     mod.__dict__["_BASELINE_BUILD"] = types.SimpleNamespace(
         lib=lambda: lib, check=check)
-    exec(compile(text, "baseline_quant_matmul.py", "exec"), mod.__dict__)
+    exec(compile(text, "baseline_" + wrapper, "exec"), mod.__dict__)
     return lib, mod
 
 

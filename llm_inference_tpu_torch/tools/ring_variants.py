@@ -123,12 +123,13 @@ K1_CASES = [("wqkv", 4096, 12288, True, 1, 8),
 DEPTH = 4                             # K6's and K12's layers
 
 
-def build(names):
-    """One library a variant, from patched copies of the sources."""
+def build(names, table=PATCHES):
+    """One library a variant of `table`, from patched copies of the
+    sources."""
     nvcc = _build._nvcc()
     procs = []
     for name in names:
-        src, patches, _ = PATCHES[name]
+        src, patches, _ = table[name]
         d = OUT / name
         d.mkdir(parents=True, exist_ok=True)
         files = [src] + [f.name for f in _build.CSRC_DIR.glob("*.cuh")]

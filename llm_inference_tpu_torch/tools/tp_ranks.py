@@ -109,7 +109,7 @@ def counters() -> dict:
                 K5=decode_attention.int4_launches, K6=qm.tail_launches,
                 K7=qm.ffn_launches, K8=qm.tiled_launches,
                 K9=flash_attention.launches, KS=kv_write.scale_launches,
-                K12=layer_fused.launches)
+                K12=layer_fused.launches, KR=kv_write.rope_launches)
 
 
 @torch.no_grad()

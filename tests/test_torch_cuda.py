@@ -1236,6 +1236,144 @@ def test_row_writes_cuda_match_plain_exactly(cuda, kv):
             assert torch.equal(a.cpu(), b)
 
 
+# ------------------------------------ the RoPE and KV write (K3/K4)
+
+def _rope_write_inputs(g, kind, B, T, H, Hkv, S, D, offs):
+    """q, k, v as column slices of one bf16 qkv projection [B, T, (H +
+    2 Hkv) D], the RoPE rows at the positions (clamped as forward clamps
+    them), a random layer-2 cache of `kind` with its scales, on the CPU."""
+    from llm_inference_tpu_torch.ops import rope
+    qkv = (torch.randn((B, T, (H + 2 * Hkv) * D), generator=g) * 3).to(BF16)
+    qkv[0, -1, H * D:(H + 1) * D] = 0.0               # an all-zero k row
+    rows = [qkv[..., lo * D:(lo + n) * D].reshape(B, T, n, D)
+            for lo, n in ((0, H), (H, Hkv), (H + Hkv, Hkv))]
+    off = torch.tensor(offs, dtype=torch.int32)
+    pos = torch.clamp(off[:, None] + torch.arange(T), max=S - 1).long()
+    cos, sin = rope.make_rope_table(S, D)
+    L, Dc = 3, D // 2 if kind == "int4" else D
+    if kind == "bf16":
+        cache = [torch.randn((L, B, Hkv, S, D), generator=g).to(BF16)
+                 for _ in range(2)] + [None, None]
+    else:
+        cache = [torch.randint(-128, 128, (L, B, Hkv, S, Dc), generator=g,
+                               dtype=torch.int8) for _ in range(2)]
+        cache += [torch.rand((L, B, S, Hkv), generator=g) for _ in range(2)]
+    return rows, cos[pos], sin[pos], off, cache
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("B,T,H,Hkv,D,offs", [
+    (1, 1, 32, 32, 128, [191]),
+    (4, 1, 32, 32, 128, [0, 77, 63, 90]),       # 63: the last slot, 90 past
+    (2, 16, 8, 2, 64, [5, 70]),                 # a window past the end
+    (1, 64, 8, 8, 128, [0]),
+    (2, 3, 6, 2, 96, [10, 62]),                 # 3 values a lane
+    (1, 5, 4, 1, 256, [30]),                    # 8 values a lane
+    (2, 2, 4, 4, 32, [1, 2]),                   # 1 value a lane
+])
+def test_rope_write_cuda_matches_plain_exactly(cuda, kind, B, T, H, Hkv,
+                                               D, offs):
+    """The kernel against its plain version on the card and on the CPU:
+    the rotated q, codes or rows and scales bit for bit (the plain
+    version's divisions are IEEE ones on both)."""
+    g = torch.Generator().manual_seed(B * 100 + T + D)
+    S = 64
+    bits = {"bf16": 16, "int8": 8, "int4": 4}[kind]
+    (q, k, v), cos, sin, off, cache = _rope_write_inputs(
+        g, kind, B, T, H, Hkv, S, D, offs)
+    dev = [None if c is None else c.to(cuda) for c in cache]
+    dev_plain = [None if c is None else c.clone() for c in dev]
+    on = [t.to(cuda) for t in (q, k, v, cos, sin, off)]
+    # the card's rows as the model hands them over: slices of one qkv
+    qkv = torch.cat([t.reshape(B, T, -1) for t in (q, k, v)], -1).to(cuda)
+    on[:3] = [qkv[..., lo * D:(lo + n) * D].reshape(B, T, n, D)
+              for lo, n in ((0, H), (H, Hkv), (H + Hkv, Hkv))]
+    before = t_kvw.rope_launches
+    want = t_kvw.rope_write(q, k, v, cos, sin, off, cache[0], cache[1], 2,
+                            cache[2], cache[3], bits)
+    got = t_kvw.rope_write(*on, dev[0], dev[1], 2, dev[2], dev[3], bits)
+    plain = t_kvw.rope_write_ref(*on, dev_plain[0], dev_plain[1], 2,
+                                 dev_plain[2], dev_plain[3], bits)
+    torch.cuda.synchronize()
+    assert t_kvw.rope_launches == before + 1
+    assert got.shape == (B, T, H, D) and got.is_contiguous()
+    assert torch.equal(got.cpu(), want) and torch.equal(plain.cpu(), want)
+    for a, p, c in zip(dev, dev_plain, cache):
+        if c is not None:
+            assert torch.equal(a.cpu(), c) and torch.equal(p.cpu(), c)
+
+
+@pytest.mark.cuda
+def test_rope_write_rejects_what_it_does_not_take(cuda):
+    g = torch.Generator().manual_seed(3)
+    (q, k, v), cos, sin, off, cache = _rope_write_inputs(
+        g, "int8", 1, 1, 8, 2, 64, 128, [3])
+    q, k, v, cos, sin, off = (t.to(cuda) for t in (q, k, v, cos, sin, off))
+    kc, vc, ks, vs = (t.to(cuda) for t in cache)
+    with pytest.raises(TypeError):
+        t_kvw.rope_write(q.float(), k, v, cos, sin, off, kc, vc, 1, ks, vs,
+                         8)
+    with pytest.raises(ValueError):                 # D % 32
+        t_kvw.rope_write(q[..., :80], k[..., :80], v[..., :80],
+                         cos[..., :80], sin[..., :80], off,
+                         kc[..., :80].contiguous(), vc[..., :80].contiguous(),
+                         1, ks, vs, 8)
+    with pytest.raises(ValueError):                 # D > 256
+        w = torch.zeros((1, 1, 2, 288), dtype=BF16, device=cuda)
+        t_kvw.rope_write(w, w, w, torch.zeros((1, 1, 288), device=cuda),
+                         torch.zeros((1, 1, 288), device=cuda), off,
+                         torch.zeros((3, 1, 2, 64, 288), dtype=torch.int8,
+                                     device=cuda),
+                         torch.zeros((3, 1, 2, 64, 288), dtype=torch.int8,
+                                     device=cuda), 1, ks, vs, 8)
+    with pytest.raises(ValueError):                 # a non-contiguous cache
+        t_kvw.rope_write(q, k, v, cos, sin, off, kc.transpose(3, 4), vc, 1,
+                         ks, vs, 8)
+    with pytest.raises(ValueError):                 # int4 rows in an int8 one
+        t_kvw.rope_write(q, k, v, cos, sin, off, kc, vc, 1, ks, vs, 4)
+    with pytest.raises(ValueError):                 # more rows than slots
+        t_kvw.rope_write(*(t.expand(1, 65, *t.shape[2:]) for t in (q, k, v)),
+                         cos.expand(1, 65, 128), sin.expand(1, 65, 128), off,
+                         kc, vc, 1, ks, vs, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8", "int4"])
+def test_forward_writes_through_rope_write_on_the_card(cuda, kv):
+    """A 2-layer bf16 model over a dense cache: every forward (a 16-row
+    prefill of two sequences, then a decode step) launches the kernel once
+    a layer and no K3, K4 or scale write."""
+    from llm_inference_tpu_torch.config import QuantConfig, tiny_llama
+    from llm_inference_tpu_torch.models import llama
+    from llm_inference_tpu_torch.ops import kvcache
+    cfg = tiny_llama(hidden_size=256, intermediate_size=512, num_heads=4,
+                     num_kv_heads=2, head_dim=128, vocab_size=320,
+                     dtype="bfloat16")
+    params = llama.params_to(llama.prepare_params(llama.init_params_quantized(
+        cfg, QuantConfig(weights="int8", quantize_embedding=True), seed=3,
+        device="cpu")), cuda)
+    cache = kvcache.init_cache(2, 2, 2, 64, 128,
+                               BF16 if kv == "bf16" else kv, device=cuda)
+    g = torch.Generator().manual_seed(6)
+    ids = torch.randint(1, 320, (2, 16), generator=g, dtype=torch.int32)
+    pos = torch.arange(16, dtype=torch.int32)[None].repeat(2, 1)
+    before = (t_kvw.rope_launches, t_kvw.launches, t_kvw.quant_launches,
+              t_kvw.scale_launches)
+    with torch.no_grad():
+        logits, cache = llama.forward(cfg, params, ids.to(cuda),
+                                      pos.to(cuda), cache)
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        logits, cache = llama.forward(cfg, params, tok,
+                                      torch.full((2, 1), 16, device=cuda,
+                                                 dtype=torch.int32), cache)
+    torch.cuda.synchronize()
+    assert (t_kvw.rope_launches - before[0], t_kvw.launches - before[1],
+            t_kvw.quant_launches - before[2],
+            t_kvw.scale_launches - before[3]) == (4, 0, 0, 0)
+    assert torch.isfinite(logits).all()
+
+
 # ------------------------------------ int4 groups of 8, 16 and 32 codes
 
 @pytest.mark.cuda
