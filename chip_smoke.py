@@ -61,6 +61,21 @@ and on the CPU; phase 4 serves a 128- and a 3000-token prompt, 64 tokens
 each, on full-depth int4 g=128 over an int8 cache at tp = 2 and at
 tp = 1 (streams compared, launches checked, TTFT, tokens/s and a decode
 step's busy and collective time printed), and runs the CLI at --tp 2.
+Path (vii), the HTTP server (engine/server.py `serve`, in a thread on
+127.0.0.1, port 0, requests by urllib) over the schedulers on the int4
+g=128 weights of (ii), an int8 cache of 8 slots x 2048 and path (v)'s
+synthetic vocabulary: four concurrent greedy /generate requests (128 +
+32 tokens, held to `generate` up to a near-tie), a penalised
+/v1/completions (its picks held to `generate`'s under compare_picks'
+rule), a forcing logit_bias, a token-id guided_choice, a response_format
+json_schema (the text parses and fits), echo scoring of a 1500-token
+prompt (one 2048-row chunk on K8 and K9, equal to engine.score; a greedy
+continuation's decode logprobs within a stated tolerance of its scores),
+/v1/embeddings (last, mean: unit vectors of 4096), an SSE completion
+(its deltas are the completion) and /metrics with its Prometheus form,
+with K1, K2, the RoPE-and-write kernel, K6, K8 and K9 counted; then a
+paged run with the prefix cache serves a guided and a penalised request
+on K10a. It prints the served tokens/s and TTFT beside the card.
 Every check raises on failure. The line before the last
 is a JSON object with one entry per kernel and path; the last is {"ok":
 true, "device": {...}}. Imports nothing of JAX or the JAX package.
@@ -76,7 +91,10 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import torch
@@ -88,7 +106,7 @@ if not torch.cuda.is_available():
 from llm_inference_tpu_torch.config import (EngineConfig, GenerationConfig,
                                             QuantConfig, llama2_7b)
 from llm_inference_tpu_torch.engine import engine as engine_mod
-from llm_inference_tpu_torch.engine import scheduler
+from llm_inference_tpu_torch.engine import scheduler, server
 from llm_inference_tpu_torch.engine.engine import ChatSession, InferenceEngine
 from llm_inference_tpu_torch.engine.tokenizer import (BPETokenizer,
                                                       load_tokenizer)
@@ -182,11 +200,16 @@ def qbytes(qt):
 
 # ------------------------------------------------------------------ phase 1
 
-def phase_card():
-    smi = subprocess.run(
+def card_line():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def phase_card():
+    smi = card_line()
     say(f"card: {smi}")
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -2207,6 +2230,21 @@ def chat_vocab():
     return vocab
 
 
+def chat_tokenizer():
+    """chat_vocab written by save_binary to build/chip_smoke/tokenizer.bin
+    (once) and read back by load_tokenizer."""
+    path = ROOT / "build" / "chip_smoke" / "tokenizer.bin"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        BPETokenizer(chat_vocab(), kv={"bos_token_id": "1",
+                                       "eos_token_id": "2"}).save_binary(
+            str(path))
+    tok = load_tokenizer(str(path))
+    check(isinstance(tok, BPETokenizer) and tok.vocab_size == CFG.vocab_size,
+          f"tokenizer round trip: {type(tok).__name__} {tok.vocab_size}")
+    return tok
+
+
 def phase_chat(params4):
     """Three ChatSession rounds on full-depth LLaMA-2-7B int4 g=128 over an
     int8 cache of 512 slots, greedy with the repetition, presence and
@@ -2215,13 +2253,7 @@ def phase_chat(params4):
     megakernel on, then off. Launches checked against the forwards each
     run made; the two runs' streams compared (compare_picks). Returns the
     mega run's launches."""
-    path = ROOT / "build" / "chip_smoke" / "tokenizer.bin"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    BPETokenizer(chat_vocab(), kv={"bos_token_id": "1",
-                                   "eos_token_id": "2"}).save_binary(str(path))
-    tok = load_tokenizer(str(path))
-    check(isinstance(tok, BPETokenizer) and tok.vocab_size == CFG.vocab_size,
-          f"tokenizer round trip: {type(tok).__name__} {tok.vocab_size}")
+    tok = chat_tokenizer()
     eng = InferenceEngine(CFG, params4, engine_cfg=EngineConfig(
         max_seq_len=MAX_SEQ, decode_chunk=8), tokenizer=tok,
         cache_dtype="int8", device=DEV)
@@ -2686,6 +2718,370 @@ def path_tp(gen, params4):
                   "int4 g=128 at tp=2, M=1")]
 
 
+# ---------------------------------------------------------------- path (vii)
+
+SERVE_SEQ = 2048                      # cache slots of one sequence
+SERVE_NEW = 32                        # new tokens of the served requests
+SCORE_LEN = 1500                      # the echo-scored prompt: one chunk
+EOS = 2                               # chat_vocab's </s>
+# engine.score over HTTP is engine.score itself: its numbers agree to
+# float32 rounding. The decode steps' logprobs and a 2048-row chunk's
+# differ by bf16 rounding, held to compare_picks' rule: 4 bf16 steps of a
+# logit of 4 (random weights' logits stay below it), grown by sqrt(L / 2)
+SCORE_HTTP_TOL = 1e-4
+SCORE_DECODE_TOL = 4 * math.sqrt(L / 2) * 2.0 ** -8 * 4.0
+JSON_SCHEMA = {"type": "object",
+               "properties": {"ok": {"type": "boolean"},
+                              "kind": {"enum": ["red", "green"]}}}
+SERVE_USED = ("K1", "K2", "KR", "K6", "K8", "K9")
+
+
+def http(base, path, body=None):
+    """(status, body text) of one request to the server on the loopback;
+    a GET without `body`."""
+    req = urllib.request.Request(
+        base + path, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def post_ok(base, path, body):
+    """The parsed answer of a request that must succeed (200)."""
+    code, text = http(base, path, body)
+    check(code == 200, f"{path} {sorted(body)}: HTTP {code}: {text[:600]}")
+    return json.loads(text)
+
+
+def strip_eos(ids):
+    return ids[:-1] if ids and ids[-1] == EOS else ids
+
+
+@contextlib.contextmanager
+def recorded_row_picks(row=0):
+    """While inside, every token the schedulers pick for `row` (the first
+    token's B = 1 draw and the rows program's) is appended to the yielded
+    list with the logits it was picked from (after the bias, the guided
+    mask and the penalties), as recorded_picks does for generate."""
+    picks = []
+    sampling = engine_mod.sampling
+    spr = sampling.sample_per_row
+
+    def recorded(logits, noise, *a, penalties=None, bias=None, allowed=None,
+                 **k):
+        tok = spr(logits, noise, *a, penalties=penalties, bias=bias,
+                  allowed=allowed, **k)
+        shaped = logits.float()
+        if bias is not None:
+            shaped = shaped + bias
+        if allowed is not None:
+            shaped = torch.where(allowed, shaped, sampling.NEG_INF)
+        if penalties is not None:
+            shaped = sampling.apply_penalties(shaped, *penalties)
+        picks.append((tok[row], shaped[row].clone()))
+        return tok
+    sampling.sample_per_row = recorded
+    try:
+        yield picks
+    finally:
+        sampling.sample_per_row = spr
+
+
+def compare_served(got, want, top, what):
+    """A served greedy stream `got` against generate's `want` (EOS cut
+    from both): equal token by token until they part, which they may only
+    at a near-tie, a top-2 logprob gap of the served step (`top`, its
+    top_logprobs) below 2e-2. Returns the tokens compared."""
+    for j, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            gap = top[j][0]["logprob"] - top[j][1]["logprob"]
+            check(gap < 2e-2, f"{what} step {j}: {got[:j + 1]} vs "
+                  f"{want[:j + 1]} at a top-2 gap of {gap}")
+            return j
+    check(len(got) == len(want), f"{what}: {len(got)} vs {len(want)} tokens")
+    return len(want)
+
+
+def serve_http(eng, **kw):
+    """engine/server.serve on 127.0.0.1, port 0, in a thread: (the server,
+    its base URL)."""
+    httpd = server.serve(eng, host="127.0.0.1", port=0, gen=GenerationConfig(
+        greedy=True, max_new_tokens=SERVE_NEW, eos_token_ids=(EOS,)), **kw)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def stop_http(httpd):
+    httpd.shutdown()
+    httpd.backend.shutdown()
+    httpd.server_close()
+
+
+def sse(base, body):
+    """An SSE completion: (the chunks' choices, client-side seconds to
+    the first chunk)."""
+    req = urllib.request.Request(
+        base + "/v1/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    first, out = None, []
+    with urllib.request.urlopen(req, timeout=300) as r:
+        check(r.status == 200 and r.headers["Content-Type"].startswith(
+            "text/event-stream"), f"SSE: HTTP {r.status}")
+        for line in r:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if first is None:
+                first = time.perf_counter() - t0
+            if line == "data: [DONE]":
+                break
+            out.append(json.loads(line[6:])["choices"][0])
+    return out, first
+
+
+def phase_server(params4, tok, smi):
+    """The dense run: requests 1-9 over HTTP with the launches counted,
+    then the references they are held to. Returns (launches, numbers)."""
+    eng = InferenceEngine(CFG, params4, engine_cfg=EngineConfig(
+        max_seq_len=SERVE_SEQ, max_batch_size=8, page_size=PAGE),
+        tokenizer=tok, cache_dtype="int8", device=DEV)
+    httpd, base = serve_http(eng)
+    g = torch.Generator().manual_seed(SEED + 9)
+
+    def rand(n):
+        return torch.randint(3, CFG.vocab_size, (n,), generator=g).tolist()
+    prompts = [rand(128) for _ in range(4)]
+    long = rand(SCORE_LEN)
+    post_ok(base, "/generate", {"prompt": rand(100), "max_new_tokens": 4})
+    post_ok(base, "/v1/completions", {      # the JSON constraint compiles
+        "prompt": rand(8), "max_tokens": 1, "response_format": {
+            "type": "json_schema", "json_schema": {"schema": JSON_SCHEMA}}})
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    # 1. four concurrent greedy /generate requests
+    got = [None] * 4
+
+    def one(i):
+        got[i] = post_ok(base, "/generate", {
+            "prompt": prompts[i], "max_new_tokens": SERVE_NEW,
+            "logprobs": True, "top_logprobs": 2})
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall_batch = time.perf_counter() - t0
+    check(all(r is not None for r in got), "a /generate request failed")
+    # 2. penalties, its picks recorded
+    pen = dict(repetition_penalty=1.3, presence_penalty=0.5,
+               frequency_penalty=0.3)
+    with recorded_row_picks() as pen_picks:
+        pen_out = post_ok(base, "/v1/completions", dict(
+            pen, prompt=prompts[0], max_tokens=SERVE_NEW))
+    # 3. logit bias
+    bias_t = 12345
+    bias_out = post_ok(base, "/v1/completions", {
+        "prompt": prompts[1], "max_tokens": 16,
+        "logit_bias": {str(bias_t): 100.0}})
+    # 4. a guided choice of token-id lists
+    choices = [[1000, 2000, 3000], [4000, 5000]]
+    choice_out = post_ok(base, "/generate", {"prompt": prompts[2],
+                                             "guided_choice": choices})
+    # 5. a JSON schema
+    json_out = post_ok(base, "/v1/completions", {
+        "prompt": prompts[3], "max_tokens": 48, "response_format": {
+            "type": "json_schema", "json_schema": {"schema": JSON_SCHEMA}}})
+    # 6. scoring: echo with max_tokens 0 over one 2048-row chunk, and a
+    # greedy continuation's logprobs to score after it
+    score_out = post_ok(base, "/v1/completions", {
+        "prompt": long, "max_tokens": 0, "echo": True, "logprobs": True})
+    cont = post_ok(base, "/generate", {"prompt": long[:1400],
+                                       "max_new_tokens": SERVE_NEW,
+                                       "logprobs": True})
+    # 7. embeddings
+    emb = {p: post_ok(base, "/v1/embeddings", {
+        "input": [prompts[0][:20], prompts[1][:60]], "pooling": p})
+        for p in ("last", "mean")}
+    # 8. SSE against the same completion unstreamed
+    sse_body = {"prompt": prompts[1], "max_tokens": 16}
+    chunks, sse_first = sse(base, dict(sse_body, stream=True))
+    plain = post_ok(base, "/v1/completions", sse_body)
+    # 9. metrics, JSON and Prometheus
+    code, metrics = http(base, "/metrics")
+    pcode, prom = http(base, "/metrics?format=prometheus")
+    hcode, health = http(base, "/health")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    stop_http(httpd)
+
+    # the references
+    gen = GenerationConfig(greedy=True, max_new_tokens=SERVE_NEW,
+                           eos_token_ids=(EOS,))
+    compared = 0
+    for i, p in enumerate(prompts):
+        want = eng.generate([p], gen)[0].token_ids
+        compared += compare_served(strip_eos(got[i]["token_ids"]), want,
+                                   got[i]["top_logprobs"], f"/generate {i}")
+    with recorded_picks() as want_picks:
+        res = eng.generate([prompts[0]], dataclasses.replace(gen, **pen))[0]
+    served = pen_out["choices"][0]["token_ids"]
+    check(len(pen_picks) >= len(want_picks) >= len(res.token_ids)
+          and served == [int(t) for t, _ in pen_picks[:len(served)]],
+          f"penalties: {len(pen_picks)} picks recorded, {served} served")
+    pc, pt, pdiff = compare_picks(pen_picks[:len(want_picks)], want_picks,
+                                  "penalised /v1/completions vs generate")
+    check(bias_out["choices"][0]["token_ids"] == [bias_t] * 16,
+          f"logit_bias: {bias_out['choices'][0]['token_ids']}")
+    ids = choice_out["token_ids"]
+    check(ids[-1:] == [EOS] and ids[:-1] in choices and choice_out[
+        "finished"], f"guided_choice: {ids}")
+    text = json_out["choices"][0]["text"]
+    obj = json.loads(text)
+    check(set(obj) == {"ok", "kind"} and isinstance(obj["ok"], bool)
+          and obj["kind"] in ("red", "green")
+          and json_out["choices"][0]["finish_reason"] == "stop",
+          f"response_format json_schema: {text!r}")
+    lp = score_out["choices"][0]["logprobs"]["token_logprobs"]
+    want_lp = eng.score([long])[0]
+    check(len(lp) == SCORE_LEN and lp[0] is None and want_lp[0] is None,
+          f"echo scoring: {len(lp)} logprobs")
+    http_err = max(abs(a - b) for a, b in zip(lp[1:], want_lp[1:]))
+    check(all(math.isfinite(x) and x <= 0 for x in lp[1:])
+          and http_err <= SCORE_HTTP_TOL,
+          f"echo scoring vs engine.score: {http_err} > {SCORE_HTTP_TOL}")
+    ctoks = cont["token_ids"]
+    scored = eng.score([long[:1400] + ctoks])[0][1400:]
+    dec_err = max(abs(a - b) for a, b in zip(scored, cont["token_logprobs"]))
+    check(dec_err <= SCORE_DECODE_TOL, f"scores of a greedy continuation "
+          f"vs its decode logprobs: {dec_err} > {SCORE_DECODE_TOL}")
+    for pool, out in emb.items():
+        for d in out["data"]:
+            v = torch.tensor(d["embedding"])
+            check(v.shape == (CFG.hidden_size,) and bool(
+                torch.isfinite(v).all()) and abs(v.norm().item() - 1) < 1e-3,
+                  f"/v1/embeddings {pool}: {v.shape}, norm {v.norm()}")
+    deltas = [c for c in chunks if c["finish_reason"] is None]
+    ptoks = plain["choices"][0]["token_ids"]
+    check([c["token_id"] for c in deltas] == ptoks[:len(deltas)]
+          and len(deltas) == len(strip_eos(ptoks))
+          and chunks[-1]["finish_reason"] in ("stop", "length"),
+          f"SSE: {[c['token_id'] for c in deltas]} vs {ptoks}")
+    joined = "".join(c["text"] for c in deltas)
+    ptext = plain["choices"][0]["text"]
+    text_same = (joined[1:] if joined.startswith(" ") else joined) == ptext
+    check(text_same or not (joined.isascii() and ptext.isascii()),
+          f"SSE text {joined!r} vs {ptext!r}")
+    mjs = json.loads(metrics)
+    check(code == pcode == hcode == 200 and "ttft_s_p50" in mjs
+          and "# TYPE llmi_ttft_s gauge" in prom
+          and json.loads(health)["status"] == "ok",
+          f"/metrics {code} {sorted(mjs)[:8]}, prometheus {pcode}, "
+          f"/health {hcode}")
+    ttfts = sorted(r["ttft_s"] * 1e3 for r in got)
+    tokens = sum(len(r["token_ids"]) for r in got)
+    numbers = dict(requests_wall=wall, batch_wall=wall_batch,
+                   tok_s=tokens / wall_batch, ttft_ms=ttfts,
+                   sse_first_ms=sse_first * 1e3)
+    say(f"  {smi}: dense int8 KV, 8 slots: 4 concurrent /generate of 128 + "
+        f"{SERVE_NEW}: {tokens} tokens in {wall_batch:.3f} s = "
+        f"{tokens / wall_batch:.1f} tok/s served; TTFT (server) "
+        f"{[round(t, 1) for t in ttfts]} ms; SSE first chunk (client) "
+        f"{sse_first * 1e3:.1f} ms; streams vs generate: {compared} of "
+        f"{4 * SERVE_NEW} tokens compared, equal")
+    say(f"  penalised completion vs generate: {pc} of {pt} picks compared, "
+        f"equal; logits differ by at most {pdiff:.4f}; logit_bias, "
+        f"guided_choice {ids}, json_schema {text!r}: ok; echo scoring of "
+        f"{SCORE_LEN} tokens vs engine.score: {http_err:.2e}; a greedy "
+        f"continuation's decode logprobs vs its scores: {dec_err:.4f} (tol "
+        f"{SCORE_DECODE_TOL:.3f}); embeddings (last, mean) unit, width "
+        f"{CFG.hidden_size}; SSE {len(deltas)} deltas = the completion "
+        f"(text {'equal' if text_same else 'not ASCII: ids compared'}); "
+        f"metrics and Prometheus ok; all requests in {wall:.2f} s")
+    del eng
+    return launches, numbers
+
+
+def phase_server_paged(params4, tok):
+    """The paged run: a guided and a penalised request through the paged
+    scheduler with the prefix cache (K10a on int8 pages)."""
+    eng = InferenceEngine(CFG, params4, engine_cfg=EngineConfig(
+        max_seq_len=SERVE_SEQ, max_batch_size=8, page_size=PAGE),
+        tokenizer=tok, cache_dtype="int8", device=DEV)
+    httpd, base = serve_http(eng, paged=True, prefix_cache=True)
+    g = torch.Generator().manual_seed(SEED + 10)
+    prompts = [torch.randint(3, CFG.vocab_size, (300,), generator=g).tolist()
+               for _ in range(2)]
+    post_ok(base, "/generate", {"prompt": prompts[0][:50],
+                                "max_new_tokens": 2})
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = [None, None]
+    choices = [[1000, 2000, 3000], [4000, 5000]]
+
+    def guided_one():
+        out[0] = post_ok(base, "/generate", {"prompt": prompts[0],
+                                             "guided_choice": choices})
+
+    def penalised():
+        out[1] = post_ok(base, "/v1/completions", {
+            "prompt": prompts[1], "max_tokens": SERVE_NEW,
+            "repetition_penalty": 1.3, "presence_penalty": 0.5,
+            "frequency_penalty": 0.3, "logprobs": True})
+    threads = [threading.Thread(target=f) for f in (guided_one, penalised)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    stop_http(httpd)
+    check(out[0] is not None and out[1] is not None, "paged: a request "
+          "failed")
+    ids = out[0]["token_ids"]
+    check(ids[-1:] == [EOS] and ids[:-1] in choices,
+          f"paged guided_choice: {ids}")
+    lps = out[1]["choices"][0]["logprobs"]["token_logprobs"]
+    check(len(lps) == SERVE_NEW and all(math.isfinite(x) for x in lps),
+          f"paged penalised: {len(lps)} logprobs")
+    check(launches["K10a"] > 0, f"paged run: K10a never ran: {launches}")
+    say(f"  paged int8 KV, prefix cache: a guided and a penalised request "
+        f"in {wall:.2f} s; guided {ids}; launches "
+        f"{ {c: n for c, n in launches.items() if n} }")
+    del eng
+    return launches
+
+
+def path_server(params4):
+    """Path (vii): the HTTP server over the schedulers, on the int4
+    g=128 weights of path (ii) over an int8 cache."""
+    t0 = time.perf_counter()
+    smi = card_line()
+    say("path (vii): the HTTP server (engine/server.py) over the "
+        "schedulers, LLaMA-2-7B int4 g=128 (the weights of path (ii)), int8 "
+        f"KV, 8 slots of {SERVE_SEQ}; card: {smi}")
+    tok = chat_tokenizer()
+    launches, numbers = phase_server(params4, tok, smi)
+    check(all(launches[c] > 0 for c in SERVE_USED),
+          f"path (vii): a kernel never ran: {launches}")
+    say(f"  launches over HTTP (dense): "
+        f"{ {c: n for c, n in launches.items() if n} }")
+    torch.cuda.empty_cache()
+    paged = phase_server_paged(params4, tok)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    say(f"path (vii) took {wall:.1f} s")
+    return dict(launches=launches, paged_launches=paged, wall=wall,
+                **numbers)
+
+
 def main():
     t_start = time.perf_counter()
     phase_card()
@@ -2707,6 +3103,8 @@ def main():
     del params8
     torch.cuda.empty_cache()
     kernels += path_tp(gen, shared["params"])
+    say(f"path (vi) done at {time.perf_counter() - t_start:.1f} s")
+    path_server(shared["params"])
     del shared
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -141,8 +141,9 @@ def serve(tp, args):
         print("bye.")
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description="LLM chat on the PyTorch port")
+def add_engine_args(ap: argparse.ArgumentParser) -> None:
+    """The flags build_engine reads (the chat REPL's and the HTTP
+    server's)."""
     ap.add_argument("--model", default="tiny")
     ap.add_argument("--checkpoint", default=None,
                     help="HF safetensors directory (else dummy weights)")
@@ -168,6 +169,11 @@ def main(argv=None):
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--max-seq-len", type=int, default=2048)
     ap.add_argument("--decode-chunk", type=int, default=8)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="LLM chat on the PyTorch port")
+    add_engine_args(ap)
     ap.add_argument("--max-new-tokens", type=int, default=256)
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--top-k", type=int, default=0)

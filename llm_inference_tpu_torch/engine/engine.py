@@ -1,6 +1,7 @@
 """InferenceEngine: bucketed prefill and chunked decode on one model,
-ChatSession over it, and the chat templates (counterpart of
-`llm_inference_tpu/engine/engine.py:40-575, 752-1089`).
+prompt scoring and embeddings, ChatSession over it, and the chat
+templates (counterpart of `llm_inference_tpu/engine/engine.py:40-751,
+752-1089`).
 
 Decode runs `engine_cfg.decode_chunk` steps on the device between two
 host syncs, as the JAX engine's scan does: each step's sampled token stays
@@ -12,15 +13,20 @@ cache), torch.int8 / "int8" (int8 codes with slot-major float32 scales) or
 schedulers (engine/scheduler.py) run on top: they call `prefill` and
 `paged_forward` for admissions and the decode-chunk programs
 (`_decode_chunk_fn`, `_decode_chunk_rows_fn`) over their slots, dense or
-paged. There is no LoRA or data parallelism: `data_parallel` is 1,
-`has_lora` False. With `tp` (a parallel.TPGroup, the counterpart of the
-JAX engine's `mesh=`, engine.py:86-112) the engine is one rank of a
+paged; the rows program also carries each slot's penalty state, logit
+bias and guided-decoding DFA state (engine/guided.py), whose transitions
+run on the device between steps. `score` gives per-token prompt
+logprobs from `logits_mode="all"` forwards, chunked over one cache, and
+`embed` L2-normalised final hidden states (last token or mean). There is
+no LoRA or data parallelism: `data_parallel` is 1, `has_lora` False,
+`adapter_slots` empty. With `tp` (a parallel.TPGroup, the counterpart of
+the JAX engine's `mesh=`, engine.py:86-112) the engine is one rank of a
 tensor-parallel model: it shards the full parameters it is given, builds
 caches of its kv heads, and every forward is the TP forward; every rank
 samples from the same gathered logits, so every rank draws the same
-tokens. `generate` records `ttft_s` and `decode_tokens_per_s` in
-`metrics` as the JAX engine does (engine.py:806, 843).
-Sampling takes the serving API's repetition, presence and frequency
+tokens (`score` and `embed` raise there). `generate` records `ttft_s` and
+`decode_tokens_per_s` in `metrics` as the JAX engine does (engine.py:806,
+843). Sampling takes the serving API's repetition, presence and frequency
 penalties and a logit bias (engine.py:222-240, 781-803): the output-token
 counts and the prompt ∪ output seen mask of each row live on the device
 and are updated in place by every sampled token.
@@ -31,7 +37,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
-from typing import Callable, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -89,6 +95,7 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.params = params
         self.metrics = Metrics()
+        self.adapter_slots: Dict[str, int] = {}   # no LoRA stacks
         self._rope = llama.rope_table(cfg, self.engine_cfg.max_seq_len,
                                       self.device)
 
@@ -109,13 +116,18 @@ class InferenceEngine:
                 return b
         return n
 
+    def _chunk_len(self) -> int:
+        """The largest prefill bucket that fits the cache: long prompts
+        run as chunks of this many tokens."""
+        fitting = [b for b in self.engine_cfg.prefill_buckets
+                   if b <= self.engine_cfg.max_seq_len]
+        return max(fitting) if fitting else self.engine_cfg.max_seq_len
+
     def prefill_cache_len(self, n: int) -> int:
         """Smallest cache extent that admits an n-token prompt through the
         chunked `prefill` path with every bucket-rounded write window in
         bounds."""
-        fitting = [b for b in self.engine_cfg.prefill_buckets
-                   if b <= self.engine_cfg.max_seq_len]
-        chunk = max(fitting) if fitting else self.engine_cfg.max_seq_len
+        chunk = self._chunk_len()
         if n <= chunk:
             return min(self._bucket(n), self.engine_cfg.max_seq_len)
         last_o = ((n - 1) // chunk) * chunk
@@ -168,6 +180,11 @@ class InferenceEngine:
     def _gen_penalized(gen: GenerationConfig) -> bool:
         return (gen.repetition_penalty != 1.0 or gen.presence_penalty != 0.0
                 or gen.frequency_penalty != 0.0)
+
+    def _bias_row_np(self, logit_bias) -> np.ndarray:
+        """{token_id: bias} → a [V] float32 numpy row (ids outside the
+        vocabulary raise ValueError)."""
+        return sampling.bias_row(logit_bias, self.cfg.vocab_size).numpy()
 
     def _bias_rows(self, logit_bias, batch: int):
         """{token_id: bias} → [B, V] float32 on the device (one row for
@@ -242,37 +259,60 @@ class InferenceEngine:
 
     @torch.no_grad()
     def _decode_chunk_rows_fn(self, cache, token, pos, temp, topk, topp,
-                              greedy, minp, seeds, *, steps: int,
-                              max_top_k: int, use_top_p: bool = True,
-                              use_min_p: bool = False, top_n: int = 0):
+                              greedy, minp, seeds, counts=None, seen=None,
+                              rep=None, pres=None, freq=None, bias=None,
+                              gmask=None, gtrans=None, cidx=None,
+                              dstate=None, *, steps: int, max_top_k: int,
+                              use_top_p: bool = True,
+                              use_min_p: bool = False,
+                              use_penalties: bool = False, top_n: int = 0):
         """As _decode_chunk_fn with per-row knob tensors [B]
         (engine.py:329-405, seeded): row b's draw at position p uses the
-        noise of (seeds[b], p) only. With top_n > 0 also returns each
-        step's top_n logprobs and ids [B, steps, top_n], else None.
-        Returns (tokens, logprobs, cache, token, pos, top values, top
-        ids)."""
+        noise of (seeds[b], p) only. With use_penalties, counts [B, V]
+        int32 and seen [B, V] bool (updated in place by every step's
+        tokens) and rep/pres/freq [B] shape the pick; bias [B, V] is each
+        row's logit bias. Guided decoding: gmask [C, S, V] bool and gtrans
+        [C, S, V] int are the stacked DFA tables, cidx [B] each row's
+        constraint and dstate [B] int32 its DFA state (-1: unconstrained);
+        the state moves on the device from step to step. With top_n > 0
+        also returns each step's top_n logprobs and ids [B, steps, top_n],
+        else None. Returns (tokens, logprobs, cache, token, pos, top
+        values, top ids, dstate)."""
         B = token.shape[0]
         V = self.cfg.vocab_size
         zeros = torch.zeros((B,), dtype=torch.long, device=token.device)
+        rows = torch.arange(B, device=token.device)
         fwd = self._fwd_for(cache)
         toks, lps, tvs, tis = [], [], [], []
         for _ in range(steps):
             logits, cache = fwd(token[:, None], pos[:, None], cache, zeros)
+            allowed = st = None
+            if gmask is not None:
+                st = torch.clamp(dstate, min=0).long()
+                allowed = gmask[cidx, st] | (dstate < 0)[:, None]
             token = sampling.sample_per_row(
                 logits, sampling.row_noise(seeds, pos + 1, V), temp, topk,
                 topp, greedy, max_top_k, use_top_p,
-                min_p=minp if use_min_p else None)
+                min_p=minp if use_min_p else None,
+                penalties=((counts, seen, rep, pres, freq) if use_penalties
+                           else None), bias=bias, allowed=allowed)
             toks.append(token)
             lps.append(sampling.chosen_logprob(logits, token))
             if top_n:
                 tv, ti = sampling.top_logprobs(logits, top_n)
                 tvs.append(tv)
                 tis.append(ti)
+            if use_penalties:
+                counts[rows, token.long()] += 1
+                seen[rows, token.long()] = True
+            if gmask is not None:
+                ns = gtrans[cidx, st, token.long()].to(torch.int32)
+                dstate = torch.where(dstate >= 0, ns, dstate)
             pos = pos + 1
         top = ((torch.stack(tvs, 1), torch.stack(tis, 1)) if top_n
                else (None, None))
         return (torch.stack(toks, 1), torch.stack(lps, 1), cache, token,
-                pos, *top)
+                pos, *top, dstate)
 
     # ------------------------------------------------------------------
     # public API
@@ -298,9 +338,7 @@ class InferenceEngine:
                              f"provided cache extent is {extent}")
         # prompts beyond the largest bucket run as a sequence of
         # largest-bucket chunks continuing the same cache
-        fitting = [b for b in self.engine_cfg.prefill_buckets
-                   if b <= self.engine_cfg.max_seq_len]
-        chunk = max(fitting) if fitting else self.engine_cfg.max_seq_len
+        chunk = self._chunk_len()
         n_chunks = (max(len(t) for t in token_lists) + chunk - 1) // chunk
         final = None
         for c in range(n_chunks):
@@ -331,6 +369,94 @@ class InferenceEngine:
                     if o < len(t) <= o + chunk:
                         final[i] = logits[i]
         return (final if final is not None else logits), cache
+
+    @torch.no_grad()
+    def score(self, prompts: Sequence[Union[str, Sequence[int]]]
+              ) -> List[List[Optional[float]]]:
+        """Per-token prompt logprobs (engine.py:577-675): result[i][t] =
+        log P(token t | tokens < t); the first token has no prediction
+        (None). Each chunk is one `logits_mode="all"` forward whose targets
+        are the next tokens, so a prompt beyond the largest bucket runs as
+        chunks continuing one cache with no logit stitching."""
+        if self.tp is not None:
+            raise NotImplementedError("score over a tensor-parallel engine "
+                                      "is not ported yet")
+        token_lists = self._encode_prompts(prompts)
+        B = len(token_lists)
+        lengths = [len(t) for t in token_lists]
+        longest = max(lengths)
+        S = self.engine_cfg.max_seq_len
+        if longest > S:
+            raise ValueError(f"prompt needs {longest} cache slots but "
+                             f"max_seq_len is {S}")
+        cache = self.new_cache(B)
+        chunk = self._chunk_len()
+        got = torch.zeros((B, max(longest, 1)), dtype=torch.float32)
+        for o in range(0, longest, chunk):
+            part = [t[o:o + chunk] for t in token_lists]
+            # the bucket rounds the width up: stop it at the cache's end
+            T = min(self._bucket(max(max(len(p) for p in part), 1)), S - o)
+            ids = np.zeros((B, T), np.int64)
+            tgt = np.zeros((B, T), np.int64)
+            for i, toks in enumerate(token_lists):
+                ids[i, :len(part[i])] = part[i]
+                nxt = toks[o + 1:o + T + 1]
+                tgt[i, :len(nxt)] = nxt
+            pos = np.broadcast_to(o + np.arange(T), (B, T))
+            logits, cache = llama.forward(
+                self.cfg, self.params, torch.from_numpy(ids).to(self.device),
+                torch.from_numpy(np.array(pos)).to(self.device), cache,
+                logits_mode="all", rope_tables=self._rope)
+            tgt_t = torch.from_numpy(tgt).to(self.device)
+            lp = (torch.gather(logits, -1, tgt_t[..., None])[..., 0]
+                  - torch.logsumexp(logits, dim=-1))
+            w = min(T, longest - o)
+            got[:, o:o + w] = lp[:, :w].cpu()
+        # got[i, t] = log P(ids[t + 1] | ids[..t]): shift right by one
+        return [[None] + got[i, :L - 1].tolist() if L else []
+                for i, L in enumerate(lengths)]
+
+    @torch.no_grad()
+    def embed(self, prompts: Sequence[Union[str, Sequence[int]]],
+              pooling: str = "last") -> List[List[float]]:
+        """Final-norm hidden-state embeddings, one [hidden] list a prompt,
+        L2-normalised (engine.py:677-751): pooling "last" takes the last
+        token's state, "mean" the mean over the prompt."""
+        if pooling not in ("last", "mean"):
+            raise ValueError(f"pooling must be last|mean, got {pooling!r}")
+        if self.tp is not None:
+            raise NotImplementedError("embed over a tensor-parallel engine "
+                                      "is not ported yet")
+        token_lists = self._encode_prompts(prompts)
+        B = len(token_lists)
+        lengths = [len(t) for t in token_lists]
+        if min(lengths) == 0:
+            raise ValueError("cannot embed an empty prompt")
+        T = self._bucket(max(lengths))
+        if T > self.engine_cfg.max_seq_len:
+            raise ValueError(f"prompt needs {T} slots but max_seq_len is "
+                             f"{self.engine_cfg.max_seq_len}")
+        ids = np.zeros((B, T), np.int64)
+        mask = np.zeros((B, T), np.float32)
+        for i, toks in enumerate(token_lists):
+            ids[i, :len(toks)] = toks
+            mask[i, :len(toks)] = 1.0
+        pos = np.broadcast_to(np.arange(T), (B, T))
+        h, _ = llama.forward(
+            self.cfg, self.params, torch.from_numpy(ids).to(self.device),
+            torch.from_numpy(np.array(pos)).to(self.device),
+            self.new_cache(B, max_seq=T), logits_mode="hidden",
+            rope_tables=self._rope)
+        h = h.to(torch.float32)
+        if pooling == "mean":
+            m = torch.from_numpy(mask).to(self.device)[..., None]
+            v = (h * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+        else:
+            last = torch.tensor([n - 1 for n in lengths], device=self.device)
+            v = h[torch.arange(B, device=self.device), last]
+        v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1,
+                                                     keepdim=True), min=1e-9)
+        return v.cpu().tolist()
 
     @torch.no_grad()
     def generate(self, prompts: Sequence[Union[str, Sequence[int]]],

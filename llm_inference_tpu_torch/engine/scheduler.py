@@ -29,8 +29,17 @@ slots), and `_preempt` drops the preempted request's unread first token
 (the reference appends it to the reset request, so the replay's stream
 starts with that token twice).
 
-Penalties, logit_bias, guided decoding and LoRA adapters are not ported:
-`submit` raises NotImplementedError for them.
+Per-request repetition, presence and frequency penalties, logit_bias
+and guided decoding (engine/guided.py: token choices, a regex or a flat
+JSON schema compiled into a token DFA at submit) ride the decode chunk
+as device state (JAX scheduler.py:228-379): each penalised slot's [V]
+output counts and prompt ∪ output seen row (seeded at admission from
+the prompt and the first token, on the device), each biased slot's [V]
+bias row, and the stacked DFA tables with each slot's constraint index
+and DFA state, which moves on the device between steps; the host walks
+a DFA only at admission (the first token) and reads the states once a
+chunk. LoRA adapters are not ported: `submit` raises NotImplementedError
+for one.
 """
 
 from __future__ import annotations
@@ -45,11 +54,14 @@ import numpy as np
 import torch
 
 from llm_inference_tpu_torch.config import GenerationConfig
-from llm_inference_tpu_torch.engine import prefix_cache
+from llm_inference_tpu_torch.engine import guided, prefix_cache
 from llm_inference_tpu_torch.engine.engine import InferenceEngine
 from llm_inference_tpu_torch.ops import paged_kvcache, sampling
 
 TOP_LOGPROBS_CAP = 16   # the widest top_logprobs a request may ask for
+# entries of the stacked guided-decoding tables ([C, S, V] bool + int16)
+# above which a new constraint is refused at submit
+GUIDED_TABLE_MAX_ENTRIES = 256 * 1024 * 1024
 
 
 @dataclasses.dataclass
@@ -65,12 +77,27 @@ class Request:
     top_p: Optional[float] = None
     greedy: Optional[bool] = None
     min_p: Optional[float] = None
+    repetition_penalty: Optional[float] = None
+    presence_penalty: Optional[float] = None
+    frequency_penalty: Optional[float] = None
     # sampling seed (None → assigned by the scheduler and stored here, so
     # a preemption replay draws the same tokens)
     seed: Optional[int] = None
     stop_token_ids: Optional[Sequence[int]] = None  # not streamed
     stop: Optional[Sequence[str]] = None            # needs a tokenizer
     top_logprobs: Optional[int] = None              # <= TOP_LOGPROBS_CAP
+    adapter: Optional[Union[str, int]] = None       # LoRA: not ported
+    # {token_id: bias} added to the logits before sampling (None → the
+    # scheduler's GenerationConfig.logit_bias); logprobs stay raw
+    logit_bias: Optional[dict] = None
+    # guided decoding, at most one of: choices (strings, or token-id
+    # lists without a tokenizer), an anchored regex, a flat JSON schema;
+    # compiled into a guided.TokenDFA at submit
+    guided_choice: Optional[Sequence] = None
+    guided_regex: Optional[str] = None
+    guided_json: Optional[dict] = None
+    constraint: Optional[guided.TokenDFA] = None
+    _cidx: Optional[int] = None           # its index in the device tables
     # -- filled by the scheduler --
     output_ids: List[int] = dataclasses.field(default_factory=list)
     output_logprobs: List[float] = dataclasses.field(default_factory=list)
@@ -137,7 +164,26 @@ class ContinuousBatchingScheduler:
         self.topp_host = np.full((self.B,), g.top_p, np.float32)
         self.greedy_host = np.full((self.B,), g.greedy, bool)
         self.minp_host = np.full((self.B,), g.min_p, np.float32)
+        self.rep_host = np.full((self.B,), g.repetition_penalty, np.float32)
+        self.pres_host = np.full((self.B,), g.presence_penalty, np.float32)
+        self.freq_host = np.full((self.B,), g.frequency_penalty, np.float32)
         self.seed_host = np.zeros((self.B,), np.int64)
+        # [B, V] output counts and prompt ∪ output seen rows on the device,
+        # made when the first penalised request is admitted
+        self._counts = self._seen = None
+        # [B, V] logit-bias rows (made at the first biased admission), and
+        # the slots whose row may be non-zero: a retired request's row
+        # stays until the slot's next admission rewrites it
+        self._bias = None
+        self.bias_on_host = np.zeros((self.B,), bool)
+        # guided decoding: each slot's DFA state (-1: unconstrained) and
+        # constraint index into the stacked device tables
+        self.dstate_host = np.full((self.B,), -1, np.int32)
+        self.cidx_host = np.zeros((self.B,), np.int64)
+        self._dfa_list: List[guided.TokenDFA] = []
+        self._dfa_key2idx: dict = {}
+        self._gmask_dev = None             # [C, S, V] bool
+        self._gtrans_dev = None            # [C, S, V] int16
         self._seed_rng = np.random.default_rng(g.seed ^ 0x5EED)
         # wall seconds in admission, decode dispatch and harvest, and the
         # admissions, chunks and blocking device reads ("syncs")
@@ -152,13 +198,9 @@ class ContinuousBatchingScheduler:
         self._admit_pend: List[tuple] = []
 
     def _resolve_sampling(self, req: Request):
-        """(temperature, top_k, top_p, greedy, min_p) with the scheduler's
-        defaults, validated."""
+        """(temperature, top_k, top_p, greedy, min_p, repetition,
+        presence, frequency) with the scheduler's defaults, validated."""
         g = self.gen
-        if (g.repetition_penalty != 1.0 or g.presence_penalty != 0.0
-                or g.frequency_penalty != 0.0 or g.logit_bias):
-            raise NotImplementedError("sampling penalties and logit_bias "
-                                      "are not ported yet")
         explicit = any(x is not None for x in (req.temperature, req.top_k,
                                                req.top_p, req.min_p))
         greedy = (req.greedy if req.greedy is not None
@@ -171,16 +213,29 @@ class ContinuousBatchingScheduler:
         minp = req.min_p if req.min_p is not None else g.min_p
         if not 0.0 <= minp < 1.0:
             raise ValueError(f"min_p={minp} must be in [0, 1)")
+        rep = (req.repetition_penalty if req.repetition_penalty is not None
+               else g.repetition_penalty)
+        if rep <= 0.0:
+            raise ValueError(f"repetition_penalty={rep} must be > 0")
         if req.stop and self.engine.tokenizer is None:
             raise ValueError("stop strings need a tokenizer")
         if req.top_logprobs is not None and not (
                 0 <= req.top_logprobs <= TOP_LOGPROBS_CAP):
             raise ValueError(f"top_logprobs={req.top_logprobs} must be in "
                              f"[0, {TOP_LOGPROBS_CAP}]")
+        self.engine.resolve_adapter(req.adapter)
         return (req.temperature if req.temperature is not None
                 else g.temperature, topk,
                 req.top_p if req.top_p is not None else g.top_p,
-                greedy, minp)
+                greedy, minp, rep,
+                (req.presence_penalty if req.presence_penalty is not None
+                 else g.presence_penalty),
+                (req.frequency_penalty if req.frequency_penalty is not None
+                 else g.frequency_penalty))
+
+    def _logit_bias(self, req: Request) -> Optional[dict]:
+        return (req.logit_bias if req.logit_bias is not None
+                else self.gen.logit_bias)
 
     def _resolve_seed(self, req: Request) -> int:
         """Assign (once) and return the request's sampling seed."""
@@ -188,14 +243,91 @@ class ContinuousBatchingScheduler:
             req.seed = int(self._seed_rng.integers(0, 2**31 - 1))
         return req.seed
 
-    def _set_slot_sampling(self, slot: int, req: Request) -> None:
-        t, k, p, gr, minp = self._resolve_sampling(req)
+    def _ensure_penalty_state(self) -> None:
+        if self._counts is None:
+            V = self.engine.cfg.vocab_size
+            self._counts = torch.zeros((self.B, V), dtype=torch.int32,
+                                       device=self.device)
+            self._seen = torch.zeros((self.B, V), dtype=torch.bool,
+                                     device=self.device)
+
+    def _register_dfa(self, dfa: guided.TokenDFA) -> int:
+        """The index of a compiled TokenDFA in the stacked device tables,
+        rebuilt when it is new (identical constraints share one index).
+        The tables pad to power-of-two counts of constraints and states.
+        Everything is checked before anything changes, so a refused
+        constraint leaves no entry behind."""
+        k = dfa.key()
+        idx = self._dfa_key2idx.get(k)
+        if idx is not None:
+            return idx
+        V = self.engine.cfg.vocab_size
+        if dfa.vocab_size != V:
+            raise ValueError(f"constraint vocab {dfa.vocab_size} != "
+                             f"model vocab {V}")
+        cand = self._dfa_list + [dfa]
+        S = max(d.n_states for d in cand)
+        S_pad = max(8, 1 << (S - 1).bit_length())
+        C_pad = 1 << (len(cand) - 1).bit_length() if len(cand) > 1 else 1
+        if C_pad * S_pad * V > GUIDED_TABLE_MAX_ENTRIES:
+            raise ValueError(
+                f"guided-decoding tables would need {C_pad}x{S_pad}x{V} "
+                f"entries — too many resident constraints / states; "
+                f"simplify the constraint or retire old ones")
+        gmask = np.zeros((C_pad, S_pad, V), bool)
+        gtrans = np.zeros((C_pad, S_pad, V), np.int16)
+        for i, d in enumerate(cand):
+            gmask[i, :d.n_states] = d.mask
+            gtrans[i, :d.n_states] = d.trans.astype(np.int16)
+        idx = len(self._dfa_list)
+        self._dfa_list.append(dfa)
+        self._dfa_key2idx[k] = idx
+        self._gmask_dev = torch.from_numpy(gmask).to(self.device)
+        self._gtrans_dev = torch.from_numpy(gtrans).to(self.device)
+        return idx
+
+    def _set_slot_sampling(self, slot: int, req: Request, first) -> None:
+        """Program the slot's sampling state at admission, with no device
+        read: the knobs and the bias row come from the host, and the
+        penalty rows are seeded on the device from the prompt and the
+        first token `first` [1] (a device tensor). The DFA state needs the
+        token on the host: _finish_admissions sets it."""
+        t, k, p, gr, minp, rep, pres, freq = self._resolve_sampling(req)
         self.temp_host[slot] = t
         self.topk_host[slot] = k
         self.topp_host[slot] = p
         self.greedy_host[slot] = gr
         self.minp_host[slot] = minp
+        self.rep_host[slot] = rep
+        self.pres_host[slot] = pres
+        self.freq_host[slot] = freq
         self.seed_host[slot] = self._resolve_seed(req)
+        V = self.engine.cfg.vocab_size
+        if rep != 1.0 or pres != 0.0 or freq != 0.0:
+            # repetition scope: prompt ∪ output; presence and frequency
+            # count the output, whose first token is `first`. A slot with
+            # neutral knobs ignores its (stale) rows.
+            self._ensure_penalty_state()
+            seen_row = np.zeros((V,), bool)
+            seen_row[np.asarray(req.prompt_ids, np.int64) % V] = True
+            first_hot = torch.arange(V, device=self.device) == first[:1]
+            self._counts[slot] = first_hot
+            self._seen[slot] = self._host_tensor(seen_row) | first_hot
+        bias = self._logit_bias(req)
+        if bias and self._bias is None:
+            self._bias = torch.zeros((self.B, V), dtype=torch.float32,
+                                     device=self.device)
+        if self._bias is not None and (bias or self.bias_on_host[slot]):
+            self._bias[slot] = self._host_tensor(
+                self.engine._bias_row_np(bias))
+        self.bias_on_host[slot] = bool(bias)
+        if req.constraint is not None:
+            if req._cidx is None:
+                req._cidx = self._register_dfa(req.constraint)
+            self.cidx_host[slot] = req._cidx
+        else:
+            self.cidx_host[slot] = 0
+            self.dstate_host[slot] = -1
 
     def _host_tensor(self, a: np.ndarray) -> torch.Tensor:
         """A device tensor from a COPY of a host array: the arrays change
@@ -242,15 +374,6 @@ class ContinuousBatchingScheduler:
                logit_bias: Optional[dict] = None,
                guided_choice=None, guided_regex=None,
                guided_json=None) -> Request:
-        if (repetition_penalty not in (None, 1.0)
-                or presence_penalty not in (None, 0.0)
-                or frequency_penalty not in (None, 0.0) or logit_bias):
-            raise NotImplementedError("sampling penalties and logit_bias "
-                                      "are not ported yet")
-        if (guided_choice is not None or guided_regex is not None
-                or guided_json is not None):
-            raise NotImplementedError("guided decoding is not ported yet")
-        self.engine.resolve_adapter(adapter)
         ids = self.engine._encode_prompts([prompt])[0]
         new = max_new_tokens or self.gen.max_new_tokens
         if len(ids) + new > self.S:
@@ -263,9 +386,24 @@ class ContinuousBatchingScheduler:
                       max_new_tokens=new, stream=stream,
                       submit_t=time.perf_counter(), temperature=temperature,
                       top_k=top_k, top_p=top_p, greedy=greedy, min_p=min_p,
-                      seed=seed, stop_token_ids=stop_token_ids, stop=stop,
-                      top_logprobs=top_logprobs)
+                      repetition_penalty=repetition_penalty,
+                      presence_penalty=presence_penalty,
+                      frequency_penalty=frequency_penalty, seed=seed,
+                      stop_token_ids=stop_token_ids, stop=stop,
+                      top_logprobs=top_logprobs, adapter=adapter,
+                      logit_bias=logit_bias, guided_choice=guided_choice,
+                      guided_regex=guided_regex, guided_json=guided_json)
         self._resolve_sampling(req)
+        self.engine._bias_row_np(self._logit_bias(req))   # ids in range
+        if (guided_choice is not None or guided_regex is not None
+                or guided_json is not None):
+            req.constraint = guided.compile_constraint(
+                self.engine.cfg.vocab_size, sorted(self._stops(req)),
+                tokenizer=self.engine.tokenizer, choice=guided_choice,
+                regex=guided_regex, json_schema=guided_json)
+            # registered here, so that a table-size refusal reaches the
+            # caller and never the step loop
+            req._cidx = self._register_dfa(req.constraint)
         if len(self.queue) >= self.engine.engine_cfg.max_queued_requests:
             raise RuntimeError("request queue full")
         self.queue.append(req)
@@ -306,14 +444,15 @@ class ContinuousBatchingScheduler:
         slot's knobs, and stash the results for _finish_admissions.
         Returns the token tensor [1]."""
         first, lp, tv, ti = self._sample_first(logits, req)
-        self._set_slot_sampling(slot, req)
+        self._set_slot_sampling(slot, req, first)
         self._admit_pend.append((slot, req, first, lp, tv, ti))
         return first
 
     def _finish_admissions(self, fetched=None) -> None:
         """Read every pending admission's first token (or take `fetched`,
         read with a chunk's harvest) and run the host bookkeeping:
-        logprobs, stop checks, instant retirement."""
+        logprobs, stop checks, instant retirement, and a guided request's
+        DFA walk over its first token."""
         pend, self._admit_pend = self._admit_pend, []
         if not pend:
             return
@@ -339,6 +478,8 @@ class ContinuousBatchingScheduler:
                 req.done_t = time.perf_counter()
                 self.slot_req[slot] = None
                 self._on_retire(slot)
+            elif req.constraint is not None:
+                self.dstate_host[slot] = req.constraint.walk(req.output_ids)
 
     @staticmethod
     def _fetch_admissions(pend):
@@ -407,6 +548,7 @@ class ContinuousBatchingScheduler:
                     or len(req.output_ids) >= req.max_new_tokens):
                 req.done_t = now
                 self.slot_req[b] = None
+                self.dstate_host[b] = -1     # its constraint is over
                 self._on_retire(b)
 
     def _validate_capacity(self, prompt_len: int, max_new: int) -> None:
@@ -461,21 +603,42 @@ class ContinuousBatchingScheduler:
     def _sample_first(self, logits, req: Request):
         """The first token with the request's knobs, drawn at position
         len(prompt) under its seed as the decode chunks draw, with its
-        logprob and the top logprobs: tensors [1], [1], [1, n], [1, n]."""
-        t, k, p, gr, minp = self._resolve_sampling(req)
+        logprob and the top logprobs: tensors [1], [1], [1, n], [1, n].
+        Its penalties see the prompt (repetition) and no output yet; its
+        logit bias and a constraint's start mask (disallowed tokens at
+        NEG_INF) fold into one bias row."""
+        t, k, p, gr, minp, rep, pres, freq = self._resolve_sampling(req)
         dev = logits.device
         plen = len(req.prompt_ids)
         V = self.engine.cfg.vocab_size
 
         def full(x, dtype):
             return torch.full((1,), x, dtype=dtype, device=dev)
+        penalties = None
+        if rep != 1.0 or pres != 0.0 or freq != 0.0:
+            seen_row = np.zeros((1, V), bool)
+            if rep != 1.0:
+                seen_row[0, np.asarray(req.prompt_ids, np.int64) % V] = True
+            penalties = (torch.zeros((1, V), dtype=torch.int32, device=dev),
+                         self._host_tensor(seen_row),
+                         full(rep, torch.float32), full(pres, torch.float32),
+                         full(freq, torch.float32))
+        bias = None
+        logit_bias = self._logit_bias(req)
+        if logit_bias or req.constraint is not None:
+            row = self.engine._bias_row_np(logit_bias)
+            if req.constraint is not None:
+                row = row + np.where(
+                    req.constraint.mask[req.constraint.start], 0.0,
+                    sampling.NEG_INF).astype(np.float32)
+            bias = self._host_tensor(row[None])
         noise = sampling.row_noise(full(self._resolve_seed(req), torch.int64),
                                    full(plen, torch.int64), V)
         tok = sampling.sample_per_row(
             logits, noise, full(t, torch.float32), full(k, torch.int32),
             full(p, torch.float32), full(gr, torch.bool),
             self.engine.engine_cfg.max_top_k, True,
-            min_p=full(minp, torch.float32))
+            min_p=full(minp, torch.float32), penalties=penalties, bias=bias)
         tv, ti = sampling.top_logprobs(logits, min(TOP_LOGPROBS_CAP, V))
         return tok, sampling.chosen_logprob(logits, tok), tv, ti
 
@@ -501,7 +664,10 @@ class ContinuousBatchingScheduler:
                     if not self._admit_one(b, self.queue.popleft()):
                         break                # out of capacity
                     self.phase_n["admit"] += 1
-        # admissions' first tokens are read with the next chunk's harvest
+        # admissions' first tokens are read with the next chunk's harvest,
+        # but a guided admission's DFA state gates the next chunk's mask
+        if any(p[1].constraint is not None for p in self._admit_pend):
+            self._finish_admissions()
         self.phase_s["admit"] += time.perf_counter() - t0
         if not any(r is not None for r in self.slot_req):
             self._finish_admissions()
@@ -523,12 +689,19 @@ class ContinuousBatchingScheduler:
 
     def _dispatch_decode(self, steps: int) -> None:
         """Dispatch one decode chunk for all slots; harvest the previous
-        one (or this one, without pipelining)."""
+        one (or this one, without pipelining). Each stage of the rows
+        program (top-k, top-p, min-p, penalties, bias, guided masks) runs
+        only when a live slot needs it."""
         t0 = time.perf_counter()
         eng = self.engine
         live = [b for b, r in enumerate(self.slot_req) if r is not None]
+        use_pen = any(self.rep_host[b] != 1.0 or self.pres_host[b] != 0.0
+                      or self.freq_host[b] != 0.0 for b in live)
         top_used = any(self.slot_req[b].top_logprobs for b in live)
-        if all(self.greedy_host[b] for b in live) and not top_used:
+        use_bias = any(self.bias_on_host[b] for b in live)
+        use_guided = any(self.dstate_host[b] >= 0 for b in live)
+        if (all(self.greedy_host[b] for b in live) and not top_used
+                and not use_pen and not use_bias and not use_guided):
             # all-greedy chunk: argmax, no filtering work
             toks, lps, self.cache, self.token, self.pos = (
                 eng._decode_chunk_fn(
@@ -536,20 +709,36 @@ class ContinuousBatchingScheduler:
                     gen=dataclasses.replace(self.gen, greedy=True)))
             tvs = tis = None
         else:
+            if use_pen:
+                self._ensure_penalty_state()
             ht = self._host_tensor
-            (toks, lps, self.cache, self.token, self.pos, tvs,
-             tis) = eng._decode_chunk_rows_fn(
+            (toks, lps, self.cache, self.token, self.pos, tvs, tis,
+             dstate) = eng._decode_chunk_rows_fn(
                 self.cache, self.token, self.pos, ht(self.temp_host),
                 ht(self.topk_host), ht(self.topp_host),
                 ht(self.greedy_host), ht(self.minp_host),
-                ht(self.seed_host), steps=steps,
+                ht(self.seed_host),
+                self._counts if use_pen else None,
+                self._seen if use_pen else None,
+                ht(self.rep_host), ht(self.pres_host), ht(self.freq_host),
+                self._bias if use_bias else None,
+                self._gmask_dev if use_guided else None,
+                self._gtrans_dev if use_guided else None,
+                ht(self.cidx_host) if use_guided else None,
+                ht(self.dstate_host) if use_guided else None, steps=steps,
                 max_top_k=(eng.engine_cfg.max_top_k
                            if any(self.topk_host[b] > 0 for b in live)
                            else 0),
                 use_top_p=any(self.topp_host[b] < 1.0 for b in live),
                 use_min_p=any(self.minp_host[b] > 0.0 for b in live),
+                use_penalties=use_pen,
                 top_n=(min(TOP_LOGPROBS_CAP, eng.cfg.vocab_size)
                        if top_used else 0))
+            if use_guided:
+                # the states after the chunk: one read a chunk (the guided
+                # path does not pipeline)
+                self.phase_n["syncs"] += 1
+                self.dstate_host = dstate.cpu().numpy().astype(np.int32)
         self.phase_s["dispatch"] += time.perf_counter() - t0
         self.phase_n["chunks"] += 1
         prev, self._pending = self._pending, (toks, lps, tvs, tis,
@@ -575,9 +764,12 @@ class ContinuousBatchingScheduler:
         """Enqueue requests taken from another scheduler (its
         drain_inflight and queue), keeping their ids, seeds, knobs,
         streams and stream positions: the replay is identical and clients
-        see no duplicates."""
+        see no duplicates. A guided request's DFA registers in this
+        scheduler's tables."""
         for req in requests:
             self._validate_capacity(len(req.prompt_ids), req.max_new_tokens)
+            if req.constraint is not None:
+                req._cidx = self._register_dfa(req.constraint)
             req.reset_generation()
             self.queue.append(req)
 
@@ -592,6 +784,7 @@ class ContinuousBatchingScheduler:
             if req is None:
                 continue
             self.slot_req[b] = None
+            self.dstate_host[b] = -1
             self._on_retire(b)
             req.reset_generation()
             drained.append(req)
@@ -683,6 +876,7 @@ class PagedScheduler(ContinuousBatchingScheduler):
         yet harvested are dropped (the replay may land in the same slot)."""
         req = self.slot_req[slot]
         self.slot_req[slot] = None
+        self.dstate_host[slot] = -1
         self.preemptions += 1
         if self._pending is not None:
             self._pending[4][slot] = None

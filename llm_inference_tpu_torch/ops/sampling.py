@@ -195,12 +195,28 @@ def sample_per_row(logits: torch.Tensor, noise: torch.Tensor,
                    temperature: torch.Tensor, top_k: torch.Tensor,
                    top_p: torch.Tensor, greedy: torch.Tensor,
                    max_top_k: int = 64, use_top_p: bool = True,
-                   min_p: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Next-token ids [B] int32 with per-row knobs (sampling.py:107-181):
-    a greedy row (greedy, or temperature <= 0) takes the argmax of the
-    unscaled logits; any other row the Gumbel-max draw
-    argmax(filter_per_row(...) + noise), `noise` [B, V] from row_noise."""
-    arg = torch.argmax(logits.to(torch.float32), dim=-1)
+                   min_p: Optional[torch.Tensor] = None,
+                   penalties: Optional[tuple] = None,
+                   bias: Optional[torch.Tensor] = None,
+                   allowed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token ids [B] int32 with per-row knobs (sampling.py:107-181).
+    The logits are shaped first, in the JAX order: `bias` [B, V] (the
+    logit bias) is added, tokens outside `allowed` [B, V] bool (a guided
+    decoding mask) drop to NEG_INF, and `penalties` (counts, seen, rep,
+    pres, freq: apply_penalties' arguments) apply. Then a greedy row
+    (greedy, or temperature <= 0) takes the argmax of the shaped unscaled
+    logits; any other row the Gumbel-max draw argmax(filter_per_row(...)
+    + noise), `noise` [B, V] from row_noise. Callers report logprobs on
+    the raw logits."""
+    logits = logits.to(torch.float32)
+    if bias is not None:
+        logits = logits + bias
+    if allowed is not None:
+        logits = torch.where(allowed, logits,
+                             torch.full_like(logits, NEG_INF))
+    if penalties is not None:
+        logits = apply_penalties(logits, *penalties)
+    arg = torch.argmax(logits, dim=-1)
     scaled = filter_per_row(logits, temperature, top_k, top_p, max_top_k,
                             use_top_p, min_p)
     drawn = torch.argmax(scaled + noise, dim=-1)

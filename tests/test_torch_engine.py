@@ -225,20 +225,25 @@ def test_sampled_generation_is_seeded(setup):
 
 
 def test_unported_sampling_knobs_raise(setup):
-    """The penalties and logit_bias are ported for generate (held to the
-    JAX package in tests/test_torch_chat.py), not yet for the schedulers'
-    per-request sampling: submit raises on them."""
+    """The penalties and logit_bias, once refused by the schedulers, are
+    ported for their per-request sampling as for generate (both held to
+    the JAX package: tests/test_torch_chat.py and
+    tests/test_torch_scheduler_sampling.py): submit takes them, and a
+    forcing bias gives generate's tokens."""
     from llm_inference_tpu_torch.engine.scheduler import (
         ContinuousBatchingScheduler)
     _, _, _, teng = setup
     sched = ContinuousBatchingScheduler(teng, GenerationConfig(
-        max_new_tokens=4))
-    for knobs in (dict(repetition_penalty=1.2), dict(logit_bias={3: 1.0})):
+        max_new_tokens=4, eos_token_ids=()))
+    for knobs in (dict(repetition_penalty=1.2), dict(logit_bias={3: 100.0})):
         res = teng.generate([[1, 2]], GenerationConfig(
             max_new_tokens=4, eos_token_ids=(), **knobs))[0]
         assert len(res.token_ids) == 4
-        with pytest.raises(NotImplementedError):
-            sched.submit([1, 2], 4, **knobs)
+        req = sched.submit([1, 2], 4, **knobs)
+        while sched.step():
+            pass
+        assert len(req.output_ids) == 4
+    assert res.token_ids == req.output_ids == [3] * 4
 
 
 # ------------------------------------------ long prompts, three caches

@@ -448,12 +448,17 @@ def test_page_table_snapshot_is_a_copy(tiny_engine):
 
 
 def test_submit_refuses_what_is_not_ported(tiny_engine):
+    """LoRA adapters are not ported and raise; penalties, logit_bias and
+    guided decoding are, and submit refuses only bad values of them."""
     sched = t_sched.PagedScheduler(tiny_engine, GREEDY12, num_pages=4)
-    for kw in (dict(repetition_penalty=1.2), dict(presence_penalty=0.5),
-               dict(frequency_penalty=0.5), dict(logit_bias={3: 1.0}),
-               dict(guided_choice=["a", "b"]), dict(guided_regex="a+"),
-               dict(adapter="x")):
-        with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):
+        sched.submit([5, 6, 7], adapter="x")
+    for kw in (dict(repetition_penalty=0.0),
+               dict(logit_bias={tiny_engine.cfg.vocab_size: 1.0}),
+               dict(guided_regex="a+"),                 # no tokenizer
+               dict(guided_choice=["a", "b"]),          # no tokenizer
+               dict(guided_choice=[[5]], guided_regex="a+")):
+        with pytest.raises(ValueError):
             sched.submit([5, 6, 7], **kw)
     with pytest.raises(ValueError):
         sched.submit([5, 6, 7], top_logprobs=t_sched.TOP_LOGPROBS_CAP + 1)
@@ -464,6 +469,9 @@ def test_submit_refuses_what_is_not_ported(tiny_engine):
     with pytest.raises(ValueError):
         sched.submit([5, 6, 7], stop=["x"])          # no tokenizer
     assert not sched.queue
+    ok = sched.submit([5, 6, 7], repetition_penalty=1.2, logit_bias={3: 1.0},
+                      guided_choice=[[5, 6]], stop_token_ids=[2])
+    assert list(sched.queue) == [ok] and ok.constraint is not None
 
 
 def _engine_like(eng, **kw):

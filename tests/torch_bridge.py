@@ -11,7 +11,8 @@ form
 KVCache (bf16, int8, or packed int4 codes with slot-major float32 scales)
 becomes the port's KVCache in the same layout (`cache_to_torch`), and a
 PagedKVCache the port's PagedKVCache (`paged_cache_to_torch`).
-`assert_streams_agree` compares two schedulers' greedy streams.
+`assert_streams_agree` compares two schedulers' greedy streams, and
+`engine_pair` builds a JAX and a port engine on the same tiny weights.
 """
 
 from __future__ import annotations
@@ -96,3 +97,49 @@ def assert_streams_agree(got, want, tol=2e-2):
                 j, g.output_ids, w.output_ids)
             compared += 1
     assert compared >= total // 2, (compared, total)
+
+
+def engine_pair(weights="int8", kv="bf16", head_scale=64.0, seed=21,
+                tokenizer=None, **ecfg):
+    """A JAX InferenceEngine and the port's (on the CPU) over the same
+    tiny_llama(head_dim=64) weights drawn from `seed`: "int8" (per-channel
+    int8 weights and lm_head, float32 activations) or "bf16" (dense bf16
+    weights). lm_head (its int8 scales, or the dense matrix) is sharpened
+    `head_scale` times so that greedy streams stay far from ties. `ecfg`:
+    EngineConfig fields of both; kv "bf16", "int8" or "int4"; `tokenizer`
+    goes to both. Returns (jax engine, port engine)."""
+    import jax
+    import jax.numpy as jnp
+    from llm_inference_tpu.config import EngineConfig as JEngineConfig
+    from llm_inference_tpu.config import QuantConfig as JQuantConfig
+    from llm_inference_tpu.config import tiny_llama as j_tiny_llama
+    from llm_inference_tpu.engine.engine import InferenceEngine as JEngine
+    from llm_inference_tpu.models import llama as j_llama
+    from llm_inference_tpu_torch.config import EngineConfig, tiny_llama
+    from llm_inference_tpu_torch.engine.engine import InferenceEngine
+    from llm_inference_tpu_torch.models import llama
+
+    kw = dict(head_dim=64)
+    if weights == "bf16":
+        kw["dtype"] = "bfloat16"
+    jcfg, cfg = j_tiny_llama(**kw), tiny_llama(**kw)
+    dense = j_llama.init_params(jcfg, jax.random.PRNGKey(seed))
+    if weights == "int8":
+        qp = j_llama.quantize_params(dense, JQuantConfig(
+            weights="int8", quantize_embedding=True))
+        qp = dict(qp, lm_head=qp["lm_head"].replace(
+            scale=qp["lm_head"].scale * head_scale))
+        jprep = j_llama.prepare_params(qp, donate=False)
+    else:
+        jprep = j_llama.prepare_params(dict(
+            dense, lm_head=dense["lm_head"] * head_scale), donate=False)
+    tprep = llama.prepare_params(llama.params_from_numpy(
+        to_numpy_tree(jprep), cfg, device="cpu"))
+    jdt = jnp.bfloat16 if kv == "bf16" else kv
+    tdt = torch.bfloat16 if kv == "bf16" else kv
+    jeng = JEngine(jcfg, jprep, engine_cfg=JEngineConfig(**ecfg),
+                   cache_dtype=jdt, tokenizer=tokenizer)
+    teng = InferenceEngine(cfg, tprep, engine_cfg=EngineConfig(**ecfg),
+                           cache_dtype=tdt, tokenizer=tokenizer,
+                           device="cpu")
+    return jeng, teng
