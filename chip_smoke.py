@@ -76,6 +76,23 @@ continuation's decode logprobs within a stated tolerance of its scores),
 with K1, K2, the RoPE-and-write kernel, K6, K8 and K9 counted; then a
 paged run with the prefix cache serves a guided and a penalised request
 on K10a. It prints the served tokens/s and TTFT beside the card.
+Path (viii), speculative decoding (engine/speculative.py, γ = 4) and beam
+search (engine/beam_search.py) on the same weights over an int8 cache,
+every stream held to the plain ContinuousBatchingScheduler's (top-2
+logprobs) under compare_streams' rule: SpeculativeDecoder and
+DraftModelSpeculativeDecoder (a self-draft: a second engine over the same
+parameters; accepted tokens and the backfill required) at B = 1 on a
+cyclic 128-token prompt, 64 new tokens; SpeculativeBatchingScheduler at 8
+slots of 2048 (cyclic and random 128-token prompts, 32 new) and at 2
+slots of 256 (a 224-token prompt: the plain-chunk fallback required);
+DraftSpeculativeBatchingScheduler (self-draft, 4 slots, admissions
+staggered by a step); one /v1/completions through serve(speculative=
+True); BeamSearchDecoder (W = 4 over 512 slots: sorted distinct
+hypotheses, log_probs against engine.score within stated limits; W = 1
+against greedy). It checks that K1 (its GEMV and MMA branch), K2, K6 and
+the RoPE-and-write kernel ran, counts the verify windows' plain attend,
+and prints tokens a verify step, each run's wall and tok/s beside the
+plain route's, a beam step's wall and the cache reorder's share of it.
 Every check raises on failure. The line before the last
 is a JSON object with one entry per kernel and path; the last is {"ok":
 true, "device": {...}}. Imports nothing of JAX or the JAX package.
@@ -106,7 +123,9 @@ if not torch.cuda.is_available():
 from llm_inference_tpu_torch.config import (EngineConfig, GenerationConfig,
                                             QuantConfig, llama2_7b)
 from llm_inference_tpu_torch.engine import engine as engine_mod
-from llm_inference_tpu_torch.engine import scheduler, server
+from llm_inference_tpu_torch.engine import scheduler, server, speculative
+from llm_inference_tpu_torch.engine.beam_search import (BeamSearchDecoder,
+                                                        beam_search)
 from llm_inference_tpu_torch.engine.engine import ChatSession, InferenceEngine
 from llm_inference_tpu_torch.engine.tokenizer import (BPETokenizer,
                                                       load_tokenizer)
@@ -123,7 +142,7 @@ from llm_inference_tpu_torch.ops.kernels import quant_matmul as k1
 from llm_inference_tpu_torch.ops.quantization import (QTensor, dequantize,
                                                       unpack_kv4)
 from llm_inference_tpu_torch.parallel import run_ranks
-from llm_inference_tpu_torch.tools import tp_ranks
+from llm_inference_tpu_torch.tools import profile_decode, tp_ranks
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
@@ -3082,6 +3101,374 @@ def path_server(params4):
                 **numbers)
 
 
+# --------------------------------------------------------------- path (viii)
+
+SPEC_SEQ = 2048                       # cache slots of one sequence
+SPEC_GAMMA = 4                        # proposed tokens a verify window
+SPEC_B1_NEW = 64                      # new tokens of the B = 1 decoders
+SPEC_NEW = 32                         # new tokens of the schedulers' requests
+FALLBACK_SEQ = 256                    # the fallback run: 224 + 32 = 256 slots
+FALLBACK_PROMPT = 224
+BEAM_W = 4
+BEAM_SEQ = 512
+BEAM_NEW = 32
+# a compared token's logprob against the reference's: the verify's plain
+# attention over a T = 5 window against the decode kernel at T = 1, both
+# bf16 (path (vii)'s SCORE_DECODE_TOL)
+SPEC_LP_TOL = 0.25
+# a beam's log_prob against engine.score's teacher-forced sum over its
+# tokens (the decode kernel against the prefill's plain attention, bf16),
+# a token: the mean over the hypotheses, and the largest
+BEAM_MEAN_TOL = 0.05
+BEAM_MAX_TOL = 0.25
+SPEC_USED = ("K1", "K2", "K6", "KR")
+GREEDY = dict(greedy=True, eos_token_ids=())
+
+
+def spec_prompts():
+    """Four 128-token prompts that are a 32-token cycle four times, then
+    four random 128-token prompts."""
+    g = torch.Generator().manual_seed(SEED + 11)
+
+    def rand(n):
+        return torch.randint(3, CFG.vocab_size, (n,), generator=g).tolist()
+    return [rand(32) * 4 for _ in range(4)] + [rand(128) for _ in range(4)]
+
+
+def compare_ref(got, ref, what, lps=None):
+    """A greedy stream `got` (token ids, and their logprobs `lps`) against
+    a plain scheduler's request `ref` (top_logprobs=2), under
+    compare_streams' rule: equal tokens until they part, which they may
+    only at a near-tie of the reference (top-2 gap below 2e-2); the
+    compared tokens' logprobs within SPEC_LP_TOL. Returns (compared,
+    largest logprob difference)."""
+    check(len(got) <= len(ref.output_ids), f"{what}: {len(got)} tokens")
+    diff, compared = 0.0, len(got)
+    for j, t in enumerate(got):
+        if t != ref.output_ids[j]:
+            top = ref.output_top_logprobs[j]
+            gap = top[0][1] - top[1][1]
+            check(gap < 2e-2, f"{what} step {j}: {got[:j + 1]} vs "
+                  f"{ref.output_ids[:j + 1]} at a top-2 gap of {gap}")
+            compared = j
+            break
+        if lps is not None:
+            diff = max(diff, abs(lps[j] - ref.output_logprobs[j]))
+    check(diff <= SPEC_LP_TOL, f"{what}: logprobs differ by {diff}")
+    return compared, diff
+
+
+def run_sched(sched, prompts, new, stagger=False, **kw):
+    """Submit (one a step with `stagger`) and step to the end: (requests,
+    wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = []
+    for p in prompts:
+        reqs.append(sched.submit(p, new, **kw))
+        if stagger:
+            sched.step()
+    while sched.step():
+        pass
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def counted_attend(T):
+    """While inside, counts the plain `attend` calls over T-row windows
+    (the verify's attention) in the yielded one-entry list."""
+    n = [0]
+    attend = llama.attention.attend
+
+    def counted(q, *a, **k):
+        n[0] += q.shape[1] == T
+        return attend(q, *a, **k)
+    llama.attention.attend = counted
+    try:
+        yield n
+    finally:
+        llama.attention.attend = attend
+
+
+def spec_line(name, st, wall, plain_wall, tokens):
+    say(f"  {name}: steps {st['steps']}, accepted {st['accepted']}, "
+        f"produced {st['produced']} = {st['produced'] / st['steps']:.2f} "
+        f"tokens a verify step (all rows); {tokens} tokens in {wall:.3f} s = "
+        f"{tokens / wall:.1f} tok/s (plain route {plain_wall:.3f} s = "
+        f"{tokens / plain_wall:.1f} tok/s)")
+
+
+def step_profile(name, step, steps=4):
+    """profile_decode.profile_steps of one forward: wall and device busy
+    ms a step, idle share, launches a step, the top device kernels."""
+    r = profile_decode.profile_steps(step, steps)
+    by = {}
+    for e in r["kernels"]:
+        by[e.name] = by.get(e.name, 0.0) + (e.time_range.end
+                                            - e.time_range.start)
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:3]
+    idle = 1 - r["busy_ms"] / r["prof_wall_ms"]
+    say(f"    {name}: wall {r['wall_ms']:.2f} ms, busy {r['busy_ms']:.2f} "
+        f"ms, idle {idle:.2f}, {len(r['kernels']) / steps:.0f} launches; top "
+        + ", ".join(f"{n[:40]} {t / 1e3 / steps:.3f}" for n, t in top))
+    return dict(wall_ms=r["wall_ms"], busy_ms=r["busy_ms"], idle=idle)
+
+
+def phase_forwards(eng, prompts):
+    """Where a verify's time goes: one forward of a γ + 1 window at B = 1
+    and at B = 8 beside one decode step at B = 1, at position 128 over
+    the engine's cache."""
+    W = SPEC_GAMMA + 1
+    _, cache = eng.prefill([prompts[0]])
+    cache8 = eng.new_cache(8)
+    pos = torch.full((1, 1), 128, dtype=torch.int32, device=DEV)
+    tok = torch.tensor([[prompts[0][0]]], dtype=torch.int32, device=DEV)
+    win = torch.arange(W, dtype=torch.int32, device=DEV)[None] + pos
+    ids = tok.expand(1, W).contiguous()
+    zero = torch.zeros((1,), dtype=torch.long, device=DEV)
+    ids8, win8 = (t.expand(8, W).contiguous() for t in (ids, win))
+    say("  where a forward's time goes (the verify's attention is the plain "
+        "attend over every slot: T = 5 is below the flash kernel's 8)")
+    out = dict(
+        decode=step_profile("decode step, B = 1", lambda: eng._forward(
+            tok, pos, cache, zero)),
+        verify=step_profile(f"verify, B = 1, T = {W}", lambda:
+                            eng.window_forward(ids, win, cache)),
+        verify8=step_profile(f"verify, B = 8, T = {W}", lambda:
+                             eng.window_forward(ids8, win8, cache8)))
+    del cache, cache8
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spec_b1(eng, prompts, ref):
+    """1-2: the B = 1 decoders (n-gram; self-draft) on the cyclic prompt
+    against `generate`'s wall and the reference stream."""
+    gen = GenerationConfig(max_new_tokens=SPEC_B1_NEW, **GREEDY)
+    _, plain_wall = timed(lambda: eng.generate([prompts[0]], gen))
+    (out, st), wall = timed(lambda: speculative.SpeculativeDecoder(
+        eng, gamma=SPEC_GAMMA).generate(prompts[0], gen))
+    n, _ = compare_ref(out, ref[0], "SpeculativeDecoder")
+    spec_line("SpeculativeDecoder, B = 1, n-gram", st, wall, plain_wall,
+              len(out))
+    say(f"    {n} of {len(out)} tokens compared, equal")
+    draft = InferenceEngine(CFG, eng.params, engine_cfg=eng.engine_cfg,
+                            cache_dtype="int8", device=DEV)
+    (dout, dst), dwall = timed(lambda: speculative.DraftModelSpeculativeDecoder(
+        eng, draft, gamma=SPEC_GAMMA).generate(prompts[0], gen))
+    dn, _ = compare_ref(dout, ref[0], "DraftModelSpeculativeDecoder")
+    check(dst["accepted"] > 0 and dst["backfills"] > 0,
+          f"self-draft: {dst}")
+    spec_line("DraftModelSpeculativeDecoder, self-draft", dst, dwall,
+              plain_wall, len(dout))
+    say(f"    backfills {dst['backfills']}; {dn} of {len(dout)} tokens "
+        f"compared, equal")
+    return dict(ngram=st, ngram_wall=wall, draft=dst, draft_wall=dwall,
+                generate_wall=plain_wall)
+
+
+def phase_spec_sched(eng, prompts, ref):
+    """3-4: the batching schedulers against the plain scheduler's walls
+    and the reference streams; the fallback near the cache end."""
+    gen = GenerationConfig(max_new_tokens=SPEC_NEW, **GREEDY)
+    _, plain_wall = run_sched(scheduler.ContinuousBatchingScheduler(
+        eng, gen), prompts, SPEC_NEW)
+    sched = speculative.SpeculativeBatchingScheduler(eng, gen,
+                                                     gamma=SPEC_GAMMA)
+    reqs, wall = run_sched(sched, prompts, SPEC_NEW)
+    n = sum(compare_ref(r.output_ids, w, f"SpeculativeBatchingScheduler "
+                        f"request {i}", r.output_logprobs)[0]
+            for i, (r, w) in enumerate(zip(reqs, ref)))
+    spec_line(f"SpeculativeBatchingScheduler, {eng.engine_cfg.max_batch_size}"
+              f" slots", sched.spec_stats, wall, plain_wall,
+              SPEC_NEW * len(reqs))
+    say(f"    {n} of {SPEC_NEW * len(reqs)} tokens compared, equal")
+    st = dict(sched.spec_stats)
+    del sched
+    torch.cuda.empty_cache()
+
+    # rows that reach the cache end: the plain-chunk fallback
+    small = InferenceEngine(CFG, eng.params, engine_cfg=EngineConfig(
+        max_seq_len=FALLBACK_SEQ, max_batch_size=2), cache_dtype="int8",
+        device=DEV)
+    long = (prompts[1] * 2)[:FALLBACK_PROMPT]
+    fref, fplain = run_sched(scheduler.ContinuousBatchingScheduler(
+        small, gen), [long], SPEC_NEW, top_logprobs=2)
+    fs = speculative.SpeculativeBatchingScheduler(small, gen,
+                                                  gamma=SPEC_GAMMA)
+    (fr,), fwall = run_sched(fs, [long], SPEC_NEW)
+    check(fs.spec_stats["fallbacks"] > 0, f"fallback: {fs.spec_stats}")
+    fn, _ = compare_ref(fr.output_ids, fref[0], "fallback run",
+                        fr.output_logprobs)
+    spec_line(f"SpeculativeBatchingScheduler, 2 slots of {FALLBACK_SEQ}, "
+              f"{FALLBACK_PROMPT} + {SPEC_NEW}", fs.spec_stats, fwall,
+              fplain, SPEC_NEW)
+    say(f"    plain-chunk fallbacks {fs.spec_stats['fallbacks']}; {fn} of "
+        f"{SPEC_NEW} tokens compared, equal")
+    fst = dict(fs.spec_stats)
+    del fs, small
+    torch.cuda.empty_cache()
+
+    # the self-draft scheduler, admissions staggered by a step
+    four = prompts[:4]
+    _, dplain = run_sched(scheduler.ContinuousBatchingScheduler(
+        eng, gen, slots=4), four, SPEC_NEW, stagger=True)
+    draft = InferenceEngine(CFG, eng.params, engine_cfg=eng.engine_cfg,
+                            cache_dtype="int8", device=DEV)
+    ds = speculative.DraftSpeculativeBatchingScheduler(
+        eng, draft, gen, slots=4, gamma=SPEC_GAMMA)
+    dreqs, dwall = run_sched(ds, four, SPEC_NEW, stagger=True)
+    dn = sum(compare_ref(r.output_ids, w, f"DraftSpeculativeBatching"
+                         f"Scheduler request {i}", r.output_logprobs)[0]
+             for i, (r, w) in enumerate(zip(dreqs, ref)))
+    check(ds.spec_stats["accepted"] > 0, f"self-draft: {ds.spec_stats}")
+    spec_line("DraftSpeculativeBatchingScheduler, self-draft, 4 slots, "
+              "staggered", ds.spec_stats, dwall, dplain, SPEC_NEW * 4)
+    say(f"    catch-up forwards {ds.catchups}; {dn} of {SPEC_NEW * 4} "
+        f"tokens compared, equal")
+    dst = dict(ds.spec_stats, catchups=ds.catchups)
+    del ds, draft
+    torch.cuda.empty_cache()
+    return dict(sched=st, sched_wall=wall, sched_plain_wall=plain_wall,
+                fallback=fst, draft_sched=dst, draft_sched_wall=dwall,
+                draft_sched_plain_wall=dplain)
+
+
+def phase_spec_http(eng, prompts, ref):
+    """5: one /v1/completions through serve(speculative=True, slots=4)."""
+    httpd = server.serve(eng, host="127.0.0.1", port=0, gen=GenerationConfig(
+        max_new_tokens=SPEC_NEW, **GREEDY), speculative=True, slots=4)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        out, wall = timed(lambda: post_ok(base, "/v1/completions", {
+            "prompt": prompts[2], "max_tokens": SPEC_NEW}))
+        st = dict(httpd.backend.sched.spec_stats)
+    finally:
+        stop_http(httpd)
+    ids = out["choices"][0]["token_ids"]
+    check(len(ids) == SPEC_NEW, f"speculative HTTP: {len(ids)} tokens")
+    n, _ = compare_ref(ids, ref[2], "speculative /v1/completions")
+    say(f"  serve(speculative=True, slots=4): /v1/completions 200 in "
+        f"{wall:.3f} s, {n} of {SPEC_NEW} tokens compared, equal; "
+        f"spec_stats {st}")
+    return dict(http_wall=wall, http_stats=st)
+
+
+def phase_beam(params, prompts, ref):
+    """6: BeamSearchDecoder, W = 4 over 512 slots: sorted distinct
+    hypotheses whose log_probs match engine.score; W = 1 is greedy."""
+    eng = InferenceEngine(CFG, params, engine_cfg=EngineConfig(
+        max_seq_len=BEAM_SEQ), cache_dtype="int8", device=DEV)
+    one = beam_search(eng, prompts[0], 1, BEAM_NEW, ())
+    n, _ = compare_ref(one[0].token_ids, ref[0], "beam search W = 1")
+    dec = BeamSearchDecoder(eng, BEAM_W, eos_token_ids=())
+    step, walls, state = dec._step, [], {}
+
+    def timed_step(cache, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(cache, *a)
+        state.update(cache=out[0], parents=out[4])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+    dec._step = timed_step
+    hyps, wall = timed(lambda: dec.search(prompts[0], BEAM_NEW))
+    del dec._step
+    check(len(hyps) == BEAM_W and [h.score for h in hyps]
+          == sorted((h.score for h in hyps), reverse=True)
+          and len({tuple(h.token_ids) for h in hyps}) == BEAM_W
+          and all(len(h.token_ids) == BEAM_NEW for h in hyps),
+          f"beam hypotheses: {[(h.score, len(h.token_ids)) for h in hyps]}")
+    scores = eng.score([prompts[0] + h.token_ids for h in hyps])
+    per_tok = [abs(h.log_prob - sum(s[len(prompts[0]):])) / BEAM_NEW
+               for h, s in zip(hyps, scores)]
+    mean = sum(per_tok) / len(per_tok)
+    check(mean <= BEAM_MEAN_TOL and max(per_tok) <= BEAM_MAX_TOL,
+          f"beam log_probs vs engine.score a token: {per_tok}")
+    cache, parents = state["cache"], state["parents"]
+    tensors = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+    idx = parents.long()
+    # the engine's reorder (a gather of words) beside the same gather over
+    # the tensors' own elements, in turns
+    reorder = [time_ms(lambda i: engine_mod.reorder_cache(cache, parents),
+                       reps=10) if j % 3 == 0 else time_ms(
+        lambda i: [t.index_select(1, idx) for t in tensors], reps=10)
+        for j in range(4)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    words, elems = (reorder[0] + reorder[3]) / 2, (reorder[1] + reorder[2]) / 2
+    rb, _ = bound_ms(2 * nbytes, 0)
+    step_ms = sorted(walls)[len(walls) // 2] * 1e3
+    say(f"  BeamSearchDecoder W = {BEAM_W}, {BEAM_SEQ} slots, 128 + "
+        f"{BEAM_NEW}: {wall:.3f} s, a step {step_ms:.2f} ms (median of "
+        f"{len(walls)}); the reorder {words:.3f} ms on the card "
+        f"({[round(x, 3) for x in reorder]} in turns with a gather of the "
+        f"tensors' own elements; {nbytes / 2**30:.3f} GiB read and written "
+        f"at {2 * nbytes / words / 1e6:.0f} GB/s, bound {rb:.3f} ms) = "
+        f"{words / step_ms:.3f} of a step; log_prob vs engine.score a "
+        f"token: mean {mean:.4f}, max {max(per_tok):.4f} (tol "
+        f"{BEAM_MEAN_TOL} / {BEAM_MAX_TOL}); W = 1: {n} of {BEAM_NEW} "
+        f"tokens compared with greedy, equal")
+    del eng, cache, state, tensors
+    torch.cuda.empty_cache()
+    return dict(beam_wall=wall, beam_step_ms=step_ms, reorder_ms=words,
+                reorder_elems_ms=elems)
+
+
+def path_speculative(params4):
+    """Path (viii): speculative decoding and beam search on the int4
+    g=128 weights of path (ii) over an int8 cache, every stream held to
+    the plain scheduler's."""
+    t0 = time.perf_counter()
+    smi = card_line()
+    say("path (viii): speculative decoding (engine/speculative.py) and beam "
+        "search (engine/beam_search.py), LLaMA-2-7B int4 g=128, int8 KV, "
+        f"gamma {SPEC_GAMMA}; card: {smi}")
+    eng = InferenceEngine(CFG, params4, engine_cfg=EngineConfig(
+        max_seq_len=SPEC_SEQ, max_batch_size=8), cache_dtype="int8",
+        device=DEV)
+    prompts = spec_prompts()
+    # the reference: the plain scheduler, top-2 logprobs for the rule
+    ref, _ = run_sched(scheduler.ContinuousBatchingScheduler(
+        eng, GenerationConfig(max_new_tokens=SPEC_B1_NEW, **GREEDY)),
+        prompts, SPEC_B1_NEW, top_logprobs=2)
+    torch.cuda.empty_cache()
+    zero_counts()
+    with counted_attend(SPEC_GAMMA + 1) as verify_attend:
+        numbers = phase_forwards(eng, prompts)
+        numbers.update(phase_spec_b1(eng, prompts, ref))
+        torch.cuda.empty_cache()
+        numbers.update(phase_spec_sched(eng, prompts, ref))
+        numbers.update(phase_spec_http(eng, prompts, ref))
+        del eng
+        torch.cuda.empty_cache()
+        numbers.update(phase_beam(params4, prompts, ref))
+    torch.cuda.synchronize()
+    launches = counts()
+    mma = k1.mma_launches
+    check(all(launches[c] > 0 for c in SPEC_USED) and mma > 0
+          and verify_attend[0] > 0,
+          f"path (viii): a kernel never ran: {launches}, K1's MMA branch "
+          f"{mma}, verify attend {verify_attend[0]}")
+    wall = time.perf_counter() - t0
+    say(f"  launches: { {c: n for c, n in launches.items() if n} }, K1's "
+        f"MMA branch {mma}; the verify's plain attend {verify_attend[0]} "
+        f"calls")
+    say(f"path (viii) took {wall:.1f} s ({smi})")
+    return dict(numbers, launches=launches, mma=mma,
+                verify_attend=verify_attend[0], wall=wall)
+
+
 def main():
     t_start = time.perf_counter()
     phase_card()
@@ -3105,6 +3492,9 @@ def main():
     kernels += path_tp(gen, shared["params"])
     say(f"path (vi) done at {time.perf_counter() - t_start:.1f} s")
     path_server(shared["params"])
+    say(f"path (vii) done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    path_speculative(shared["params"])
     del shared
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,7 +17,11 @@ paged; the rows program also carries each slot's penalty state, logit
 bias and guided-decoding DFA state (engine/guided.py), whose transitions
 run on the device between steps. `score` gives per-token prompt
 logprobs from `logits_mode="all"` forwards, chunked over one cache, and
-`embed` L2-normalised final hidden states (last token or mean). There is
+`embed` L2-normalised final hidden states (last token or mean).
+`window_forward` runs a [B, T] window at per-row positions (speculative
+verification and a draft cache's catch-up), and `expand_cache` /
+`reorder_cache` copy a dense cache's rows, codes and scales, for beam
+search. There is
 no LoRA or data parallelism: `data_parallel` is 1, `has_lora` False,
 `adapter_slots` empty. With `tp` (a parallel.TPGroup, the counterpart of
 the JAX engine's `mesh=`, engine.py:86-112) the engine is one rank of a
@@ -256,6 +260,15 @@ class InferenceEngine:
             pos = pos + 1
         return (torch.stack(toks, 1), torch.stack(lps, 1) if logprobs
                 else None, cache, token, pos)
+
+    @torch.no_grad()
+    def window_forward(self, ids, positions, cache, logits_mode="all"):
+        """One forward over a [B, T] window at per-row positions, writing
+        the cache in place: the speculative verify (logits [B, T, V] for
+        "all"; JAX speculative.py:69-71) and a draft cache's catch-up
+        ("none")."""
+        return llama.forward(self.cfg, self.params, ids, positions, cache,
+                             logits_mode=logits_mode, rope_tables=self._rope)
 
     @torch.no_grad()
     def _decode_chunk_rows_fn(self, cache, token, pos, temp, topk, topp,
@@ -542,6 +555,41 @@ class InferenceEngine:
         piece = (self.tokenizer.decode_token(token_id)
                  if self.tokenizer else "")
         stream(row, token_id, piece)
+
+
+def _as_words(t: torch.Tensor) -> torch.Tensor:
+    """t (contiguous) with its last dim viewed as the widest integers that
+    tile its bytes, so that a copy of batch rows moves words, not bytes."""
+    n = t.shape[-1] * t.element_size()
+    for dt in (torch.int64, torch.int32, torch.int16):
+        if n % dt.itemsize == 0:
+            return t.view(dt)
+    return t
+
+
+def _map_rows(cache: kvcache.KVCache, fn) -> kvcache.KVCache:
+    """A dense cache whose every tensor (codes and scales) is fn of the
+    old one's words along the batch dim 1."""
+    return dataclasses.replace(cache, **{
+        f: fn(_as_words(t)).view(t.dtype)
+        for f in ("k", "v", "k_scale", "v_scale")
+        if (t := getattr(cache, f)) is not None})
+
+
+def expand_cache(cache: kvcache.KVCache, width: int) -> kvcache.KVCache:
+    """Each sequence of a dense cache repeated `width` times along the
+    batch (row b to rows b·width .. b·width + width - 1), scales with the
+    codes (JAX beam_search.py:67-69)."""
+    return _map_rows(cache, lambda t: t.repeat_interleave(width, dim=1))
+
+
+def reorder_cache(cache: kvcache.KVCache, parents) -> kvcache.KVCache:
+    """The dense cache's batch rows gathered by `parents` [B] (row b takes
+    row parents[b]), scales with the codes (JAX beam_search.py:99). The
+    gather reads into new tensors before anything is written, so repeated
+    parents are safe."""
+    idx = parents.to(device=cache.k.device, dtype=torch.long)
+    return _map_rows(cache, lambda t: t.index_select(1, idx))
 
 
 class ChatSession:

@@ -137,6 +137,10 @@ class ContinuousBatchingScheduler:
     # a burst of arrivals admits as one wave (one prefill per chunk); off,
     # free slots admit one request at a time
     wave_admission = True
+    # admissions' first tokens may be read with the next chunk's harvest;
+    # a subclass whose dispatch reads output_ids on the host (speculative
+    # proposals) sets this False to read them before the dispatch
+    defer_admit_fetch = True
 
     def __init__(self, engine: InferenceEngine,
                  gen: Optional[GenerationConfig] = None,
@@ -340,17 +344,21 @@ class ContinuousBatchingScheduler:
         return self.engine.new_cache(self.B)
 
     def _insert(self, one_cache, first, plen: int, slot: int,
-                row: int) -> None:
+                row: int, cache=None) -> None:
         """Copy row `row` of an admission prefill's cache into `slot` of
         the batch cache, in place (the reference's _insert_fn): only the
-        prefill cache's extent, which may be shorter than the batch's."""
-        c, n = self.cache, one_cache.max_seq_len
+        prefill cache's extent, which may be shorter than the batch's.
+        With `cache` (a draft model's batch cache) the rows go there and
+        the slot's token and position stay as they are."""
+        c = self.cache if cache is None else cache
+        n = one_cache.max_seq_len
         c.k[:, slot, :, :n] = one_cache.k[:, row]
         c.v[:, slot, :, :n] = one_cache.v[:, row]
         if c.quantized:
             c.k_scale[:, slot, :n] = one_cache.k_scale[:, row]
             c.v_scale[:, slot, :n] = one_cache.v_scale[:, row]
-        self._set_tok_pos(slot, first, plen)
+        if cache is None:
+            self._set_tok_pos(slot, first, plen)
 
     def _set_tok_pos(self, slot: int, first, plen: int) -> None:
         self.token[slot] = first[0]
@@ -665,8 +673,11 @@ class ContinuousBatchingScheduler:
                         break                # out of capacity
                     self.phase_n["admit"] += 1
         # admissions' first tokens are read with the next chunk's harvest,
-        # but a guided admission's DFA state gates the next chunk's mask
-        if any(p[1].constraint is not None for p in self._admit_pend):
+        # but a guided admission's DFA state gates the next chunk's mask,
+        # and a subclass may need them before its dispatch
+        if (not self.defer_admit_fetch
+                or any(p[1].constraint is not None
+                       for p in self._admit_pend)):
             self._finish_admissions()
         self.phase_s["admit"] += time.perf_counter() - t0
         if not any(r is not None for r in self.slot_req):

@@ -30,13 +30,17 @@ and embedding run under the same lock, so the device only ever sees one
 thread's work. If the step loop dies, every waiting and later request
 answers 500 with its error, and /health reports it.
 
-Speculative serving (--speculative, --gamma, --draft-model), LoRA
-(--lora), tensor parallelism through the schedulers (--tp > 1) and data
-parallelism (--dp > 1) are not ported: they raise NotImplementedError at
-start-up.
+Speculative serving runs on the dense cache, greedy requests only
+(engine/speculative.py): --speculative serves SpeculativeBatchingScheduler
+(n-gram proposals, --gamma of them a window), --draft-model (a preset,
+weights from --draft-checkpoint or drawn from a seed) serves
+DraftSpeculativeBatchingScheduler. LoRA (--lora), tensor parallelism
+through the schedulers (--tp > 1) and data parallelism (--dp > 1) are
+not ported: they raise NotImplementedError at start-up.
 
     python -m llm_inference_tpu_torch.engine.server --device cpu \\
-        --model tiny --quant int8 --port 8000
+        --model tiny --quant int8 --port 8000 [--speculative | \\
+        --draft-model tiny] [--gamma 4]
     python -m llm_inference_tpu_torch.engine.server --model llama2-7b \\
         --quant int4 --group-size 128 --kv-cache int8   # on the card
 """
@@ -44,6 +48,7 @@ start-up.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import logging
 import sys
@@ -59,11 +64,10 @@ from llm_inference_tpu_torch.engine.engine import (InferenceEngine,
                                                    format_chat_messages)
 from llm_inference_tpu_torch.engine.scheduler import (
     ContinuousBatchingScheduler, PagedScheduler, Request)
+from llm_inference_tpu_torch.engine.speculative import (
+    DraftSpeculativeBatchingScheduler, SpeculativeBatchingScheduler)
 
 logger = logging.getLogger("llm_inference_tpu_torch")
-
-SPECULATIVE_NOT_PORTED = ("speculative serving (--speculative, --gamma, "
-                          "--draft-model) is not ported yet")
 
 
 class BackendError(Exception):
@@ -101,11 +105,21 @@ class ServingBackend:
                  gen: Optional[GenerationConfig] = None,
                  paged: bool = False, speculative: bool = False,
                  **sched_kw):
-        if speculative or sched_kw.get("draft_engine") is not None:
-            raise NotImplementedError(SPECULATIVE_NOT_PORTED)
-        cls = PagedScheduler if paged else ContinuousBatchingScheduler
+        """`speculative`: per-slot n-gram speculation; a `draft_engine`
+        keyword: speculation from that draft model. Both are dense-only."""
+        draft_engine = sched_kw.pop("draft_engine", None)
+        if (speculative or draft_engine is not None) and paged:
+            raise ValueError("speculative serving uses the dense "
+                             "scheduler (no paged variant yet)")
         self.engine = engine
-        self.sched = cls(engine, gen, **sched_kw)
+        if draft_engine is not None:
+            self.sched = DraftSpeculativeBatchingScheduler(
+                engine, draft_engine, gen, **sched_kw)
+        else:
+            cls = (SpeculativeBatchingScheduler if speculative
+                   else PagedScheduler if paged
+                   else ContinuousBatchingScheduler)
+            self.sched = cls(engine, gen, **sched_kw)
         self.error: Optional[str] = None
         self._lock = threading.Lock()
         self._wake = threading.Event()
@@ -728,10 +742,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--prefix-cache", action="store_true",
                     help="share identical prompt-prefix KV pages across "
                          "requests (implies --paged)")
-    ap.add_argument("--speculative", action="store_true", help="not ported")
-    ap.add_argument("--gamma", type=int, default=4, help="not ported")
-    ap.add_argument("--draft-model", default=None, help="not ported")
-    ap.add_argument("--draft-checkpoint", default=None, help="not ported")
+    ap.add_argument("--speculative", action="store_true",
+                    help="n-gram speculative decoding per slot "
+                         "(greedy-only; dense scheduler)")
+    ap.add_argument("--gamma", type=int, default=4,
+                    help="speculative window width (proposed tokens)")
+    ap.add_argument("--draft-model", default=None,
+                    help="preset name of a DRAFT model for two-model "
+                         "speculative serving (greedy-only)")
+    ap.add_argument("--draft-checkpoint", default=None,
+                    help="HF safetensors dir for the draft's weights "
+                         "(else weights drawn from a seed)")
     ap.add_argument("--slots", type=int, default=None)
     cli.add_engine_args(ap)         # --tp and --dp above 1 are not ported
     ap.add_argument("--max-new-tokens", type=int, default=256)
@@ -749,13 +770,6 @@ def make_server(argv=None) -> ThreadingHTTPServer:
     machinery the port lacks raise NotImplementedError before anything
     is built."""
     args = parse_args(argv)
-    for flag, on in (("--speculative", args.speculative),
-                     ("--gamma", args.gamma != 4),
-                     ("--draft-model", args.draft_model is not None),
-                     ("--draft-checkpoint",
-                      args.draft_checkpoint is not None)):
-        if on:
-            raise NotImplementedError(f"{flag}: {SPECULATIVE_NOT_PORTED}")
     for flag, on, why in (
             ("--lora", bool(args.lora), "LoRA adapters are not ported yet"),
             ("--tp > 1", args.tp > 1, "the schedulers over a tensor-"
@@ -767,8 +781,17 @@ def make_server(argv=None) -> ThreadingHTTPServer:
     engine = cli.build_engine(args)
     gen = GenerationConfig(greedy=True, max_new_tokens=args.max_new_tokens)
     kw = {"prefix_cache": True} if args.prefix_cache else {}
+    if args.speculative or args.draft_model:
+        kw["gamma"] = args.gamma
+    if args.draft_model:
+        dargs = copy.copy(args)
+        dargs.model = args.draft_model
+        dargs.checkpoint = args.draft_checkpoint
+        dargs.tp = dargs.dp = 1            # the draft stays on one device
+        kw["draft_engine"] = cli.build_engine(dargs)
     return serve(engine, args.host, args.port, gen,
-                 paged=args.paged or args.prefix_cache, warm=args.warmup,
+                 paged=args.paged or args.prefix_cache,
+                 speculative=args.speculative, warm=args.warmup,
                  slots=args.slots, **kw)
 
 

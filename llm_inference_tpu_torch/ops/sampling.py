@@ -112,9 +112,10 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
 
 
 def chosen_logprob(logits: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
-    """log P(token) under softmax(logits): [B, V], [B] → [B] float32."""
+    """log P(token) under softmax(logits): [..., V], [...] → [...]
+    float32."""
     lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    return torch.gather(lp, -1, token[:, None].long())[:, 0]
+    return torch.gather(lp, -1, token[..., None].long())[..., 0]
 
 
 def top_logprobs(logits: torch.Tensor, n: int):

@@ -3,9 +3,10 @@ CPU, over real sockets on 127.0.0.1: tests/test_server.py's classes
 against the port (batch, streaming, health and metrics, the OpenAI /v1
 surface, cancellation, logprobs, sampling knobs, n and best_of, SSE,
 guided decoding and logit_bias, scoring and echo, embeddings, Prometheus
-metrics), a parity class that sends the same bodies to a JAX server and
-a port server on the same weights, the flags that are not ported, a step
-loop that dies, and the command-line entry point."""
+metrics, speculative serving), a parity class that sends the same
+bodies to a JAX server and a port server on the same weights, the
+speculative flags and those that are not ported, a step loop that dies,
+and the command-line entry point."""
 
 import json
 import threading
@@ -22,7 +23,10 @@ from llm_inference_tpu_torch.config import (EngineConfig, GenerationConfig,
                                             tiny_llama)
 from llm_inference_tpu_torch.engine import server as srv
 from llm_inference_tpu_torch.engine.engine import InferenceEngine
-from llm_inference_tpu_torch.engine.scheduler import PagedScheduler
+from llm_inference_tpu_torch.engine.scheduler import (
+    ContinuousBatchingScheduler, PagedScheduler)
+from llm_inference_tpu_torch.engine.speculative import (
+    DraftSpeculativeBatchingScheduler, SpeculativeBatchingScheduler)
 from llm_inference_tpu_torch.models import llama
 
 from torch_bridge import engine_pair
@@ -435,18 +439,80 @@ class TestModelsAndBestOf:
 
 
 class TestSpeculativeServing:
-    """Speculative serving, LoRA and tensor or data parallelism through
-    the server are not ported: they raise at start-up."""
+    """Speculative serving (test_server.py's class on the port), the
+    flags that build it, and the flags that are still not ported (LoRA,
+    tensor or data parallelism), which raise at start-up."""
 
-    def test_speculative_backend_raises(self):
-        with pytest.raises(NotImplementedError, match="speculative"):
-            srv.ServingBackend(_engine(), speculative=True)
-        with pytest.raises(NotImplementedError, match="speculative"):
-            srv.ServingBackend(_engine(), draft_engine=object())
+    @staticmethod
+    def _greedy(backend, prompt):
+        r = backend.submit(prompt)
+        backend.wait(r, timeout=120)
+        backend.shutdown()
+        return r
 
-    @pytest.mark.parametrize("flags", [["--speculative"], ["--gamma", "3"],
-                                       ["--draft-model", "tiny"],
-                                       ["--lora", "a=/x"], ["--tp", "2"],
+    def test_speculative_backend_matches_plain(self):
+        eng = _engine(max_seq_len=128, prefill_buckets=(8, 16, 32))
+        gen = GenerationConfig(greedy=True, max_new_tokens=16,
+                               eos_token_ids=(1,))
+        w = self._greedy(srv.ServingBackend(eng, gen, slots=2),
+                         [3, 4, 5, 6] * 4)
+        spec = srv.ServingBackend(eng, gen, speculative=True, slots=2,
+                                  gamma=4)
+        assert isinstance(spec.sched, SpeculativeBatchingScheduler)
+        g = self._greedy(spec, [3, 4, 5, 6] * 4)
+        assert g.output_ids == w.output_ids
+        assert spec.sched.spec_stats["accepted"] > 0
+
+    @pytest.mark.parametrize("draft", [False, True])
+    def test_speculative_plus_paged_rejected(self, draft):
+        eng = _engine()
+        kw = dict(draft_engine=eng) if draft else dict(speculative=True)
+        with pytest.raises(ValueError, match="dense"):
+            srv.ServingBackend(eng, paged=True, **kw)
+
+    def test_draft_backend_matches_plain(self):
+        eng = _engine(max_seq_len=128, prefill_buckets=(8, 16, 32))
+        cfg = tiny_llama(num_kv_heads=2)
+        draft = InferenceEngine(
+            cfg, llama.init_params(cfg, seed=3, device="cpu"),
+            engine_cfg=eng.engine_cfg, device="cpu")
+        gen = GenerationConfig(greedy=True, max_new_tokens=12,
+                               eos_token_ids=(1,))
+        w = self._greedy(srv.ServingBackend(eng, gen, slots=2),
+                         [3, 4, 5, 6])
+        spec = srv.ServingBackend(eng, gen, slots=2, gamma=3,
+                                  draft_engine=draft)
+        assert isinstance(spec.sched, DraftSpeculativeBatchingScheduler)
+        assert self._greedy(spec, [3, 4, 5, 6]).output_ids == w.output_ids
+
+    @pytest.mark.parametrize("flags,cls,gamma", [
+        (["--speculative"], SpeculativeBatchingScheduler, 4),
+        (["--speculative", "--gamma", "3"], SpeculativeBatchingScheduler, 3),
+        (["--draft-model", "tiny"], DraftSpeculativeBatchingScheduler, 4),
+        (["--gamma", "3"], ContinuousBatchingScheduler, None)])
+    def test_speculative_flags_build_their_scheduler(self, flags, cls,
+                                                     gamma):
+        """make_server on the CPU: --speculative, --gamma and --draft-model
+        build the scheduler they name (--gamma alone changes nothing), and
+        it serves a request."""
+        h = _start(srv.make_server(
+            ["--device", "cpu", "--host", "127.0.0.1", "--port", "0",
+             "--max-seq-len", "128", "--max-new-tokens", "4"] + flags))
+        try:
+            assert type(h.backend.sched) is cls
+            assert getattr(h.backend.sched, "gamma", None) == gamma
+            with _post(h, {"prompt": [5, 6, 7], "max_tokens": 4},
+                       "/v1/completions") as r:
+                assert len(json.load(r)["choices"][0]["token_ids"]) == 4
+        finally:
+            _stop(h)
+
+    def test_speculative_plus_paged_flags_rejected(self):
+        with pytest.raises(ValueError, match="dense"):
+            srv.make_server(["--device", "cpu", "--port", "0",
+                             "--speculative", "--paged"])
+
+    @pytest.mark.parametrize("flags", [["--lora", "a=/x"], ["--tp", "2"],
                                        ["--dp", "2"]])
     def test_unported_flags_raise_at_startup(self, flags):
         with pytest.raises(NotImplementedError):
