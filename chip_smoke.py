@@ -93,6 +93,26 @@ against greedy). It checks that K1 (its GEMV and MMA branch), K2, K6 and
 the RoPE-and-write kernel ran, counts the verify windows' plain attend,
 and prints tokens a verify step, each run's wall and tok/s beside the
 plain route's, a beam step's wall and the cache reorder's share of it.
+Path (ix), the families beyond LLaMA-2 through the model registry
+(models/llama.py: llama3.1, mistral, qwen2, qwen3, phi3; models/gemma2.py:
+gemma2, gemma3): phase 2 holds K1 to its plain version at the large
+vocabularies' lm_heads (128256, 152064, gemma2's and gemma3's tied heads
+quantized from the table, 256000 and 262208) and the families' qkv widths,
+K8 at qwen2's and mistral's gate-up, K9, K2 and K10a at gemma2's D = 256
+with its window, softcap and query scale (windows that mask a large part
+of the slots, shown to move the output) and at G = 4 and 7, the RoPE and
+KV write at phi3's D = 96 and qwen2's Hkv = 4, K6 at qwen2's widths, K12
+at Llama-3.1-8B's G = 4; phase 3 runs 2 layers of mistral-7b, qwen2-7b
+(int4 g=128, int8 cache), qwen3-8b, phi3-mini and gemma2-2b and 6 of
+gemma3-4b at full width, CPU plain vs card kernels (a 128-row prefill and
+4 decode steps), then mistral on a 4200-token prompt over 8192 slots (its
+window binding in K9 and K2) against the same run on plain attention, and
+checks that K12 refuses each of them; phase 4 serves full-depth
+Llama-3.1-8B (int8, bf16 cache: generate 128 + 32 and 3000 + 32 with the
+megakernel on and off, launches and streams checked) and Gemma-2-2B
+(int8 with the tied head quantized, int8 cache: generate 4600 + 32 over
+8192 slots, then the dense and the paged scheduler serving four requests,
+the paged streams held to the dense ones), with TTFT and tok/s.
 Every check raises on failure. The line before the last
 is a JSON object with one entry per kernel and path; the last is {"ok":
 true, "device": {...}}. Imports nothing of JAX or the JAX package.
@@ -121,7 +141,7 @@ if not torch.cuda.is_available():
              "runs the port on a GPU")
 
 from llm_inference_tpu_torch.config import (EngineConfig, GenerationConfig,
-                                            QuantConfig, llama2_7b)
+                                            QuantConfig, llama2_7b, preset)
 from llm_inference_tpu_torch.engine import engine as engine_mod
 from llm_inference_tpu_torch.engine import scheduler, server, speculative
 from llm_inference_tpu_torch.engine.beam_search import (BeamSearchDecoder,
@@ -129,7 +149,7 @@ from llm_inference_tpu_torch.engine.beam_search import (BeamSearchDecoder,
 from llm_inference_tpu_torch.engine.engine import ChatSession, InferenceEngine
 from llm_inference_tpu_torch.engine.tokenizer import (BPETokenizer,
                                                       load_tokenizer)
-from llm_inference_tpu_torch.models import llama
+from llm_inference_tpu_torch.models import gemma2, get_model, llama
 from llm_inference_tpu_torch.ops import kvcache, paged_kvcache
 from llm_inference_tpu_torch.ops.kernels import _build
 from llm_inference_tpu_torch.ops.kernels import decode_attention as k2
@@ -2318,17 +2338,19 @@ def phase_chat(params4):
     return runs[True][1]
 
 
-def phase_mega_generate(params, weights, kv, prompt, compare):
-    """generate on the 3000-token prompt, 64 new tokens, greedy, over 4096
-    slots with the megakernel on (and, with `compare`, off): each run's
-    launches against expected_launches of its route, TTFT, decode tokens/s
-    and wall per step; then a second run of each route with its picks
-    recorded (the same tokens) and the two routes' streams compared.
-    Returns the mega run's launches."""
+def phase_mega_generate(params, weights, kv, prompt, compare, new=GEN_NEW,
+                        tally=None):
+    """generate on the prompt (3000 tokens), `new` tokens (64), greedy,
+    over 4096 slots with the megakernel on (and, with `compare`, off):
+    each run's launches against expected_launches of its route (and added
+    into the `tally` dict), TTFT, decode tokens/s and wall per step; then
+    a second run of each route with its picks recorded (the same tokens)
+    and the two routes' streams compared. Returns the mega run's
+    launches."""
     eng = InferenceEngine(CFG, params, engine_cfg=EngineConfig(
         max_seq_len=LONG_SEQ, decode_chunk=8), cache_dtype=KV_DTYPE[kv],
         device=DEV)
-    gen = GenerationConfig(max_new_tokens=GEN_NEW, greedy=True,
+    gen = GenerationConfig(max_new_tokens=new, greedy=True,
                            eos_token_ids=())
     with layer_mega(True):                 # warm-up, outside the counts
         eng.generate([prompt[:300]], dataclasses.replace(gen,
@@ -2343,10 +2365,13 @@ def phase_mega_generate(params, weights, kv, prompt, compare):
             got = counts()
             want = expected_launches(weights, KV_DTYPE[kv],
                                      prefill_chunks(eng, [len(prompt)]),
-                                     LONG_SEQ, GEN_NEW - 1, mega=on)
+                                     LONG_SEQ, new - 1, mega=on)
             check(got == want, f"generate {weights}/{kv} (mega {on}): "
                   f"launches {got} != expected {want}")
-            check(len(res.token_ids) == GEN_NEW, "generate: length")
+            check(len(res.token_ids) == new, "generate: length")
+            if tally is not None:
+                for c, n in got.items():
+                    tally[c] = tally.get(c, 0) + n
             if compare:
                 with recorded_picks() as p:
                     again = eng.generate([prompt], gen)[0]
@@ -3469,6 +3494,668 @@ def path_speculative(params4):
                 verify_attend=verify_attend[0], wall=wall)
 
 
+# ---------------------------------------------------------------- path (ix)
+
+FAM_SEQ = 8192                  # the windowed runs' cache slots
+FAM_NEW = 32                    # new tokens of phase 4's requests
+FAM_NB = FAM_SEQ // PAGE        # table entries of an 8192-slot sequence
+# phase 3: (preset, weights, cache kind, layers); gemma3-4b at 6 layers,
+# so that layer 5 is a full-attention layer
+FAMILIES = (("mistral-7b", QCFG8, "bf16", 2), ("qwen2-7b", QCFG4, "int8", 2),
+            ("qwen3-8b", QCFG8, "bf16", 2), ("phi3-mini", QCFG8, "bf16", 2),
+            ("gemma2-2b", QCFG8, "int8", 2), ("gemma3-4b", QCFG8, "bf16", 6))
+MISTRAL_PROMPT = 4200           # past mistral's 4096 window
+GEMMA_PROMPTS = (4600, 1500, 700, 128)   # gemma2-2b's served requests
+FAM_USED = ("K1", "K2", "K6", "K8", "K9", "K10a", "K12", "KR")
+
+
+# K1 and K8 at the families' widths: (name, K, N, bits, quantized from a
+# random embedding table as a tied head, rows, norm prologue)
+FAM_K1_CASES = (
+    ("llama3.1 lm_head", 4096, 128256, 8, False, (1, 16), False),
+    ("qwen2 lm_head", 3584, 152064, 4, False, (1, 16), False),
+    ("gemma2 tied lm_head", 2304, 256000, 8, True, (1, 16), False),
+    ("gemma3 tied lm_head", 2560, 262208, 8, True, (1,), False),
+    ("qwen2 wqkv", 3584, 4608, 4, False, (1, 64), True),
+    ("phi3 wqkv", 3072, 9216, 8, False, (1, 64), True),
+    ("gemma2 wqkv", 2304, 4096, 8, False, (1, 64), True),
+    ("gemma3 wqkv", 2560, 4096, 8, False, (1, 64), True),
+    ("qwen2 w_gateup", 3584, 37888, 4, False, (CHUNK,), True),
+    ("mistral w_gateup", 4096, 28672, 8, False, (CHUNK,), True),
+    # N = 32064, a last band of 64 weight rows: K1's MMA branch and K8
+    # (logits of every row, as engine.score asks for them)
+    ("phi3 lm_head", 3072, 32064, 8, False, (16, CHUNK), False))
+
+
+@contextlib.contextmanager
+def model_cfg(cfg):
+    """CFG and L are `cfg`'s while inside: the phase-2 helpers and the
+    launch rules written for LLaMA-2-7B read the widths from them."""
+    global CFG, L
+    old = CFG, L
+    CFG, L = cfg, cfg.num_layers
+    try:
+        yield
+    finally:
+        CFG, L = old
+
+
+def fam_params(cfg, qcfg, seed):
+    """A family's prepared random weights on the card (its module's
+    init_params_quantized, through the registry), with random qkv biases
+    and q/k norm weights, and for gemma random (1 + w) norm weights, so
+    that each moves the logits."""
+    model = get_model(cfg.name)
+    p = model.init_params_quantized(cfg, qcfg, seed=seed, device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(seed + 100)
+    lay = p["layers"]
+    gemma = model is gemma2
+    for k in ("bq", "bk", "bv", "q_norm", "k_norm", "post_attn_norm",
+              "post_ffn_norm") + (("attn_norm", "ffn_norm") if gemma else ()):
+        if k in lay:
+            base = 1.0 if k in ("q_norm", "k_norm") and not gemma else 0.0
+            lay[k] = (base + 0.3 * torch.randn(lay[k].shape, generator=g,
+                                               device=DEV)).to(lay[k].dtype)
+    out = llama.prepare_params(p)
+    torch.cuda.synchronize()
+    return out
+
+
+def fam_scale(cfg):
+    return (cfg.query_pre_attn_scalar or cfg.head_dim) ** -0.5
+
+
+def visible(pos, window):
+    """Slots a query at `pos` attends: min(pos + 1, window)."""
+    return min(pos + 1, window) if window else pos + 1
+
+
+def window_mask(pos, n, window):
+    """[.., n] bool: slot <= pos, and slot > pos - window with a window."""
+    slot = torch.arange(n, device=DEV)
+    p = pos.long()[..., None]
+    m = slot <= p
+    if window:
+        m &= slot > p - window
+    return m
+
+
+def check_binds(want, nowin, tol, what):
+    """The window masks enough of the case that a kernel ignoring it would
+    fail the tolerance."""
+    d = max_err(want, nowin)
+    check(d > tol, f"{what}: the window moves the output by {d} <= {tol}: "
+          "the case does not test it")
+    return d
+
+
+def fam_k1_cases(gen):
+    """K1 at the families' widths: the large vocabularies' lm_heads (int8
+    llama3.1 N = 128256, int4 g=128 qwen2 N = 152064, gemma2's tied head
+    quantized from a random table in vocabulary chunks, N = 256000, and
+    gemma3's, N = 262208), each at M = 1 (the GEMV) and M = 16 (the MMA
+    branch, the last rows of a batch); the qkv projections of qwen2 (int4,
+    K = 3584), phi3 (K = 3072, N = 9216), gemma2 (K = 2304) and gemma3
+    (K = 2560) at M = 1 and 64, with the norm prologue; K8 on the gate-up
+    of qwen2 (int4, N = 37888) and mistral (int8, N = 28672) at 2048
+    rows. Codes random, scales random per column (group), so an index
+    slip shows. Returns the numbers by case and the largest error."""
+    def rand_qt(K, N, bits):
+        q = torch.randint(-128, 128, (N, K * bits // 8), generator=gen,
+                          device=DEV, dtype=torch.int8)
+        qmax = 2 ** (bits - 1) - 1
+        shape = (1, N) if bits == 8 else (N, K // 128)
+        scale = (0.5 + torch.rand(shape, generator=gen, device=DEV)) \
+            * 0.02 / qmax
+        return QTensor(q=q, scale=scale, bits=bits)
+
+    def make(K, N, bits, tied):
+        if not tied:
+            return rand_qt(K, N, bits)
+        emb = (torch.randn((N, K), generator=gen, device=DEV) * 0.02).to(BF16)
+        return llama.quantize_tied_head(emb, QCFG8)
+    out, err = {}, 0.0
+    for name, K, N, bits, tied, Ms, prologue in FAM_K1_CASES:
+        qt = make(K, N, bits, tied)
+        for M in Ms:
+            r = out[(name, M)] = k1_case(name, qt, M, prologue, gen, 1)
+            err = max(err, r["err"])
+        del qt
+        torch.cuda.empty_cache()
+    return out, err
+
+
+def fam_flash_case(gen, cfg, kind, T, start, S, window):
+    """K9 on a [2, 1, Hkv, S] cache of `kind` at cfg's heads: T rows at
+    positions start .. start + T - 1, with cfg's query scale and softcap
+    and the window, against flash_attention_ref. Library yardstick (none
+    with a softcap): scaled_dot_product_attention over the dequantized K
+    and V under the same mask."""
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale, cap = fam_scale(cfg), cfg.attn_logit_softcap
+    with model_cfg(cfg):
+        kc, vc, ks, vs = random_cache(gen, kind, 2, 1, S)
+    q = torch.randn((1, T, Hq, D), generator=gen, device=DEV).to(BF16)
+    pos = (start + torch.arange(T, device=DEV, dtype=torch.int32))[None]
+    sc = dict(k_scale=ks, v_scale=vs)
+    got = k9.flash_attention(q, kc, vc, 1, pos, scale=scale,
+                             logit_softcap=cap, sliding_window=window, **sc)
+    want = k9.flash_attention_ref(q, kc, vc, 1, pos, scale, cap, window,
+                                  **sc)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    # as K9's cases: a few bf16 steps (2^-8 relative) of the largest output
+    tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+    what = (f"K9 {cfg.name} {kind} D={D} G={Hq // Hkv} T={T} "
+            f"start={start} window={window} cap={cap}")
+    check(bool(torch.isfinite(got).all()) and err <= tol,
+          f"{what}: max err {err} > {tol}")
+    binds = ""
+    if window and start + T > window:
+        nowin = k9.flash_attention_ref(q, kc, vc, 1, pos, scale, cap, 0,
+                                       **sc)
+        binds = f", the window moves it {check_binds(want, nowin, tol, what):.3g}"
+        del nowin
+    del got, want
+    ms = time_ms(lambda i: k9.flash_attention(
+        q, kc, vc, i % 2, pos, scale=scale, logit_softcap=cap,
+        sliding_window=window, **sc), reps=10)
+    plain = plain_ms(lambda i: k9.flash_attention_ref(
+        q, kc, vc, i % 2, pos, scale, cap, window, **sc))
+    live = start + T
+    lo = max(0, start + 1 - window) if window else 0
+    lib = None
+    if not cap:
+        with model_cfg(cfg):
+            kd = [dequant_layer(kc, ks, i, kind)[:, :, :live]
+                  for i in range(2)]
+            vd = [dequant_layer(vc, vs, i, kind)[:, :, :live]
+                  for i in range(2)]
+        mask = window_mask(pos[0], live, window)
+        qt_ = q.transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = time_ms(lambda i: sdpa(qt_, kd[i % 2], vd[i % 2],
+                                     attn_mask=mask, scale=scale,
+                                     enable_gqa=Hq != Hkv), reps=10)
+        del kd, vd
+    pairs = sum(visible(p, window) for p in range(start, start + T))
+    with model_cfg(cfg):
+        nbytes = (attn_bytes(kind, Hkv, live - lo) + 2 * q.numel() * 2
+                  + T * 4)
+    bnd, by = bound_ms(nbytes, 4 * Hq * D * pairs)
+    say(f"  {what} err {err:.3g} (tol {tol:.3g}){binds}  kernel {ms:.4f} ms"
+        f"  bound {bnd:.4f} ms ({by})  plain {plain:.3f} ms  sdpa "
+        f"{'n/a (softcap)' if lib is None else f'{lib:.4f} ms'}")
+    del kc, vc, ks, vs
+    return dict(ms=ms, plain=plain, lib=lib, bound=bnd, by=by, err=err)
+
+
+def fam_decode_case(gen, cfg, kind, positions, S, window, paged=False):
+    """K2 (or K10a with `paged`, over scattered 128-slot pages and a NaN
+    null page) at cfg's heads over S slots of `kind`: one query a sequence
+    at `positions`, with cfg's query scale and softcap and the window,
+    against its plain version. Library yardstick (none with a softcap):
+    scaled_dot_product_attention over the dequantized K and V (the pages
+    gathered first) under the same mask."""
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale, cap = fam_scale(cfg), cfg.attn_logit_softcap
+    B = len(positions)
+    with model_cfg(cfg):
+        if paged:
+            live = [p // PAGE + 1 for p in positions]
+            P = sum(live) + 1
+            kc, vc, ks, vs = paged_pool(gen, kind, 2, P)
+            pt = scattered_table(B, S // PAGE, P, live, SEED + B).to(DEV)
+        else:
+            kc, vc, ks, vs = random_cache(gen, kind, 2, B, S)
+    q = torch.randn((B, 1, Hq, D), generator=gen, device=DEV).to(BF16)
+    pos = torch.tensor(positions, dtype=torch.int32, device=DEV)
+    sc = dict(k_scale=ks, v_scale=vs)
+    if paged:
+        def kernel(layer, w=window):
+            return k10.paged_attention(q, kc, vc, pt, layer, pos, scale=scale,
+                                       logit_softcap=cap, window=w, **sc)
+
+        def plain(layer, w=window):
+            return k10.paged_attention_ref(q, kc, vc, pt, layer, pos, scale,
+                                           cap, w, **sc)
+    else:
+        def kernel(layer, w=window):
+            return k2.decode_attention(q, kc, vc, layer, pos, scale=scale,
+                                       logit_softcap=cap, window=w, **sc)
+
+        def plain(layer, w=window):
+            return k2.decode_attention_ref(q, kc, vc, layer, pos, scale,
+                                           cap, w, **sc)
+    got = kernel(1)
+    want = plain(1).reshape(got.shape)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    # as K2's and K10a's cases: a few bf16 steps of the largest output
+    tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+    what = (f"{'K10a' if paged else 'K2'} {cfg.name} {kind} D={D} "
+            f"G={Hq // Hkv} S={S} pos={positions} window={window} cap={cap}")
+    check(bool(torch.isfinite(got).all()) and err <= tol,
+          f"{what}: max err {err} > {tol}")
+    binds = ""
+    if window and max(positions) >= window:
+        d = check_binds(want, plain(1, 0).reshape(got.shape), tol, what)
+        binds = f", the window moves it {d:.3g}"
+    ms = time_ms(lambda i: kernel(i % 2))
+    plain_t = plain_ms(lambda i: plain(i % 2))
+    lib = None
+    if not cap:
+        n = max(positions) + 1
+        with model_cfg(cfg):
+            if paged:
+                kd = [gathered(kc, ks, pt, i, kind)[:, :, :n]
+                      for i in range(2)]
+                vd = [gathered(vc, vs, pt, i, kind)[:, :, :n]
+                      for i in range(2)]
+            else:
+                kd = [dequant_layer(kc, ks, i, kind)[:, :, :n]
+                      for i in range(2)]
+                vd = [dequant_layer(vc, vs, i, kind)[:, :, :n]
+                      for i in range(2)]
+        mask = window_mask(pos, n, window)[:, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = time_ms(lambda i: sdpa(q.transpose(1, 2), kd[i % 2],
+                                     vd[i % 2], attn_mask=mask, scale=scale,
+                                     enable_gqa=Hq != Hkv))
+        del kd, vd
+    seen = [visible(p, window) for p in positions]
+    with model_cfg(cfg):
+        nbytes = (sum(attn_bytes(kind, Hkv, v) for v in seen)
+                  + 2 * q.numel() * 2 + B * 4
+                  + (B * (S // PAGE) * 4 if paged else 0))
+    bnd, by = bound_ms(nbytes, sum(4 * Hq * D * v for v in seen))
+    say(f"  {what} err {err:.3g} (tol {tol:.3g}){binds}  kernel {ms:.4f} ms"
+        f"  bound {bnd:.5f} ms ({by})  plain {plain_t:.3f} ms  sdpa "
+        f"{'n/a (softcap)' if lib is None else f'{lib:.4f} ms'}")
+    del kc, vc, ks, vs
+    return dict(ms=ms, plain=plain_t, lib=lib, bound=bnd, by=by, err=err)
+
+
+def fam_attention_cases(gen):
+    """K9, K2 and K10a at the families' shapes: gemma2's D = 256, G = 2,
+    query scale 256^-0.5, softcap 50 and 4096 window (a 2048-row chunk at
+    positions 6144-8191 and a 512-row one at 4096-4607 over 8192 int8
+    slots; decode at 8191, and at four positions of which two are past the
+    window, whose start falls inside a tile, dense and over pages);
+    mistral's G = 4 with its 4096 window (bf16); qwen2's G = 7 (int8),
+    without one."""
+    g2 = preset("gemma2-2b")
+    mi = preset("mistral-7b")
+    qw = preset("qwen2-7b")
+    r = {}
+    r["k9 gemma2"] = fam_flash_case(gen, g2, "int8", CHUNK, FAM_SEQ - CHUNK,
+                                    FAM_SEQ, g2.sliding_window)
+    fam_flash_case(gen, g2, "int8", 512, 4096, FAM_SEQ, g2.sliding_window)
+    r["k9 mistral"] = fam_flash_case(gen, mi, "bf16", CHUNK, FAM_SEQ - CHUNK,
+                                     FAM_SEQ, mi.sliding_window)
+    r["k9 qwen2"] = fam_flash_case(gen, qw, "int8", CHUNK, 0, LONG_SEQ, 0)
+    r["k2 gemma2"] = fam_decode_case(gen, g2, "int8", [FAM_SEQ - 1], FAM_SEQ,
+                                     g2.sliding_window)
+    fam_decode_case(gen, g2, "int8", [100, 3000, 4631, FAM_SEQ - 1], FAM_SEQ,
+                    g2.sliding_window)
+    r["k2 mistral"] = fam_decode_case(gen, mi, "bf16", [FAM_SEQ - 1],
+                                      FAM_SEQ, mi.sliding_window)
+    r["k2 qwen2"] = fam_decode_case(gen, qw, "int8", [3060], LONG_SEQ, 0)
+    r["k10a gemma2"] = fam_decode_case(
+        gen, g2, "int8", [100, 3000, 4631, FAM_SEQ - 1], FAM_SEQ,
+        g2.sliding_window, paged=True)
+    torch.cuda.empty_cache()
+    return r
+
+
+def fam_parity(name, qcfg, kind, n_layers):
+    """Phase 3 of one family: a n_layers model at the preset's full width
+    (random weights, biases and norms) through its module's forward on
+    the CPU (plain versions) and on the card (kernels): the logits of a
+    128-row prefill (B = 2, T = 64) and PARITY_STEPS decode steps over
+    MAX_SEQ slots of `kind`, at path (i)'s phase-3 tolerance. Returns the
+    card's weights."""
+    cfg = preset(name)
+    # cut to n_layers; gemma3's layer kinds with it
+    cfg = dataclasses.replace(cfg, num_layers=n_layers, layer_types=(
+        None if cfg.layer_types is None else cfg.layer_types[:n_layers]))
+    model = get_model(cfg.name)
+    cpu = torch.device("cpu")
+    p_gpu = fam_params(cfg, qcfg, SEED + 20)
+    p_cpu = llama.params_to(p_gpu, cpu)
+    B, T = 2, 64
+    lengths = [64, 41]
+    gen = torch.Generator().manual_seed(SEED + 21)
+    ids = torch.randint(1, cfg.vocab_size, (B, T), generator=gen,
+                        dtype=torch.int32)
+    pos = torch.arange(T, dtype=torch.int32)[None].repeat(B, 1)
+    last = torch.tensor([n - 1 for n in lengths])
+
+    def new_cache(dev):
+        return kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads,
+                                  MAX_SEQ, cfg.head_dim, KV_DTYPE[kind],
+                                  device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        c_cpu, c_gpu = new_cache(cpu), new_cache(DEV)
+        l_cpu = model.forward(cfg, p_cpu, ids, pos, c_cpu, last_idx=last)[0]
+        l_gpu = model.forward(cfg, p_gpu, ids.to(DEV), pos.to(DEV), c_gpu,
+                              last_idx=last.to(DEV))[0]
+        errs, finite = [], []
+        scale = 0.0
+        nxt = torch.tensor(lengths, dtype=torch.int32)[:, None]
+        for step in range(PARITY_STEPS + 1):
+            finite.append(bool(torch.isfinite(l_cpu).all())
+                          and bool(torch.isfinite(l_gpu).all()))
+            errs.append((l_gpu.cpu() - l_cpu).abs().max().item())
+            scale = max(scale, l_cpu.abs().max().item())
+            if step == PARITY_STEPS:
+                break
+            tok = l_cpu.argmax(-1).to(torch.int32)[:, None]
+            l_cpu, _ = model.forward(cfg, p_cpu, tok, nxt, c_cpu)
+            l_gpu, _ = model.forward(cfg, p_gpu, tok.to(DEV), nxt.to(DEV),
+                                     c_gpu)
+            nxt = nxt + 1
+    del p_cpu, c_cpu, c_gpu
+    # path (i)'s phase-3 rule: 4 bf16 steps of the largest logit
+    tol = 4 * 2.0 ** -8 * scale
+    say(f"  {name} ({n_layers} layers, {qcfg.weights}"
+        f"{'' if qcfg.group_size == 0 else f' g={qcfg.group_size}'}, {kind} "
+        f"cache, module {model.__name__.rsplit('.', 1)[1]}): logits max err "
+        f"(prefill, {PARITY_STEPS} decode steps) "
+        f"{['%.4f' % e for e in errs]} (tol {tol:.4f}, max |logit| "
+        f"{scale:.3f}) in {time.perf_counter() - t0:.1f} s")
+    check(all(finite), f"{name} parity: non-finite logits")
+    check(max(errs) <= tol, f"{name} parity: {max(errs)} > {tol}")
+    return cfg, p_gpu
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Every llama forward's attention takes the plain `attend` (with the
+    window's mask) while inside."""
+    route = llama.attention_route
+    llama.attention_route = lambda *a, **k: "attend"
+    try:
+        yield
+    finally:
+        llama.attention_route = route
+
+
+def fam_mistral_long(cfg, params):
+    """mistral (2 layers) on a 4200-token prompt over 8192 slots, then
+    PARITY_STEPS decode steps: chunks of 2048, 2048 and 128 rows, the last
+    past the 4096 window, through K9, and decode steps through K2, all
+    windowed; held to the same run with attention on the plain path
+    (attend under the window's mask) on the card, at phase 3's
+    tolerance, and shown to differ from the run without the window."""
+    gen = torch.Generator().manual_seed(SEED + 22)
+    prompt = torch.randint(1, cfg.vocab_size, (MISTRAL_PROMPT,),
+                           generator=gen).tolist()
+    steps = torch.randint(1, cfg.vocab_size, (PARITY_STEPS,),
+                          generator=gen).tolist()
+
+    def run(c):
+        eng = InferenceEngine(c, params, engine_cfg=EngineConfig(
+            max_seq_len=FAM_SEQ), cache_dtype=BF16, device=DEV)
+        out = []
+        with torch.no_grad():
+            logits, cache = eng.prefill([prompt])
+            out.append(logits)
+            zeros = torch.zeros((1,), dtype=torch.long, device=DEV)
+            for j, t in enumerate(steps):
+                logits, cache = eng._forward(
+                    torch.tensor([[t]], dtype=torch.int32, device=DEV),
+                    torch.tensor([[MISTRAL_PROMPT + j]], dtype=torch.int32,
+                                 device=DEV), cache, zeros)
+                out.append(logits)
+        torch.cuda.synchronize()
+        del eng, cache
+        return out
+    before = counts()
+    got = run(cfg)
+    ran = {c: n - before[c] for c, n in counts().items()}
+    check(ran["K9"] == 3 * cfg.num_layers
+          and ran["K2"] == PARITY_STEPS * cfg.num_layers,
+          f"mistral 4200: K9/K2 launches {ran}")
+    with plain_attention():
+        want = run(cfg)
+    nowin = run(dataclasses.replace(cfg, sliding_window=0))
+    scale = max(w.abs().max().item() for w in want)
+    tol = 4 * 2.0 ** -8 * scale
+    errs = [max_err(g, w) for g, w in zip(got, want)]
+    moved = max(max_err(g, n) for g, n in zip(got, nowin))
+    say(f"  mistral-7b (2 layers) 4200-token prompt over {FAM_SEQ} slots, "
+        f"window {cfg.sliding_window}: kernels vs plain attention, logits "
+        f"max err (prefill, {PARITY_STEPS} steps) "
+        f"{['%.4f' % e for e in errs]} (tol {tol:.4f}); without the window "
+        f"the logits move {moved:.4f}")
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "mistral 4200: non-finite logits")
+    check(max(errs) <= tol, f"mistral 4200: {max(errs)} > {tol}")
+    check(moved > 0, "mistral 4200: the window changed nothing")
+
+
+def k12_refusals(parity):
+    """K12 keeps refusing what it lacks: the qkv bias (qwen2), a window
+    (mistral, gemma2), a softcap and D = 256 (gemma2), qk-norm (qwen3,
+    gemma3), D = 96 (phi3)."""
+    for name, (cfg, params) in parity.items():
+        cache = kvcache.init_cache(cfg.num_layers, 1, cfg.num_kv_heads,
+                                   MAX_SEQ, cfg.head_dim, BF16, device=DEV)
+        check(not k12.supports(cfg, (1, 1, cfg.hidden_size),
+                               params["layers"], cache),
+              f"K12 takes {name}, which it cannot serve")
+    say(f"  K12 refuses {sorted(parity)} (bias, window, softcap, qk-norm, "
+        "head_dim)")
+
+
+def fam_llama31(gen, tally):
+    """Llama-3.1-8B at full depth, int8 weights and lm_head, bf16 cache:
+    phase 2's K12 (G = 4) and RoPE-and-write (Hkv = 8) cases, then
+    generate 128 + 32 and 3000 + 32 over 4096 slots with the megakernel on
+    and off (phase_mega_generate: launches, streams). Returns its
+    entries' numbers."""
+    cfg = preset("llama3.1-8b")
+    say(f"  Llama-3.1-8B ({cfg.num_layers} layers, int8, bf16 cache, "
+        f"vocabulary {cfg.vocab_size})")
+    params = fam_params(cfg, QCFG8, SEED)
+    r = {}
+    with model_cfg(cfg):
+        r["k12"] = k12_case(params, "int8", "bf16", 191, MAX_SEQ, gen)
+        k12_case(params, "int8", "bf16", 3060, LONG_SEQ, gen)
+        r["kr llama3.1"] = rope_write_cases(gen, "bf16")
+        torch.cuda.empty_cache()
+        pg = torch.Generator().manual_seed(SEED + 23)
+        for n in (128, 3000):
+            prompt = torch.randint(1, cfg.vocab_size, (n,),
+                                   generator=pg).tolist()
+            phase_mega_generate(params, "int8", "bf16", prompt, True,
+                                new=FAM_NEW, tally=tally)
+    del params
+    torch.cuda.empty_cache()
+    return r
+
+
+def fam_gemma2(tally, smi):
+    """Gemma-2-2B at full depth, int8 weights with the tied lm_head
+    quantized from the table, int8 cache: generate a 4600-token prompt
+    over 8192 slots and FAM_NEW tokens (launches against the rule, the
+    window binding on the even layers), then the dense scheduler (the
+    reference) and the paged one (K10a) serving GEMMA_PROMPTS, greedy,
+    the paged streams and generate's held to the reference."""
+    cfg = preset("gemma2-2b")
+    params = fam_params(cfg, QCFG8, SEED)
+    check(isinstance(params.get("lm_head"), QTensor),
+          "gemma2: no quantized tied lm_head")
+    eng = InferenceEngine(cfg, params, engine_cfg=EngineConfig(
+        max_seq_len=FAM_SEQ, max_batch_size=4, page_size=PAGE),
+        cache_dtype="int8", device=DEV)
+    check(eng._model is gemma2, "gemma2: the registry gave another module")
+    pg = torch.Generator().manual_seed(SEED + 24)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=pg).tolist()
+               for n in GEMMA_PROMPTS]
+    gen = GenerationConfig(max_new_tokens=FAM_NEW, greedy=True,
+                           eos_token_ids=())
+    eng.generate([prompts[0][:300]], dataclasses.replace(
+        gen, max_new_tokens=2))                         # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    res = eng.generate([prompts[0]], gen)[0]
+    torch.cuda.synchronize()
+    got = counts()
+    with model_cfg(cfg):
+        want = expected_launches("int8", "int8",
+                                 prefill_chunks(eng, [GEMMA_PROMPTS[0]]),
+                                 FAM_SEQ, FAM_NEW - 1)
+    check(got == want, f"gemma2 generate: launches {got} != {want}")
+    for c, n in got.items():
+        tally[c] = tally.get(c, 0) + n
+    say(f"  gemma2-2b generate {GEMMA_PROMPTS[0]} + {FAM_NEW} over {FAM_SEQ}"
+        f" slots (int8, tied int8 head, int8 cache): TTFT "
+        f"{res.ttft_s * 1e3:.2f} ms, decode {res.decode_tokens_per_s:.2f} "
+        f"tok/s; launches {({c: n for c, n in got.items() if n})} ({smi})")
+    zero_counts()
+    ref, wall_ref = run_sched(scheduler.ContinuousBatchingScheduler(
+        eng, gen), prompts, FAM_NEW, top_logprobs=2)
+    paged, wall = run_sched(scheduler.PagedScheduler(eng, gen), prompts,
+                            FAM_NEW, top_logprobs=2)
+    torch.cuda.synchronize()
+    got = counts()
+    check(got["K10a"] > 0 and got["K2"] > 0,
+          f"gemma2 schedulers: K10a / K2 never ran: {got}")
+    for c, n in got.items():
+        tally[c] = tally.get(c, 0) + n
+    c0, d0 = compare_ref(res.token_ids, ref[0], "gemma2 generate vs dense "
+                         "scheduler")
+    compared, diff = c0, d0
+    for p, r in zip(paged, ref):
+        c, d = compare_ref(p.output_ids, r, f"gemma2 paged request "
+                           f"{r.req_id}", p.output_logprobs)
+        compared, diff = compared + c, max(diff, d)
+    n_tok = len(prompts) * FAM_NEW
+    say(f"  gemma2-2b schedulers, {len(prompts)} requests "
+        f"{list(GEMMA_PROMPTS)} + {FAM_NEW}: dense {n_tok / wall_ref:.1f} "
+        f"tok/s in {wall_ref:.2f} s, paged {n_tok / wall:.1f} tok/s in "
+        f"{wall:.2f} s; {compared} of {n_tok + FAM_NEW} tokens compared, "
+        f"equal, logprobs within {diff:.4f}; launches "
+        f"{({c: n for c, n in got.items() if n})} ({smi})")
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def fam_entry(name, source, replaces, launches, r, per_step, work):
+    e = entry(name, source, replaces, launches, r["err"],
+              dict(r, lib=0.0 if r["lib"] is None else r["lib"]), per_step,
+              work)
+    if r["lib"] is None:
+        e["library_ms"] = None
+    return e
+
+
+def path_families(gen):
+    """Path (ix): the model registry and the dense families beyond
+    LLaMA-2 (models/llama.py's llama3/3.1, mistral, qwen2, qwen3, phi3;
+    models/gemma2.py's gemma2 and gemma3)."""
+    t0 = time.perf_counter()
+    smi = card_line()
+    say(f"path (ix): the families (registry, models/llama.py, "
+        f"models/gemma2.py); card: {smi}")
+    say("phase 2: the kernels at the families' shapes vs their plain "
+        "versions on the card")
+    k1r, k1_err = fam_k1_cases(gen)
+    att = fam_attention_cases(gen)
+    kr = {}
+    for name, kind in (("phi3-mini", "bf16"), ("qwen2-7b", "int8")):
+        with model_cfg(preset(name)):
+            kr[name] = rope_write_cases(gen, kind)
+    say("phase 3: 2 layers at each family's full width (gemma3-4b: 6), CPU "
+        "plain vs card kernels")
+    tally = {}
+    zero_counts()
+    parity = {}
+    for name, qcfg, kind, n in FAMILIES:
+        parity[name] = fam_parity(name, qcfg, kind, n)
+        torch.cuda.empty_cache()
+    fam_mistral_long(*parity["mistral-7b"])
+    for c, n in counts().items():
+        tally[c] = tally.get(c, 0) + n
+    k12_refusals(parity)
+    cfg_q, p_q = parity["qwen2-7b"]
+    with model_cfg(cfg_q):
+        k6_r, k6_err = k6_cases(p_q, gen)
+    del parity, p_q
+    torch.cuda.empty_cache()
+    say(f"phase 4: full depth ({smi})")
+    zero_counts()
+    big = fam_llama31(gen, tally)
+    zero_counts()
+    fam_gemma2(tally, smi)
+    check(all(tally.get(c, 0) > 0 for c in FAM_USED),
+          f"path (ix): a kernel never ran: {tally}")
+    wall = time.perf_counter() - t0
+    say(f"  launches (phases 3-4): { {c: n for c, n in tally.items() if n} }")
+    say(f"path (ix) took {wall:.1f} s ({smi})")
+    t = tally
+    k1w = "one call, M={M}: {n}"
+    out = []
+    for (name, M), r in k1r.items():
+        if M == CHUNK:
+            out.append(fam_entry(
+                f"K8 quant_matmul tiled prefill GEMM ({name}, "
+                f"int{'4' if 'qwen2' in name else '8'})",
+                "quant_matmul_tiled.cu", "quant_matmul.py:379", t["K8"], r,
+                1, k1w.format(M=M, n=name)))
+        elif M == 1 or "lm_head" in name:
+            out.append(fam_entry(
+                f"K1 quant_matmul {'GEMV' if M == 1 else 'MMA branch'} "
+                f"({name})", "quant_matmul.cu" if M == 1 else
+                "quant_matmul_tiled.cu", "quant_matmul.py:496", t["K1"], r,
+                1, k1w.format(M=M, n=name)))
+    for key, label, src, rep, launches in (
+            ("k9 gemma2", "K9 flash_attention (gemma2: int8 cache, D=256, "
+             "window 4096, softcap 50)", "flash_attention.cu",
+             "flash_attention.py:251", t["K9"]),
+            ("k9 mistral", "K9 flash_attention (mistral: bf16 cache, G=4, "
+             "window 4096)", "flash_attention.cu", "flash_attention.py:251",
+             t["K9"]),
+            ("k9 qwen2", "K9 flash_attention (qwen2: int8 cache, G=7)",
+             "flash_attention.cu", "flash_attention.py:251", t["K9"]),
+            ("k2 gemma2", "K2 decode_attention (gemma2: int8 cache, D=256, "
+             "window 4096, softcap 50, scale 256^-0.5)",
+             "decode_attention.cu", "decode_attention.py:489", t["K2"]),
+            ("k2 mistral", "K2 decode_attention (mistral: bf16 cache, G=4, "
+             "window 4096)", "decode_attention.cu",
+             "decode_attention.py:489", t["K2"]),
+            ("k2 qwen2", "K2 decode_attention (qwen2: int8 cache, G=7)",
+             "decode_attention.cu", "decode_attention.py:489", t["K2"]),
+            ("k10a gemma2", "K10a paged_attention (gemma2: int8 pages, "
+             "D=256, window 4096, softcap 50)", "decode_attention.cu",
+             "paged_attention.py:271", t["K10a"])):
+        out.append(fam_entry(label, src, rep, launches, att[key], 1,
+                             "one layer's call"))
+    for name, kind, rep in (("phi3-mini", "bf16", "kv_write.py:72"),
+                            ("qwen2-7b", "int8", "kv_write.py:152")):
+        r = kr[name][(1, 1)]
+        out.append(fam_entry(
+            f"K3/K4 rope_write ({name}: {kind} cache, D="
+            f"{preset(name).head_dim}, Hkv={preset(name).num_kv_heads})",
+            "kv_write.cu", rep, t["KR"], dict(r, err=0.0), 1,
+            "one layer's call at B=1, T=1"))
+    r = big["kr llama3.1"][(1, 1)]
+    out.append(fam_entry("K3/K4 rope_write (llama3.1-8b: bf16 cache, Hkv=8)",
+                         "kv_write.cu", "kv_write.py:72", t["KR"],
+                         dict(r, err=0.0), 1, "one layer's call at B=1"))
+    out.append(fam_entry("K12 layer_decode_fused (llama3.1-8b int8, bf16 "
+                         "cache, G=4)", "layer_fused.cu", "layer_fused.py:353",
+                         t["K12"], big["k12"], 1, "one layer at pos 191"))
+    out.append(fam_entry("K6 layer_tail_fused (qwen2-7b int4 g=128, K=3584, "
+                         "I=18944)", "layer_tail.cu", "quant_matmul.py:699",
+                         t["K6"], dict(k6_r, err=k6_err), 1,
+                         "one layer's tail at M=1"))
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     phase_card()
@@ -3496,6 +4183,9 @@ def main():
     torch.cuda.empty_cache()
     path_speculative(shared["params"])
     del shared
+    torch.cuda.empty_cache()
+    say(f"path (viii) done at {time.perf_counter() - t_start:.1f} s")
+    kernels += path_families(gen)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,10 @@ with streamed tokens, "exit" to quit and "reset" to clear the history;
 without a tokenizer each line runs a fixed prompt and echoes the sampled
 ids ("ids> [...]"). Weights come from an HF checkpoint directory, or are
 random (dummy) weights of a preset, drawn directly as quantized codes
-when --quant is set.
+when --quant is set. --model takes every preset of config.PRESETS (the
+llama family on models/llama.py: llama2, llama3, llama3.1, mistral,
+qwen2, qwen3, phi3; gemma2 and gemma3 on models/gemma2.py), and
+--checkpoint an HF directory of any of these families.
 
 Usage:
   python -m llm_inference_tpu_torch.cli --model llama2-7b --quant int4 \\
@@ -12,6 +15,8 @@ Usage:
   python -m llm_inference_tpu_torch.cli --checkpoint /path/to/hf_dir \\
       --tokenizer /path/to/tokenizer.bin --quant int8
   python -m llm_inference_tpu_torch.cli --device cpu --max-seq-len 128
+  python -m llm_inference_tpu_torch.cli --model gemma2-2b --quant int8 \
+      --kv-cache int8 --max-seq-len 8192      # gemma2 on the card
 
   python -m llm_inference_tpu_torch.cli --model llama2-7b --tp 2 \
       --quant int4 --group-size 128 --kv-cache int8   # tensor-parallel
@@ -42,7 +47,7 @@ def build_engine(args, tp=None):
     from llm_inference_tpu_torch import resolve_device
     from llm_inference_tpu_torch.engine.engine import InferenceEngine
     from llm_inference_tpu_torch.engine.tokenizer import load_tokenizer
-    from llm_inference_tpu_torch.models import llama
+    from llm_inference_tpu_torch.models import get_model, llama
     from llm_inference_tpu_torch.parallel import sharding
     from llm_inference_tpu_torch.utils import checkpoint
 
@@ -63,6 +68,7 @@ def build_engine(args, tp=None):
             cfg = dataclasses.replace(cfg, dtype=args.dtype)
         if lead:
             print(f"[cli] no checkpoint given: dummy weights for {cfg.name}")
+    model = get_model(cfg.name)
     if args.tp > 1:
         sharding.validate_tp(cfg, args.tp)
     quantum = 128 * args.tp
@@ -71,8 +77,8 @@ def build_engine(args, tp=None):
     if not args.checkpoint:
         # dummy weights: drawn as codes, or dense where the shards need
         # padding (pad_params_for_tp takes dense weights)
-        params = (llama.init_params(cfg, seed=0, device=device) if pad
-                  else llama.init_params_quantized(cfg, qcfg, seed=0,
+        params = (model.init_params(cfg, seed=0, device=device) if pad
+                  else model.init_params_quantized(cfg, qcfg, seed=0,
                                                    device=device))
     if pad or args.checkpoint:
         params = llama.pad_params_for_tp(params, cfg, args.tp)

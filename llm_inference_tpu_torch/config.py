@@ -2,22 +2,25 @@
 
 The port's own copy of the parts of the JAX package's
 `llm_inference_tpu/config.py` that the port reads (ModelConfig,
-QuantConfig, EngineConfig, GenerationConfig, the LLaMA-2 presets and
-tiny_llama): the port imports nothing of the JAX package. Field names and
-defaults match it; fields of families and features not ported yet are
-added with them. `PRESETS` holds only the models the port serves;
-`preset` raises for the JAX package's other names.
+QuantConfig, EngineConfig, GenerationConfig, the presets of the dense
+families and tiny_llama): the port imports nothing of the JAX package.
+Field names and defaults match it; fields of families and features not
+ported yet (mixtral's experts, DeepSeek's MLA) are added with them.
+`PRESETS` holds only the models the port serves; `preset` raises for the
+JAX package's other names.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters of a LLaMA-family decoder."""
+    """Architecture hyperparameters of a decoder (llama and gemma2
+    families)."""
 
     name: str = "llama"
     vocab_size: int = 32000
@@ -40,14 +43,38 @@ class ModelConfig:
     rope_scaling: Optional[dict] = None
     # Sliding-window attention size; 0 = full attention.
     sliding_window: int = 0
+    # Which layers use the window: "all" (mistral) or "alternating"
+    # (gemma2: even layers windowed, odd global).
+    sliding_pattern: str = "all"
     # Bias terms on the qkv projection.
     qkv_bias: bool = False
-    # Per-head RMSNorm on q and k before RoPE.
+    # Per-head RMSNorm on q and k before RoPE (qwen3: llama's norm; gemma3:
+    # the (1 + w) norm), weight [head_dim] a layer.
     qk_norm: bool = False
+    # gemma3's dual RoPE: sliding layers rotate with this local theta and
+    # full-attention layers with rope_theta (0 = one RoPE).
+    rope_local_theta: float = 0.0
+    # Per-layer attention kinds ("sliding_attention" / "full_attention"),
+    # gemma3's 5:1 pattern; None = sliding_pattern.
+    layer_types: Optional[Tuple[str, ...]] = None
+    # Gemma: the query scale is query_pre_attn_scalar^-0.5 (0 → head_dim),
+    # and the embeddings are scaled by sqrt(hidden_size).
+    query_pre_attn_scalar: float = 0.0
+    scale_embeddings: bool = False
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // self.num_kv_heads
 
     @property
     def qkv_out_dim(self) -> int:
         return (self.num_heads + 2 * self.num_kv_heads) * self.head_dim
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ModelConfig":
+        """A config from a dict; keys that are not fields are ignored."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
 
 
 def llama2_7b(**kw) -> ModelConfig:
@@ -71,6 +98,122 @@ def llama2_70b(**kw) -> ModelConfig:
                        max_position_embeddings=4096, **kw)
 
 
+def llama3_8b(**kw) -> ModelConfig:
+    return ModelConfig(name="llama3-8b", vocab_size=128256, hidden_size=4096,
+                       intermediate_size=14336, num_layers=32, num_heads=32,
+                       num_kv_heads=8, head_dim=128, rms_norm_eps=1e-5,
+                       rope_theta=500000.0, max_position_embeddings=8192, **kw)
+
+
+_LLAMA31_SCALING = {"type": "llama3", "factor": 8.0,
+                    "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                    "original_max_position_embeddings": 8192}
+
+
+def llama3_1_8b(**kw) -> ModelConfig:
+    """Llama-3.1-8B: llama3-8b + 128k context via piecewise RoPE scaling."""
+    return ModelConfig(name="llama3.1-8b", vocab_size=128256,
+                       hidden_size=4096, intermediate_size=14336,
+                       num_layers=32, num_heads=32, num_kv_heads=8,
+                       head_dim=128, rms_norm_eps=1e-5, rope_theta=500000.0,
+                       max_position_embeddings=131072,
+                       rope_scaling=dict(_LLAMA31_SCALING), **kw)
+
+
+def llama3_1_70b(**kw) -> ModelConfig:
+    return ModelConfig(name="llama3.1-70b", vocab_size=128256,
+                       hidden_size=8192, intermediate_size=28672,
+                       num_layers=80, num_heads=64, num_kv_heads=8,
+                       head_dim=128, rms_norm_eps=1e-5, rope_theta=500000.0,
+                       max_position_embeddings=131072,
+                       rope_scaling=dict(_LLAMA31_SCALING), **kw)
+
+
+def mistral_7b(**kw) -> ModelConfig:
+    """Mistral-7B-v0.1: llama architecture + sliding-window attention."""
+    return ModelConfig(name="mistral-7b", vocab_size=32000, hidden_size=4096,
+                       intermediate_size=14336, num_layers=32, num_heads=32,
+                       num_kv_heads=8, head_dim=128, rms_norm_eps=1e-5,
+                       max_position_embeddings=32768, sliding_window=4096,
+                       **kw)
+
+
+def qwen2_7b(**kw) -> ModelConfig:
+    """Qwen2-7B: llama architecture + qkv biases + large vocab."""
+    return ModelConfig(name="qwen2-7b", vocab_size=152064, hidden_size=3584,
+                       intermediate_size=18944, num_layers=28, num_heads=28,
+                       num_kv_heads=4, head_dim=128, rms_norm_eps=1e-6,
+                       rope_theta=1000000.0, max_position_embeddings=32768,
+                       qkv_bias=True, tie_word_embeddings=False, **kw)
+
+
+def qwen3_8b(**kw) -> ModelConfig:
+    """Qwen3-8B: llama architecture + per-head QK-norm (no qkv biases)."""
+    return ModelConfig(name="qwen3-8b", vocab_size=151936, hidden_size=4096,
+                       intermediate_size=12288, num_layers=36, num_heads=32,
+                       num_kv_heads=8, head_dim=128, rms_norm_eps=1e-6,
+                       rope_theta=1000000.0, max_position_embeddings=40960,
+                       qk_norm=True, tie_word_embeddings=False, **kw)
+
+
+def gemma3_4b(**kw) -> ModelConfig:
+    """Gemma-3-4B (text): gemma2's sandwich norms + QK-norm, no softcaps,
+    a 5:1 sliding:full layer pattern with dual RoPE (local theta 10k)."""
+    L = 34
+    lt = tuple("full_attention" if (i + 1) % 6 == 0 else "sliding_attention"
+               for i in range(L))
+    return ModelConfig(name="gemma3-4b", vocab_size=262208,
+                       hidden_size=2560, intermediate_size=10240,
+                       num_layers=L, num_heads=8, num_kv_heads=4,
+                       head_dim=256, rms_norm_eps=1e-6,
+                       rope_theta=1000000.0, rope_local_theta=10000.0,
+                       max_position_embeddings=131072,
+                       # linear interpolation on the global RoPE only (the
+                       # local tables take no scaling)
+                       rope_scaling={"type": "linear", "factor": 8.0},
+                       sliding_window=1024, layer_types=lt,
+                       qk_norm=True, query_pre_attn_scalar=256.0,
+                       scale_embeddings=True, tie_word_embeddings=True,
+                       **kw)
+
+
+def phi3_mini(**kw) -> ModelConfig:
+    """Phi-3-mini-4k: llama architecture (MHA, fused checkpoint keys)."""
+    return ModelConfig(name="phi3-mini", vocab_size=32064, hidden_size=3072,
+                       intermediate_size=8192, num_layers=32, num_heads=32,
+                       num_kv_heads=32, head_dim=96, rms_norm_eps=1e-5,
+                       rope_theta=10000.0, max_position_embeddings=4096,
+                       tie_word_embeddings=False, **kw)
+
+
+def gemma2_2b(**kw) -> ModelConfig:
+    """Gemma-2-2B: sandwich norms, GeGLU, logit softcaps, alternating
+    sliding-window attention, tied and scaled embeddings."""
+    return ModelConfig(name="gemma2-2b", vocab_size=256000,
+                       hidden_size=2304, intermediate_size=9216,
+                       num_layers=26, num_heads=8, num_kv_heads=4,
+                       head_dim=256, rms_norm_eps=1e-6,
+                       rope_theta=10000.0, max_position_embeddings=8192,
+                       tie_word_embeddings=True, attn_logit_softcap=50.0,
+                       final_logit_softcap=30.0, sliding_window=4096,
+                       sliding_pattern="alternating",
+                       query_pre_attn_scalar=256.0, scale_embeddings=True,
+                       **kw)
+
+
+def gemma2_9b(**kw) -> ModelConfig:
+    return ModelConfig(name="gemma2-9b", vocab_size=256000,
+                       hidden_size=3584, intermediate_size=14336,
+                       num_layers=42, num_heads=16, num_kv_heads=8,
+                       head_dim=256, rms_norm_eps=1e-6,
+                       rope_theta=10000.0, max_position_embeddings=8192,
+                       tie_word_embeddings=True, attn_logit_softcap=50.0,
+                       final_logit_softcap=30.0, sliding_window=4096,
+                       sliding_pattern="alternating",
+                       query_pre_attn_scalar=256.0, scale_embeddings=True,
+                       **kw)
+
+
 def tiny_llama(**kw) -> ModelConfig:
     """Small config for tests."""
     defaults = dict(name="tiny-llama", vocab_size=256, hidden_size=128,
@@ -82,11 +225,22 @@ def tiny_llama(**kw) -> ModelConfig:
 
 
 # the presets the port serves; "tiny" is the CLI's default name for
-# tiny_llama (the JAX CLI falls back to it for names it does not know)
+# tiny_llama (the JAX CLI falls back to it for names it does not know).
+# Not served yet: mixtral-8x7b, deepseek-v3 and tiny-deepseek.
 PRESETS = {
     "llama2-7b": llama2_7b,
     "llama2-13b": llama2_13b,
     "llama2-70b": llama2_70b,
+    "llama3-8b": llama3_8b,
+    "llama3.1-8b": llama3_1_8b,
+    "llama3.1-70b": llama3_1_70b,
+    "mistral-7b": mistral_7b,
+    "qwen2-7b": qwen2_7b,
+    "qwen3-8b": qwen3_8b,
+    "phi3-mini": phi3_mini,
+    "gemma2-2b": gemma2_2b,
+    "gemma2-9b": gemma2_9b,
+    "gemma3-4b": gemma3_4b,
     "tiny-llama": tiny_llama,
     "tiny": tiny_llama,
 }

@@ -49,7 +49,11 @@
 //    (232): acc is 128 floats a thread for int8, acc + part 88 + 88 for
 //    int4. The epilogue scales (int8), swaps values between neighbouring
 //    lanes so each thread holds two adjacent columns of one row, and
-//    stores bf16 pairs of rows below M.
+//    stores bf16 pairs of rows below M. N need only be a multiple of 64:
+//    the last band of a width like 32064 or 262208 has 64 weight rows,
+//    the TMA fills the missing 64 with zeros (the tensor map has the true
+//    N), and the second consumer's products on them are not stored (its
+//    scales are read from row 0).
 //    Blocks are numbered m tile fastest, so the m tiles of one band of
 //    128 weight rows run side by side and the later ones find the codes
 //    in L2: the codes cross HBM about once, as on the TPU, whose grid
@@ -256,6 +260,9 @@ qmm_wgmma(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int gr = lane >> 2, tg = lane & 3;
     const int r = 64 * c + 16 * warp + gr;      // rows r, r + 8 of the tile
+    // this warpgroup's 64 weight rows exist (N is a multiple of 64)
+    const bool rows_in = n0 + 64 * c < N;
+    const size_t row = rows_in ? (size_t)n0 + r : 0;
     constexpr int ND = C::BM / 2;               // accumulators a thread
     float acc[ND];
     float part[INT4 ? ND : 1];
@@ -270,8 +277,8 @@ qmm_wgmma(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
       const bool first = INT4 && kt % spg == 0;
       if (first) {
         const int g = kt / spg;
-        gs0 = __ldg(scale + (size_t)(n0 + r) * G + g);
-        gs1 = __ldg(scale + (size_t)(n0 + r + 8) * G + g);
+        gs0 = __ldg(scale + row * G + g);
+        gs1 = __ldg(scale + (row + 8) * G + g);
       }
       sm90::mbar_wait(&full[s], (kt / C::STAGES) & 1);
       uint32_t a[4][4];
@@ -311,8 +318,8 @@ qmm_wgmma(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
     // + 2tg (+ 1); lanes gr and gr ^ 1 trade so each stores a column pair
     float s0 = 1.f, s1 = 1.f;
     if constexpr (!INT4) {
-      s0 = __ldg(scale + n0 + r);
-      s1 = __ldg(scale + n0 + r + 8);
+      s0 = __ldg(scale + row);
+      s1 = __ldg(scale + row + 8);
     }
     const int odd = gr & 1;
 #pragma unroll
@@ -325,7 +332,7 @@ qmm_wgmma(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
         const float got = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
         const int mm = m0 + 8 * j + 2 * tg + odd;
         const int nn = n0 + r + 8 * h - odd;
-        if (mm < M)
+        if (mm < M && rows_in)
           *reinterpret_cast<uint32_t*>(out + (size_t)mm * N + nn) =
               odd ? mma::pack_bf16(got, v1) : mma::pack_bf16(v0, got);
       }
@@ -640,7 +647,7 @@ constexpr int LDS = TK + 8;         // bf16 per shared row (80 bytes)
 
 // SUB: 0 for groups of 32 codes, else the group size (16 or 8). EDGE: N
 // is a multiple of 64 only, and the last tile's columns past N are
-// neither read nor stored (K1's branch; K8 takes N a multiple of 128).
+// neither read nor stored.
 template <int SUB, bool EDGE>
 __global__ void __launch_bounds__(kThreads, 1)
 qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
@@ -846,7 +853,7 @@ int launch_wgmma(const void* a, const void* w, const void* scale, void* out,
   cudaError_t e = cudaFuncSetAttribute(
       qmm_wgmma<INT4>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((M + C::BM - 1) / C::BM, N / kWgTN);
+  dim3 grid((M + C::BM - 1) / C::BM, (N + kWgTN - 1) / kWgTN);
   qmm_wgmma<INT4><<<grid, kWgThreads, C::SMEM, st>>>(
       xmap, wmap, (const float*)scale, (__nv_bfloat16*)out, M, K, N, G);
   return (int)cudaGetLastError();
@@ -954,7 +961,7 @@ int launch_small_groups(const void* a, const void* w, const void* scale,
 // kernel (int8, int4 groups of a multiple of 64 codes), 0 the mma.sync
 // kernel (int4 groups of 8, 16 or 32 codes), -1 none (it would refuse).
 extern "C" int qmm_tiled_route(int K, int N, int G, int bits) {
-  if (K % kWgTK != 0 || N % kWgTN != 0 || (bits != 4 && bits != 8))
+  if (K % kWgTK != 0 || N % 64 != 0 || (bits != 4 && bits != 8))
     return -1;
   if (bits == 8) return 1;
   const int gsize = G >= 1 && K % G == 0 ? K / G : 0;
@@ -965,7 +972,7 @@ extern "C" int qmm_tiled_route(int K, int N, int G, int bits) {
 // a: bf16 rows [M, K]; w: ONE layer's codes (int8 [N, K] when bits == 8,
 // packed int4 [N, K/2] when bits == 4), 16-byte aligned; scale: float32
 // [N] (int8) or [N, G] (int4); out: bf16 [M, N]. Requires K % 64 == 0,
-// N % 128 == 0 and, for int4, groups of K / G codes a multiple of 64, or
+// N % 64 == 0 and, for int4, groups of K / G codes a multiple of 64, or
 // 32, 16 or 8.
 extern "C" int qmm_tiled_launch(const void* a, const void* w,
                                 const void* scale, void* out, int M, int K,

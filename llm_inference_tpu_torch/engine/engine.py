@@ -49,7 +49,7 @@ import torch
 from llm_inference_tpu_torch import resolve_device
 from llm_inference_tpu_torch.config import (EngineConfig, GenerationConfig,
                                             ModelConfig)
-from llm_inference_tpu_torch.models import llama
+from llm_inference_tpu_torch.models import registry
 from llm_inference_tpu_torch.ops import kvcache, paged_kvcache, sampling
 from llm_inference_tpu_torch.parallel import sharding
 from llm_inference_tpu_torch.parallel.mesh import TPGroup
@@ -74,7 +74,9 @@ class InferenceEngine:
                  tp: Optional[TPGroup] = None):
         """`params`: the model's prepared parameters (llama.prepare_params
         with tp_size = tp.size under tensor parallelism, where the engine
-        keeps its rank's shard of them and runs on tp.device)."""
+        keeps its rank's shard of them and runs on tp.device). The family's
+        module comes from the registry by cfg.name (llama and the families
+        on it, gemma2 and gemma3)."""
         self.cfg = cfg
         self.engine_cfg = engine_cfg or EngineConfig()
         self.tokenizer = tokenizer
@@ -100,8 +102,11 @@ class InferenceEngine:
         self.params = params
         self.metrics = Metrics()
         self.adapter_slots: Dict[str, int] = {}   # no LoRA stacks
-        self._rope = llama.rope_table(cfg, self.engine_cfg.max_seq_len,
-                                      self.device)
+        # the family's module (models/llama.py, models/gemma2.py), as the
+        # JAX engine takes it from the registry (engine.py:87-88)
+        self._model = registry.get_model(cfg.name)
+        self._rope = self._model.rope_table(cfg, self.engine_cfg.max_seq_len,
+                                            self.device)
 
     # ------------------------------------------------------------------
     # helpers
@@ -163,10 +168,10 @@ class InferenceEngine:
 
     def _forward(self, ids, positions, cache, last_idx, paged_history=False):
         """The one forward every path runs: last-token logits [B, V]."""
-        return llama.forward(self.cfg, self.params, ids, positions, cache,
-                             logits_mode="last", last_idx=last_idx,
-                             rope_tables=self._rope,
-                             paged_history=paged_history, tp=self.tp)
+        return self._model.forward(self.cfg, self.params, ids, positions,
+                                   cache, logits_mode="last",
+                                   last_idx=last_idx, rope_tables=self._rope,
+                                   paged_history=paged_history, tp=self.tp)
 
     def paged_forward(self, history: bool = False) -> Callable:
         """The forward over a paged cache, f(ids, positions, cache,
@@ -267,8 +272,9 @@ class InferenceEngine:
         the cache in place: the speculative verify (logits [B, T, V] for
         "all"; JAX speculative.py:69-71) and a draft cache's catch-up
         ("none")."""
-        return llama.forward(self.cfg, self.params, ids, positions, cache,
-                             logits_mode=logits_mode, rope_tables=self._rope)
+        return self._model.forward(self.cfg, self.params, ids, positions,
+                                   cache, logits_mode=logits_mode,
+                                   rope_tables=self._rope)
 
     @torch.no_grad()
     def _decode_chunk_rows_fn(self, cache, token, pos, temp, topk, topp,
@@ -416,7 +422,7 @@ class InferenceEngine:
                 nxt = toks[o + 1:o + T + 1]
                 tgt[i, :len(nxt)] = nxt
             pos = np.broadcast_to(o + np.arange(T), (B, T))
-            logits, cache = llama.forward(
+            logits, cache = self._model.forward(
                 self.cfg, self.params, torch.from_numpy(ids).to(self.device),
                 torch.from_numpy(np.array(pos)).to(self.device), cache,
                 logits_mode="all", rope_tables=self._rope)
@@ -455,7 +461,7 @@ class InferenceEngine:
             ids[i, :len(toks)] = toks
             mask[i, :len(toks)] = 1.0
         pos = np.broadcast_to(np.arange(T), (B, T))
-        h, _ = llama.forward(
+        h, _ = self._model.forward(
             self.cfg, self.params, torch.from_numpy(ids).to(self.device),
             torch.from_numpy(np.array(pos)).to(self.device),
             self.new_cache(B, max_seq=T), logits_mode="hidden",

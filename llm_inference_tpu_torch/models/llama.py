@@ -1,5 +1,8 @@
 """LLaMA-family decoder in PyTorch (counterpart of
-`llm_inference_tpu/models/llama.py`).
+`llm_inference_tpu/models/llama.py`). The registry maps llama, llama2,
+llama3 (and llama3.1), mistral, qwen2, qwen3, phi3 and tiny onto it: they
+differ by config only (a sliding window, qkv biases, qk-norm, RoPE
+scaling, a tied head, head_dim 96).
 
 One `forward` serves prefill (T > 1) and decode (T == 1). Layers are
 stacked along a leading axis, as in the JAX package, and walked by a
@@ -45,10 +48,13 @@ the logits are gathered across ranks and un-padded to the vocabulary.
 K6 and K12 are never called under TP.
 
 Weight dict layout (dense tensors or QTensor):
-  embed [V, H]; final_norm [H]; lm_head [H, V] (absent if tied);
+  embed [V, H]; final_norm [H]; lm_head [H, V] (absent if tied, unless
+  quantized from the table: quantize_tied_head);
   layers/attn_norm, ffn_norm [L, H]; wq [L, H, Hq·D]; wk, wv [L, H, Hkv·D];
   wo [L, Hq·D, H]; w_gate, w_up [L, H, I]; w_down [L, I, H];
-  after fuse_params: wqkv [L, H, (Hq+2Hkv)·D], w_gateup [L, H, 2I].
+  with qkv_bias bq [L, Hq·D], bk, bv [L, Hkv·D]; with qk_norm q_norm,
+  k_norm [L, D];
+  after fuse_params: wqkv [L, H, (Hq+2Hkv)·D], w_gateup [L, H, 2I], bqkv.
 """
 
 from __future__ import annotations
@@ -114,12 +120,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=None,
         "ffn_norm": torch.ones((L, H), dtype=dtype, device=device),
         "w_gate": rnd(L, H, I), "w_up": rnd(L, H, I), "w_down": rnd(L, I, H),
     }
+    _bias_and_qk_norm(cfg, layers, dtype, device)
     params: Params = {"embed": rnd(V, H), "layers": layers,
                       "final_norm": torch.ones((H,), dtype=dtype,
                                                device=device)}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = rnd(H, V)
     return params
+
+
+def _bias_and_qk_norm(cfg: ModelConfig, layers, dtype, device) -> None:
+    """Zero qkv biases (qkv_bias) and unit q/k norm weights (qk_norm)
+    added to `layers`, as the JAX init_params draws them
+    (llama.py:106-111)."""
+    L, D = cfg.num_layers, cfg.head_dim
+    if cfg.qkv_bias:
+        for name, n in (("bq", cfg.num_heads), ("bk", cfg.num_kv_heads),
+                        ("bv", cfg.num_kv_heads)):
+            layers[name] = torch.zeros((L, n * D), dtype=dtype,
+                                       device=device)
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            layers[name] = torch.ones((L, D), dtype=dtype, device=device)
 
 
 def _stack_quantize(w: torch.Tensor, qcfg: QuantConfig) -> QTensor:
@@ -129,10 +151,31 @@ def _stack_quantize(w: torch.Tensor, qcfg: QuantConfig) -> QTensor:
                    scale=torch.stack([t.scale for t in qts]), bits=bits)
 
 
+# vocabulary rows of the embedding table quantized at a time for a tied
+# lm_head (llama.py:420): a float32 copy of the whole table would not fit
+# beside the layers' transients
+_TIED_HEAD_CHUNK = 32768
+
+
+def quantize_tied_head(embed: torch.Tensor, qcfg: QuantConfig) -> QTensor:
+    """The quantized lm_head [H, V] of a tied model, quantized from the
+    embedding table [V, H] in vocabulary chunks (llama.py:404-433): scales
+    are per (group, column), so the chunks are exact. The table stays for
+    the input gather, and `forward` prefers "lm_head" when it is there."""
+    bits = {"int8": 8, "int4": 4}[qcfg.weights]
+    V = embed.shape[0]
+    return cat_columns([
+        quantize(embed[c:c + _TIED_HEAD_CHUNK].T.to(torch.float32), bits,
+                 qcfg.group_size, qcfg.asymmetric)
+        for c in range(0, V, _TIED_HEAD_CHUNK)])
+
+
 def quantize_params(params: Params, qcfg: QuantConfig,
                     row_shards: int = 1) -> Params:
     """Quantize the per-layer matmul weights (and lm_head when
-    qcfg.quantize_embedding) to QTensors stacked over layers.
+    qcfg.quantize_embedding; a tied model's from its table) to QTensors
+    stacked over layers. Other keys (norms, biases, gemma's sandwich
+    norms) pass through.
 
     `row_shards`: the tensor-parallel degree the weights will be served
     at. The JAX package lays the row-sharded weights' (wo, w_down) int4
@@ -155,11 +198,10 @@ def quantize_params(params: Params, qcfg: QuantConfig,
         layers[name] = _stack_quantize(layers[name], qcfg)
     out["layers"] = layers
     if qcfg.quantize_embedding:
-        if "lm_head" not in params:
-            raise NotImplementedError("a quantized tied lm_head is not "
-                                      "ported yet")
-        out["lm_head"] = quantize(params["lm_head"], bits, qcfg.group_size,
-                                  qcfg.asymmetric)
+        out["lm_head"] = (
+            quantize(params["lm_head"], bits, qcfg.group_size,
+                     qcfg.asymmetric) if "lm_head" in params
+            else quantize_tied_head(params["embed"], qcfg))
     return out
 
 
@@ -169,7 +211,10 @@ def init_params_quantized(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
     dense copy of the model never exists. As the JAX package's dummy
     weights: random bytes, so int8 codes are uniform in [-128, 127] and
     int4 codes (two nibbles per byte) in [-8, 7], every scale 0.02/qmax
-    (per column, or per group and column for grouped int4)."""
+    (per column, or per group and column for grouped int4). Zero qkv
+    biases and unit q/k norms where the config has them; a tied model
+    with qcfg.quantize_embedding gets its lm_head quantized from the
+    random table (quantize_tied_head)."""
     if not qcfg.enabled:
         return init_params(cfg, seed, dtype, device)
     bits = {"int8": 8, "int4": 4}[qcfg.weights]
@@ -201,6 +246,7 @@ def init_params_quantized(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
         "ffn_norm": torch.ones((L, H), dtype=dtype, device=device),
         "w_gate": qrnd(H, I), "w_up": qrnd(H, I), "w_down": qrnd(I, H),
     }
+    _bias_and_qk_norm(cfg, layers, dtype, device)
     embed = (torch.randn((V, H), generator=g, device=device) * 0.02).to(dtype)
     params: Params = {"embed": embed, "layers": layers,
                       "final_norm": torch.ones((H,), dtype=dtype,
@@ -211,6 +257,8 @@ def init_params_quantized(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
         else:
             params["lm_head"] = (torch.randn((H, V), generator=g,
                                              device=device) * 0.02).to(dtype)
+    elif qcfg.quantize_embedding:
+        params["lm_head"] = quantize_tied_head(embed, qcfg)
     return params
 
 
@@ -343,7 +391,10 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Params:
     "block_rows" packed rows (absent or 0: one block; in a block, row r
     sits in the low nibble and row r + block_rows in the high one). The codes are re-laid into the
     port's transposed layouts (ops/quantization.py); every other leaf is
-    an array. Fused keys (wqkv, w_gateup) pass through as they are. Call
+    an array: norms, qkv biases (bq/bk/bv, or bqkv), q_norm/k_norm,
+    gemma's post_attn_norm/post_ffn_norm. Fused keys (wqkv, w_gateup)
+    pass through as they are; a tied model has no lm_head, or the
+    quantized one quantize_params made from its table. Call
     prepare_params on the result before serving."""
     device = resolve_device(device)
 
@@ -678,6 +729,23 @@ def rope_table(cfg: ModelConfig, cache_len: int, device
                                 cfg.rope_scaling, device=device)
 
 
+def lm_logits(h: torch.Tensor, params: Params) -> torch.Tensor:
+    """float32 logits of the final hidden states h [..., H]: lm_head (a
+    QTensor through K1/K8, or dense), else the tied embedding table [V, H].
+    The tied product reads the table as it is stored, with no float32 copy
+    of it (a 256000 x 2304 bf16 table would be a 2.36 GB copy a call):
+    the products of bf16 values are exact and summed in float32 as in the
+    JAX float32 dot (llama.py:979-983), and only the logit is rounded to
+    the table's type before it widens, one rounding (2^-9 relative for
+    bf16; none for a float32 table)."""
+    lm_head = params.get("lm_head")
+    if lm_head is not None:
+        return matmul(h, lm_head).to(torch.float32)
+    embed = params["embed"]
+    return torch.nn.functional.linear(h.to(embed.dtype), embed).to(
+        torch.float32)
+
+
 def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
             positions: torch.Tensor, cache, *, logits_mode: str = "last",
             last_idx: Optional[torch.Tensor] = None,
@@ -751,11 +819,7 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
             last_idx = torch.full((B,), T - 1, dtype=torch.long,
                                   device=h.device)
         h = h[torch.arange(B, device=h.device), last_idx.long()]
-    lm_head = params.get("lm_head")
-    if lm_head is None:
-        logits = h.to(torch.float32) @ params["embed"].to(torch.float32).T
-    else:
-        logits = matmul(h, lm_head).to(torch.float32)
+    logits = lm_logits(h, params)
     if tp is not None:
         # vocab-sharded logits → the full logits on every rank
         logits = tp.all_gather_last(logits)
@@ -766,3 +830,13 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
         logits = (torch.tanh(logits / cfg.final_logit_softcap)
                   * cfg.final_logit_softcap)
     return logits, cache
+
+
+# register with the registry: the families that differ from llama by
+# config only (llama.py:1006-1014); "llama3.1" too, which the JAX
+# package's resolution misses ("llama3.1-8b" → "llama3.1")
+from llm_inference_tpu_torch.models import registry as _registry  # noqa: E402
+import sys as _sys  # noqa: E402
+for _name in ("llama", "llama2", "llama3", "llama3.1", "mistral", "qwen2",
+              "qwen3", "phi3", "tiny"):
+    _registry.register_model(_name, _sys.modules[__name__])

@@ -289,10 +289,11 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
     _check_weight(qt, what)
     int4 = qt.bits == 4
     if tiled:
-        if (K % _TILE_K or N % _TILE_N
+        # N a multiple of 64: the last band of 128 weight rows may hold 64
+        if (K % _TILE_K or N % 64
                 or (int4 and not small_groups_ok(qt.group_size, _TILE_K))):
             raise ValueError(
-                f"K8 needs K % {_TILE_K} == 0, N % {_TILE_N} == 0 and int4 "
+                f"K8 needs K % {_TILE_K} == 0, N % 64 == 0 and int4 "
                 f"groups of a multiple of {_TILE_K} codes, or of 8, 16 or "
                 f"32, got K={K} N={N} bits={qt.bits} group_size="
                 f"{qt.group_size}")

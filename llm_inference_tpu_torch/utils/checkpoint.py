@@ -1,6 +1,8 @@
 """Checkpoint loading: HuggingFace safetensors directories and the
-reference engine's raw per-tensor .bin directories, for the LLaMA family
-(counterpart of `llm_inference_tpu/utils/checkpoint.py`).
+reference engine's raw per-tensor .bin directories (counterpart of
+`llm_inference_tpu/utils/checkpoint.py`), for the dense families: llama
+(llama2/3/3.1), mistral, qwen2, qwen3 and phi3 (whose fused qkv_proj and
+gate_up_proj are split), and gemma2 and gemma3 (sandwich-norm keys).
 
 Layout conventions (models/llama.py): every matmul weight is stored
 [in, out] (HF stores [out, in], so it is transposed) and stacked over
@@ -10,8 +12,8 @@ device (the card unless one is named). Serving quantized weights is
 
 safetensors files are read by a reader of the port's own (`read_safetensors`:
 an 8-byte little-endian header length, a JSON header, then the raw
-little-endian tensors), so no `safetensors` package is needed. Families
-other than LLaMA raise NotImplementedError until they are ported.
+little-endian tensors), so no `safetensors` package is needed. Mixtral,
+DeepSeek and gemma-1 raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from llm_inference_tpu_torch.config import ModelConfig
 
 Params = Dict[str, Any]
 
-_PORTED_FAMILIES = ("llama",)
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                  "float16": torch.float16}
 
@@ -47,22 +48,57 @@ def _dtype_name(dtype) -> str:
 # HF config → ModelConfig
 # ---------------------------------------------------------------------------
 
+def _gemma3_layer_types(g):
+    """Gemma-3's per-layer attention kinds (checkpoint.py:52-70): newer HF
+    configs carry `layer_types`; older ones only `sliding_window_pattern`
+    N, every Nth layer full attention. Neither raises: reading the config
+    as all-sliding would cap every layer at the window."""
+    lt = g("layer_types")
+    if lt:
+        return tuple(lt)
+    pat = g("sliding_window_pattern")
+    if pat:
+        L = g("num_hidden_layers")
+        return tuple("full_attention" if (i + 1) % int(pat) == 0
+                     else "sliding_attention" for i in range(L))
+    raise ValueError(
+        "gemma3 config carries neither layer_types nor "
+        "sliding_window_pattern: cannot derive the sliding/full layout")
+
+
 def model_config_from_hf(hf_cfg) -> ModelConfig:
-    """A ModelConfig from a transformers config object or its dict. Only
-    the LLaMA family (model_type "llama") is ported."""
+    """A ModelConfig from a transformers config object or its dict
+    (checkpoint.py:72-174). The name is the HF model_type, which the
+    registry resolves ("gemma3_text" → gemma3). Mixtral, DeepSeek and
+    gemma-1 raise NotImplementedError."""
     def g(k, d=None):
         if isinstance(hf_cfg, dict):
             return hf_cfg.get(k, d)
         return getattr(hf_cfg, k, d)
     family = str(g("model_type", "llama"))
-    if family not in _PORTED_FAMILIES:
-        raise NotImplementedError(f"model_type {family!r} is not ported: "
-                                  f"the port loads {_PORTED_FAMILIES}")
+    if family == "mixtral" or family.startswith("deepseek"):
+        raise NotImplementedError(f"model_type {family!r} is not ported yet")
+    gemma3 = family in ("gemma3", "gemma3_text")
+    if family.startswith("gemma") and family != "gemma2" and not gemma3:
+        raise NotImplementedError(
+            f"model_type {family!r}: gemma2/gemma3 are wired (gemma-1 "
+            f"lacks the sandwich norms)")
+    gemma = family == "gemma2" or gemma3
     num_heads = g("num_attention_heads")
     hidden = g("hidden_size")
     rope_scaling = g("rope_scaling")
     if rope_scaling is not None and not isinstance(rope_scaling, dict):
         rope_scaling = dict(rope_scaling)
+    if rope_scaling and (rope_scaling.get("type")
+                         or rope_scaling.get("rope_type")) == "longrope":
+        # phi3 keeps the longrope magnitude inputs at the top level of the
+        # config: fold them into the scaling dict ops/rope.py reads
+        rope_scaling = dict(rope_scaling)
+        rope_scaling.setdefault("max_position_embeddings",
+                                g("max_position_embeddings", 4096))
+        rope_scaling.setdefault(
+            "original_max_position_embeddings",
+            g("original_max_position_embeddings", 4096))
     return ModelConfig(
         name=family,
         vocab_size=g("vocab_size"),
@@ -75,11 +111,23 @@ def model_config_from_hf(hf_cfg) -> ModelConfig:
         rope_theta=g("rope_theta", 10000.0),
         max_position_embeddings=g("max_position_embeddings", 4096),
         rms_norm_eps=g("rms_norm_eps", 1e-5),
-        tie_word_embeddings=bool(g("tie_word_embeddings", False)),
+        tie_word_embeddings=bool(g("tie_word_embeddings", gemma)),
         rope_scaling=rope_scaling,
+        # qwen2-style configs carry a window behind use_sliding_window
         sliding_window=(g("sliding_window") or 0)
         if g("use_sliding_window", True) else 0,
-        qkv_bias=bool(g("attention_bias", False)),
+        sliding_pattern="alternating" if (gemma and not gemma3) else "all",
+        layer_types=_gemma3_layer_types(g) if gemma3 else None,
+        rope_local_theta=(g("rope_local_base_freq") or 0.0) if gemma3
+        else 0.0,
+        # HF Qwen2 has q/k/v biases and no attention_bias key; Qwen3 has
+        # the key, default False
+        qkv_bias=bool(g("attention_bias", family.startswith("qwen2"))),
+        qk_norm=family == "qwen3" or gemma3,
+        attn_logit_softcap=g("attn_logit_softcapping") or 0.0,
+        final_logit_softcap=g("final_logit_softcapping") or 0.0,
+        query_pre_attn_scalar=g("query_pre_attn_scalar") or 0.0,
+        scale_embeddings=gemma,
     )
 
 
@@ -99,9 +147,13 @@ def _as_float_tensor(x) -> torch.Tensor:
 
 def convert_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any], dtype=None,
                           device=None) -> Params:
-    """An HF LLaMA state dict (name → torch tensor or numpy array, keys
-    with or without a leading "model.") → the port's dense params in
-    `dtype` (default cfg.dtype) on `device`."""
+    """An HF state dict of a dense family (name → torch tensor or numpy
+    array, keys with or without a leading "model.") → the port's dense
+    params in `dtype` (default cfg.dtype) on `device` (checkpoint.py:
+    187-297): phi3's fused qkv_proj and gate_up_proj split into wq/wk/wv
+    and w_gate/w_up, qwen2's q/k/v biases, qwen3's and gemma3's q_norm and
+    k_norm, gemma's sandwich norms (post_attention_layernorm is the post
+    norm of the attention, pre_feedforward_layernorm the FFN's norm)."""
     device = resolve_device(device)
     tdt = _TORCH_DTYPES[_dtype_name(dtype or cfg.dtype)]
     sd = {(k[6:] if k.startswith("model.") else k): v for k, v in sd.items()}
@@ -112,26 +164,53 @@ def convert_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any], dtype=None,
                            f"{sorted(sd)[:5]}")
         return _as_float_tensor(sd[name])
 
-    keys = {"attn_norm": "input_layernorm.weight",
-            "wq": "self_attn.q_proj.weight", "wk": "self_attn.k_proj.weight",
-            "wv": "self_attn.v_proj.weight", "wo": "self_attn.o_proj.weight",
-            "ffn_norm": "post_attention_layernorm.weight",
-            "w_gate": "mlp.gate_proj.weight", "w_up": "mlp.up_proj.weight",
-            "w_down": "mlp.down_proj.weight"}
+    head = cfg.name.split("-")[0]
+    gemma = head.startswith("gemma")
+    phi3 = head == "phi3"
+    nq = cfg.num_heads * cfg.head_dim
+    nkv = cfg.num_kv_heads * cfg.head_dim
+    I = cfg.intermediate_size
+    # ours → (HF key, rows [a, b) of the [out, in] tensor, or None)
+    keys = {"attn_norm": ("input_layernorm.weight", None),
+            "wo": ("self_attn.o_proj.weight", None),
+            "w_down": ("mlp.down_proj.weight", None)}
+    if phi3:
+        qkv = "self_attn.qkv_proj.weight"
+        keys.update(wq=(qkv, (0, nq)), wk=(qkv, (nq, nq + nkv)),
+                    wv=(qkv, (nq + nkv, nq + 2 * nkv)),
+                    w_gate=("mlp.gate_up_proj.weight", (0, I)),
+                    w_up=("mlp.gate_up_proj.weight", (I, 2 * I)))
+    else:
+        keys.update({w: (f"self_attn.{p}_proj.weight", None)
+                     for w, p in (("wq", "q"), ("wk", "k"), ("wv", "v"))})
+        keys.update(w_gate=("mlp.gate_proj.weight", None),
+                    w_up=("mlp.up_proj.weight", None))
     if cfg.qkv_bias:
-        keys.update(bq="self_attn.q_proj.bias", bk="self_attn.k_proj.bias",
-                    bv="self_attn.v_proj.bias")
+        keys.update({b: (f"self_attn.{p}_proj.bias", None)
+                     for b, p in (("bq", "q"), ("bk", "k"), ("bv", "v"))})
+    if cfg.qk_norm:
+        keys.update(q_norm=("self_attn.q_norm.weight", None),
+                    k_norm=("self_attn.k_norm.weight", None))
+    if gemma:
+        keys.update(post_attn_norm=("post_attention_layernorm.weight", None),
+                    ffn_norm=("pre_feedforward_layernorm.weight", None),
+                    post_ffn_norm=("post_feedforward_layernorm.weight", None))
+    else:
+        keys["ffn_norm"] = ("post_attention_layernorm.weight", None)
 
-    def stacked(ours, hf):
-        rows = []
+    def stacked(hf, rows):
+        out = []
         for i in range(cfg.num_layers):
             t = get(f"layers.{i}.{hf}")
-            rows.append(t.T if t.dim() == 2 else t)   # [out, in] → [in, out]
-        return torch.stack(rows).to(tdt).contiguous().to(device)
+            if rows is not None:
+                t = t[rows[0]:rows[1]]
+            out.append(t.T if t.dim() == 2 else t)   # [out, in] → [in, out]
+        return torch.stack(out).to(tdt).contiguous().to(device)
 
     params: Params = {
         "embed": get("embed_tokens.weight").to(tdt).to(device),
-        "layers": {ours: stacked(ours, hf) for ours, hf in keys.items()},
+        "layers": {ours: stacked(hf, rows)
+                   for ours, (hf, rows) in keys.items()},
         "final_norm": get("norm.weight").to(tdt).to(device),
     }
     if not cfg.tie_word_embeddings:

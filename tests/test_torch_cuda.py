@@ -105,10 +105,10 @@ def test_k3_cuda_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_k1_rejects_what_it_does_not_take(cuda):
-    # above 128 rows K8 takes the product; it needs N % 128 == 0
-    qt = QTensor(q=torch.zeros((1, 64, 4096), dtype=torch.int8,
+    # above 128 rows K8 takes the product; it needs N % 64 == 0
+    qt = QTensor(q=torch.zeros((1, 32, 4096), dtype=torch.int8,
                                device=cuda),
-                 scale=torch.ones((1, 1, 64), device=cuda))
+                 scale=torch.ones((1, 1, 32), device=cuda))
     x = torch.zeros((129, 4096), dtype=BF16, device=cuda)
     with pytest.raises(ValueError, match="K8"):
         t_qm.quant_matmul(x, qt, 0)
@@ -664,6 +664,116 @@ def test_k9_cuda_matches_plain(cuda, kind, B, T, Hq, Hkv, S, D, starts,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,N", [(300, 1088), (2048, 320), (129, 64)])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_k8_last_band_of_64_rows_cuda_matches_plain(cuda, bits, M, N,
+                                                    prologue):
+    # N a multiple of 64 but not of 128 (phi3's lm_head 32064, gemma3's
+    # tied head 262208): the last band of 128 weight rows holds 64, the
+    # TMA fills the others with zeros and their columns are not stored
+    g = torch.Generator().manual_seed(M + N + bits)
+    K = 2560
+    if bits == 4:
+        qt = _int4_weight(g, 2, N, K)
+    else:
+        qt = QTensor(q=torch.randint(-128, 128, (2, N, K), generator=g,
+                                     dtype=torch.int8),
+                     scale=torch.rand((2, 1, N), generator=g) * 1e-3)
+    x = torch.randn((M, K), generator=g).to(BF16)
+    kw = {}
+    if prologue:
+        kw = dict(norm_gamma=(1 + 0.1 * torch.randn((K,), generator=g)
+                              ).to(BF16),
+                  residual=torch.randn((M, K), generator=g).to(BF16),
+                  want_x_out=True)
+    want = t_qm.quant_matmul(x, qt, 1, **kw)
+    before = t_qm.tiled_launches
+    got = t_qm.quant_matmul(x.to(cuda), qt.to(cuda), 1, **_to(kw, cuda))
+    torch.cuda.synchronize()
+    assert t_qm.tiled_launches == before + 1
+    if prologue:
+        (want, want_x), (got, got_x) = want, got
+        assert torch.equal(got_x.cpu(), want_x)
+    # as test_k8_cuda_matches_plain: one bf16 step of the largest output
+    err = (got.cpu().float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+# gemma2's attention: D = 256, G = 2, a 1024- or 4096-slot window, softcap
+# 50; the query scale query_pre_attn_scalar^-0.5, here 0.1 (not D^-0.5)
+_GEMMA_SCALE = 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("T,start,S,window,softcap", [
+    (512, 1500, 2048, 1024, 50.0),      # the window starts mid-block
+    (256, 0, 2048, 1024, 0.0),          # within the window from scratch
+    (1024, 1024, 2048, 1000, 50.0)])
+def test_k9_gemma_shapes_cuda_matches_plain(cuda, kind, T, start, S, window,
+                                            softcap):
+    g = torch.Generator().manual_seed(T + start + len(kind))
+    Hq, Hkv, D = 8, 4, 256
+    k, v, ks, vs = _flash_cache(g, kind, 2, 1, Hkv, S, D)
+    q = torch.randn((1, T, Hq, D), generator=g).to(BF16)
+    pos = (start + torch.arange(T, dtype=torch.int32))[None]
+    kw = dict(scale=_GEMMA_SCALE, logit_softcap=softcap,
+              sliding_window=window)
+    want = t_flash.flash_attention(q, k, v, 1, pos, k_scale=ks, v_scale=vs,
+                                   **kw)
+    dev = [None if t is None else t.to(cuda) for t in (k, v, ks, vs)]
+    got = t_flash.flash_attention(q.to(cuda), dev[0], dev[1], 1,
+                                  pos.to(cuda), k_scale=dev[2],
+                                  v_scale=dev[3], **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    # as test_k9_cuda_matches_plain: a few bf16 steps of the largest output
+    tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+    assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_gemma_shapes_cuda_matches_plain(cuda, kind, paged):
+    """K2/K5 (dense) and K10a/K10b (pages) at D = 256, G = 2, a 1024-slot
+    window whose start falls inside a tile, softcap 50 and a query scale
+    of 0.1; positions before, at and past the window over 4096 slots."""
+    from llm_inference_tpu_torch.ops.kernels import paged_attention as t_pa
+    g = torch.Generator().manual_seed(7 + paged + len(kind))
+    L, B, Hkv, G, D, S, ps = 2, 4, 4, 2, 256, 4096, 128
+    pos = torch.tensor([200, 1023, 2500, S - 1], dtype=torch.int32)
+    q = torch.randn((B, 1, Hkv * G, D), generator=g).to(BF16)
+    kw = dict(scale=_GEMMA_SCALE, logit_softcap=50.0, window=1024)
+    if paged:
+        NB = S // ps
+        live = [int(p) // ps + 1 for p in pos]
+        P = sum(live) + 3
+        k, v, ks, vs = _paged_pool(g, kind, L, P, Hkv, ps, D)
+        pt = _scattered_table(g, B, NB, P, live)
+        want = t_pa.paged_attention(q, k, v, pt, 1, pos, k_scale=ks,
+                                    v_scale=vs, **kw)
+        dev = [None if t is None else t.to(cuda) for t in (k, v, ks, vs)]
+        got = t_pa.paged_attention(q.to(cuda), dev[0], dev[1], pt.to(cuda),
+                                   1, pos.to(cuda), k_scale=dev[2],
+                                   v_scale=dev[3], **kw)
+    else:
+        k, v, ks, vs = _flash_cache(g, kind, L, B, Hkv, S, D)
+        want = t_dec.decode_attention(q, k, v, 1, pos, k_scale=ks,
+                                      v_scale=vs, **kw)
+        dev = [None if t is None else t.to(cuda) for t in (k, v, ks, vs)]
+        got = t_dec.decode_attention(q.to(cuda), dev[0], dev[1], 1,
+                                     pos.to(cuda), k_scale=dev[2],
+                                     v_scale=dev[3], **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    # as K2's and K10's cases: a few bf16 steps of the largest output
+    tol = 4 * 2.0 ** -8 * want.float().abs().max().item()
+    assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
 @pytest.mark.parametrize("G,window,S", [(1, 0, 4096), (4, 700, 2048)])
 def test_k2_split_cuda_matches_plain(cuda, kind, G, window, S):
@@ -1075,7 +1185,8 @@ def test_paged_scheduler_cuda_matches_cpu(cuda, cache_dtype):
 # (hidden, intermediate, query heads) of _mega_layer's models: the card
 # tests' small model, and LLaMA-2-7B's widths, where the int8 gate-up
 # phase's 84 pairs a block on 132 SMs take two ring batches of at most 48
-_MEGA_WIDTHS = {"small": (1024, 2816, 8), "7b": (4096, 11008, 32)}
+_MEGA_WIDTHS = {"small": (1024, 2816, 8), "7b": (4096, 11008, 32),
+                "8b": (4096, 14336, 32)}
 
 
 def _mega_layer(g, bits, kv, Hkv, S, pos, gsize=128, width="small"):
@@ -1154,6 +1265,14 @@ def test_k12_7b_width_cuda_matches_plain(cuda, bits, kv):
     # LLaMA-2-7B widths: on 132 SMs the int8 gate-up phase's 84 pairs a
     # block take two ring batches
     _k12_case(bits, kv, 32, 512, 191, 128, "7b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,kv", [("int8", "bf16"), ("int4", "int8")])
+def test_k12_llama3_8b_width_cuda_matches_plain(cuda, bits, kv):
+    # Llama-3(.1)-8B's widths: 8 kv heads of 4 queries (G = 4), an
+    # intermediate width of 14336
+    _k12_case(bits, kv, 8, 1024, 700, 128, "8b")
 
 
 def _k12_case(bits, kv, Hkv, S, pos, gsize, width):
@@ -1269,6 +1388,9 @@ def _rope_write_inputs(g, kind, B, T, H, Hkv, S, D, offs):
     (2, 16, 8, 2, 64, [5, 70]),                 # a window past the end
     (1, 64, 8, 8, 128, [0]),
     (2, 3, 6, 2, 96, [10, 62]),                 # 3 values a lane
+    (1, 1, 32, 32, 96, [63]),                   # phi3-mini's heads
+    (1, 40, 32, 32, 96, [9]),
+    (2, 7, 28, 4, 128, [3, 50]),                # qwen2-7b's heads
     (1, 5, 4, 1, 256, [30]),                    # 8 values a lane
     (2, 2, 4, 4, 32, [1, 2]),                   # 1 value a lane
 ])
@@ -1455,15 +1577,18 @@ def test_k8_routes(cuda):
         assert route(K, N, K // gsize, 4) == 0
     assert route(4608, N, 4608 // 48, 4) == -1      # groups of 48 codes
     assert route(K + 32, N, 1, 8) == -1
-    assert route(K, N + 64, 1, 8) == -1
+    assert route(K, N + 32, 1, 8) == -1
+    # a last band of 64 weight rows (phi3's 32064, gemma3's 262208)
+    assert route(K, N + 64, 1, 8) == 1
+    assert route(K, N + 64, K // 128, 4) == 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits,K,N,gsize", [(4, 4608, 1024, 48),
                                             (8, 4128, 1024, 0),
-                                            (8, 4096, 1088, 0)])
+                                            (8, 4096, 1056, 0)])
 def test_k8_rejects_what_no_route_takes(cuda, bits, K, N, gsize):
-    # groups of 48 codes, K not a multiple of 64, N not of 128: ValueError
+    # groups of 48 codes, K not a multiple of 64, N not of 64: ValueError
     # before any launch
     g = torch.Generator().manual_seed(K + N)
     if bits == 4:
