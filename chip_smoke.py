@@ -113,6 +113,22 @@ megakernel on and off, launches and streams checked) and Gemma-2-2B
 (int8 with the tied head quantized, int8 cache: generate 4600 + 32 over
 8192 slots, then the dense and the paged scheduler serving four requests,
 the paged streams held to the dense ones), with TTFT and tok/s.
+Path (x), the mixture-of-experts families (models/mixtral.py,
+models/deepseek.py): phase 2 holds K3 and K4 at DeepSeek-V3's latent rows
+(k 576, v 512 values, one kv head; B = 1 and B = 4 with an offset past
+the end), K3 on the int4 latent cache's packed rows and the scale write
+to their plain versions, exact; phase 3 runs 2 layers of Mixtral-8x7B
+(int8 + bf16 KV, int4 g=128 + int8 KV) and of DeepSeek-V3 (a dense and a
+MoE layer, int8 over bf16, int8 and int4 latent caches) at full width,
+the kernels against their plain versions run on the card
+(plain_kernels; rows whose router picked other experts on the two sides
+counted and left out); phase 4 serves full-depth Mixtral-8x7B int4 g=128
+over an int8 cache (K1 on the last layer's expert 7, generate 128 + 32
+and 3000 + 32, the dense and paged schedulers) and DeepSeek-V3 at full
+width over 5 layers, int8 codes (K1 on wkv_a, wq_b and an expert of the
+last MoE layer, K8 at 2048 rows, generate over the bf16 and int8 latent
+caches and 2500 + 32, both schedulers over the latent cache and pool),
+with launches checked against the forwards and TTFT and tok/s printed.
 Every check raises on failure. The line before the last
 is a JSON object with one entry per kernel and path; the last is {"ok":
 true, "device": {...}}. Imports nothing of JAX or the JAX package.
@@ -149,7 +165,8 @@ from llm_inference_tpu_torch.engine.beam_search import (BeamSearchDecoder,
 from llm_inference_tpu_torch.engine.engine import ChatSession, InferenceEngine
 from llm_inference_tpu_torch.engine.tokenizer import (BPETokenizer,
                                                       load_tokenizer)
-from llm_inference_tpu_torch.models import gemma2, get_model, llama
+from llm_inference_tpu_torch.models import (deepseek, gemma2, get_model,
+                                            llama, mixtral)
 from llm_inference_tpu_torch.ops import kvcache, paged_kvcache
 from llm_inference_tpu_torch.ops.kernels import _build
 from llm_inference_tpu_torch.ops.kernels import decode_attention as k2
@@ -4156,6 +4173,640 @@ def path_families(gen):
     return out
 
 
+
+# ------------------------------------------------------------- path (x)
+
+MOE_NEW = 32                     # new tokens of phase 4's requests
+MIXTRAL_SEQ = 4096               # Mixtral's cache: a 3000-token prompt + 32
+DS_SEQ = 3072                    # DeepSeek's: a 2500-token prompt + 32
+DS_LONG = 2500
+MOE_SERVED = (600, 300, 128, 64)  # the schedulers' four requests
+LATENT = (576, 512)              # DeepSeek-V3's k and v rows (one kv head)
+# Mixtral's int4 g=128 weights drawn as codes; its lm_head stays dense, as
+# the JAX package's mixtral.init_params_quantized leaves it
+QCFG4_MOE = QuantConfig(weights="int4", group_size=128)
+QCFG8_MOE = QuantConfig(weights="int8")
+MOE_USED = ("K1", "K2", "K3", "K4", "K8", "K9", "K10a", "KR", "KS")
+
+
+def moe_preset(name, **kw):
+    """A preset at its published widths, its depth cut by `kw`."""
+    return dataclasses.replace(preset(name), **kw)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """While inside, the wrappers of the mixture-of-experts paths run their
+    plain versions on the card's tensors: K1 and K8 (quant_matmul_ref), the
+    RoPE and KV write, K3, K4 and the scale write (the *_ref writes), and
+    attention the plain `attend` (llama.attention_route). Phase 3's
+    reference for path (x): on the CPU the plain versions would take
+    minutes a layer at these widths (256 experts of 7168 x 2048, or 8 of
+    4096 x 14336, dequantized per call)."""
+    swaps = ((k1, "quant_matmul", k1.quant_matmul_ref),
+             (k3, "rope_write", k3.rope_write_ref),
+             (k3, "write_token", k3.write_token_ref),
+             (k3, "quantize_write_token", k3.quantize_write_token_ref),
+             (k3, "write_token_scales", k3.write_token_scales_ref),
+             (llama, "attention_route", lambda *a, **k: "attend"))
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def latent_write_cases(gen):
+    """K3 and K4 at DeepSeek-V3's latent rows (k 576, v 512 values, one kv
+    head) over a 5-layer 3072-slot cache, B = 1 and B = 4 with an offset
+    past the end, and K3 on the int4 latent cache's packed rows (288 and
+    256 bytes) with the scale write: each bit for bit its plain version,
+    timed beside its bound (the rows read and written over the HBM rate;
+    K4's quantize ops over the float32 rate), the plain version and a
+    library yardstick (index writes; K4 with the torch quantize ops).
+    Returns the B = 1 numbers by entry."""
+    kD, vD = LATENT
+    Lc, S = 5, DS_SEQ
+    out = {}
+    for B, offs in ((1, [2600]), (4, [0, 77, S - 1, S + 9])):
+        off = torch.tensor(offs, dtype=torch.int32, device=DEV)
+        rows = torch.arange(B, device=DEV)
+        offl = torch.clamp(off.long(), 0, S - 1)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=DEV).to(BF16)
+
+        def codes(*shape):
+            return torch.randint(-128, 128, shape, generator=gen,
+                                 device=DEV, dtype=torch.int8)
+
+        def scales():
+            return torch.rand((Lc, B, S, 1), generator=gen, device=DEV)
+        kn, vn = randn(B, 1, 1, kD), randn(B, 1, 1, vD)
+        pk, pv = codes(B, 1, 1, kD // 2), codes(B, 1, 1, vD // 2)
+        ksn = torch.rand((B, 1, 1), generator=gen, device=DEV)
+        vsn = torch.rand((B, 1, 1), generator=gen, device=DEV)
+        cases = {
+            "K3": ([randn(Lc, B, 1, S, kD), randn(Lc, B, 1, S, vD)],
+                   lambda c, i: k3.write_token(*c, i, kn, vn, off),
+                   lambda c, i: k3.write_token_ref(*c, i, kn, vn, off),
+                   2 * B * (kD + vD) * 2, 0),
+            "K4": ([codes(Lc, B, 1, S, kD), codes(Lc, B, 1, S, vD),
+                    scales(), scales()],
+                   lambda c, i: k3.quantize_write_token(*c, i, kn, vn, off),
+                   lambda c, i: k3.quantize_write_token_ref(*c, i, kn, vn,
+                                                            off),
+                   B * (kD + vD) * 3 + 2 * B * 4, 5 * B * (kD + vD)),
+            "K3 int4": ([codes(Lc, B, 1, S, kD // 2),
+                         codes(Lc, B, 1, S, vD // 2)],
+                        lambda c, i: k3.write_token(*c, i, pk, pv, off),
+                        lambda c, i: k3.write_token_ref(*c, i, pk, pv, off),
+                        2 * B * (kD + vD) // 2, 0),
+            "scale write": ([scales(), scales()],
+                            lambda c, i: k3.write_token_scales(
+                                *c, i, ksn, vsn, off),
+                            lambda c, i: k3.write_token_scales_ref(
+                                *c, i, ksn, vsn, off), 2 * 2 * B * 4, 0)}
+        lib_fns = {
+            "K3": lambda c, i: (
+                c[0][i].__setitem__((rows, slice(None), offl), kn[:, :, 0]),
+                c[1][i].__setitem__((rows, slice(None), offl), vn[:, :, 0])),
+            "K3 int4": lambda c, i: (
+                c[0][i].__setitem__((rows, slice(None), offl), pk[:, :, 0]),
+                c[1][i].__setitem__((rows, slice(None), offl), pv[:, :, 0])),
+            "scale write": lambda c, i: (
+                c[0][i].__setitem__((rows, offl), ksn[:, 0]),
+                c[1][i].__setitem__((rows, offl), vsn[:, 0]))}
+
+        def quant_lib(c, i):
+            # the torch quantize ops on k and v apart, then index writes
+            for codes_all, scales_all, new in ((c[0], c[2], kn),
+                                               (c[1], c[3], vn)):
+                x = new[:, :, 0].float()
+                sc = torch.clamp(x.abs().amax(-1, keepdim=True) / 127.0,
+                                 min=1e-8)
+                codes_all[i][rows, :, offl] = torch.clamp(
+                    torch.round(x / sc), -128, 127).to(torch.int8)
+                scales_all[i][rows, offl] = sc[..., 0]
+        lib_fns["K4"] = quant_lib
+        for name, (caches, kern, plain, nbytes, ops) in cases.items():
+            ref = [c.clone() for c in caches]
+            kern(caches, 2)
+            plain(ref, 2)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(caches, ref)),
+                  f"latent {name} B={B}: differs from the plain version")
+            ms = time_ms(lambda i: kern(caches, i % Lc))
+            pl = time_ms(lambda i: plain(ref, i % Lc))
+            lib = time_ms(lambda i: lib_fns[name](ref, i % Lc))
+            bnd, by = bound_ms(nbytes + B * 4, ops, FP32_FLOPS)
+            say(f"  latent {name} k {kD} / v {vD} B={B} offsets={offs} "
+                f"exact  kernel {ms:.4f} ms  bound {bnd:.6f} ms ({by})  "
+                f"plain {pl:.4f} ms  library {lib:.4f} ms")
+            if B == 1:
+                out[name] = dict(ms=ms, plain=pl, lib=lib, bound=bnd, by=by,
+                                 err=0.0)
+            del caches, ref
+    return out
+
+
+def stack_k1_case(name, qt, M, idx, gen):
+    """K1 (M <= 128: its GEMV up to 8 rows, its MMA branch above) or K8
+    (M > 128) on weight idx of a stack [n, N, K'] (an expert of the last
+    layer's block, or a layer of a stack), against its plain version;
+    timed over the 8 weights up to idx in turn, so that each call reads
+    its codes from HBM as the main path does (an expert is 14.7 MB, the L2
+    50 MB)."""
+    K, N = qt.in_features, qt.out_features
+    x = torch.randn((M, K), generator=gen, device=DEV).to(BF16)
+    got = k1.quant_matmul(x, qt, idx)
+    want = k1.quant_matmul_ref(x, qt, idx)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    # as k1_case and k8_cases: one bf16 step of the largest output
+    tol = 2.0 ** -7 * want.float().abs().max().item()
+    check(err <= tol, f"{name} M={M}: max err {err} > {tol}")
+    span = min(8, idx + 1)
+
+    def lay(i):
+        return idx - i % span
+    reps = 10 if M > K1_MAX_ROWS else 20
+    ms = time_ms(lambda i: k1.quant_matmul(x, qt, lay(i)), reps=reps)
+    plain = plain_ms(lambda i: k1.quant_matmul_ref(x, qt, lay(i)))
+    deq = [dequantize(qt.layer(lay(i)), BF16) for i in range(2)]
+    lib = time_ms(lambda i: torch.matmul(x, deq[i % 2]), reps=reps)
+    del deq
+    nbytes = qbytes(qt) + M * K * 2 + M * N * 2
+    bnd, by = bound_ms(nbytes, 2 * M * K * N)
+    say(f"  {'K8' if M > K1_MAX_ROWS else 'K1'} int{qt.bits} {name} "
+        f"[{K} x {N}] M={M} err {err:.3g} (tol {tol:.3g})  kernel "
+        f"{ms:.4f} ms  bound {bnd:.4f} ms ({by})  plain {plain:.3f} ms  "
+        f"torch.matmul(bf16) {lib:.4f} ms")
+    return dict(ms=ms, plain=plain, lib=lib, bound=bnd, err=err, by=by)
+
+
+def moe_forward_launches(want, cfg, cache_dtype, batch, rows, S, ps=0,
+                         history=False):
+    """Add one forward's kernel launches to `want` (forward_launches' rule
+    for the two families). Every projection is K1 up to 128 rows and K8
+    above; the lm_head is dense (no kernel). Mixtral: 4 + 3 E projections
+    a layer (wq, wk, wv, wo; every expert's gate, up and down: the
+    dense-masked mixture), the RoPE and write of a dense cache (KR) a
+    layer, attention where llama.attention_route says. DeepSeek: 7 a dense
+    layer (wq_a, wq_b, wkv_a, wo, w_gate, w_up, w_down), 4 + 3 E + 3 a MoE
+    layer (the shared expert too); a decode step's latent write K3 (bf16),
+    K4 (int8), or K3 and the scale write (int4) a layer (a prefill's and
+    the pool's writes are plain); attention plain."""
+    M = batch * rows
+    mm = "K8" if M > K1_MAX_ROWS else "K1"
+    E, Lx = cfg.num_experts, cfg.num_layers
+    if deepseek.is_deepseek(cfg):
+        Ld = cfg.first_k_dense
+        want[mm] += 7 * Ld + (4 + 3 * E + 3) * (Lx - Ld)
+        if rows == 1 and not ps:
+            if cache_dtype == "int8":
+                want["K4"] += Lx
+            else:
+                want["K3"] += Lx
+                want["KS"] += Lx if cache_dtype == "int4" else 0
+        return
+    want[mm] += (4 + 3 * E) * Lx
+    route = llama.attention_route((batch, rows, cfg.num_heads, cfg.head_dim),
+                                  S, cache_dtype != BF16, ps, history)
+    kernel = {"flash": "K9", "decode": "K5" if cache_dtype == "int4" else
+              "K2", "paged_flash": "K11",
+              "paged_decode": "K10b" if cache_dtype == "int4" else
+              "K10a"}.get(route)
+    if kernel:
+        want[kernel] += Lx
+    if not ps:
+        want["KR"] += Lx
+
+
+def moe_expected(eng, lens, steps):
+    want = {c: 0 for c in COUNTERS}
+    S = eng.engine_cfg.max_seq_len
+    chunks = prefill_chunks(eng, lens)
+    for batch, rows in chunks:
+        moe_forward_launches(want, eng.cfg, eng.cache_dtype, batch, rows, S)
+    for _ in range(steps):
+        moe_forward_launches(want, eng.cfg, eng.cache_dtype, chunks[0][0], 1,
+                             S)
+    return want
+
+
+@contextlib.contextmanager
+def recorded_routing(log):
+    """While inside, the experts each router call picks (bool [.., E])
+    are appended to `log`."""
+    saved = (mixtral.router_weights, deepseek.router_weights)
+
+    def recording(f):
+        def g(*a, **k):
+            sel = f(*a, **k)
+            log.append(sel != 0)
+            return sel
+        return g
+    mixtral.router_weights, deepseek.router_weights = map(recording, saved)
+    try:
+        yield
+    finally:
+        mixtral.router_weights, deepseek.router_weights = saved
+
+
+def moe_parity(name, cfg, params, kind, plain_prefill=False):
+    """Phase 3 of one configuration: its 2-layer model through its
+    module's forward, the kernels against their plain versions on the card
+    (plain_kernels): the logits of every row of a 128-row prefill (B = 2,
+    T = 64) and of PARITY_STEPS decode steps, at path (i)'s phase-3
+    tolerance. A token whose router picked other experts on the two sides
+    in any layer (a near-tie of its scores, which the projections'
+    rounding decides; 8 of 256 experts leave narrow gaps) is left out of
+    the comparison and counted; at most half the rows may be. With
+    `plain_prefill` both sides prefill on the plain route (the same
+    cache) and only the decode steps compare: DeepSeek's int4 latent
+    cache, whose quantizer turns the projections' one-ulp differences into
+    whole int4 steps of 576-wide rows; its prefill runs the kernels of
+    the int8 variant, held there."""
+    model = get_model(cfg.name)
+    B, T = 2, 64
+    g = torch.Generator().manual_seed(SEED + 31)
+    ids = torch.randint(1, cfg.vocab_size, (B, T), generator=g,
+                        dtype=torch.int32).to(DEV)
+    pos = torch.arange(T, dtype=torch.int32, device=DEV)[None].repeat(B, 1)
+
+    def cache():
+        if hasattr(model, "new_cache"):
+            return model.new_cache(cfg, B, MAX_SEQ, KV_DTYPE[kind],
+                                   device=DEV)
+        return kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads,
+                                  MAX_SEQ, cfg.head_dim, KV_DTYPE[kind],
+                                  device=DEV)
+
+    def both(tok, p, caches, mode):
+        logs = ([], [])
+        with recorded_routing(logs[0]):
+            l_k = model.forward(cfg, params, tok, p, caches[0],
+                                logits_mode=mode)[0]
+        with plain_kernels(), recorded_routing(logs[1]):
+            l_p = model.forward(cfg, params, tok, p, caches[1],
+                                logits_mode=mode)[0]
+        same = torch.stack([(a == b).all(-1) for a, b in zip(*logs)]
+                           ).all(0).reshape(B, -1)
+        return l_k.reshape(B, -1, l_k.shape[-1]), \
+            l_p.reshape(B, -1, l_p.shape[-1]), same
+    t0 = time.perf_counter()
+    errs, scale, finite, kept, rows = [], 0.0, True, 0, 0
+    with torch.no_grad():
+        caches = (cache(), cache())
+        if plain_prefill:
+            with plain_kernels():
+                l_p = model.forward(cfg, params, ids, pos, caches[1],
+                                    logits_mode="all")[0]
+            for f in ("k", "v", "k_scale", "v_scale"):
+                if getattr(caches[1], f) is not None:
+                    getattr(caches[0], f).copy_(getattr(caches[1], f))
+            l_k, same = l_p, torch.ones((B, T), dtype=torch.bool, device=DEV)
+        else:
+            l_k, l_p, same = both(ids, pos, caches, "all")
+        nxt = torch.full((B, 1), T, dtype=torch.int32, device=DEV)
+        for step in range(PARITY_STEPS + 1):
+            finite &= bool(torch.isfinite(l_k).all()) and bool(
+                torch.isfinite(l_p).all())
+            kept += int(same.sum())
+            rows += same.numel()
+            errs.append(max_err(l_k[same], l_p[same]) if same.any()
+                        else 0.0)
+            scale = max(scale, l_p[same].abs().max().item()
+                        if same.any() else 0.0)
+            if step == PARITY_STEPS:
+                break
+            tok = l_p[:, -1].argmax(-1).to(torch.int32)[:, None]
+            l_k, l_p, same = both(tok, nxt, caches, "last")
+            nxt = nxt + 1
+    del caches
+    tol = 4 * 2.0 ** -8 * scale
+    say(f"  {name} (2 layers, {kind} cache): logits max err (prefill"
+        f"{' on the plain route, both sides' if plain_prefill else ''}, "
+        f"{PARITY_STEPS} decode steps) {['%.4f' % e for e in errs]} (tol "
+        f"{tol:.4f}, max |logit| {scale:.3f}) over {kept} of {rows} rows "
+        f"(the others' routers picked other experts on the two sides); "
+        f"plain side on the card, in {time.perf_counter() - t0:.1f} s")
+    check(finite, f"{name} parity: non-finite logits")
+    check(kept * 2 >= rows, f"{name} parity: routing differs in "
+          f"{rows - kept} of {rows} rows")
+    check(max(errs) <= tol, f"{name} parity: {max(errs)} > {tol}")
+
+
+def ds_params(cfg, seed):
+    """DeepSeek-V3 weights drawn on the card as int8 per-channel codes
+    (mixtral.code_drawer: random bytes, every scale 0.02/127), in
+    deepseek.quantize_params' layout (each stack's projections [Lx, ...],
+    the experts [Lm·E, ...]); the norms at one, w_uk / w_uv, the routers,
+    embed and lm_head dense bf16 N(0, 0.02), a zero correction bias. The
+    JAX package has no quantized init for this family, and a dense bf16
+    draw of one MoE layer is 22.5 GB."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    qrnd = mixtral.code_drawer(QCFG8_MOE, g, DEV)
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=g, device=DEV) * 0.02).to(BF16)
+    params = {}
+    for sk, (Lx, moe) in zip(deepseek._STACKS, deepseek._stack_sizes(cfg)):
+        d = {k: torch.ones(sh, dtype=BF16, device=DEV)
+             for k, sh in deepseek._norm_shapes(cfg, Lx).items()}
+        for k, sh in deepseek._attn_shapes(cfg, Lx).items():
+            d[k] = rnd(*sh) if k in ("w_uk", "w_uv") else qrnd(*sh)
+        for k, sh in deepseek._ffn_shapes(cfg, Lx, moe).items():
+            d[k] = qrnd(Lx * sh[1], *sh[2:]) if k.startswith("e_") \
+                else qrnd(*sh)
+        if moe:
+            d["router"] = rnd(Lx, cfg.hidden_size, cfg.num_experts)
+            d["router_bias"] = torch.zeros((Lx, cfg.num_experts), device=DEV)
+        params[sk] = d
+    H, V = cfg.hidden_size, cfg.vocab_size
+    params.update(embed=rnd(V, H), lm_head=rnd(H, V),
+                  final_norm=torch.ones((H,), dtype=BF16, device=DEV))
+    torch.cuda.synchronize()
+    return params
+
+
+def moe_generate(eng, prompt, tally, what, smi):
+    """generate(prompt) + MOE_NEW greedy tokens: launches against
+    moe_expected, every logit finite; prints TTFT, tok/s, launches a
+    decode step and the decode step's wall."""
+    gen = GenerationConfig(max_new_tokens=MOE_NEW, greedy=True,
+                           eos_token_ids=())
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    fwd = eng._forward
+
+    def checked(*a, **k):
+        logits, cache = fwd(*a, **k)
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits, cache
+    eng._forward = checked
+    torch.cuda.synchronize()
+    before = counts()
+    t0 = time.perf_counter()
+    res = eng.generate([prompt], gen)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng._forward = fwd
+    got = {c: n - before[c] for c, n in counts().items()}
+    want = moe_expected(eng, [len(prompt)], MOE_NEW - 1)
+    check(got == want, f"{what}: launches {got} != expected {want}")
+    check(bool(finite.item()), f"{what}: non-finite logits")
+    check(len(res.token_ids) == MOE_NEW, f"{what}: length")
+    for c, n in got.items():
+        tally[c] = tally.get(c, 0) + n
+    step = moe_expected(eng, [1], 1)
+    one = {c: step[c] - n for c, n in moe_expected(eng, [1], 0).items()}
+    say(f"  {what}: {len(prompt)} + {MOE_NEW} tokens, TTFT "
+        f"{res.ttft_s * 1e3:.2f} ms, decode {res.decode_tokens_per_s:.2f} "
+        f"tok/s ({1e3 / res.decode_tokens_per_s:.2f} ms a step), wall "
+        f"{wall:.2f} s; launches a decode step "
+        f"{ {c: n for c, n in one.items() if n} }; tokens "
+        f"{res.token_ids[:6]}... ({smi})")
+    return res
+
+
+def moe_schedulers(eng, prompts, tally, what, smi):
+    """The dense scheduler (the reference) and the paged one serving
+    `prompts`, greedy, the paged streams held to the dense ones
+    (compare_ref)."""
+    gen = GenerationConfig(max_new_tokens=MOE_NEW, greedy=True,
+                           eos_token_ids=())
+    before = counts()
+    ref, wall_ref = run_sched(scheduler.ContinuousBatchingScheduler(
+        eng, gen), prompts, MOE_NEW, top_logprobs=2)
+    paged_sched = scheduler.PagedScheduler(eng, gen)
+    paged, wall = run_sched(paged_sched, prompts, MOE_NEW, top_logprobs=2)
+    torch.cuda.synchronize()
+    got = {c: n - before[c] for c, n in counts().items()}
+    for c, n in got.items():
+        tally[c] = tally.get(c, 0) + n
+    compared, diff = 0, 0.0
+    for p, r in zip(paged, ref):
+        c, d = compare_ref(p.output_ids, r, f"{what} paged request "
+                           f"{r.req_id}", p.output_logprobs)
+        compared, diff = compared + c, max(diff, d)
+    check(compared >= len(prompts) * MOE_NEW // 2,
+          f"{what}: {compared} tokens compared")
+    n_tok = len(prompts) * MOE_NEW
+    say(f"  {what} schedulers, {len(prompts)} requests {list(MOE_SERVED)} "
+        f"+ {MOE_NEW}: dense {n_tok / wall_ref:.1f} tok/s in "
+        f"{wall_ref:.2f} s, paged {n_tok / wall:.1f} tok/s in {wall:.2f} s "
+        f"(pool of {paged_sched.cache.k_pages.shape[1]} pages, k / v page "
+        f"rows {paged_sched.cache.k_pages.shape[-1]} / "
+        f"{paged_sched.cache.v_pages.shape[-1]}); {compared} of {n_tok} "
+        f"tokens compared, equal, logprobs within {diff:.4f}; launches "
+        f"{ {c: n for c, n in got.items() if n} } ({smi})")
+    return got
+
+
+def moe_prompts(cfg, seed, lens):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+            for n in lens]
+
+
+def moe_mixtral(gen, tally, smi):
+    """Full-depth Mixtral-8x7B, int4 g=128 weights drawn as codes, int8
+    cache: K1 on the last layer's expert 7 (stack index 31·8 + 7), then
+    generate 128 + 32 and 3000 + 32 (2048- and 1024-row chunks: K8, K9),
+    then the dense and paged schedulers. Returns phase 2's numbers."""
+    cfg = moe_preset("mixtral-8x7b")
+    t0 = time.perf_counter()
+    params = mixtral.init_params_quantized(cfg, QCFG4_MOE, seed=SEED,
+                                           device=DEV)
+    torch.cuda.synchronize()
+    lay = params["layers"]
+    nbytes = sum(qbytes(lay[k]) * lay[k].q.shape[0] for k in
+                 ("wq", "wk", "wv", "wo", "e_gate", "e_up", "e_down"))
+    head_b = sum(t.numel() * t.element_size() for t in
+                 (params["lm_head"], lay["router"]))
+    say(f"  Mixtral-8x7B ({cfg.num_layers} layers, int4 g=128 codes, "
+        f"int8 cache): {nbytes / 1e9:.2f} GB of codes and scales, lm_head "
+        f"and routers {head_b / 1e9:.2f} GB dense, embed "
+        f"{params['embed'].numel() * 2 / 1e9:.2f} GB, drawn in "
+        f"{time.perf_counter() - t0:.1f} s; a B = 1 decode step's bound "
+        f"{(nbytes + head_b) / HBM_BYTES_PER_S * 1e3:.2f} ms (every layer "
+        f"weight, the routers and the lm_head read once)")
+    E = cfg.num_experts
+    idx = (cfg.num_layers - 1) * E + E - 1
+    r = {}
+    for key in ("e_gate", "e_down"):
+        for M in (1, 8, 128):
+            r[("mixtral " + key, M)] = stack_k1_case(
+                f"mixtral {key}[{idx}]", lay[key], M, idx, gen)
+    eng = InferenceEngine(cfg, params, engine_cfg=EngineConfig(
+        max_seq_len=MIXTRAL_SEQ, max_batch_size=4, page_size=PAGE),
+        cache_dtype="int8", device=DEV)
+    check(eng._model is mixtral, "mixtral: the registry gave another module")
+    p128, p3000 = moe_prompts(cfg, SEED + 32, (128, 3000))
+    eng.generate([p128[:16]], GenerationConfig(max_new_tokens=2,
+                                                greedy=True))   # warm-up
+    for p in (p128, p3000):
+        moe_generate(eng, p, tally, "mixtral-8x7b generate", smi)
+    got = moe_schedulers(eng, moe_prompts(cfg, SEED + 33, MOE_SERVED), tally,
+                         "mixtral-8x7b", smi)
+    check(got["K10a"] > 0 and got["K2"] > 0,
+          f"mixtral schedulers: K10a / K2 never ran: {got}")
+    del eng, params, lay
+    torch.cuda.empty_cache()
+    return r
+
+
+def moe_deepseek(gen, tally, smi):
+    """DeepSeek-V3 at full width over 5 layers (the 3 dense and 2 MoE
+    layers), int8 weights drawn as codes: K1 on wkv_a (N = 576), wq_b and
+    an expert of the last MoE layer's block (stack index 1·256 + 255) at
+    M = 1 / 8 / 128, K8 on the expert and wq_b at 2048 rows; generate 128
+    + 32 over the bf16 and the int8 latent cache, 2500 + 32 over the int8
+    one (a 2048- and a 512-row chunk, written at T > 1); the dense and
+    paged schedulers over the latent cache and pool. Returns phase 2's
+    numbers."""
+    cfg = moe_preset("deepseek-v3", num_layers=5)
+    t0 = time.perf_counter()
+    params = ds_params(cfg, SEED)
+    q_bytes = d_bytes = 0
+    for sk in deepseek._STACKS:
+        for t in params[sk].values():
+            if isinstance(t, QTensor):
+                q_bytes += t.q.numel() + t.scale.numel() * 4
+            else:
+                d_bytes += t.numel() * t.element_size()
+    head = params["lm_head"].numel() * 2
+    say(f"  DeepSeek-V3 ({cfg.num_layers} layers: {cfg.first_k_dense} dense,"
+        f" {cfg.num_layers - cfg.first_k_dense} MoE; int8 codes): "
+        f"{q_bytes / 1e9:.2f} GB of codes and scales, {d_bytes / 1e9:.2f} GB "
+        f"dense in the layers, embed + lm_head {2 * head / 1e9:.2f} GB, "
+        f"drawn in {time.perf_counter() - t0:.1f} s; a B = 1 decode step's "
+        f"bound {(q_bytes + d_bytes + head) / HBM_BYTES_PER_S * 1e3:.2f} ms "
+        f"(every layer weight and the lm_head read once)")
+    moe = params["moe_layers"]
+    E = cfg.num_experts
+    idx = E + E - 1
+    r = {}
+    for key, qt, i in (("wkv_a", moe["wkv_a"], 1), ("wq_b", moe["wq_b"], 1),
+                       ("e_gate", moe["e_gate"], idx),
+                       ("e_down", moe["e_down"], idx)):
+        for M in (1, 8, 128):
+            r[("deepseek " + key, M)] = stack_k1_case(
+                f"deepseek-v3 {key}[{i}]", qt, M, i, gen)
+    for key, qt, i in (("e_gate", moe["e_gate"], idx),
+                       ("wq_b", moe["wq_b"], 1)):
+        r[("deepseek " + key, CHUNK)] = stack_k1_case(
+            f"deepseek-v3 {key}[{i}]", qt, CHUNK, i, gen)
+    torch.cuda.empty_cache()
+    p128, plong = moe_prompts(cfg, SEED + 34, (128, DS_LONG))
+    for kind in (BF16, "int8"):
+        eng = InferenceEngine(cfg, params, engine_cfg=EngineConfig(
+            max_seq_len=DS_SEQ, max_batch_size=4, page_size=PAGE),
+            cache_dtype=kind, device=DEV)
+        check(eng._model is deepseek, "deepseek: another module")
+        c = eng.new_cache(1)
+        check(c.k.shape[-1] == deepseek.latent_dim(cfg)
+              and c.v.shape[-1] == cfg.kv_lora_rank,
+              "deepseek: the engine's cache is not the latent cache")
+        del c
+        eng.generate([p128[:16]], GenerationConfig(max_new_tokens=2,
+                                                    greedy=True))
+        name = f"deepseek-v3 generate ({'bf16' if kind == BF16 else kind} " \
+               f"latent cache)"
+        moe_generate(eng, p128, tally, name, smi)
+        if kind == "int8":
+            moe_generate(eng, plong, tally, name, smi)
+            got = moe_schedulers(eng, moe_prompts(cfg, SEED + 35, MOE_SERVED),
+                                 tally, "deepseek-v3 (int8 latent)", smi)
+            check(got["K4"] > 0, f"deepseek schedulers: K4 never ran: {got}")
+        del eng
+        torch.cuda.empty_cache()
+    del params, moe
+    torch.cuda.empty_cache()
+    return r
+
+
+def moe_entries(t, lat, k1r):
+    """Path (x)'s kernel entries: the latent-width writes, K1 and K8 at
+    the two families' shapes."""
+    out = []
+    for key, label, rep, c in (
+            ("K3", "K3 write_token (DeepSeek-V3 latent rows, bf16, k 576 / "
+             "v 512, Hkv 1)", "kv_write.py:72", "K3"),
+            ("K4", "K4 quantize_write_token (DeepSeek-V3 latent rows, int8, "
+             "k 576 / v 512, Hkv 1)", "kv_write.py:152", "K4"),
+            ("K3 int4", "K3 write_token (DeepSeek-V3 int4 latent cache, "
+             "packed 288 / 256 B)", "kv_write.py:72", "K3"),
+            ("scale write", "kv_scale_write (DeepSeek-V3 int4 latent cache, "
+             "Hkv 1)", "kv_write.py:343", "KS")):
+        out.append(fam_entry(label, "kv_write.cu", rep, t[c], lat[key], 1,
+                             "one layer's call at B=1"))
+    for (name, M), r in k1r.items():
+        if M == 8:
+            continue
+        bits = 4 if name.startswith("mixtral") else 8
+        if M == CHUNK:
+            out.append(fam_entry(
+                f"K8 quant_matmul tiled prefill GEMM ({name}, int{bits})",
+                "quant_matmul_tiled.cu", "quant_matmul.py:379", t["K8"], r,
+                1, f"one call, M={M}"))
+            continue
+        src = ("quant_matmul_tiled.cu" if M > 8 else "quant_matmul.cu"
+               if bits == 8 else "qmm4_gemv.cu")
+        out.append(fam_entry(
+            f"K1 quant_matmul {'GEMV' if M == 1 else 'MMA branch'} ({name}, "
+            f"int{bits})", src, "quant_matmul.py:496", t["K1"], r, 1,
+            f"one call, M={M}"))
+    return out
+
+
+def path_moe(gen):
+    """Path (x): the mixture-of-experts families, Mixtral-8x7B
+    (models/mixtral.py) and DeepSeek-V3 (models/deepseek.py: MLA over the
+    latent cache, the sigmoid-routed MoE)."""
+    t0 = time.perf_counter()
+    smi = card_line()
+    say(f"path (x): the MoE families (models/mixtral.py, "
+        f"models/deepseek.py); card: {smi}")
+    say("phase 2: K3 / K4 and the scale write at the latent rows vs their "
+        "plain versions on the card")
+    lat = latent_write_cases(gen)
+    say("phase 3: 2 layers at full width, the kernels vs their plain "
+        "versions on the card")
+    tally = {}
+    zero_counts()
+    mix2 = moe_preset("mixtral-8x7b", num_layers=2)
+    ds2 = moe_preset("deepseek-v3", num_layers=2, first_k_dense=1)
+    for qcfg, kind in ((QCFG8_MOE, "bf16"), (QCFG4_MOE, "int8")):
+        p = mixtral.init_params_quantized(mix2, qcfg, seed=SEED + 30,
+                                          device=DEV)
+        moe_parity(f"mixtral-8x7b {qcfg.weights}"
+                   f"{' g=128' if qcfg.group_size else ''}", mix2, p, kind)
+        del p
+    p = ds_params(ds2, SEED + 30)
+    for kind in ("bf16", "int8", "int4"):
+        moe_parity("deepseek-v3 int8", ds2, p, kind,
+                   plain_prefill=kind == "int4")
+    del p
+    torch.cuda.empty_cache()
+    for c, n in counts().items():
+        tally[c] = tally.get(c, 0) + n
+    say(f"phase 4: serving ({smi})")
+    zero_counts()
+    k1r = moe_mixtral(gen, tally, smi)
+    zero_counts()
+    k1r.update(moe_deepseek(gen, tally, smi))
+    check(all(tally.get(c, 0) > 0 for c in MOE_USED),
+          f"path (x): a kernel never ran: {tally}")
+    say(f"  launches (phases 3-4): { {c: n for c, n in tally.items() if n} }")
+    say(f"path (x) took {time.perf_counter() - t0:.1f} s ({smi})")
+    return moe_entries(tally, lat, k1r)
+
+
 def main():
     t_start = time.perf_counter()
     phase_card()
@@ -4186,6 +4837,9 @@ def main():
     torch.cuda.empty_cache()
     say(f"path (viii) done at {time.perf_counter() - t_start:.1f} s")
     kernels += path_families(gen)
+    say(f"path (ix) done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    kernels += path_moe(gen)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,11 @@ ids ("ids> [...]"). Weights come from an HF checkpoint directory, or are
 random (dummy) weights of a preset, drawn directly as quantized codes
 when --quant is set. --model takes every preset of config.PRESETS (the
 llama family on models/llama.py: llama2, llama3, llama3.1, mistral,
-qwen2, qwen3, phi3; gemma2 and gemma3 on models/gemma2.py), and
---checkpoint an HF directory of any of these families.
+qwen2, qwen3, phi3; gemma2 and gemma3 on models/gemma2.py; mixtral-8x7b
+on models/mixtral.py; deepseek-v3 and tiny-deepseek on
+models/deepseek.py), and --checkpoint an HF directory of any of these
+families. Each family's quantize_params and prepare_params shape its
+weights (llama's where the module has none).
 
 Usage:
   python -m llm_inference_tpu_torch.cli --model llama2-7b --quant int4 \\
@@ -17,6 +20,9 @@ Usage:
   python -m llm_inference_tpu_torch.cli --device cpu --max-seq-len 128
   python -m llm_inference_tpu_torch.cli --model gemma2-2b --quant int8 \
       --kv-cache int8 --max-seq-len 8192      # gemma2 on the card
+  python -m llm_inference_tpu_torch.cli --model mixtral-8x7b --quant int4 \
+      --group-size 128 --kv-cache int8        # Mixtral-8x7B on the card
+  python -m llm_inference_tpu_torch.cli --device cpu --model tiny-deepseek
 
   python -m llm_inference_tpu_torch.cli --model llama2-7b --tp 2 \
       --quant int4 --group-size 128 --kv-cache int8   # tensor-parallel
@@ -28,8 +34,9 @@ model over N tensor-parallel ranks from this one command, as the JAX CLI
 does: this process is rank 0 and keeps the REPL, ranks 1..N-1 are spawned
 (parallel.run_ranks; NCCL when every rank has a card of its own, else
 gloo), each line goes to every rank (broadcast_object), every rank runs
-it and rank 0 prints. --dp above 1, --lora, --asym and --no-int4-npair
-are not ported and raise.
+it and rank 0 prints. --dp above 1, --lora, --asym, --no-int4-npair and
+--tp above 1 on a mixture-of-experts model (mixtral, DeepSeek: expert
+parallelism) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -71,6 +78,8 @@ def build_engine(args, tp=None):
     model = get_model(cfg.name)
     if args.tp > 1:
         sharding.validate_tp(cfg, args.tp)
+    quantize = getattr(model, "quantize_params", llama.quantize_params)
+    prepare = getattr(model, "prepare_params", llama.prepare_params)
     quantum = 128 * args.tp
     pad = args.tp > 1 and (cfg.intermediate_size % quantum
                            or cfg.vocab_size % quantum)
@@ -82,8 +91,8 @@ def build_engine(args, tp=None):
                                                    device=device))
     if pad or args.checkpoint:
         params = llama.pad_params_for_tp(params, cfg, args.tp)
-        params = llama.quantize_params(params, qcfg, row_shards=args.tp)
-    params = llama.prepare_params(params, tp_size=args.tp)
+        params = quantize(params, qcfg, row_shards=args.tp)
+    params = prepare(params, tp_size=args.tp)
     tokenizer = load_tokenizer(args.tokenizer) if args.tokenizer else None
     eng_cfg = C.EngineConfig(max_seq_len=args.max_seq_len,
                              decode_chunk=args.decode_chunk)
@@ -92,6 +101,23 @@ def build_engine(args, tp=None):
     return InferenceEngine(cfg, params, engine_cfg=eng_cfg,
                            tokenizer=tokenizer, cache_dtype=cache_dtype,
                            device=device, tp=tp)
+
+
+def refuse_before_ranks(args) -> None:
+    """Raise, before any rank is spawned, where --tp N cannot serve the
+    model: a mixture-of-experts family (no expert parallelism) or widths
+    that do not split over N (parallel.sharding.validate_tp)."""
+    import json
+    import os
+    from llm_inference_tpu_torch import config as C
+    from llm_inference_tpu_torch.parallel import sharding
+    from llm_inference_tpu_torch.utils import checkpoint
+    if args.checkpoint:
+        with open(os.path.join(args.checkpoint, "config.json")) as f:
+            cfg = checkpoint.model_config_from_hf(json.load(f))
+    else:
+        cfg = C.preset(args.model)
+    sharding.validate_tp(cfg, args.tp)
 
 
 def serve(tp, args):
@@ -191,6 +217,7 @@ def main(argv=None):
     ap.add_argument("--greedy", action="store_true")
     args = ap.parse_args(argv)
     if args.tp > 1:
+        refuse_before_ranks(args)
         from llm_inference_tpu_torch import resolve_device
         from llm_inference_tpu_torch.parallel import run_ranks
         run_ranks(serve, args.tp, args, device=resolve_device(args.device),

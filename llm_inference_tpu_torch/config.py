@@ -4,10 +4,10 @@ The port's own copy of the parts of the JAX package's
 `llm_inference_tpu/config.py` that the port reads (ModelConfig,
 QuantConfig, EngineConfig, GenerationConfig, the presets of the dense
 families and tiny_llama): the port imports nothing of the JAX package.
-Field names and defaults match it; fields of families and features not
-ported yet (mixtral's experts, DeepSeek's MLA) are added with them.
-`PRESETS` holds only the models the port serves; `preset` raises for the
-JAX package's other names.
+Field names and defaults match it, the mixture-of-experts fields
+(mixtral) and DeepSeek's latent-attention fields among them. `PRESETS`
+holds the models the port serves, every preset of the JAX package;
+`preset` raises for other names.
 """
 
 from __future__ import annotations
@@ -19,8 +19,8 @@ from typing import Optional, Sequence, Tuple
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyperparameters of a decoder (llama and gemma2
-    families)."""
+    """Architecture hyperparameters of a decoder (the llama, gemma2,
+    mixtral and DeepSeek families)."""
 
     name: str = "llama"
     vocab_size: int = 32000
@@ -61,6 +61,30 @@ class ModelConfig:
     # and the embeddings are scaled by sqrt(hidden_size).
     query_pre_attn_scalar: float = 0.0
     scale_embeddings: bool = False
+    # Mixture-of-experts (mixtral, DeepSeek): 0 = dense FFN.
+    num_experts: int = 0
+    experts_per_token: int = 2
+    # DeepSeek V3 (multi-head latent attention and its MoE); kv_lora_rank
+    # > 0 turns the family on. q low rank (0 = a full q projection), the
+    # shared compressed-KV rank, the nope/rope split of a query head, the
+    # value width, and interleaved RoPE pairs in the checkpoint.
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    rope_interleave: bool = False
+    # The MoE block: shared experts (an always-on MLP n_shared_experts x
+    # moe_intermediate_size wide), the experts' width, group-limited
+    # routing (n_group groups, topk_group kept), the routed weights'
+    # normalisation and scale, and the first layers that stay dense.
+    n_shared_experts: int = 0
+    moe_intermediate_size: int = 0
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = True
+    first_k_dense: int = 0
 
     @property
     def q_per_kv(self) -> int:
@@ -186,6 +210,16 @@ def phi3_mini(**kw) -> ModelConfig:
                        tie_word_embeddings=False, **kw)
 
 
+def mixtral_8x7b(**kw) -> ModelConfig:
+    """Mixtral-8x7B: llama attention and the top 2 of 8 experts a token."""
+    return ModelConfig(name="mixtral-8x7b", vocab_size=32000,
+                       hidden_size=4096, intermediate_size=14336,
+                       num_layers=32, num_heads=32, num_kv_heads=8,
+                       head_dim=128, rms_norm_eps=1e-5,
+                       rope_theta=1000000.0, max_position_embeddings=32768,
+                       num_experts=8, experts_per_token=2, **kw)
+
+
 def gemma2_2b(**kw) -> ModelConfig:
     """Gemma-2-2B: sandwich norms, GeGLU, logit softcaps, alternating
     sliding-window attention, tied and scaled embeddings."""
@@ -214,6 +248,45 @@ def gemma2_9b(**kw) -> ModelConfig:
                        **kw)
 
 
+def deepseek_v3(**kw) -> ModelConfig:
+    """DeepSeek-V3/R1: MLA (kv_lora 512, q_lora 1536, a 128 + 64 nope/rope
+    split), 256 sigmoid-routed experts with one shared expert,
+    group-limited routing, the first 3 layers dense, yarn RoPE to 128k."""
+    defaults = dict(
+        name="deepseek-v3", vocab_size=129280, hidden_size=7168,
+        intermediate_size=18432, num_layers=61, num_heads=128,
+        num_kv_heads=128, head_dim=192,           # qk_head_dim (nope+rope)
+        rope_theta=10000.0, max_position_embeddings=163840,
+        rms_norm_eps=1e-6,
+        rope_scaling={"type": "yarn", "factor": 40.0,
+                      "original_max_position_embeddings": 4096,
+                      "beta_fast": 32.0, "beta_slow": 1.0,
+                      "mscale": 1.0, "mscale_all_dim": 1.0},
+        q_lora_rank=1536, kv_lora_rank=512, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, rope_interleave=True,
+        num_experts=256, experts_per_token=8, n_shared_experts=1,
+        moe_intermediate_size=2048, n_group=8, topk_group=4,
+        routed_scaling_factor=2.5, norm_topk_prob=True, first_k_dense=3)
+    defaults.update(kw)
+    return ModelConfig(**defaults)
+
+
+def tiny_deepseek(**kw) -> ModelConfig:
+    """A small MLA + MoE config for tests (V3 semantics, toy widths)."""
+    defaults = dict(
+        name="tiny-deepseek", vocab_size=256, hidden_size=64,
+        intermediate_size=128, num_layers=3, num_heads=4, num_kv_heads=4,
+        head_dim=48, rms_norm_eps=1e-6, max_position_embeddings=256,
+        dtype="float32",
+        q_lora_rank=32, kv_lora_rank=32, qk_nope_head_dim=32,
+        qk_rope_head_dim=16, v_head_dim=32,
+        num_experts=8, experts_per_token=2, n_shared_experts=1,
+        moe_intermediate_size=48, n_group=2, topk_group=1,
+        routed_scaling_factor=2.5, norm_topk_prob=True, first_k_dense=1)
+    defaults.update(kw)
+    return ModelConfig(**defaults)
+
+
 def tiny_llama(**kw) -> ModelConfig:
     """Small config for tests."""
     defaults = dict(name="tiny-llama", vocab_size=256, hidden_size=128,
@@ -226,7 +299,6 @@ def tiny_llama(**kw) -> ModelConfig:
 
 # the presets the port serves; "tiny" is the CLI's default name for
 # tiny_llama (the JAX CLI falls back to it for names it does not know).
-# Not served yet: mixtral-8x7b, deepseek-v3 and tiny-deepseek.
 PRESETS = {
     "llama2-7b": llama2_7b,
     "llama2-13b": llama2_13b,
@@ -238,17 +310,20 @@ PRESETS = {
     "qwen2-7b": qwen2_7b,
     "qwen3-8b": qwen3_8b,
     "phi3-mini": phi3_mini,
+    "mixtral-8x7b": mixtral_8x7b,
     "gemma2-2b": gemma2_2b,
     "gemma2-9b": gemma2_9b,
     "gemma3-4b": gemma3_4b,
+    "deepseek-v3": deepseek_v3,
     "tiny-llama": tiny_llama,
+    "tiny-deepseek": tiny_deepseek,
     "tiny": tiny_llama,
 }
 
 
 def preset(name: str) -> ModelConfig:
-    """The config of a preset the port serves; other names (the JAX
-    package's other families) raise NotImplementedError."""
+    """The config of a preset the port serves; other names raise
+    NotImplementedError."""
     if name not in PRESETS:
         raise NotImplementedError(
             f"preset {name!r} is not ported; the port serves "

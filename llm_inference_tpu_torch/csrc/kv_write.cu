@@ -47,6 +47,17 @@
 // rows) and the megakernel's two row writes (write_rows,
 // quantize_write_rows). The rows are read through their strides (column
 // slices of the fused qkv output), so no copy precedes the launch.
+//
+// Without the RoPE, k and v rows may differ in width: DeepSeek's latent
+// cache holds k rows of 576 values ([c_kv | k_rot]) and v rows of 512
+// (c_kv), or their packed int4 bytes, 288 and 256 (JAX kv_write.py:
+// 160-161 takes the two widths). The copy moves each row's own bytes in
+// 16-byte words. K4 at widths past 256 values or at two widths runs
+// kv_quant_write_wide: lane l holds e = D / 32 values of its own row (18
+// at 576: 36 bytes, no power-of-two vector), read one by one, since a
+// call moves a few KB and is bound by its launch; the quantizer is the
+// same, per (slot, head) over each row's own width, bit for bit the
+// plain path's.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -76,7 +87,8 @@ struct Args {
   // strides of b, t and the head of q, k and v: elements (bytes for kCopy)
   long long sq[3], sk[3], sv[3];
   int B, T, H, Hkv, S;
-  int D;                  // values of a head row (kCopy: bytes of a row)
+  int D;                  // values of a k row (kCopy: bytes of a row)
+  int Dv;                 // values (bytes) of a v row: D with the RoPE
 };
 
 // The widest power of two up to 16 that divides n.
@@ -147,11 +159,12 @@ __global__ void __launch_bounds__(kWarps * 32) kv_rope_write(const Args a) {
   void* cache = part == 1 ? a.k_cache : a.v_cache;
   const size_t slot = ((size_t)b * a.Hkv + h) * a.S + s;
   if constexpr (KIND == kCopy) {
+    const int n = part == 1 ? a.D : a.Dv;
     const uint4* from = reinterpret_cast<const uint4*>(
         static_cast<const uint8_t*>(src) + so);
     uint4* to = reinterpret_cast<uint4*>(static_cast<uint8_t*>(cache) +
-                                         slot * a.D);
-    for (int i = lane; i < a.D / 16; i += 32) to[i] = from[i];
+                                         slot * n);
+    for (int i = lane; i < n / 16; i += 32) to[i] = from[i];
     return;
   } else {
     float x[E];
@@ -219,9 +232,52 @@ __global__ void __launch_bounds__(kWarps * 32) kv_rope_write(const Args a) {
   }
 }
 
-template <int E, int KIND, bool ROPE, typename Tin>
-int launch(const Args& a, cudaStream_t st) {
-  const int rows = (ROPE ? a.H : 0) + 2 * a.Hkv;
+// K4 without the RoPE at rows wider than 256 values or at two widths (the
+// header's note): one warp a row, k's heads then v's, lane l the e values
+// l e .. l e + e - 1 of its row, e = D / 32 of the row's own width.
+constexpr int kWideE = 18;              // 576 / 32, the widest row taken
+
+template <typename Tin>
+__global__ void __launch_bounds__(kWarps * 32) kv_quant_write_wide(
+    const Args a) {
+  const int lane = threadIdx.x % 32;
+  const int r = blockIdx.y * kWarps + threadIdx.x / 32;
+  if (r >= 2 * a.Hkv) return;
+  const bool is_k = r < a.Hkv;
+  const int h = is_k ? r : r - a.Hkv;
+  const int b = blockIdx.x / a.T, t = blockIdx.x - b * a.T;
+  const int s = min(max(a.offsets[b], 0), a.S - a.T) + t;
+  sm90::grid_dependency_wait();
+
+  const int D = is_k ? a.D : a.Dv;
+  const int e = D / 32;
+  const long long* st = is_k ? a.sk : a.sv;
+  const Tin* src = static_cast<const Tin*>(is_k ? a.k : a.v) + b * st[0] +
+                   t * st[1] + h * st[2] + lane * e;
+  float x[kWideE];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kWideE; ++i) {
+    x[i] = i < e ? to_f32(src[i]) : 0.f;
+    amax = fmaxf(amax, fabsf(x[i]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, o));
+  const float scale = fmaxf(amax / 127.f, 1e-8f);
+  int8_t* dst = static_cast<int8_t*>(is_k ? a.k_cache : a.v_cache) +
+                (((size_t)b * a.Hkv + h) * a.S + s) * D + lane * e;
+#pragma unroll
+  for (int i = 0; i < kWideE; ++i)
+    if (i < e) dst[i] = (int8_t)fminf(fmaxf(rintf(x[i] / scale), -128.f),
+                                      127.f);
+  if (lane == 0)
+    (is_k ? a.k_scale : a.v_scale)[((size_t)b * a.S + s) * a.Hkv + h] =
+        scale;
+}
+
+template <typename K>
+int launch_grid(K kernel, const Args& a, int rows, cudaStream_t st) {
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
@@ -231,9 +287,14 @@ int launch(const Args& a, cudaStream_t st) {
   cfg.stream = st;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, kv_rope_write<E, KIND, ROPE, Tin>, a);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+template <int E, int KIND, bool ROPE, typename Tin>
+int launch(const Args& a, cudaStream_t st) {
+  return launch_grid(kv_rope_write<E, KIND, ROPE, Tin>, a,
+                     (ROPE ? a.H : 0) + 2 * a.Hkv, st);
 }
 
 template <int KIND, bool ROPE, typename Tin>
@@ -249,6 +310,14 @@ int launch_d(const Args& a, cudaStream_t st) {
     case 8: return launch<8, KIND, ROPE, Tin>(a, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K4 without the RoPE: the template's instance where k and v rows are one
+// width up to 256, else the wide kernel.
+template <typename Tin>
+int launch_quant(const Args& a, cudaStream_t st) {
+  if (a.D == a.Dv && a.D <= 256) return launch_d<kInt8, false, Tin>(a, st);
+  return launch_grid(kv_quant_write_wide<Tin>, a, 2 * a.Hkv, st);
 }
 
 // The decode-step scale write of an int4 cache: one token's per-head K and
@@ -299,42 +368,47 @@ extern "C" int kv_scale_write_launch(void* k_scale, void* v_scale,
 }
 
 // The RoPE and KV write of one layer (q non-null: the RoPE instances), or
-// the write of rows as they come (q null). kind 0 copies rows of D bytes
-// (a multiple of 16; strides in bytes; k_new/v_new in the cache's dtype),
-// 1 writes bf16 rows, 2 int8 codes and scales, 3 packed int4 codes and
-// scales; D (values) a multiple of 32 up to 256 for kinds 1-3. q, k, v are
+// the write of rows as they come (q null). kind 0 copies k rows of D
+// bytes and v rows of Dv (multiples of 16; strides in bytes; k_new/v_new
+// in the cache's dtype), 1 writes bf16 rows, 2 int8 codes and scales, 3
+// packed int4 codes and scales; for kinds 1-3 D (values) a multiple of 32
+// up to 256 and Dv = D with the RoPE; without it (kind 2) D and Dv
+// multiples of 32 up to 576. q, k, v are
 // bf16 (k, v float32 when in_f32, int8 without the RoPE only), read at
 // b * s*[0] + t * s*[1] + head * s*[2] elements; cos/sin float32 [B, T, D]
 // and q_out bf16 [B, T, H, D] contiguous; k_cache/v_cache point at one
-// layer [B, Hkv, S, Dc], k_scale/v_scale at its [B, S, Hkv] float32 scales
-// (kinds 2 and 3); offsets int32 [B] on the device; 1 <= T <= S.
+// layer [B, Hkv, S, Dc] (v_cache [B, Hkv, S, Dcv]), k_scale/v_scale at its
+// [B, S, Hkv] float32 scales (kinds 2 and 3); offsets int32 [B] on the
+// device; 1 <= T <= S.
 extern "C" int kv_rope_write_launch(
     const void* q, const void* k, const void* v, const void* cos,
     const void* sin, const void* offsets, void* q_out, void* k_cache,
     void* v_cache, void* k_scale, void* v_scale, long long sqb,
     long long sqt, long long sqh, long long skb, long long skt,
     long long skh, long long svb, long long svt, long long svh, int B,
-    int T, int H, int Hkv, int S, int D, int kind, int in_f32,
+    int T, int H, int Hkv, int S, int D, int Dv, int kind, int in_f32,
     void* stream) {
   const bool rope = q != nullptr;
   if (B < 1 || T < 1 || T > S || Hkv < 1 || (rope && H < 1) ||
       (long long)B * T > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  if (kind == kCopy ? D % 16 != 0 || rope || in_f32
-                    : D % 32 != 0 || D > 256 || kind > kInt4 ||
-                          (rope ? in_f32 || !cos || !sin || !q_out
-                                : kind != kInt8))
+  if (kind == kCopy ? D % 16 != 0 || Dv % 16 != 0 || rope || in_f32
+                    : D % 32 != 0 || Dv % 32 != 0 || kind > kInt4 ||
+                          (rope ? D > 256 || Dv != D || in_f32 || !cos ||
+                                      !sin || !q_out
+                                : kind != kInt8 || D > 32 * kWideE ||
+                                      Dv > 32 * kWideE))
     return (int)cudaErrorInvalidValue;
   Args a = {q,       k,       v,       (const float*)cos,
             (const float*)sin, (const int*)offsets, (__nv_bfloat16*)q_out,
             k_cache, v_cache, (float*)k_scale,  (float*)v_scale,
             {sqb, sqt, sqh}, {skb, skt, skh}, {svb, svt, svh},
-            B,       T,       rope ? H : 0, Hkv, S, D};
+            B,       T,       rope ? H : 0, Hkv, S, D, Dv};
   const cudaStream_t st = (cudaStream_t)stream;
   if (kind == kCopy) return launch<1, kCopy, false, uint8_t>(a, st);
   if (!rope)
-    return in_f32 ? launch_d<kInt8, false, float>(a, st)
-                  : launch_d<kInt8, false, __nv_bfloat16>(a, st);
+    return in_f32 ? launch_quant<float>(a, st)
+                  : launch_quant<__nv_bfloat16>(a, st);
   switch (kind) {
     case kBf16: return launch_d<kBf16, true, __nv_bfloat16>(a, st);
     case kInt8: return launch_d<kInt8, true, __nv_bfloat16>(a, st);

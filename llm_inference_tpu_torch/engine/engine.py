@@ -76,7 +76,8 @@ class InferenceEngine:
         with tp_size = tp.size under tensor parallelism, where the engine
         keeps its rank's shard of them and runs on tp.device). The family's
         module comes from the registry by cfg.name (llama and the families
-        on it, gemma2 and gemma3)."""
+        on it, gemma2 and gemma3, mixtral, DeepSeek), and with it the RoPE
+        tables and, where the module has them, the cache constructors."""
         self.cfg = cfg
         self.engine_cfg = engine_cfg or EngineConfig()
         self.tokenizer = tokenizer
@@ -113,10 +114,17 @@ class InferenceEngine:
     # ------------------------------------------------------------------
 
     def new_cache(self, batch: int, max_seq: Optional[int] = None):
+        """A dense cache of `batch` sequences: the family's own where its
+        module has one (DeepSeek's latent cache), else the [L, B, Hkv, S,
+        D] cache (engine.py:443-455)."""
+        max_seq = max_seq or self.engine_cfg.max_seq_len
+        model_nc = getattr(self._model, "new_cache", None)
+        if model_nc is not None:
+            return model_nc(self.cfg, batch, max_seq, self.cache_dtype,
+                            device=self.device)
         return kvcache.init_cache(
-            self.cfg.num_layers, batch, self.kv_heads,
-            max_seq or self.engine_cfg.max_seq_len, self.cfg.head_dim,
-            self.cache_dtype, device=self.device)
+            self.cfg.num_layers, batch, self.kv_heads, max_seq,
+            self.cfg.head_dim, self.cache_dtype, device=self.device)
 
     def _bucket(self, n: int) -> int:
         for b in self.engine_cfg.prefill_buckets:

@@ -854,6 +854,13 @@ class PagedScheduler(ContinuousBatchingScheduler):
         self.pt_host = np.zeros((self.B, self.nb), np.int32)
         self.slot_pages: List[List[int]] = [[] for _ in range(self.B)]
         self.pos_host = np.zeros((self.B,), np.int64)
+        # a family with its own pool (DeepSeek's latent pages) builds it
+        # (scheduler.py:1062-1064)
+        model_pc = getattr(self.engine._model, "new_paged_cache", None)
+        if model_pc is not None:
+            return model_pc(cfg, pool, self.ps, self.B, self.nb,
+                            self.engine.cache_dtype,
+                            device=self.engine.device)
         return paged_kvcache.init_paged_cache(
             cfg.num_layers, pool, cfg.num_kv_heads, self.ps, cfg.head_dim,
             self.B, self.nb, self.engine.cache_dtype,

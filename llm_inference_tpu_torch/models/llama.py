@@ -394,8 +394,12 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Params:
     an array: norms, qkv biases (bq/bk/bv, or bqkv), q_norm/k_norm,
     gemma's post_attn_norm/post_ffn_norm. Fused keys (wqkv, w_gateup)
     pass through as they are; a tied model has no lm_head, or the
-    quantized one quantize_params made from its table. Call
-    prepare_params on the result before serving."""
+    quantized one quantize_params made from its table. The trees of the
+    other families pass the same way: mixtral's and DeepSeek's expert
+    stacks flattened [L·E, ...], DeepSeek's dense_layers / moe_layers
+    stacks (dense_layers possibly empty) with their dense w_uk, w_uv,
+    router and router_bias. Call the family's prepare_params on the
+    result before serving."""
     device = resolve_device(device)
 
     def conv(node):
@@ -809,11 +813,24 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
             h = _layer_plain(cfg, layers, l, h, cache, positions,
                              write_offsets, mask, route, cos, sin, tp)
 
+    return forward_output(cfg, params, h, logits_mode, last_idx, tp), cache
+
+
+def forward_output(cfg: ModelConfig, params: Params, h: torch.Tensor,
+                   logits_mode: str, last_idx: Optional[torch.Tensor],
+                   tp: Optional[TPGroup] = None) -> Optional[torch.Tensor]:
+    """The end of a forward over the last layer's output h [B, T, H]:
+    None for "none"; the final norm, then the hidden states for "hidden",
+    else the float32 logits of every row ("all") or of row last_idx[b]
+    (default T - 1) of each sequence ("last"), gathered across the ranks
+    under tensor parallelism, cut to the vocabulary and soft-capped where
+    the config says (llama.py:962-990)."""
     if logits_mode == "none":
-        return None, cache
+        return None
+    B, T = h.shape[:2]
     h = norms.rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     if logits_mode == "hidden":
-        return h, cache
+        return h
     if logits_mode == "last":
         if last_idx is None:
             last_idx = torch.full((B,), T - 1, dtype=torch.long,
@@ -829,7 +846,7 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
     if cfg.final_logit_softcap > 0.0:
         logits = (torch.tanh(logits / cfg.final_logit_softcap)
                   * cfg.final_logit_softcap)
-    return logits, cache
+    return logits
 
 
 # register with the registry: the families that differ from llama by

@@ -6,8 +6,9 @@ engine, schedulers, speculative decoding and beam search.
 
 Names resolve as in the JAX package: the name itself, then its part
 before the first "-", then before the first "_" ("qwen2-7b" → "qwen2",
-"gemma3_text" → "gemma3"). The JAX package's families that the port does
-not serve yet (mixtral, DeepSeek) raise NotImplementedError naming them.
+"gemma3_text" → "gemma3", "deepseek_v3" → "deepseek"). Every family of
+the JAX package is served; a name listed in `_NOT_PORTED` (none today)
+would raise NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -15,9 +16,8 @@ from __future__ import annotations
 from typing import Dict
 
 _REGISTRY: Dict[str, object] = {}
-# the JAX package's other registered names (mixtral.py:338,
-# deepseek.py:706-707)
-_NOT_PORTED = ("mixtral", "deepseek", "tiny-deepseek")
+# registered names of the JAX package that the port does not serve
+_NOT_PORTED: tuple = ()
 
 
 def register_model(name: str, module) -> None:

@@ -33,9 +33,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            logit_softcap: float = 0.0,
            k_scale: Optional[torch.Tensor] = None,
            v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q [B, T, Hq, D], k/v [B, Hkv, S, D], mask [B, 1, T, S] →
-    [B, T, Hq, D] in q.dtype. Products of q.dtype values accumulate in
-    float32, as the JAX einsums do with preferred_element_type.
+    """q [B, T, Hq, D], k [B, Hkv, S, D], v [B, Hkv, S, Dv], mask [B, 1,
+    T, S] → [B, T, Hq, Dv] in q.dtype. Products of q.dtype values
+    accumulate in float32, as the JAX einsums do with preferred_element_type.
 
     int8 codes in k/v come with k_scale/v_scale [B, S, Hkv]: the scores
     take k_scale[slot] after the score scale, and the probabilities
@@ -46,6 +46,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, T, Hq, D = q.shape
     quantized = not (k.is_floating_point() and v.is_floating_point())
     if quantized and k.shape[-1] * 2 == D:
+        # packed int4: k and v each unpack to twice their own width (v
+        # rows may be narrower than k's: DeepSeek's latent cache)
         k, v = unpack_kv4(k), unpack_kv4(v)
     if quantized and k.shape[-1] != D:
         raise ValueError(f"codes of width {k.shape[-1]} for head_dim {D}")

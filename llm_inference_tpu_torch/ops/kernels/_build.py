@@ -53,7 +53,7 @@ SIGNATURES = {
     "flash_attn_launch": [_P] * 7 + [_I] * 7 + [_F, _F, _I, _P],
     "paged_decode_attn_launch": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
     "paged_flash_attn_launch": [_P] * 8 + [_I] * 8 + [_F, _F, _I, _P],
-    "kv_rope_write_launch": [_P] * 11 + [_LL] * 9 + [_I] * 8 + [_P],
+    "kv_rope_write_launch": [_P] * 11 + [_LL] * 9 + [_I] * 9 + [_P],
     "kv_scale_write_launch": [_P] * 5 + [_I] * 3 + [_P],
 }
 

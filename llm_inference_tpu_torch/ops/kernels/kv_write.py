@@ -27,7 +27,11 @@ head) scales over D, quantization.quantize_kv) and writes the codes and
 both scale rows, in place, in one launch. `write_rows` and
 `quantize_write_rows` are the B = 1 forms that take the megakernel's
 outputs as they come, [Hkv, D] rows and one offset (K12,
-ops/kernels/layer_fused.py). All but the scale write launch the one
+ops/kernels/layer_fused.py). Without the RoPE, k and v rows may differ
+in width (DeepSeek's latent cache: k rows of 576 values, v rows of 512,
+or their packed int4 bytes): `write_token` copies each row's own bytes,
+`quantize_write_token` takes widths that are multiples of 32 up to 576
+and quantizes each row over its own. All but the scale write launch the one
 kernel template of `csrc/kv_write.cu` (`kv_rope_write_launch`; without
 the RoPE for the five entry points that take rows as they come), and
 each entry point counts its own launches. CUDA tensors go through the
@@ -153,22 +157,30 @@ def _align(nbytes: int) -> int:
     return w
 
 
+# the widest row K4 takes without the RoPE (kv_write.cu kWideE x 32)
+_WIDE_D = 576
+
+
 def _launch(what, k_all, v_all, ks_all, vs_all, layer, k, v, offsets, kind,
             q=None, cos=None, sin=None, q_out=None):
     """Check the caches and rows and launch `kv_rope_write_launch` on one
-    layer (no count). k/v: [B, T, Hkv, Dr] rows, Dr the head's values (the
-    cache row's bytes for a copy, whose rows are in the cache's dtype)."""
+    layer (no count). k: [B, T, Hkv, D] and v: [B, T, Hkv, Dv] rows, D and
+    Dv the head row's values (the cache row's bytes for a copy, whose rows
+    are in the cache's dtype); Dv = D with the RoPE."""
     from llm_inference_tpu_torch.ops.kernels import _build
     L, B, Hkv, S, Dc = k_all.shape
-    T, D = k.shape[1], k.shape[3]
+    Dcv = v_all.shape[4]
+    T, D, Dv = k.shape[1], k.shape[3], v.shape[3]
     quantized = kind in (_INT8, _INT4)
     want = {_COPY: k_all.dtype, _BF16: torch.bfloat16, _INT8: torch.int8,
             _INT4: torch.int8}[kind]
-    dc = D // 2 if kind == _INT4 else D
+    dc, dcv = (D // 2, Dv // 2) if kind == _INT4 else (D, Dv)
     ok = (k_all.is_contiguous() and v_all.is_contiguous()
-          and v_all.shape == k_all.shape and k_all.dtype == v_all.dtype
-          == want and (kind == _COPY or Dc == dc)
-          and k.shape == v.shape == (B, T, Hkv, D))
+          and v_all.shape[:4] == k_all.shape[:4]
+          and k_all.dtype == v_all.dtype == want
+          and (kind == _COPY or (Dc == dc and Dcv == dcv))
+          and k.shape == (B, T, Hkv, D) and v.shape == (B, T, Hkv, Dv)
+          and (q is None or Dv == D))
     if quantized:
         ok = ok and (ks_all is not None and vs_all is not None
                      and ks_all.is_contiguous() and vs_all.is_contiguous()
@@ -176,15 +188,20 @@ def _launch(what, k_all, v_all, ks_all, vs_all, layer, k, v, offsets, kind,
                      and ks_all.shape == vs_all.shape == (L, B, S, Hkv))
     if not ok:
         raise ValueError(
-            f"{what} needs contiguous {want} caches [L, B, Hkv, S, {dc}] of "
-            "one shape" + (" and float32 scales [L, B, S, Hkv]"
-                           if quantized else "") + f" for rows "
-            f"[B, T, Hkv, {D}], got {tuple(k_all.shape)} {k_all.dtype}, "
-            f"rows {tuple(k.shape)}")
+            f"{what} needs contiguous {want} caches [L, B, Hkv, S, {dc}] and "
+            f"[L, B, Hkv, S, {dcv}]" + (" and float32 scales [L, B, S, Hkv]"
+                                       if quantized else "")
+            + f" for rows [B, T, Hkv, {D}] and [B, T, Hkv, {Dv}], got "
+            f"{tuple(k_all.shape)} {tuple(v_all.shape)} {k_all.dtype}, rows "
+            f"{tuple(k.shape)} {tuple(v.shape)}")
     if T > S:
         raise ValueError(f"{what}: {T} rows do not fit {S} slots")
     size = k.element_size()
-    word = 16 if kind == _COPY else _align(D // 32 * size)
+    # the wide K4 reads its values one by one (kv_write.cu
+    # kv_quant_write_wide): element alignment is enough
+    wide = kind == _INT8 and q is None and (D != Dv or D > 256)
+    word = (16 if kind == _COPY else size if wide
+            else _align(D // 32 * size))
     for t in (k, v) if q is None else (q, k, v):
         if t.stride(3) != 1 or t.data_ptr() % word or any(
                 s * size % word for s in t.stride()[:3]):
@@ -195,7 +212,8 @@ def _launch(what, k_all, v_all, ks_all, vs_all, layer, k, v, offsets, kind,
                           or sin.data_ptr() % 16):
         raise ValueError(f"{what}: q_out, cos and sin must be aligned")
     off = offsets.reshape(B).to(torch.int32).contiguous()
-    code_bytes = B * Hkv * S * Dc * k_all.element_size()
+    k_bytes = B * Hkv * S * Dc * k_all.element_size()
+    v_bytes = B * Hkv * S * Dcv * v_all.element_size()
     scale_bytes = B * S * Hkv * 4
     unit = size if kind == _COPY else 1      # a copy's strides are bytes
     strides = [s * unit for t in (q if q is not None else k, k, v)
@@ -205,18 +223,20 @@ def _launch(what, k_all, v_all, ks_all, vs_all, layer, k, v, offsets, kind,
         return None if t is None else t.data_ptr() + offset
     code = _build.lib().kv_rope_write_launch(
         ptr(q), ptr(k), ptr(v), ptr(cos), ptr(sin), ptr(off), ptr(q_out),
-        ptr(k_all, layer * code_bytes), ptr(v_all, layer * code_bytes),
+        ptr(k_all, layer * k_bytes), ptr(v_all, layer * v_bytes),
         ptr(ks_all, layer * scale_bytes) if quantized else None,
         ptr(vs_all, layer * scale_bytes) if quantized else None,
         *strides, B, T, 0 if q is None else q.shape[2], Hkv, S,
-        D * size if kind == _COPY else D, kind,
+        D * size if kind == _COPY else D, Dv * size if kind == _COPY else Dv,
+        kind,
         int(k.dtype == torch.float32),
         torch.cuda.current_stream(k_all.device).cuda_stream)
     _build.check(code, what)
 
 
 def write_token_ref(k_all, v_all, layer: int, k_new, v_new, offsets):
-    """Plain version. k_new/v_new: [B, Hkv, 1, D]; offsets: [B] int."""
+    """Plain version. k_new [B, Hkv, 1, D], v_new [B, Hkv, 1, Dv];
+    offsets: [B] int."""
     B = k_new.shape[0]
     S = k_all.shape[3]
     off = torch.clamp(offsets.reshape(B).long(), 0, S - 1)
@@ -228,7 +248,8 @@ def write_token_ref(k_all, v_all, layer: int, k_new, v_new, offsets):
 
 def write_token(k_all, v_all, layer: int, k_new, v_new, offsets):
     """Write ONE new token per sequence into [L, B, Hkv, S, D] caches, in
-    place; returns the same cache tensors."""
+    place (the v cache's rows may have another width, [.., Dv]: DeepSeek's
+    latent cache); returns the same cache tensors."""
     if not k_all.is_cuda:
         return write_token_ref(k_all, v_all, layer, k_new, v_new, offsets)
     global launches
@@ -238,14 +259,17 @@ def write_token(k_all, v_all, layer: int, k_new, v_new, offsets):
 
 
 def _write(k_all, v_all, layer, k_new, v_new, offsets, what):
-    """Launch the kernel's copy of [B, Hkv, 1, Dc] rows (no count)."""
-    B, Hkv, Dc = k_all.shape[1], k_all.shape[2], k_all.shape[4]
-    kn = k_new.to(k_all.dtype).reshape(B, 1, Hkv, Dc).contiguous()
-    vn = v_new.to(k_all.dtype).reshape(B, 1, Hkv, Dc).contiguous()
-    if Dc * k_all.element_size() % 16:
-        raise ValueError(f"{what} copies 16-byte vectors; row is "
-                         f"{Dc * k_all.element_size()} B")
-    _launch(what, k_all, v_all, None, None, layer, kn, vn, offsets, _COPY)
+    """Launch the kernel's copy of [B, Hkv, 1, Dc] k rows and [B, Hkv, 1,
+    Dcv] v rows (no count)."""
+    B, Hkv = k_all.shape[1], k_all.shape[2]
+    rows = []
+    for c_all, new in ((k_all, k_new), (v_all, v_new)):
+        dc = c_all.shape[4]
+        if dc * c_all.element_size() % 16:
+            raise ValueError(f"{what} copies 16-byte vectors; a row is "
+                             f"{dc * c_all.element_size()} B")
+        rows.append(new.to(c_all.dtype).reshape(B, 1, Hkv, dc).contiguous())
+    _launch(what, k_all, v_all, None, None, layer, *rows, offsets, _COPY)
 
 
 def write_token_scales_ref(ks_all, vs_all, layer: int, ks_new, vs_new,
@@ -306,10 +330,12 @@ def quantize_write_token_ref(k_all, v_all, ks_all, vs_all, layer: int,
 
 def quantize_write_token(k_all, v_all, ks_all, vs_all, layer: int,
                          k_new, v_new, offsets):
-    """Quantize ONE new token per sequence (k_new/v_new [B, Hkv, 1, D],
-    bf16 or float32) and write its int8 codes into [L, B, Hkv, S, D] and
-    its scales into slot-major [L, B, S, Hkv] float32 caches at slot
-    min(offsets[b], S-1), in place; returns the four cache tensors."""
+    """Quantize ONE new token per sequence (k_new [B, Hkv, 1, D], v_new
+    [B, Hkv, 1, Dv], bf16 or float32; D and Dv multiples of 32 up to 576,
+    each row quantized over its own width) and write its int8 codes into
+    [L, B, Hkv, S, D] and [L, B, Hkv, S, Dv] and its scales into
+    slot-major [L, B, S, Hkv] float32 caches at slot min(offsets[b],
+    S-1), in place; returns the four cache tensors."""
     if not k_all.is_cuda:
         return quantize_write_token_ref(k_all, v_all, ks_all, vs_all, layer,
                                         k_new, v_new, offsets)
@@ -322,16 +348,18 @@ def quantize_write_token(k_all, v_all, ks_all, vs_all, layer: int,
 
 def _quant_write(k_all, v_all, ks_all, vs_all, layer, k_new, v_new, offsets,
                  what):
-    """Launch the kernel's int8 quantize-and-write of [B, Hkv, 1, D] rows
-    (bf16 or float32, D contiguous), without the RoPE (no count)."""
+    """Launch the kernel's int8 quantize-and-write of [B, Hkv, 1, D] k
+    rows and [B, Hkv, 1, Dv] v rows (bf16 or float32, D contiguous),
+    without the RoPE (no count)."""
     dtype = k_new.dtype
     if dtype not in (torch.bfloat16, torch.float32) or v_new.dtype != dtype:
         raise TypeError(f"{what} takes bf16 or float32 rows, got {dtype}")
-    D = k_all.shape[4]
-    if D % 32 or D > 256:
-        raise ValueError(f"{what} takes D % 32 == 0 and D <= 256, got {D}")
     B, Hkv = k_all.shape[1], k_all.shape[2]
-    for t in (k_new, v_new):
+    for t, c_all in ((k_new, k_all), (v_new, v_all)):
+        D = c_all.shape[4]
+        if D % 32 or D > _WIDE_D:
+            raise ValueError(f"{what} takes rows of a multiple of 32 values "
+                             f"up to {_WIDE_D}, got {D}")
         if t.shape != (B, Hkv, 1, D) or t.stride(3) != 1:
             raise ValueError(f"{what} takes [B, Hkv, 1, D] rows with D "
                              f"contiguous, got {tuple(t.shape)} "

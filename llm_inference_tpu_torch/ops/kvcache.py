@@ -1,7 +1,9 @@
 """Dense KV cache: layout, init and in-place update (counterpart of
 `llm_inference_tpu/ops/kvcache.py`).
 
-Both caches are [layers, batch, kv_heads, max_seq, head_dim]. An int8
+Both caches are [layers, batch, kv_heads, max_seq, head_dim] (a family
+may give k and v rows different widths: DeepSeek's latent cache,
+models/deepseek.new_cache). An int8
 cache holds codes there and per-(slot, head) float32 scales SLOT-MAJOR,
 [layers, batch, max_seq, kv_heads], as the JAX package does, so the two
 compare element for element. An int4 cache (bits 4) holds the packed
@@ -80,8 +82,10 @@ def init_cache(num_layers: int, batch: int, num_kv_heads: int, max_seq: int,
 
 def update_cache_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
                        v_new: torch.Tensor, offsets: torch.Tensor) -> KVCache:
-    """Write T new tokens per sequence (k_new/v_new [B, T, Hkv, D]) into
-    ONE layer of the stacked cache at offsets[b], in place."""
+    """Write T new tokens per sequence (k_new [B, T, Hkv, Dk], v_new [B,
+    T, Hkv, Dv]) into ONE layer of the stacked cache at offsets[b], in
+    place. k and v rows may differ in width (DeepSeek's latent cache:
+    576-wide k rows, 512-wide v rows); each is quantized over its own."""
     if k_new.shape[1] == 1:
         kt, vt = k_new.transpose(1, 2), v_new.transpose(1, 2)
         if cache.bits == 8:
@@ -89,14 +93,14 @@ def update_cache_layer(cache: KVCache, layer: int, k_new: torch.Tensor,
                                           cache.v_scale, layer, kt, vt,
                                           offsets)
         elif cache.bits == 4:
-            # K and V rows quantized together (one set of launches)
-            q, s = quantize_kv4(torch.stack([kt, vt]))
-            kv_write.write_token(cache.k, cache.v, layer, q[0], q[1],
-                                 offsets)
+            # K and V quantized apart, as the JAX package does
+            # (kvcache.py:160-162): their rows may differ in width
+            (kq, ks), (vq, vs) = quantize_kv4(kt), quantize_kv4(vt)
+            kv_write.write_token(cache.k, cache.v, layer, kq, vq, offsets)
             # scales [B, Hkv, 1, 1] → one slot-major row [B, 1, Hkv]
             kv_write.write_token_scales(cache.k_scale, cache.v_scale, layer,
-                                        s[0, ..., 0].transpose(1, 2),
-                                        s[1, ..., 0].transpose(1, 2),
+                                        ks[..., 0].transpose(1, 2),
+                                        vs[..., 0].transpose(1, 2),
                                         offsets)
         else:
             kv_write.write_token(cache.k, cache.v, layer, kt, vt, offsets)

@@ -4,6 +4,9 @@ page table per sequence (counterpart of
 
 - Pools [L, P, Hkv, page_size, D] (packed int4: [.., D/2] int8): a page
   holds page_size consecutive tokens of one sequence for every kv head.
+  The k and v pools may differ in width (DeepSeek's latent pool,
+  models/deepseek.new_paged_cache); every write and gather here takes
+  each at its own.
   A quantized pool keeps float32 scales slot-major, [L, P, page_size,
   Hkv], as the JAX package does.
 - page_table [B, max_blocks] int32 maps each sequence's token blocks to
@@ -114,12 +117,14 @@ class PageAllocator:
 
 def _quantize(cache: PagedKVCache, k, v):
     """K and V rows → (codes, codes, scales, scales) in the pool's kind;
-    the scales drop their last unit dim. K and V quantize in one call."""
+    the scales drop their last unit dim. K and V quantize apart, each over
+    its own width (k and v pages may differ in width: DeepSeek's latent
+    pool, paged_kvcache.py:226)."""
     if not cache.quantized:
         return k.to(cache.k_pages.dtype), v.to(cache.v_pages.dtype), None, None
     qfn = quantize_kv4 if cache.bits == 4 else quantize_kv
-    q, s = qfn(torch.stack([k, v]))
-    return q[0], q[1], s[0, ..., 0], s[1, ..., 0]
+    (kq, ks), (vq, vs) = qfn(k), qfn(v)
+    return kq, vq, ks[..., 0], vs[..., 0]
 
 
 def write_token(cache: PagedKVCache, layer: int, k_new: torch.Tensor,

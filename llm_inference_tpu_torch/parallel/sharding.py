@@ -33,8 +33,18 @@ _ROW_SHARDED = {"wo", "w_down"}
 _BIASES = {"bq", "bk", "bv", "bqkv"}
 
 
+# the refusal of every entry point that would shard a mixture-of-experts
+# model (mixtral, DeepSeek) over ranks
+EP_NOT_PORTED = ("expert parallelism (--tp > 1 on a mixture-of-experts "
+                 "model) is not ported yet (ROADMAP.md queue 1, item 10)")
+
+
 def validate_tp(cfg: ModelConfig, tp_size: int) -> None:
-    """The divisibility the sharding rules assume (sharding.py:317-336)."""
+    """The divisibility the sharding rules assume (sharding.py:317-336).
+    A mixture-of-experts model (mixtral, DeepSeek) at tp_size > 1 raises
+    NotImplementedError: its expert parallelism is not ported."""
+    if tp_size > 1 and (cfg.num_experts > 0 or cfg.kv_lora_rank > 0):
+        raise NotImplementedError(f"{cfg.name}: {EP_NOT_PORTED}")
     checks = {"num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
               "vocab_size": cfg.vocab_size,
               "intermediate_size": cfg.intermediate_size}

@@ -1,19 +1,22 @@
 """Checkpoint loading: HuggingFace safetensors directories and the
 reference engine's raw per-tensor .bin directories (counterpart of
-`llm_inference_tpu/utils/checkpoint.py`), for the dense families: llama
-(llama2/3/3.1), mistral, qwen2, qwen3 and phi3 (whose fused qkv_proj and
-gate_up_proj are split), and gemma2 and gemma3 (sandwich-norm keys).
+`llm_inference_tpu/utils/checkpoint.py`): llama (llama2/3/3.1), mistral,
+qwen2, qwen3 and phi3 (whose fused qkv_proj and gate_up_proj are split),
+gemma2 and gemma3 (sandwich-norm keys), mixtral (the block_sparse_moe
+router and experts) and DeepSeek-V3 (models/deepseek.py's two stacks).
 
 Layout conventions (models/llama.py): every matmul weight is stored
 [in, out] (HF stores [out, in], so it is transposed) and stacked over
 layers; the loaders return dense weights in the config's dtype on the
 device (the card unless one is named). Serving quantized weights is
-`llama.quantize_params` then `llama.prepare_params` on the result.
+the family's `quantize_params` then its `prepare_params` on the result
+(llama's for the families without their own).
 
 safetensors files are read by a reader of the port's own (`read_safetensors`:
 an 8-byte little-endian header length, a JSON header, then the raw
-little-endian tensors), so no `safetensors` package is needed. Mixtral,
-DeepSeek and gemma-1 raise NotImplementedError.
+little-endian tensors), so no `safetensors` package is needed. DeepSeek
+V2 and the VL variants (another router), and gemma-1, raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -69,15 +72,20 @@ def _gemma3_layer_types(g):
 def model_config_from_hf(hf_cfg) -> ModelConfig:
     """A ModelConfig from a transformers config object or its dict
     (checkpoint.py:72-174). The name is the HF model_type, which the
-    registry resolves ("gemma3_text" → gemma3). Mixtral, DeepSeek and
-    gemma-1 raise NotImplementedError."""
+    registry resolves ("gemma3_text" → gemma3, "deepseek_v3" →
+    deepseek). DeepSeek V2 and the VL variants, and gemma-1, raise
+    NotImplementedError."""
     def g(k, d=None):
         if isinstance(hf_cfg, dict):
             return hf_cfg.get(k, d)
         return getattr(hf_cfg, k, d)
     family = str(g("model_type", "llama"))
-    if family == "mixtral" or family.startswith("deepseek"):
-        raise NotImplementedError(f"model_type {family!r} is not ported yet")
+    if family.startswith("deepseek") and family != "deepseek_v3":
+        # V2's router is a softmax without the correction bias, and the VL
+        # variants are no text decoders (checkpoint.py:106-114)
+        raise NotImplementedError(
+            f"model_type {family!r} is not ported: only deepseek_v3 is "
+            "served")
     gemma3 = family in ("gemma3", "gemma3_text")
     if family.startswith("gemma") and family != "gemma2" and not gemma3:
         raise NotImplementedError(
@@ -99,6 +107,34 @@ def model_config_from_hf(hf_cfg) -> ModelConfig:
         rope_scaling.setdefault(
             "original_max_position_embeddings",
             g("original_max_position_embeddings", 4096))
+    moe_kw = {}
+    if family == "mixtral":
+        moe_kw = dict(num_experts=g("num_local_experts", 8),
+                      experts_per_token=g("num_experts_per_tok", 2))
+    if family == "deepseek_v3":
+        moe_kw = dict(
+            num_experts=g("n_routed_experts", 0) or 0,
+            experts_per_token=g("num_experts_per_tok", 8) or 8,
+            q_lora_rank=g("q_lora_rank") or 0,
+            kv_lora_rank=g("kv_lora_rank"),
+            qk_nope_head_dim=g("qk_nope_head_dim"),
+            qk_rope_head_dim=g("qk_rope_head_dim"),
+            v_head_dim=g("v_head_dim"),
+            rope_interleave=bool(g("rope_interleave", False)),
+            n_shared_experts=g("n_shared_experts", 0) or 0,
+            moe_intermediate_size=g("moe_intermediate_size", 0) or 0,
+            n_group=g("n_group", 1) or 1,
+            topk_group=g("topk_group", 1) or 1,
+            routed_scaling_factor=g("routed_scaling_factor", 1.0) or 1.0,
+            norm_topk_prob=bool(g("norm_topk_prob", True)),
+            first_k_dense=g("first_k_dense_replace", 0) or 0)
+        if rope_scaling and (rope_scaling.get("rope_type")
+                             or rope_scaling.get("type")) == "yarn":
+            # HF yarn falls back to max_position_embeddings when the
+            # original length is absent: the resolved value goes in
+            rope_scaling = dict(rope_scaling)
+            rope_scaling.setdefault("original_max_position_embeddings",
+                                    g("max_position_embeddings", 4096))
     return ModelConfig(
         name=family,
         vocab_size=g("vocab_size"),
@@ -128,6 +164,7 @@ def model_config_from_hf(hf_cfg) -> ModelConfig:
         final_logit_softcap=g("final_logit_softcapping") or 0.0,
         query_pre_attn_scalar=g("query_pre_attn_scalar") or 0.0,
         scale_embeddings=gemma,
+        **moe_kw,
     )
 
 
@@ -147,13 +184,18 @@ def _as_float_tensor(x) -> torch.Tensor:
 
 def convert_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any], dtype=None,
                           device=None) -> Params:
-    """An HF state dict of a dense family (name → torch tensor or numpy
-    array, keys with or without a leading "model.") → the port's dense
-    params in `dtype` (default cfg.dtype) on `device` (checkpoint.py:
-    187-297): phi3's fused qkv_proj and gate_up_proj split into wq/wk/wv
-    and w_gate/w_up, qwen2's q/k/v biases, qwen3's and gemma3's q_norm and
-    k_norm, gemma's sandwich norms (post_attention_layernorm is the post
-    norm of the attention, pre_feedforward_layernorm the FFN's norm)."""
+    """An HF state dict (name → torch tensor or numpy array, keys with or
+    without a leading "model.") → the port's dense params in `dtype`
+    (default cfg.dtype) on `device` (checkpoint.py:187-297): phi3's fused
+    qkv_proj and gate_up_proj split into wq/wk/wv and w_gate/w_up, qwen2's
+    q/k/v biases, qwen3's and gemma3's q_norm and k_norm, gemma's sandwich
+    norms (post_attention_layernorm is the post norm of the attention,
+    pre_feedforward_layernorm the FFN's norm), mixtral's router [L, H, E]
+    and experts (w1/w3/w2 → e_gate/e_up/e_down [L, E, K, N]); a DeepSeek
+    config goes to deepseek.convert_hf_state_dict."""
+    from llm_inference_tpu_torch.models import deepseek
+    if deepseek.is_deepseek(cfg):
+        return deepseek.convert_hf_state_dict(cfg, sd, dtype, device)
     device = resolve_device(device)
     tdt = _TORCH_DTYPES[_dtype_name(dtype or cfg.dtype)]
     sd = {(k[6:] if k.startswith("model.") else k): v for k, v in sd.items()}
@@ -171,9 +213,11 @@ def convert_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any], dtype=None,
     nkv = cfg.num_kv_heads * cfg.head_dim
     I = cfg.intermediate_size
     # ours → (HF key, rows [a, b) of the [out, in] tensor, or None)
+    moe = cfg.num_experts > 0
     keys = {"attn_norm": ("input_layernorm.weight", None),
-            "wo": ("self_attn.o_proj.weight", None),
-            "w_down": ("mlp.down_proj.weight", None)}
+            "wo": ("self_attn.o_proj.weight", None)}
+    if not moe:
+        keys["w_down"] = ("mlp.down_proj.weight", None)
     if phi3:
         qkv = "self_attn.qkv_proj.weight"
         keys.update(wq=(qkv, (0, nq)), wk=(qkv, (nq, nq + nkv)),
@@ -183,8 +227,11 @@ def convert_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any], dtype=None,
     else:
         keys.update({w: (f"self_attn.{p}_proj.weight", None)
                      for w, p in (("wq", "q"), ("wk", "k"), ("wv", "v"))})
-        keys.update(w_gate=("mlp.gate_proj.weight", None),
-                    w_up=("mlp.up_proj.weight", None))
+        if not moe:
+            keys.update(w_gate=("mlp.gate_proj.weight", None),
+                        w_up=("mlp.up_proj.weight", None))
+    if moe:
+        keys["router"] = ("block_sparse_moe.gate.weight", None)
     if cfg.qkv_bias:
         keys.update({b: (f"self_attn.{p}_proj.bias", None)
                      for b, p in (("bq", "q"), ("bk", "k"), ("bv", "v"))})
@@ -207,10 +254,19 @@ def convert_hf_state_dict(cfg: ModelConfig, sd: Dict[str, Any], dtype=None,
             out.append(t.T if t.dim() == 2 else t)   # [out, in] → [in, out]
         return torch.stack(out).to(tdt).contiguous().to(device)
 
+    layers = {ours: stacked(hf, rows) for ours, (hf, rows) in keys.items()}
+    if moe:
+        # mixtral's sparse MoE block: per-expert w1 (gate), w3 (up), w2
+        # (down), [out, in] each → [L, E, in, out]
+        for ours, w in (("e_gate", "w1"), ("e_up", "w3"), ("e_down", "w2")):
+            layers[ours] = torch.stack([torch.stack([
+                get(f"layers.{i}.block_sparse_moe.experts.{e}.{w}.weight").T
+                for e in range(cfg.num_experts)])
+                for i in range(cfg.num_layers)]).to(tdt).contiguous().to(
+                    device)
     params: Params = {
         "embed": get("embed_tokens.weight").to(tdt).to(device),
-        "layers": {ours: stacked(hf, rows)
-                   for ours, (hf, rows) in keys.items()},
+        "layers": layers,
         "final_norm": get("norm.weight").to(tdt).to(device),
     }
     if not cfg.tie_word_embeddings:

@@ -388,9 +388,11 @@ def test_model_config_from_hf_llama_only(hf_dir):
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
     assert t_ckpt.model_config_from_hf(model.config.to_dict()) == cfg
+    # mixtral and deepseek_v3 are served (test_torch_mixtral.py,
+    # test_torch_deepseek.py); DeepSeek-V2's router is not
     with pytest.raises(NotImplementedError, match="not ported"):
         t_ckpt.model_config_from_hf(dict(model.config.to_dict(),
-                                         model_type="mixtral"))
+                                         model_type="deepseek_v2"))
 
 
 def test_reference_bin_dir_round_trip(hf_dir, tmp_path):
@@ -421,9 +423,11 @@ def test_presets_match_jax():
             assert getattr(cfg, f.name) == getattr(jcfg, f.name), (name,
                                                                     f.name)
     assert t_config.preset("tiny") == t_config.tiny_llama()
-    # mistral-7b and llama3-8b are served since the families slice
-    # (tests/test_torch_families.py); mixtral is not
-    for name in ("mixtral-8x7b", "deepseek-v3", "no-such-model"):
+    # every preset of the JAX package is served (mixtral-8x7b, deepseek-v3
+    # and tiny-deepseek since the mixture-of-experts slice); other names
+    # are not
+    assert set(t_config.PRESETS) - {"tiny"} == set(j_config.PRESETS)
+    for name in ("mixtral-8x22b", "deepseek-v2-lite", "no-such-model"):
         with pytest.raises(NotImplementedError, match="not ported"):
             t_config.preset(name)
 
@@ -463,11 +467,13 @@ def test_cli_chats_with_a_tokenizer(monkeypatch, capsys, tmp_path):
 
 
 # --tp alone is served (tests/test_torch_tp.py); under --tp the ranks
-# still refuse --dp, and the refusal reaches the caller
+# still refuse --dp, and the refusal reaches the caller. mixtral is served
+# (tests/test_torch_mixtral.py), but not over --tp 2 (expert parallelism),
+# which is refused before any rank starts
 @pytest.mark.parametrize("argv", [["--tp", "2", "--dp", "2"], ["--dp", "2"],
                                   ["--lora", "a=b"], ["--asym"],
                                   ["--no-int4-npair"],
-                                  ["--model", "mixtral-8x7b"]])
+                                  ["--model", "mixtral-8x7b", "--tp", "2"]])
 def test_cli_refuses_what_is_not_ported(monkeypatch, capsys, argv):
     with pytest.raises(NotImplementedError, match="not ported"):
         _run_cli(monkeypatch, capsys, ["--device", "cpu"] + argv, ["exit"])

@@ -1667,3 +1667,115 @@ def test_k7_failed_launch_raises(cuda):
                                          43, 1e-5, None)
     with pytest.raises(RuntimeError, match="ffn_fused"):
         _build.check(code, "ffn_fused")
+
+
+# ----------------------------------------- K3/K4 at the latent widths
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("kind", ["bf16", "int4"])
+def test_k3_latent_widths_cuda_matches_plain(cuda, kind, B):
+    """K3 with k rows of 576 values and v rows of 512 (DeepSeek-V3's latent
+    cache, one kv head; bf16 rows, or the int4 cache's packed 288- and
+    256-byte rows with the scale write), an offset past the end: bit for
+    bit the plain version."""
+    g = torch.Generator().manual_seed(60 + B)
+    L, S = 3, 64
+    kD, vD = (576, 512) if kind == "bf16" else (288, 256)
+    off = torch.tensor([5, S + 3, 17, S - 1][:B], dtype=torch.int32)
+    if kind == "bf16":
+        caches = [torch.randn((L, B, 1, S, d), generator=g).to(BF16)
+                  for d in (kD, vD)]
+        new = [torch.randn((B, 1, 1, d), generator=g).to(BF16)
+               for d in (kD, vD)]
+    else:
+        caches = [torch.randint(-128, 128, (L, B, 1, S, d), generator=g,
+                                dtype=torch.int8) for d in (kD, vD)]
+        new = [torch.randint(-128, 128, (B, 1, 1, d), generator=g,
+                             dtype=torch.int8) for d in (kD, vD)]
+    scales = [torch.rand((L, B, S, 1), generator=g) for _ in range(2)]
+    snew = [torch.rand((B, 1, 1), generator=g) for _ in range(2)]
+    dev = [t.to(cuda) for t in caches + scales]
+    before = (t_kvw.launches, t_kvw.scale_launches)
+    t_kvw.write_token(*caches, 2, *new, off)
+    t_kvw.write_token(*dev[:2], 2, *(t.to(cuda) for t in new), off.to(cuda))
+    if kind == "int4":
+        t_kvw.write_token_scales(*scales, 2, *snew, off)
+        t_kvw.write_token_scales(*dev[2:], 2, *(t.to(cuda) for t in snew),
+                                 off.to(cuda))
+    torch.cuda.synchronize()
+    assert (t_kvw.launches, t_kvw.scale_launches) == (
+        before[0] + 1, before[1] + (kind == "int4"))
+    for d, h in zip(dev, caches + scales):
+        assert torch.equal(d.cpu(), h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dtype", [BF16, torch.float32])
+@pytest.mark.parametrize("kD,vD,Hkv", [(576, 512, 1), (512, 512, 1),
+                                       (320, 96, 2)])
+def test_k4_latent_widths_cuda_matches_plain_exactly(cuda, in_dtype, kD, vD,
+                                                     Hkv):
+    """K4 at two widths, or one past 256 (the wide kernel): DeepSeek-V3's
+    latent rows (k 576, v 512), the rows as the model hands them over
+    (column slices of [c_kv | k_rot] and c_kv, strided), B = 4 with an
+    offset past the end; codes and scales bit for bit the plain version,
+    on the CPU and on the card (IEEE divisions there too)."""
+    g = torch.Generator().manual_seed(kD + vD + Hkv)
+    L, B, S = 2, 4, 64
+    caches = [torch.randint(-128, 128, (L, B, Hkv, S, d), generator=g,
+                            dtype=torch.int8) for d in (kD, vD)]
+    caches += [torch.rand((L, B, S, Hkv), generator=g) for _ in range(2)]
+    rows = (torch.randn((B, 1, Hkv, kD + vD + 32), generator=g) * 3).to(
+        in_dtype)
+    rows[1, 0, 0, :kD] = 0.0                        # an all-zero k row
+    kn = rows[..., :kD].transpose(1, 2)
+    vn = rows[..., kD + 32:].transpose(1, 2)
+    off = torch.tensor([0, 9, S - 1, S + 3], dtype=torch.int32)
+    dev = [t.to(cuda) for t in caches]
+    dev_plain = [t.clone() for t in dev]
+    before = t_kvw.quant_launches
+    t_kvw.quantize_write_token(*caches, 1, kn, vn, off)
+    t_kvw.quantize_write_token(*dev, 1, kn.to(cuda), vn.to(cuda),
+                               off.to(cuda))
+    t_kvw.quantize_write_token_ref(*dev_plain, 1, kn.to(cuda), vn.to(cuda),
+                                   off.to(cuda))
+    torch.cuda.synchronize()
+    assert t_kvw.quant_launches == before + 1
+    for a, p, b in zip(dev, dev_plain, caches):
+        assert torch.equal(a.cpu(), b) and torch.equal(p.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,K,N,stack,idx", [
+    # DeepSeek-V3: wkv_a (N = 576), an expert of the last MoE layer's
+    # block of a 2-layer stack (index 1·256 + 255), its down projection
+    (8, 7168, 576, 2, 1),
+    (8, 7168, 2048, 512, 511),
+    (8, 2048, 7168, 512, 300),
+    # Mixtral-8x7B: expert 7 of layer 31 (index 31·8 + 7), int4 g=128
+    (4, 4096, 14336, 256, 255),
+    (4, 14336, 4096, 256, 255)])
+@pytest.mark.parametrize("M", [1, 8, 128])
+def test_k1_expert_stack_index_cuda_matches_plain(cuda, bits, K, N, stack,
+                                                  idx, M):
+    """K1 at the stack indices of the expert stacks [L·E, N, K'] (the
+    weight and scale pointers offset by idx); the stacks hold random
+    codes only at idx (the rest zero) so a wrong offset fails."""
+    g = torch.Generator().manual_seed(idx + M)
+    kb = K // 2 if bits == 4 else K
+    G = K // 128 if bits == 4 else 1
+    q = torch.zeros((stack, N, kb), dtype=torch.int8, device=cuda)
+    q[idx] = torch.randint(-128, 128, (N, kb), generator=g,
+                           dtype=torch.int8).to(cuda)
+    sshape = (stack, N, G) if bits == 4 else (stack, 1, N)
+    scale = torch.zeros(sshape, device=cuda)
+    scale[idx] = (torch.rand(sshape[1:], generator=g) * 1e-3).to(cuda)
+    qt = QTensor(q=q, scale=scale, bits=bits)
+    x = torch.randn((M, K), generator=g).to(BF16).to(cuda)
+    want = t_qm.quant_matmul_ref(x, qt, idx)
+    got = t_qm.quant_matmul(x, qt, idx)
+    torch.cuda.synchronize()
+    assert want.abs().max() > 0
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * want.float().abs().max().item()

@@ -63,10 +63,13 @@ def test_preset_equals_jax_field_for_field(name):
     assert cfg.qkv_out_dim == jcfg.qkv_out_dim
 
 
-@pytest.mark.parametrize("name", ("mixtral-8x7b", "deepseek-v3",
-                                  "tiny-deepseek"))
+# every preset of the JAX package is served since the mixture-of-experts
+# slice (tests/test_torch_mixtral.py, test_torch_deepseek.py): names that
+# neither package has still raise, naming themselves
+@pytest.mark.parametrize("name", ("mixtral-8x22b", "deepseek-v2-lite",
+                                  "gemma-7b"))
 def test_unported_presets_raise(name):
-    assert name in JC.PRESETS
+    assert name not in JC.PRESETS
     with pytest.raises(NotImplementedError, match=name):
         C.preset(name)
 
@@ -98,7 +101,19 @@ def test_registry_llama31_resolves_where_jax_does_not():
 
 @pytest.mark.parametrize("name", ("mixtral-8x7b", "mixtral", "deepseek-v3",
                                   "deepseek_v3", "tiny-deepseek"))
-def test_registry_unported_families_raise_not_implemented(name):
+def test_registry_unported_families_raise_not_implemented(monkeypatch, name):
+    """The port serves these names (test_torch_mixtral.py,
+    test_torch_deepseek.py) and keeps _NOT_PORTED empty; a family listed
+    there and not registered raises NotImplementedError naming it."""
+    from llm_inference_tpu_torch.models import registry
+    assert registry._NOT_PORTED == ()
+    assert get_model(name).__name__.rsplit(".", 1)[1] == \
+        j_registry.get_model(name).__name__.rsplit(".", 1)[1]
+    family = get_model(name)
+    monkeypatch.setattr(registry, "_REGISTRY", {
+        k: v for k, v in registry._REGISTRY.items() if v is not family})
+    monkeypatch.setattr(registry, "_NOT_PORTED",
+                        ("mixtral", "deepseek", "tiny-deepseek"))
     with pytest.raises(NotImplementedError, match="not ported"):
         get_model(name)
 
@@ -343,8 +358,11 @@ def test_model_config_from_hf_matches_jax(family):
                        j_ckpt.model_config_from_hf(d))
 
 
+# mixtral and deepseek_v3 are served (test_torch_mixtral.py,
+# test_torch_deepseek.py); DeepSeek-V2 and its VL variant are not
 @pytest.mark.parametrize("model_type,err", [
-    ("mixtral", NotImplementedError), ("deepseek_v3", NotImplementedError),
+    ("deepseek_v2", NotImplementedError),
+    ("deepseek_vl_v2", NotImplementedError),
     ("gemma", NotImplementedError)])
 def test_model_config_from_hf_refuses_unported(model_type, err):
     d = dict(HF_CONFIGS["mistral"], model_type=model_type)

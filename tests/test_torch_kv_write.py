@@ -197,3 +197,130 @@ def test_rope_supports():
     assert not kv_write.rope_supports(torch.bfloat16, 128, f32, 16)
     assert not kv_write.rope_supports(torch.bfloat16, 80, bf16, 16)
     assert not kv_write.rope_supports(torch.bfloat16, 288, codes, 8)
+
+
+# ------------------------------------------- k and v rows of two widths
+
+LATENT = (576, 512)     # DeepSeek-V3's latent rows: [c_kv | k_rot], c_kv
+
+
+@pytest.mark.parametrize("entry", ["K3", "K4", "K3 int4 + scales"])
+def test_latent_width_writes_plain_match_jax(entry):
+    """The decode writes at DeepSeek-V3's k and v widths (576, 512; one kv
+    head; B = 2 with the second offset past the end), the port's plain
+    versions against JAX's Pallas kernels in interpret mode: K3 copies bf16
+    rows (kv_write.write_token), K4 quantizes each row over its own width
+    (quantize_write_token: codes exact, scales within one float32 ulp, as
+    test_rope_write_plain_matches_jax), and an int4 cache's packed rows
+    (288 and 256 bytes, each quantized by quantize_kv4 apart) go through
+    K3 and the scale write (write_token_scales)."""
+    from llm_inference_tpu.ops.pallas import kv_write as j_kw
+    from llm_inference_tpu.ops import quantization as j_q
+    from llm_inference_tpu_torch.ops import quantization as t_q
+    rng = np.random.default_rng(41)
+    L, B, S = 2, 2, 16
+    kD, vD = LATENT
+    off = np.array([3, S + 5], np.int32)
+    kn = jnp.asarray(rng.normal(0, 2, (B, 1, 1, kD)), jnp.bfloat16)
+    vn = jnp.asarray(rng.normal(0, 2, (B, 1, 1, vD)), jnp.bfloat16)
+    kn = kn.at[1].set(0.0)                       # an all-zero k row
+    t = to_torch
+    if entry == "K3":
+        ka = jnp.asarray(rng.normal(size=(L, B, 1, S, kD)), jnp.bfloat16)
+        va = jnp.asarray(rng.normal(size=(L, B, 1, S, vD)), jnp.bfloat16)
+        want = j_kw.write_token(ka, va, 1, kn, vn, jnp.asarray(off))
+        got = kv_write.write_token(t(ka), t(va), 1, t(kn), t(vn), t(off))
+    elif entry == "K4":
+        ka = jnp.asarray(rng.integers(-128, 128, (L, B, 1, S, kD)), jnp.int8)
+        va = jnp.asarray(rng.integers(-128, 128, (L, B, 1, S, vD)), jnp.int8)
+        ks, vs = (jnp.asarray(rng.random((L, B, S, 1)), jnp.float32)
+                  for _ in range(2))
+        want = j_kw.quantize_write_token(ka, va, ks, vs, 1, kn, vn,
+                                         jnp.asarray(off))
+        got = kv_write.quantize_write_token(t(ka), t(va), t(ks), t(vs), 1,
+                                            t(kn), t(vn), t(off))
+    else:
+        ka = jnp.asarray(rng.integers(-128, 128, (L, B, 1, S, kD // 2)),
+                         jnp.int8)
+        va = jnp.asarray(rng.integers(-128, 128, (L, B, 1, S, vD // 2)),
+                         jnp.int8)
+        ks, vs = (jnp.asarray(rng.random((L, B, S, 1)), jnp.float32)
+                  for _ in range(2))
+        (jkq, jks), (jvq, jvs) = j_q.quantize_kv4(kn), j_q.quantize_kv4(vn)
+        (tkq, tks), (tvq, tvs) = (t_q.quantize_kv4(t(kn)),
+                                  t_q.quantize_kv4(t(vn)))
+        want = (*j_kw.write_token(ka, va, 1, jkq, jvq, jnp.asarray(off)),
+                *j_kw.write_token_scales(ks, vs, 1, jks[..., 0, 0][:, None],
+                                         jvs[..., 0, 0][:, None],
+                                         jnp.asarray(off)))
+        got = (*kv_write.write_token(t(ka), t(va), 1, tkq, tvq, t(off)),
+               *kv_write.write_token_scales(
+                   t(ks), t(vs), 1, tks[..., 0, 0][:, None],
+                   tvs[..., 0, 0][:, None], t(off)))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        if g.dtype == torch.float32 and entry == "K4":
+            np.testing.assert_array_max_ulp(g.numpy(), w, maxulp=1)
+        else:
+            np.testing.assert_array_equal(to_numpy(g), w.astype(
+                np.float32) if g.dtype == torch.bfloat16 else w)
+
+
+@pytest.mark.parametrize("cache", ["dense", "paged"])
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_quantized_writes_take_k_and_v_at_their_own_widths(cache, kind):
+    """update_cache_layer (an 8-row prefill, then two decode steps) and the
+    paged pool's writes (write_prompt_batch, write_token) quantize k and v
+    apart, each over its own width (k 48, v 32: the int4 decode route
+    once stacked them into one tensor, which unequal widths refuse), as
+    JAX's update_cache_layer does: the same codes and scales."""
+    rng = np.random.default_rng(43)
+    L, B, S, ps, kD, vD = 2, 2, 16, 8, 48, 32
+    div = 2 if kind == "int4" else 1
+    bits = 4 if kind == "int4" else 8
+
+    def zeros(*lead):
+        return (np.zeros((*lead, kD // div), np.int8),
+                np.zeros((*lead, vD // div), np.int8),
+                np.zeros((L, lead[1], lead[3], 1), np.float32),
+                np.zeros((L, lead[1], lead[3], 1), np.float32))
+    jc = j_kv.KVCache(*map(jnp.asarray, zeros(L, B, 1, S)), bits=bits)
+    if cache == "dense":
+        tc = kvcache.KVCache(*map(torch.from_numpy, zeros(L, B, 1, S)),
+                             bits=bits)
+    else:
+        tc = paged_kvcache.PagedKVCache(
+            *map(torch.from_numpy, zeros(L, 2 * B + 1, 1, ps)[:2]),
+            page_table=torch.tensor([[3, 1], [2, 4]], dtype=torch.int32),
+            k_scale=torch.zeros((L, 2 * B + 1, ps, 1)),
+            v_scale=torch.zeros((L, 2 * B + 1, ps, 1)), bits=bits)
+    for T, start in ((ps, 0), (1, ps), (1, ps + 1)):
+        kn, vn = (torch.from_numpy(rng.normal(0, 2, (B, T, 1, d)).astype(
+            np.float32)) for d in (kD, vD))
+        off = torch.full((B,), start, dtype=torch.int32)
+        jc = j_kv.update_cache_layer(jc, jnp.int32(1), jnp.asarray(kn),
+                                     jnp.asarray(vn), jnp.asarray(off))
+        if cache == "dense":
+            kvcache.update_cache_layer(tc, 1, kn, vn, off)
+        elif T == 1:
+            paged_kvcache.write_token(tc, 1, kn, vn, off)
+        else:
+            paged_kvcache.write_prompt_batch(tc, 1, kn, vn, 1)
+    n = ps + 2
+    for b in range(B):
+        if cache == "dense":
+            got = [tc.k[1, b, :, :n], tc.v[1, b, :, :n],
+                   tc.k_scale[1, b, :n], tc.v_scale[1, b, :n]]
+        else:
+            got = list(paged_kvcache.gather_dense(tc, 1, b, n))
+            pages = tc.page_table[b].long()
+            got += [s_[1][pages].reshape(-1, 1)[:n]
+                    for s_ in (tc.k_scale, tc.v_scale)]
+        want = [np.asarray(jc.k[1, b, :, :n]), np.asarray(jc.v[1, b, :, :n]),
+                np.asarray(jc.k_scale[1, b, :n]),
+                np.asarray(jc.v_scale[1, b, :n])]
+        for g, w in zip(got, want):
+            if g.dtype == torch.float32:
+                np.testing.assert_array_max_ulp(g.numpy(), w, maxulp=1)
+            else:
+                np.testing.assert_array_equal(g.numpy(), w)
