@@ -129,6 +129,23 @@ width over 5 layers, int8 codes (K1 on wkv_a, wq_b and an expert of the
 last MoE layer, K8 at 2048 rows, generate over the bf16 and int8 latent
 caches and 2500 + 32, both schedulers over the latent cache and pool),
 with launches checked against the forwards and TTFT and tok/s printed.
+Path (xi), multi-LoRA serving (models/lora.py), run after path (v) on
+path (i)'s int8 weights over a bf16 cache: two random rank-16 adapters
+on all seven targets beside the zero slot (lora.init_lora_stacks, scale
+0.25); phase 3 runs the first two layers with the stacks at B = 3 on
+slots 0, 1 and 2, CPU plain vs card kernels (a 32-row prefill and
+teacher-forced decode steps); phase 4 runs `generate` 128 + 32 on the
+base engine and on the LoRA engine's slots 0, 1 and 2 (slot 0 held to
+the base stream under compare_streams' rule, slots 1 and 2 leaving it),
+a 3000-token prompt on adapter 1 (K8, K9), the dense scheduler with
+four requests on slots [0, 1, 2, 1] (each held to its adapter's
+`generate` stream) and the paged scheduler with the prefix cache (one
+3-page prompt on adapters 1, 2, 2: no hit, then every full page), with
+the adapter route's launches counted (K1 with its MMA branch, K2, K8,
+K9, K10a, K11 and the RoPE-and-write kernel ran; K6, K7 and K12 did
+not) and the B = 1 tok/s, the scheduler's tok/s and a decode step's
+profile (fused base, the unfused layer without deltas, the adapter
+step) printed.
 Every check raises on failure. The line before the last
 is a JSON object with one entry per kernel and path; the last is {"ok":
 true, "device": {...}}. Imports nothing of JAX or the JAX package.
@@ -166,7 +183,7 @@ from llm_inference_tpu_torch.engine.engine import ChatSession, InferenceEngine
 from llm_inference_tpu_torch.engine.tokenizer import (BPETokenizer,
                                                       load_tokenizer)
 from llm_inference_tpu_torch.models import (deepseek, gemma2, get_model,
-                                            llama, mixtral)
+                                            llama, lora, mixtral)
 from llm_inference_tpu_torch.ops import kvcache, paged_kvcache
 from llm_inference_tpu_torch.ops.kernels import _build
 from llm_inference_tpu_torch.ops.kernels import decode_attention as k2
@@ -1719,7 +1736,7 @@ def serving_prompts():
     return distinct, [shared + rand(128) for _ in range(16)], rand(3000)
 
 
-def compare_streams(got, want, tol=2e-2):
+def compare_streams(got, want, tol=2e-2, new=SCHED_NEW):
     """(compared, total, largest |difference| of the compared tokens'
     logprobs): the greedy tokens of `got` equal those of `want` step by
     step. Two streams may part only at a near-tie, a step where want's
@@ -1730,7 +1747,7 @@ def compare_streams(got, want, tol=2e-2):
     compared = total = 0
     diff = 0.0
     for g, w in zip(got, want):
-        check(len(g.output_ids) == len(w.output_ids) == SCHED_NEW,
+        check(len(g.output_ids) == len(w.output_ids) == new,
               "served stream length")
         total += len(w.output_ids)
         for j, top in enumerate(w.output_top_logprobs):
@@ -4807,6 +4824,267 @@ def path_moe(gen):
     return moe_entries(tally, lat, k1r)
 
 
+# --------------------------------------------------------------- path (xi)
+
+LORA_RANK = 16
+# A and B scaled so that each delta is a few percent of its projection's
+# output on these random weights: the adapters' streams leave the base
+# stream within LORA_NEW tokens and every logit stays finite
+LORA_SCALE = 0.25
+LORA_NEW = 32                         # greedy tokens of every request
+LORA_PROMPT = 128
+LORA_LONG = 3000                      # two prefill chunks: K8 and K9
+LORA_PAGES = 3                        # full pages of the prefix-cache prompt
+LORA_SLOTS = (0, 1, 2, 1)             # the dense scheduler's requests
+LORA_GEN = GenerationConfig(max_new_tokens=LORA_NEW, **GREEDY)
+LORA_USED = ("K1", "K2", "K8", "K9", "K10a", "K11", "KR")
+LORA_OFF = ("K6", "K7", "K12")        # the fused routes, off under LoRA
+
+
+def first_layers(params, n):
+    """The first n layers of stacked params and of their LoRA stacks
+    (views), with the same embedding, final norm and lm_head."""
+    def cut(v):
+        if isinstance(v, QTensor):
+            return dataclasses.replace(v, q=v.q[:n], scale=v.scale[:n])
+        return v[:n]
+    out = dict(params, layers={k: cut(v)
+                               for k, v in params["layers"].items()})
+    if "lora" in params:
+        out["lora"] = {t: {k: v[:n] for k, v in st.items()}
+                       for t, st in params["lora"].items()}
+    return out
+
+
+def lora_parity(params):
+    """Phase 3: the first two layers of LoRA-stacked int8 LLaMA-2-7B, B = 3
+    with rows on slots 0, 1 and 2, CPU plain vs card kernels: a 32-row
+    prefill (96 rows through K1's MMA branch) and PARITY_STEPS
+    teacher-forced decode steps over 512 slots, under phase_parity's
+    tolerance."""
+    say("phase 3: 2 layers of LLaMA-2-7B int8 with LoRA stacks, rows on "
+        "slots 0/1/2, CPU plain vs GPU kernels")
+    cfg = dataclasses.replace(CFG, num_layers=2)
+    cpu = torch.device("cpu")
+    p_gpu = first_layers(params, 2)
+    p_cpu = llama.params_to(p_gpu, cpu)
+    B, T = 3, 32
+    gen = torch.Generator().manual_seed(SEED + 40)
+    ids = torch.randint(1, cfg.vocab_size, (B, T), generator=gen,
+                        dtype=torch.int32)
+    pos = torch.arange(T, dtype=torch.int32)[None].repeat(B, 1)
+    aidx = torch.tensor([0, 1, 2])
+
+    def new_cache(dev):
+        return kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads,
+                                  MAX_SEQ, cfg.head_dim, BF16, device=dev)
+    errs, finite = [], []
+    before = counts()
+    with torch.no_grad():
+        c_cpu, c_gpu = new_cache(cpu), new_cache(DEV)
+        l_cpu = llama.forward(cfg, p_cpu, ids, pos, c_cpu,
+                              adapter_idx=aidx)[0]
+        l_gpu = llama.forward(cfg, p_gpu, ids.to(DEV), pos.to(DEV), c_gpu,
+                              adapter_idx=aidx.to(DEV))[0]
+        scale = 0.0
+        nxt = torch.full((B, 1), T, dtype=torch.int32)
+        for step in range(PARITY_STEPS + 1):
+            finite.append(bool(torch.isfinite(l_cpu).all())
+                          and bool(torch.isfinite(l_gpu).all()))
+            errs.append((l_gpu.cpu() - l_cpu).abs().max().item())
+            scale = max(scale, l_cpu.abs().max().item())
+            if step == PARITY_STEPS:
+                break
+            tok = l_cpu.argmax(-1).to(torch.int32)[:, None]
+            l_cpu = llama.forward(cfg, p_cpu, tok, nxt, c_cpu,
+                                  adapter_idx=aidx)[0]
+            l_gpu = llama.forward(cfg, p_gpu, tok.to(DEV), nxt.to(DEV),
+                                  c_gpu, adapter_idx=aidx.to(DEV))[0]
+            nxt = nxt + 1
+    d = {c: n - before[c] for c, n in counts().items()}
+    tol = 4 * 2.0 ** -8 * scale
+    say(f"  logits max err per step (prefill, {PARITY_STEPS} decode steps) "
+        f"{['%.4f' % e for e in errs]} (tol {tol:.4f}, max |logit| "
+        f"{scale:.3f}); card launches { {c: n for c, n in d.items() if n} }")
+    check(all(finite), "LoRA parity: non-finite logits")
+    check(max(errs) <= tol, f"LoRA parity: {max(errs)} > {tol}")
+    check(all(d[c] == 0 for c in LORA_OFF) and d["K1"] > 0 and d["KR"] > 0
+          and d["K2"] > 0, f"LoRA parity: launches {d}")
+
+
+def lora_stream(eng, prompt, adapter, req_id):
+    """generate's B = 1 greedy stream on `adapter` as a scheduler Request
+    (tokens, their logprobs and the top-2 logprobs of every step, from the
+    logits each token was picked from), its decode tok/s and its largest
+    |logit|."""
+    with recorded_picks() as picks:
+        res = eng.generate([prompt], LORA_GEN, adapter=adapter)[0]
+    req = scheduler.Request(req_id=req_id, prompt_ids=prompt,
+                            max_new_tokens=LORA_NEW)
+    for tok, logits in picks:
+        check(bool(torch.isfinite(logits).all()),
+              f"LoRA generate on {adapter}: non-finite logits")
+        lp = torch.log_softmax(logits, -1)
+        top = lp.topk(2)
+        req.output_ids.append(int(tok))
+        req.output_logprobs.append(lp[int(tok)].item())
+        req.output_top_logprobs.append(list(zip(top.indices.tolist(),
+                                                top.values.tolist())))
+    check(req.output_ids == res.token_ids and len(res.token_ids) == LORA_NEW,
+          f"LoRA generate on {adapter}: stream")
+    return req, res.decode_tokens_per_s, max(
+        logits.abs().max().item() for _, logits in picks)
+
+
+def lora_run(sched, prompts, adapters):
+    """Submit one request a prompt on its adapter (greedy, top-2
+    logprobs) and step to the end: (requests, wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [sched.submit(p, LORA_NEW, top_logprobs=2, adapter=a)
+            for p, a in zip(prompts, adapters)]
+    while sched.step():
+        pass
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def lora_schedulers(eng, prompt, ref, tie):
+    """The dense scheduler with requests on LORA_SLOTS, admitted one at a
+    time (a 128-row prefill each, as generate's), each held to its
+    adapter's generate stream; then the paged scheduler with the prefix
+    cache: one 3-page prompt under adapters 1, 2 and 2 again (no hit, then
+    every full page; the repeat's stream held to the second's). Streams
+    may part at a top-2 gap below `tie`."""
+    sched = scheduler.ContinuousBatchingScheduler(eng, LORA_GEN, slots=4)
+    sched.wave_admission = False
+    reqs, wall = lora_run(sched, [prompt] * 4, LORA_SLOTS)
+    same = [compare_streams([r], [ref[a]], tol=tie, new=LORA_NEW)[0]
+            for r, a in zip(reqs, LORA_SLOTS)]
+    check(not sched.aidx_host.any(), "retired slots keep an adapter")
+    tokens = sum(len(r.output_ids) for r in reqs)
+    say(f"  dense scheduler, 4 slots on adapters {list(LORA_SLOTS)}: "
+        f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tok/s; "
+        f"tokens equal to generate's on each adapter {same} of {LORA_NEW}")
+    del sched
+    g = torch.Generator().manual_seed(SEED + 41)
+    long_prompt = torch.randint(1, CFG.vocab_size, (LORA_PAGES * PAGE + 16,),
+                                generator=g).tolist()
+    sched = scheduler.PagedScheduler(eng, LORA_GEN, slots=2, num_pages=16,
+                                     prefix_cache=True)
+    hits, out = [], []
+    for a in (1, 2, 2):
+        before = sched.store.hit_tokens
+        out += lora_run(sched, [long_prompt], (a,))[0]
+        hits.append(sched.store.hit_tokens - before)
+    check(hits == [0, 0, LORA_PAGES * PAGE],
+          f"prefix cache across adapters: hit tokens {hits}")
+    check(out[0].output_ids != out[1].output_ids,
+          "adapters 1 and 2 gave one stream on the paged scheduler")
+    c, t, _ = compare_streams([out[2]], [out[1]], tol=tie, new=LORA_NEW)
+    say(f"  paged scheduler + prefix cache, a {len(long_prompt)}-token "
+        f"prompt on adapters 1, 2, 2: hit tokens {hits}; the repeat's "
+        f"stream equals the second's ({c}/{t} tokens compared)")
+    del sched
+
+
+def path_lora(params8):
+    """Path (xi): multi-LoRA serving on the int8 weights of path (i), two
+    random rank-16 adapters on all seven targets beside the zero slot."""
+    t0 = time.perf_counter()
+    smi = card_line()
+    say(f"path (xi): multi-LoRA on LLaMA-2-7B int8 (path (i)'s weights), "
+        f"bf16 cache; card: {smi}")
+    g = torch.Generator(device=DEV).manual_seed(SEED + 42)
+    stacks = lora.init_lora_stacks(CFG, LORA_RANK, 2, g,
+                                   targets=tuple(lora._DIMS),
+                                   scale=LORA_SCALE)
+    nbytes = sum(v.numel() * 4 for st in stacks.values()
+                 for v in st.values())
+    say(f"  stacks: rank {LORA_RANK}, 3 slots, {len(stacks)} targets, "
+        f"{nbytes / 1e9:.3f} GB float32")
+    lparams = dict(params8, lora=stacks)
+    lora_parity(lparams)
+    say("phase 4: generate, the dense and the paged scheduler on full-depth "
+        "LLaMA-2-7B int8 with the stacks")
+    ecfg = EngineConfig(max_seq_len=LONG_SEQ, decode_chunk=8, page_size=PAGE)
+    base = InferenceEngine(CFG, params8, engine_cfg=ecfg, cache_dtype=BF16,
+                           device=DEV)
+    eng = InferenceEngine(CFG, lparams, engine_cfg=ecfg, cache_dtype=BF16,
+                          device=DEV, adapter_names=["a1", "a2"])
+    g = torch.Generator().manual_seed(SEED + 43)
+    prompt = torch.randint(1, CFG.vocab_size, (LORA_PROMPT,),
+                           generator=g).tolist()
+    long_prompt = torch.randint(1, CFG.vocab_size, (LORA_LONG,),
+                                generator=g).tolist()
+    base.generate([prompt[:8]], GenerationConfig(max_new_tokens=2, **GREEDY))
+    ref_base, base_tps, top = lora_stream(base, prompt, None, -1)
+    torch.cuda.synchronize()
+    zero_counts()
+    ref, tps = {}, {}
+    for slot in (0, 1, 2):
+        ref[slot], tps[slot], t_ = lora_stream(eng, prompt, slot, slot)
+        top = max(top, t_)
+    # two routes over bf16 activations (B = 1 against B = 4, the fused
+    # layer against the unfused one) give logits that differ by phase 3's
+    # tolerance, 4 bf16 steps of 2^-8 of the largest logit, and may break
+    # a tie within that distance either way (compare_streams' default
+    # 2e-2 is two such steps of a logit of 2.5)
+    tie = max(2e-2, 4 * 2.0 ** -8 * top)
+    c, t, diff = compare_streams([ref[0]], [ref_base], tol=tie,
+                                 new=LORA_NEW)
+    check(ref[1].output_ids != ref_base.output_ids
+          and ref[2].output_ids != ref_base.output_ids,
+          "an adapter's stream equals the base stream")
+    parted = [next((j for j, (x, y) in enumerate(zip(
+        ref[s].output_ids, ref_base.output_ids)) if x != y), None)
+        for s in (1, 2)]
+    say(f"  generate {LORA_PROMPT} + {LORA_NEW}: slot 0 vs the base engine "
+        f"{c}/{t} tokens compared (logprob diff {diff:.4f}, near-tie gap "
+        f"{tie:.4f}, max |logit| {top:.3f}); slots 1 and 2 leave the base "
+        f"stream at tokens {parted}")
+    long = eng.generate([long_prompt], dataclasses.replace(
+        LORA_GEN, max_new_tokens=8), adapter="a1")[0]
+    check(len(long.token_ids) == 8, "LoRA long prompt: stream length")
+    say(f"  generate {LORA_LONG} + 8 on a1: TTFT {long.ttft_s * 1e3:.1f} ms")
+    lora_schedulers(eng, prompt, ref, tie)
+    torch.cuda.synchronize()
+    got = counts()
+    got["K1 MMA"] = k1.mma_launches
+    say(f"  launches (phase 4): { {c: n for c, n in got.items() if n} }")
+    check(all(got[c] > 0 for c in LORA_USED) and got["K1 MMA"] > 0,
+          f"path (xi): a kernel of the adapter route never ran: {got}")
+    check(all(got[c] == 0 for c in LORA_OFF),
+          f"path (xi): a fused route ran under LoRA: {got}")
+    say(f"  B = 1 decode ({smi}): LoRA engine on a1 {tps[1]:.1f} tok/s, "
+        f"on slot 0 {tps[0]:.1f} tok/s; base engine {base_tps:.1f} tok/s")
+    # where a step's time goes: the fused base step, the unfused layer with
+    # no delta (stacks present but empty), the adapter step
+    cache = eng.new_cache(1)
+    tok = torch.tensor([[prompt[0]]], dtype=torch.int32, device=DEV)
+    pos = torch.full((1, 1), LORA_PROMPT, dtype=torch.int32, device=DEV)
+    last = torch.zeros((1,), dtype=torch.long, device=DEV)
+    one = torch.ones((1,), dtype=torch.long, device=DEV)
+    nodelta = dict(params8, lora={})
+
+    def step(p, **kw):
+        return lambda: llama.forward(CFG, p, tok, pos, cache, last_idx=last,
+                                     rope_tables=eng._rope, **kw)
+    say("  where a B = 1 decode step's time goes:")
+    prof = dict(fused=step_profile("base, fused route", step(params8)),
+                plain=step_profile("unfused layer, no delta",
+                                   step(nodelta)),
+                lora=step_profile("LoRA on a1", step(lparams,
+                                                     adapter_idx=one)))
+    delta = prof["lora"]["busy_ms"] - prof["plain"]["busy_ms"]
+    say(f"  the deltas' share of the LoRA step's device time: "
+        f"{delta / prof['lora']['busy_ms']:.3f} ({delta:.3f} of "
+        f"{prof['lora']['busy_ms']:.3f} ms)")
+    del cache, eng, base, stacks, lparams
+    torch.cuda.empty_cache()
+    say(f"path (xi) took {time.perf_counter() - t0:.1f} s ({smi})")
+
+
 def main():
     t_start = time.perf_counter()
     phase_card()
@@ -4825,6 +5103,9 @@ def main():
     torch.cuda.empty_cache()
     kernels += path_chat(gen, params8, shared["params"])
     say(f"path (v) done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    path_lora(params8)
+    say(f"path (xi) done at {time.perf_counter() - t_start:.1f} s")
     del params8
     torch.cuda.empty_cache()
     kernels += path_tp(gen, shared["params"])

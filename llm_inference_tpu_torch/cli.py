@@ -27,16 +27,22 @@ Usage:
   python -m llm_inference_tpu_torch.cli --model llama2-7b --tp 2 \
       --quant int4 --group-size 128 --kv-cache int8   # tensor-parallel
   python -m llm_inference_tpu_torch.cli --device cpu --tp 2 --quant int8
+  python -m llm_inference_tpu_torch.cli --model llama2-7b --quant int8 \
+      --lora sql=/path/to/peft_sql --lora chat=/path/to/peft_chat
 
+--lora NAME=PEFT_DIR (repeatable) loads HF peft adapters
+(models/lora.load_peft_adapter) into LoRA stacks served beside the base
+model of a llama-family model on one device; the REPL's
+"adapter <name|base>" switches adapters and starts a new session.
 LLMI_LAYER_MEGA=1 in the environment runs single-sequence decode through
 the whole-layer megakernel (models/llama.layer_route). --tp N serves the
 model over N tensor-parallel ranks from this one command, as the JAX CLI
 does: this process is rank 0 and keeps the REPL, ranks 1..N-1 are spawned
 (parallel.run_ranks; NCCL when every rank has a card of its own, else
 gloo), each line goes to every rank (broadcast_object), every rank runs
-it and rank 0 prints. --dp above 1, --lora, --asym, --no-int4-npair and
---tp above 1 on a mixture-of-experts model (mixtral, DeepSeek: expert
-parallelism) are not ported and raise.
+it and rank 0 prints. --dp above 1, --lora with --tp above 1, --asym,
+--no-int4-npair and --tp above 1 on a mixture-of-experts model (mixtral,
+DeepSeek: expert parallelism) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -58,11 +64,7 @@ def build_engine(args, tp=None):
     from llm_inference_tpu_torch.parallel import sharding
     from llm_inference_tpu_torch.utils import checkpoint
 
-    for flag, on in (("--dp > 1", args.dp > 1), ("--lora", bool(args.lora)),
-                     ("--asym", args.asym),
-                     ("--no-int4-npair", args.int4_npair is False)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported")
+    refuse_unported(args)
     device = tp.device if tp is not None else resolve_device(args.device)
     lead = tp is None or tp.rank == 0
     qcfg = C.QuantConfig(weights=args.quant, group_size=args.group_size)
@@ -93,6 +95,22 @@ def build_engine(args, tp=None):
         params = llama.pad_params_for_tp(params, cfg, args.tp)
         params = quantize(params, qcfg, row_shards=args.tp)
     params = prepare(params, tp_size=args.tp)
+    adapter_names = None
+    if args.lora:
+        # multi-LoRA serving (cli.py:95-126): requests pick adapters by
+        # name (generate/ChatSession adapter=, the scheduler, /v1 model)
+        from llm_inference_tpu_torch.models import lora
+        adapters, scalings, adapter_names = [], [], []
+        for spec in args.lora:
+            name, _, path = spec.partition("=")
+            if not name or not path:
+                raise SystemExit(f"--lora expects name=path, got {spec!r}")
+            ad, sc = lora.load_peft_adapter(cfg, path)
+            adapter_names.append(name)
+            adapters.append(ad)
+            scalings.append(sc)
+        params = dict(params, lora=lora.stack_adapters(
+            cfg, adapters, scaling=scalings, device=device))
     tokenizer = load_tokenizer(args.tokenizer) if args.tokenizer else None
     eng_cfg = C.EngineConfig(max_seq_len=args.max_seq_len,
                              decode_chunk=args.decode_chunk)
@@ -100,18 +118,32 @@ def build_engine(args, tp=None):
                    else torch.bfloat16)
     return InferenceEngine(cfg, params, engine_cfg=eng_cfg,
                            tokenizer=tokenizer, cache_dtype=cache_dtype,
-                           device=device, tp=tp)
+                           device=device, tp=tp, adapter_names=adapter_names)
+
+
+def refuse_unported(args) -> None:
+    """Raise NotImplementedError for the flags whose machinery the port
+    lacks: --dp above 1, --lora with --tp above 1, --asym, --no-int4-npair."""
+    for flag, on in (("--dp > 1", args.dp > 1),
+                     ("--lora with --tp > 1", bool(args.lora) and args.tp > 1),
+                     ("--asym", args.asym),
+                     ("--no-int4-npair", args.int4_npair is False)):
+        if on:
+            raise NotImplementedError(f"{flag} is not ported")
 
 
 def refuse_before_ranks(args) -> None:
     """Raise, before any rank is spawned, where --tp N cannot serve the
-    model: a mixture-of-experts family (no expert parallelism) or widths
-    that do not split over N (parallel.sharding.validate_tp)."""
+    model: LoRA adapters (not ported over TP), a mixture-of-experts family
+    (no expert parallelism) or widths that do not split over N
+    (parallel.sharding.validate_tp)."""
     import json
     import os
     from llm_inference_tpu_torch import config as C
     from llm_inference_tpu_torch.parallel import sharding
     from llm_inference_tpu_torch.utils import checkpoint
+    if args.lora:
+        refuse_unported(args)
     if args.checkpoint:
         with open(os.path.join(args.checkpoint, "config.json")) as f:
             cfg = checkpoint.model_config_from_hf(json.load(f))
@@ -137,10 +169,12 @@ def serve(tp, args):
                            greedy=args.greedy)
     if lead and engine.tokenizer is None:
         print("[cli] no tokenizer: echoing token ids for dummy runs")
+    adapter = None
     session = ChatSession(engine)
     if lead:
         print("Ready. Type your message ('exit' to quit, 'reset' to clear "
-              "history).")
+              "history" + (", 'adapter <name|base>' to switch LoRA"
+                           if engine.adapter_slots else "") + ").")
     while True:
         line = None
         if lead:
@@ -155,11 +189,26 @@ def serve(tp, args):
         if line == "exit":
             break
         if line == "reset":
-            session = ChatSession(engine)
+            session = ChatSession(engine, adapter=adapter)
+            continue
+        if line == "adapter" or line.startswith("adapter "):
+            name = line[len("adapter"):].strip()
+            want = None if name in ("", "base") else name
+            try:
+                engine.resolve_adapter(want)
+            except ValueError as e:
+                if lead:
+                    print(f"[cli] {e}")
+                continue
+            adapter = want
+            # the resident history was written under the old adapter
+            session = ChatSession(engine, adapter=adapter)
+            if lead:
+                print(f"[cli] adapter: {adapter or 'base'} (history reset)")
             continue
         if engine.tokenizer is None:
             # dummy mode: feed fixed ids, print the sampled ids
-            res = engine.generate([[1, 2, 3, 4]], gen)[0]
+            res = engine.generate([[1, 2, 3, 4]], gen, adapter=adapter)[0]
             if lead:
                 print("ids>", res.token_ids)
             continue
@@ -196,7 +245,9 @@ def add_engine_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--kv-cache", default="bf16",
                     choices=["bf16", "int8", "int4"])
     ap.add_argument("--lora", action="append", default=None,
-                    metavar="NAME=PEFT_DIR", help="not ported")
+                    metavar="NAME=PEFT_DIR",
+                    help="load an HF peft LoRA adapter for multi-LoRA "
+                         "serving (repeatable; one device only)")
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--max-seq-len", type=int, default=2048)

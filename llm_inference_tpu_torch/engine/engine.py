@@ -21,9 +21,13 @@ logprobs from `logits_mode="all"` forwards, chunked over one cache, and
 `window_forward` runs a [B, T] window at per-row positions (speculative
 verification and a draft cache's catch-up), and `expand_cache` /
 `reorder_cache` copy a dense cache's rows, codes and scales, for beam
-search. There is
-no LoRA or data parallelism: `data_parallel` is 1, `has_lora` False,
-`adapter_slots` empty. With `tp` (a parallel.TPGroup, the counterpart of
+search. Multi-LoRA serving (engine.py:127-139, 189-218): with adapter
+stacks in params["lora"] (models/lora.py; the llama family only) and
+`adapter_names`, `generate(adapter=)` and `ChatSession(adapter=)` take a
+name or slot, or one a row, and every forward passes each row's slot
+(`adapter_idx`); a base request on such an engine runs slot 0 through the
+same unfused layer. There is no data parallelism: `data_parallel` is 1.
+With `tp` (a parallel.TPGroup, the counterpart of
 the JAX engine's `mesh=`, engine.py:86-112) the engine is one rank of a
 tensor-parallel model: it shards the full parameters it is given, builds
 caches of its kv heads, and every forward is the TP forward; every rank
@@ -49,7 +53,7 @@ import torch
 from llm_inference_tpu_torch import resolve_device
 from llm_inference_tpu_torch.config import (EngineConfig, GenerationConfig,
                                             ModelConfig)
-from llm_inference_tpu_torch.models import registry
+from llm_inference_tpu_torch.models import llama, registry
 from llm_inference_tpu_torch.ops import kvcache, paged_kvcache, sampling
 from llm_inference_tpu_torch.parallel import sharding
 from llm_inference_tpu_torch.parallel.mesh import TPGroup
@@ -71,13 +75,16 @@ class InferenceEngine:
     def __init__(self, cfg: ModelConfig, params, *,
                  engine_cfg: Optional[EngineConfig] = None,
                  tokenizer=None, cache_dtype=torch.bfloat16, device=None,
-                 tp: Optional[TPGroup] = None):
+                 tp: Optional[TPGroup] = None,
+                 adapter_names: Optional[Sequence[str]] = None):
         """`params`: the model's prepared parameters (llama.prepare_params
         with tp_size = tp.size under tensor parallelism, where the engine
         keeps its rank's shard of them and runs on tp.device). The family's
         module comes from the registry by cfg.name (llama and the families
         on it, gemma2 and gemma3, mixtral, DeepSeek), and with it the RoPE
-        tables and, where the module has them, the cache constructors."""
+        tables and, where the module has them, the cache constructors.
+        params["lora"] (LoRA stacks, llama family, one card) serves
+        adapters; `adapter_names` names slots 1, 2, ... of them."""
         self.cfg = cfg
         self.engine_cfg = engine_cfg or EngineConfig()
         self.tokenizer = tokenizer
@@ -93,6 +100,22 @@ class InferenceEngine:
                 f"decode attention fall off the kernels to the plain path. "
                 f"Round up to {-(-S // 128) * 128}.")
         self.tp = tp if tp is not None and tp.size > 1 else None
+        # the family's module (models/llama.py, models/gemma2.py), as the
+        # JAX engine takes it from the registry (engine.py:87-88)
+        self._model = registry.get_model(cfg.name)
+        self.has_lora = isinstance(params, dict) and "lora" in params
+        if self.has_lora:
+            # the JAX engine takes stacks on any family, but only llama's
+            # forward reads them: gemma2/mixtral/DeepSeek would serve base
+            # requests without them and fail on a named adapter
+            if self._model is not llama:
+                raise NotImplementedError(
+                    f"LoRA adapters serve the llama family only; "
+                    f"{cfg.name} ({self._model.__name__}) takes no "
+                    f"adapter_idx")
+            if self.tp is not None:
+                raise NotImplementedError("LoRA under tensor parallelism is "
+                                          "not ported yet")
         self.kv_heads = cfg.num_kv_heads
         if self.tp is not None:
             sharding.validate_tp(cfg, tp.size)
@@ -102,10 +125,17 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.params = params
         self.metrics = Metrics()
-        self.adapter_slots: Dict[str, int] = {}   # no LoRA stacks
-        # the family's module (models/llama.py, models/gemma2.py), as the
-        # JAX engine takes it from the registry (engine.py:87-88)
-        self._model = registry.get_model(cfg.name)
+        # adapter name → stack slot (engine.py:127-139)
+        self.adapter_slots: Dict[str, int] = {}
+        self.num_adapters = 0
+        if self.has_lora:
+            n_slots = next(iter(params["lora"].values()))["a"].shape[1]
+            names = list(adapter_names or [])
+            if len(names) > n_slots - 1:
+                raise ValueError(f"{len(names)} adapter names but only "
+                                 f"{n_slots - 1} live slots")
+            self.adapter_slots = {n: i + 1 for i, n in enumerate(names)}
+            self.num_adapters = n_slots - 1
         self._rope = self._model.rope_table(cfg, self.engine_cfg.max_seq_len,
                                             self.device)
 
@@ -162,31 +192,65 @@ class InferenceEngine:
                 out.append(list(p))
         return out
 
-    # no data-parallel mesh and no LoRA stacks in the port (engine.py:129,
-    # 435-441)
+    # no data-parallel mesh in the port (engine.py:435-441)
     data_parallel = 1
-    has_lora = False
 
     def resolve_adapter(self, adapter) -> int:
-        """Adapter name/slot → LoRA stack slot: None is the base model
-        (0); the port has no adapters, so anything else raises."""
+        """Adapter name/slot → LoRA stack slot (0 = the base model;
+        engine.py:189-204)."""
         if adapter is None:
             return 0
-        raise NotImplementedError("LoRA adapters are not ported yet")
+        if not self.has_lora:
+            raise ValueError("engine has no LoRA stacks loaded")
+        if isinstance(adapter, str):
+            if adapter not in self.adapter_slots:
+                raise ValueError(f"unknown adapter {adapter!r}; have "
+                                 f"{sorted(self.adapter_slots)}")
+            return self.adapter_slots[adapter]
+        slot = int(adapter)
+        if not 0 <= slot <= self.num_adapters:
+            raise ValueError(f"adapter slot {slot} out of range "
+                             f"[0, {self.num_adapters}]")
+        return slot
 
-    def _forward(self, ids, positions, cache, last_idx, paged_history=False):
-        """The one forward every path runs: last-token logits [B, V]."""
+    def _adapter_rows(self, adapter, batch: int) -> Optional[torch.Tensor]:
+        """`adapter` (None, a name or slot, or one of them a row) → the
+        rows' slots [B] int64 on the device, or None when every row is the
+        base model (engine.py:206-218)."""
+        if adapter is None:
+            return None
+        if isinstance(adapter, (list, tuple)):
+            if len(adapter) != batch:
+                raise ValueError(f"{len(adapter)} adapters for {batch} "
+                                 f"prompts")
+            slots = [self.resolve_adapter(a) for a in adapter]
+        else:
+            slots = [self.resolve_adapter(adapter)] * batch
+        if not any(slots):
+            return None
+        return torch.tensor(slots, dtype=torch.long, device=self.device)
+
+    def _forward(self, ids, positions, cache, last_idx, paged_history=False,
+                 adapter_idx=None):
+        """The one forward every path runs: last-token logits [B, V];
+        adapter_idx [B] the rows' LoRA slots (passed on only when set)."""
+        kw = {} if adapter_idx is None else {"adapter_idx": adapter_idx}
         return self._model.forward(self.cfg, self.params, ids, positions,
                                    cache, logits_mode="last",
                                    last_idx=last_idx, rope_tables=self._rope,
-                                   paged_history=paged_history, tp=self.tp)
+                                   paged_history=paged_history, tp=self.tp,
+                                   **kw)
 
     def paged_forward(self, history: bool = False) -> Callable:
         """The forward over a paged cache, f(ids, positions, cache,
-        last_idx) → (logits, cache); history=True attends a chunk over the
-        sequence's earlier pages (engine.py:160-187)."""
-        return lambda ids, positions, cache, last_idx: self._forward(
-            ids, positions, cache, last_idx, paged_history=history)
+        last_idx, adapter_idx=None) → (logits, cache); history=True
+        attends a chunk over the sequence's earlier pages
+        (engine.py:160-187)."""
+        def fwd(ids, positions, cache, last_idx, adapter_idx=None):
+            kw = {} if adapter_idx is None else {"adapter_idx": adapter_idx}
+            return self._forward(ids, positions, cache, last_idx,
+                                 paged_history=history, **kw)
+        return fwd
 
     def _fwd_for(self, cache) -> Callable:
         if isinstance(cache, paged_kvcache.PagedKVCache):
@@ -252,20 +316,23 @@ class InferenceEngine:
     @torch.no_grad()
     def _decode_chunk_fn(self, cache, token, pos, counts=None, seen=None,
                          bias=None, *, steps: int, gen: GenerationConfig,
-                         generator=None, logprobs: bool = True):
+                         generator=None, logprobs: bool = True, aidx=None):
         """`steps` decode forwards over every row with static sampling
         knobs (engine.py:267-310); each step's token feeds the next on the
         device, with no host sync. token/pos [B]: the last token and its
         position; counts/seen the penalties' state (updated in place) and
         bias a [B, V] logit bias, which shape the pick but not the
-        logprobs. Returns (tokens [B, steps] int32, their logprobs [B,
-        steps] float32 or None without `logprobs`, cache, token, pos)."""
+        logprobs; aidx [B] the rows' LoRA slots. Returns (tokens [B,
+        steps] int32, their logprobs [B, steps] float32 or None without
+        `logprobs`, cache, token, pos)."""
         B = token.shape[0]
         zeros = torch.zeros((B,), dtype=torch.long, device=token.device)
         fwd = self._fwd_for(cache)
+        akw = {} if aidx is None else {"adapter_idx": aidx}
         toks, lps = [], []
         for _ in range(steps):
-            logits, cache = fwd(token[:, None], pos[:, None], cache, zeros)
+            logits, cache = fwd(token[:, None], pos[:, None], cache, zeros,
+                                **akw)
             token = self._pick(logits, gen, generator, counts, seen, bias)
             toks.append(token)
             if logprobs:
@@ -289,7 +356,8 @@ class InferenceEngine:
                               greedy, minp, seeds, counts=None, seen=None,
                               rep=None, pres=None, freq=None, bias=None,
                               gmask=None, gtrans=None, cidx=None,
-                              dstate=None, *, steps: int, max_top_k: int,
+                              dstate=None, aidx=None, *, steps: int,
+                              max_top_k: int,
                               use_top_p: bool = True,
                               use_min_p: bool = False,
                               use_penalties: bool = False, top_n: int = 0):
@@ -301,7 +369,8 @@ class InferenceEngine:
         row's logit bias. Guided decoding: gmask [C, S, V] bool and gtrans
         [C, S, V] int are the stacked DFA tables, cidx [B] each row's
         constraint and dstate [B] int32 its DFA state (-1: unconstrained);
-        the state moves on the device from step to step. With top_n > 0
+        the state moves on the device from step to step. aidx [B]: the
+        rows' LoRA slots. With top_n > 0
         also returns each step's top_n logprobs and ids [B, steps, top_n],
         else None. Returns (tokens, logprobs, cache, token, pos, top
         values, top ids, dstate)."""
@@ -310,9 +379,11 @@ class InferenceEngine:
         zeros = torch.zeros((B,), dtype=torch.long, device=token.device)
         rows = torch.arange(B, device=token.device)
         fwd = self._fwd_for(cache)
+        akw = {} if aidx is None else {"adapter_idx": aidx}
         toks, lps, tvs, tis = [], [], [], []
         for _ in range(steps):
-            logits, cache = fwd(token[:, None], pos[:, None], cache, zeros)
+            logits, cache = fwd(token[:, None], pos[:, None], cache, zeros,
+                                **akw)
             allowed = st = None
             if gmask is not None:
                 st = torch.clamp(dstate, min=0).long()
@@ -347,9 +418,12 @@ class InferenceEngine:
 
     @torch.no_grad()
     def prefill(self, token_lists: List[List[int]], cache=None,
-                start_positions: Optional[Sequence[int]] = None):
+                start_positions: Optional[Sequence[int]] = None,
+                adapter_idx: Optional[torch.Tensor] = None):
         """Prefill a batch of prompts (optionally continuing a cache at
-        per-sequence offsets). Returns (logits [B, V] float32, cache)."""
+        per-sequence offsets; adapter_idx [B] the rows' LoRA slots).
+        Returns (logits [B, V] float32, cache)."""
+        akw = {} if adapter_idx is None else {"adapter_idx": adapter_idx}
         B = len(token_lists)
         starts = list(start_positions or [0] * B)
         longest = max(len(t) + s for t, s in zip(token_lists, starts))
@@ -387,7 +461,7 @@ class InferenceEngine:
             logits, cache = self._forward(
                 torch.from_numpy(ids).to(self.device),
                 torch.from_numpy(pos).to(self.device), cache,
-                torch.from_numpy(last).to(self.device))
+                torch.from_numpy(last).to(self.device), **akw)
             if n_chunks > 1:
                 # keep the logits of rows whose prompt ended in this chunk
                 if final is None:
@@ -489,12 +563,14 @@ class InferenceEngine:
     def generate(self, prompts: Sequence[Union[str, Sequence[int]]],
                  gen: Optional[GenerationConfig] = None,
                  stream: Optional[Callable[[int, int, str], None]] = None,
-                 ) -> List[GenerationResult]:
+                 adapter=None) -> List[GenerationResult]:
         """Batch generation. `stream(row, token_id, text_piece)` is called
-        as tokens arrive."""
+        as tokens arrive. `adapter`: a LoRA adapter's name or slot for
+        every row, or one a prompt (engine.py:752-778)."""
         gen = gen or GenerationConfig()
         token_lists = self._encode_prompts(prompts)
         B = len(token_lists)
+        aidx = self._adapter_rows(adapter, B)
         bias = self._bias_rows(gen.logit_bias, B)
         lengths = np.array([len(t) for t in token_lists], np.int32)
         need = int(lengths.max()) + gen.max_new_tokens
@@ -506,7 +582,7 @@ class InferenceEngine:
         generator = torch.Generator(device=self.device).manual_seed(gen.seed)
 
         t0 = time.perf_counter()
-        logits, cache = self.prefill(token_lists)
+        logits, cache = self.prefill(token_lists, adapter_idx=aidx)
         # the penalties' state: repetition over prompt ∪ output, presence
         # and frequency over the output
         counts = seen = None
@@ -534,7 +610,7 @@ class InferenceEngine:
             steps = min(chunk, gen.max_new_tokens - produced)
             toks, _, cache, token, pos = self._decode_chunk_fn(
                 cache, token, pos, counts, seen, bias, steps=steps, gen=gen,
-                generator=generator, logprobs=False)
+                generator=generator, logprobs=False, aidx=aidx)
             toks_np = toks.cpu().numpy()                     # host sync
             for i in range(B):
                 for j in range(steps):
@@ -612,12 +688,14 @@ class ChatSession:
     only the new turn at the next free slot. The last sampled token of a
     round is never forwarded; it is carried into the next round's
     prefill. The repetition penalty's scope is the whole resident
-    history; presence and frequency count this round's completion."""
+    history; presence and frequency count this round's completion. One
+    LoRA adapter a session (engine.py:872-877): the resident history was
+    written under it, so switching adapters starts a new session."""
 
     def __init__(self, engine: InferenceEngine,
                  template: Optional[Callable[[str, int], str]] = None,
                  adapter=None):
-        engine.resolve_adapter(adapter)       # no adapters in the port
+        self._aidx = engine._adapter_rows(adapter, 1)
         self.engine = engine
         self.template = template or chat_template_for(engine.cfg.name)
         self.cache = None
@@ -644,7 +722,8 @@ class ChatSession:
         if self.cache is None:
             self.cache = eng.new_cache(1)
         logits, self.cache = eng.prefill([toks], cache=self.cache,
-                                         start_positions=[self.pos])
+                                         start_positions=[self.pos],
+                                         adapter_idx=self._aidx)
         self.pos += len(toks)
         generator = torch.Generator(device=eng.device).manual_seed(
             gen.seed + self.round)
@@ -668,7 +747,8 @@ class ChatSession:
             steps = min(chunk, gen.max_new_tokens - len(out_ids))
             toks_d, _, self.cache, token, pos = eng._decode_chunk_fn(
                 self.cache, token, pos, counts, seen, bias, steps=steps,
-                gen=gen, generator=generator, logprobs=False)
+                gen=gen, generator=generator, logprobs=False,
+                aidx=self._aidx)
             self.pos += 1             # `cur` is now in the cache...
             chunk_toks = toks_d[0].tolist()
             # ...and all but the last sampled token of the chunk are too

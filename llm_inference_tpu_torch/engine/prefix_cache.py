@@ -26,8 +26,9 @@ import numpy as np
 def chunk_hashes(tokens: Sequence[int], page_size: int,
                  salt: int = 0) -> List[bytes]:
     """Chain hash per full prompt page, excluding the last token's page.
-    `salt` partitions the key space (the JAX package salts with the LoRA
-    adapter slot; the port serves the base model only, salt 0)."""
+    `salt` partitions the key space: the schedulers salt with the
+    request's LoRA adapter slot (0, no salt, for the base model), so that
+    pages are shared within one adapter and never across two."""
     aligned = ((len(tokens) - 1) // page_size) * page_size
     out: List[bytes] = []
     h = salt.to_bytes(4, "little", signed=False) if salt else b""

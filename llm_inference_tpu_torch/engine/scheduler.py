@@ -38,8 +38,14 @@ the prompt and the first token, on the device), each biased slot's [V]
 bias row, and the stacked DFA tables with each slot's constraint index
 and DFA state, which moves on the device between steps; the host walks
 a DFA only at admission (the first token) and reads the states once a
-chunk. LoRA adapters are not ported: `submit` raises NotImplementedError
-for one.
+chunk.
+
+LoRA adapters (models/lora.py; JAX scheduler.py:182, 341): each slot's
+adapter slot lives in `aidx_host`, set at admission and reset to 0 when
+the slot retires, and rides every forward over an engine with stacks:
+the admission prefills, each decode chunk and the paged chunked prefill.
+The prefix cache salts its hashes with the adapter slot, so pages are
+shared within one adapter and never across two.
 """
 
 from __future__ import annotations
@@ -86,7 +92,7 @@ class Request:
     stop_token_ids: Optional[Sequence[int]] = None  # not streamed
     stop: Optional[Sequence[str]] = None            # needs a tokenizer
     top_logprobs: Optional[int] = None              # <= TOP_LOGPROBS_CAP
-    adapter: Optional[Union[str, int]] = None       # LoRA: not ported
+    adapter: Optional[Union[str, int]] = None       # LoRA name or slot
     # {token_id: bias} added to the logits before sampling (None → the
     # scheduler's GenerationConfig.logit_bias); logprobs stay raw
     logit_bias: Optional[dict] = None
@@ -172,6 +178,7 @@ class ContinuousBatchingScheduler:
         self.pres_host = np.full((self.B,), g.presence_penalty, np.float32)
         self.freq_host = np.full((self.B,), g.frequency_penalty, np.float32)
         self.seed_host = np.zeros((self.B,), np.int64)
+        self.aidx_host = np.zeros((self.B,), np.int64)   # LoRA slots
         # [B, V] output counts and prompt ∪ output seen rows on the device,
         # made when the first penalised request is admitted
         self._counts = self._seen = None
@@ -306,6 +313,7 @@ class ContinuousBatchingScheduler:
         self.pres_host[slot] = pres
         self.freq_host[slot] = freq
         self.seed_host[slot] = self._resolve_seed(req)
+        self.aidx_host[slot] = self.engine.resolve_adapter(req.adapter)
         V = self.engine.cfg.vocab_size
         if rep != 1.0 or pres != 0.0 or freq != 0.0:
             # repetition scope: prompt ∪ output; presence and frequency
@@ -337,6 +345,16 @@ class ContinuousBatchingScheduler:
         """A device tensor from a COPY of a host array: the arrays change
         at admission and retirement while chunks are queued."""
         return torch.from_numpy(np.array(a, copy=True)).to(self.device)
+
+    def _adapter_idx(self, reqs: Sequence[Optional[Request]]):
+        """The rows' LoRA slots [k] on the device for a forward over
+        `reqs` (None rows: slot 0), or None over an engine without
+        stacks (JAX scheduler.py:501-536)."""
+        if not self.engine.has_lora:
+            return None
+        return self._host_tensor(np.array(
+            [0 if r is None else self.engine.resolve_adapter(r.adapter)
+             for r in reqs], np.int64))
 
     # ------------------------------------------------------------------
 
@@ -426,7 +444,8 @@ class ContinuousBatchingScheduler:
         small = self.engine.new_cache(
             1, max_seq=self.engine.prefill_cache_len(plen))
         logits, one = self.engine.prefill([list(req.prompt_ids)],
-                                          cache=small)
+                                          cache=small,
+                                          adapter_idx=self._adapter_idx([req]))
         first = self._first_token_dispatch(slot, req, logits[:1])
         self._insert(one, first, plen, slot, 0)
         self.slot_req[slot] = req
@@ -441,7 +460,8 @@ class ContinuousBatchingScheduler:
         small = self.engine.new_cache(
             len(prompts),
             max_seq=self.engine.prefill_cache_len(max(map(len, prompts))))
-        logits, ck = self.engine.prefill(prompts, cache=small)
+        logits, ck = self.engine.prefill(prompts, cache=small,
+                                         adapter_idx=self._adapter_idx(reqs))
         for i, (slot, req) in enumerate(zip(slots, reqs)):
             first = self._first_token_dispatch(slot, req, logits[i:i + 1])
             self._insert(ck, first, len(req.prompt_ids), slot, i)
@@ -563,7 +583,10 @@ class ContinuousBatchingScheduler:
         """Hook: reject a request that could never be served."""
 
     def _on_retire(self, slot: int) -> None:
-        """Hook: a slot's request finished."""
+        """A slot's request finished (or was undone): the slot's adapter
+        goes back to the base model, so that nothing admitted later
+        inherits it. Subclasses extend it."""
+        self.aidx_host[slot] = 0
 
     def _before_chunk(self, steps: int) -> bool:
         """Hook: about to decode `steps` for the active slots; False skips
@@ -711,13 +734,16 @@ class ContinuousBatchingScheduler:
         top_used = any(self.slot_req[b].top_logprobs for b in live)
         use_bias = any(self.bias_on_host[b] for b in live)
         use_guided = any(self.dstate_host[b] >= 0 for b in live)
+        aidx = (self._host_tensor(self.aidx_host) if eng.has_lora
+                else None)
         if (all(self.greedy_host[b] for b in live) and not top_used
                 and not use_pen and not use_bias and not use_guided):
             # all-greedy chunk: argmax, no filtering work
             toks, lps, self.cache, self.token, self.pos = (
                 eng._decode_chunk_fn(
                     self.cache, self.token, self.pos, steps=steps,
-                    gen=dataclasses.replace(self.gen, greedy=True)))
+                    gen=dataclasses.replace(self.gen, greedy=True),
+                    aidx=aidx))
             tvs = tis = None
         else:
             if use_pen:
@@ -736,7 +762,8 @@ class ContinuousBatchingScheduler:
                 self._gmask_dev if use_guided else None,
                 self._gtrans_dev if use_guided else None,
                 ht(self.cidx_host) if use_guided else None,
-                ht(self.dstate_host) if use_guided else None, steps=steps,
+                ht(self.dstate_host) if use_guided else None, aidx,
+                steps=steps,
                 max_top_k=(eng.engine_cfg.max_top_k
                            if any(self.topk_host[b] > 0 for b in live)
                            else 0),
@@ -925,6 +952,7 @@ class PagedScheduler(ContinuousBatchingScheduler):
                 f"max_new_tokens)")
 
     def _on_retire(self, slot: int) -> None:
+        super()._on_retire(slot)
         for p in self.slot_pages[slot]:
             if self.store is not None and self.store.owns(p):
                 self.store.release(p)       # stays cached for reuse
@@ -984,10 +1012,15 @@ class PagedScheduler(ContinuousBatchingScheduler):
         return min(W, self.nb)
 
     def _hashes(self, req: Request) -> List[bytes]:
-        """Chain hashes of the prompt's full pages (none without a store)."""
+        """Chain hashes of the prompt's full pages (none without a store),
+        salted with the request's adapter slot: an adapter changes the K/V
+        rows, so equal prompts under two adapters share no page (JAX
+        scheduler.py:1216-1220)."""
         if self.store is None:
             return []
-        return prefix_cache.chunk_hashes(req.prompt_ids, self.ps)
+        return prefix_cache.chunk_hashes(
+            req.prompt_ids, self.ps,
+            salt=self.engine.resolve_adapter(req.adapter))
 
     def _map_hit(self, slot: int, hashes: List[bytes]) -> int:
         """Map the longest run of cached prefix pages into `slot`'s table;
@@ -1036,7 +1069,8 @@ class PagedScheduler(ContinuousBatchingScheduler):
                        else self._prefill_paged)
             logits, cache1 = prefill(
                 self._host_tensor(ids), self._host_tensor(pos), cache1,
-                torch.tensor([n_tok - 1], device=self.device))
+                torch.tensor([n_tok - 1], device=self.device),
+                self._adapter_idx([req]))
             self.cache = dataclasses.replace(
                 cache1, page_table=self._table_snapshot(self.pt_host))
             done += bucket
@@ -1130,7 +1164,9 @@ class PagedScheduler(ContinuousBatchingScheduler):
                 self.cache, page_table=self._table_snapshot(table))
             logits, cache1 = prefill(
                 self._host_tensor(ids), self._host_tensor(pos), cache1,
-                self._host_tensor(last))
+                self._host_tensor(last), self._adapter_idx(
+                    [f["req"] if f["alive"] and f["suffix"] > done
+                     else None for f in infos]))   # parked rows: slot 0
             self.cache = dataclasses.replace(
                 cache1, page_table=self._table_snapshot(self.pt_host))
             for i, f in enumerate(infos):

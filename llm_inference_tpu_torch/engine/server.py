@@ -10,7 +10,8 @@ library only:
 - GET  /health      → {"status": "ok", "queued": n, "active": n}
 - GET  /metrics     → the engine's metrics as JSON, or the Prometheus text
                     form with ?format=prometheus (or Accept: text/plain)
-- GET  /v1/models   → the served model (the port has no LoRA adapters)
+- GET  /v1/models   → the served model and its LoRA adapters (--lora); a
+                    request whose "model" names an adapter runs on it
 - POST /v1/completions, /v1/chat/completions — OpenAI-compatible: n
   choices, best_of reranking, logprobs, the presence, frequency (and,
   beyond the JAX server's fields, repetition) penalties, seeds, stop,
@@ -34,9 +35,12 @@ Speculative serving runs on the dense cache, greedy requests only
 (engine/speculative.py): --speculative serves SpeculativeBatchingScheduler
 (n-gram proposals, --gamma of them a window), --draft-model (a preset,
 weights from --draft-checkpoint or drawn from a seed) serves
-DraftSpeculativeBatchingScheduler. LoRA (--lora), tensor parallelism
-through the schedulers (--tp > 1) and data parallelism (--dp > 1) are
-not ported: they raise NotImplementedError at start-up.
+DraftSpeculativeBatchingScheduler. --lora NAME=PEFT_DIR (repeatable)
+serves LoRA adapters beside the base model (cli.build_engine); a request
+picks one by `adapter` or by an OpenAI `model` naming it. Tensor
+parallelism through the schedulers (--tp > 1), with or without --lora,
+and data parallelism (--dp > 1) are not ported: they raise
+NotImplementedError at start-up.
 
     python -m llm_inference_tpu_torch.engine.server --device cpu \\
         --model tiny --quant int8 --port 8000 [--speculative | \\
@@ -771,7 +775,6 @@ def make_server(argv=None) -> ThreadingHTTPServer:
     is built."""
     args = parse_args(argv)
     for flag, on, why in (
-            ("--lora", bool(args.lora), "LoRA adapters are not ported yet"),
             ("--tp > 1", args.tp > 1, "the schedulers over a tensor-"
              "parallel engine are not ported yet"),
             ("--dp > 1", args.dp > 1, "data parallelism is not ported "
@@ -788,6 +791,7 @@ def make_server(argv=None) -> ThreadingHTTPServer:
         dargs.model = args.draft_model
         dargs.checkpoint = args.draft_checkpoint
         dargs.tp = dargs.dp = 1            # the draft stays on one device
+        dargs.lora = None                  # and serves the base model
         kw["draft_engine"] = cli.build_engine(dargs)
     return serve(engine, args.host, args.port, gen,
                  paged=args.paged or args.prefix_cache,

@@ -37,6 +37,15 @@ With LLMI_LAYER_MEGA=1 in the environment, a single-sequence decode step
 over a dense cache runs each whole layer as K12 and its row write
 (`layer_route`, llama.py:719-731).
 
+Multi-LoRA (models/lora.py, llama.py:783-786, 844-857, 907-930): with
+adapter stacks in params["lora"] every row, the base rows of slot 0
+included, takes the unfused layer (`_layer_plain`: no pair carry, no K6,
+K7 or K12), and each target's delta is added to its projection's output:
+on q, k and v after the projection and its split, before the qk-norm and
+the RoPE (and so before the dense cache's RoPE-and-write launch), on wo's
+output before the residual, on gate and up after the split, on down's
+output before the residual.
+
 Tensor parallelism (`forward(..., tp=group)`, llama.py:817-860, 990-996):
 each rank of a parallel.TPGroup holds its shard of the weights
 (parallel.sharding.shard_params of params prepared with tp_size) and a
@@ -55,6 +64,8 @@ Weight dict layout (dense tensors or QTensor):
   with qkv_bias bq [L, Hq·D], bk, bv [L, Hkv·D]; with qk_norm q_norm,
   k_norm [L, D];
   after fuse_params: wqkv [L, H, (Hq+2Hkv)·D], w_gateup [L, H, 2I], bqkv.
+  lora (optional): {target: {"a" [L, N, d_in, r], "b" [L, N, r, d_out]}}
+  float32 adapter stacks (models/lora.py), slot 0 the zero adapter.
 """
 
 from __future__ import annotations
@@ -67,6 +78,7 @@ import torch
 
 from llm_inference_tpu_torch import resolve_device
 from llm_inference_tpu_torch.config import ModelConfig, QuantConfig
+from llm_inference_tpu_torch.models import lora
 from llm_inference_tpu_torch.ops import activations, attention, embedding
 from llm_inference_tpu_torch.ops import kvcache, norms, paged_kvcache, rope
 from llm_inference_tpu_torch.ops.kernels import decode_attention
@@ -398,8 +410,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Params:
     other families pass the same way: mixtral's and DeepSeek's expert
     stacks flattened [L·E, ...], DeepSeek's dense_layers / moe_layers
     stacks (dense_layers possibly empty) with their dense w_uk, w_uv,
-    router and router_bias. Call the family's prepare_params on the
-    result before serving."""
+    router and router_bias. A "lora" subtree {target: {"a", "b"}} of
+    float32 adapter stacks passes as it is. Call the family's
+    prepare_params on the result before serving."""
     device = resolve_device(device)
 
     def conv(node):
@@ -463,16 +476,17 @@ def attention_route(q_shape, S: int, quantized: bool, page_size: int = 0,
 
 
 def layer_route(cfg: ModelConfig, layers, batch: int, rows: int,
-                cache, tp: Optional[TPGroup] = None) -> str:
+                cache, tp: Optional[TPGroup] = None, lora_stacks=None) -> str:
     """Which layer a forward runs, under the JAX package's gate
     (llama.py:719-731): "mega" (K12 and its row write, a whole layer in
     two launches) when LLMI_LAYER_MEGA=1 is set at call time, the step is
     a single token of a single sequence (B·T = 1) over a dense cache, not
-    tensor-parallel, the four weights are fused quantized ones and
-    layer_fused.supports takes the layer; else "split" (the K1/attention/
-    K6 or K7 chain). The port has no LoRA, the other part of the JAX
-    gate."""
+    tensor-parallel, with no LoRA stacks, the four weights are fused
+    quantized ones and layer_fused.supports takes the layer; else "split"
+    (the K1/attention/K6 or K7 chain, or with LoRA stacks the unfused
+    layer)."""
     if (os.environ.get("LLMI_LAYER_MEGA", "0") == "1" and batch * rows == 1
+            and lora_stacks is None
             and (tp is None or tp.size == 1)
             and isinstance(cache, kvcache.KVCache)
             and layer_fused.supports(cfg, (batch, rows, cfg.hidden_size),
@@ -689,10 +703,12 @@ def _layer_pair(cfg, layers, l, h, d, cache, positions, write_offsets, mask,
 
 
 def _layer_plain(cfg, layers, l, h, cache, positions, write_offsets, mask,
-                 route, cos, sin, tp=None):
-    """Unfused layer (separate or dense weights): norm, projections and
-    residual adds as separate ops, the wo and down products summed across
-    ranks under TP (llama.py:844-860)."""
+                 route, cos, sin, tp=None, lora_l=None, adapter_idx=None):
+    """Unfused layer (separate or dense weights, or any weights under
+    LoRA): norm, projections and residual adds as separate ops, the wo and
+    down products summed across ranks under TP (llama.py:844-860). With
+    `lora_l` (lora.layer_view) each target's per-row delta is added to its
+    projection's output (llama.py:783-786, 844-857)."""
     B, T, _ = h.shape
     eps = cfg.rms_norm_eps
 
@@ -701,28 +717,41 @@ def _layer_plain(cfg, layers, l, h, cache, positions, write_offsets, mask,
         return matmul(x, layers[name], bias=None if b is None else b[l],
                       layer=l)
 
+    def ld(name, x, out):
+        return lora.apply_delta(name, lora_l, x, out, adapter_idx)
+
     normed = norms.rms_norm(h, layers["attn_norm"][l], eps)
     if "wqkv" in layers:
         qkv = mm("wqkv", normed, "bqkv")
+        if lora_l is not None:
+            # the deltas go on the split, unrotated q, k and v
+            n = qkv.shape[-1]
+            nq = n * cfg.num_heads // (cfg.num_heads + 2 * cfg.num_kv_heads)
+            nkv = (n - nq) // 2
+            qkv = torch.cat([ld("wq", normed, qkv[..., :nq]),
+                             ld("wk", normed, qkv[..., nq:nq + nkv]),
+                             ld("wv", normed, qkv[..., nq + nkv:])], dim=-1)
         fused = _rope_in_write(cfg, cache, qkv.dtype)
         q, k, v = _fused_qkv_heads(cfg, layers, l, qkv, cos, sin, not fused)
     else:
         D = cfg.head_dim
-        q = mm("wq", normed, "bq").reshape(B, T, -1, D)
-        k = mm("wk", normed, "bk").reshape(B, T, -1, D)
-        v = mm("wv", normed, "bv").reshape(B, T, -1, D)
+        q = ld("wq", normed, mm("wq", normed, "bq")).reshape(B, T, -1, D)
+        k = ld("wk", normed, mm("wk", normed, "bk")).reshape(B, T, -1, D)
+        v = ld("wv", normed, mm("wv", normed, "bv")).reshape(B, T, -1, D)
         fused = _rope_in_write(cfg, cache, q.dtype)
         if not fused:
             q, k = _rope_heads(cfg, layers, l, q, k, cos, sin)
     attn2d = _attend_block(cfg, l, q, k, v, cache, positions, write_offsets,
                            mask, route, (cos, sin) if fused else None)
-    h = h + _psum(mm("wo", attn2d), tp)
+    h = h + _psum(ld("wo", attn2d, mm("wo", attn2d)), tp)
     normed = norms.rms_norm(h, layers["ffn_norm"][l], eps)
     if "w_gateup" in layers:
         gate, up = torch.chunk(mm("w_gateup", normed), 2, dim=-1)
     else:
         gate, up = mm("w_gate", normed), mm("w_up", normed)
-    return h + _psum(mm("w_down", activations.swiglu_split(gate, up)), tp)
+    act = activations.swiglu_split(ld("w_gate", normed, gate),
+                                   ld("w_up", normed, up))
+    return h + _psum(ld("w_down", act, mm("w_down", act)), tp)
 
 
 def rope_table(cfg: ModelConfig, cache_len: int, device
@@ -754,7 +783,8 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
             positions: torch.Tensor, cache, *, logits_mode: str = "last",
             last_idx: Optional[torch.Tensor] = None,
             rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-            paged_history: bool = False, tp: Optional[TPGroup] = None
+            paged_history: bool = False, tp: Optional[TPGroup] = None,
+            adapter_idx: Optional[torch.Tensor] = None
             ) -> Tuple[Optional[torch.Tensor], Any]:
     """Run the decoder over T tokens per sequence, writing the dense
     (kvcache.KVCache) or paged (paged_kvcache.PagedKVCache) cache in place.
@@ -767,7 +797,9 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
     block offset over the sequence's earlier pages. With `tp` (a
     parallel.TPGroup of more than one rank) `params` are this rank's
     shard and `cache` holds its kv heads (module docstring); every rank
-    returns the same full logits."""
+    returns the same full logits. With LoRA stacks in params["lora"],
+    `adapter_idx` [B] is each row's adapter slot (None: slot 0, the base
+    model, for every row; llama.py:907-909)."""
     B, T = ids.shape
     paged = isinstance(cache, paged_kvcache.PagedKVCache)
     if tp is not None and tp.size == 1:
@@ -775,6 +807,13 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
     if tp is not None and paged:
         raise NotImplementedError("tensor parallelism over a paged cache "
                                   "is not ported yet")
+    lora_stacks = params.get("lora")
+    if lora_stacks is not None:
+        if tp is not None:
+            raise NotImplementedError("LoRA under tensor parallelism is not "
+                                      "ported yet")
+        adapter_idx = (torch.zeros((B,), dtype=torch.long, device=ids.device)
+                       if adapter_idx is None else adapter_idx.long())
     ps = cache.page_size if paged else 0
     # slots a position may address; the RoPE tables need no more
     S = cache.max_blocks * ps if paged else cache.max_seq_len
@@ -799,7 +838,7 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
     idx = torch.clamp(positions.long(), 0, cos.shape[0] - 1)
     cos, sin = cos[idx], sin[idx]          # gathered once for every layer
 
-    if (isinstance(layers.get("wqkv"), QTensor)
+    if (lora_stacks is None and isinstance(layers.get("wqkv"), QTensor)
             and isinstance(layers.get("w_gateup"), QTensor)):
         d = torch.zeros_like(h)
         mega = layer_route(cfg, layers, B, T, cache, tp) == "mega"
@@ -811,7 +850,8 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
     else:
         for l in range(L):
             h = _layer_plain(cfg, layers, l, h, cache, positions,
-                             write_offsets, mask, route, cos, sin, tp)
+                             write_offsets, mask, route, cos, sin, tp,
+                             lora.layer_view(lora_stacks, l), adapter_idx)
 
     return forward_output(cfg, params, h, logits_mode, last_idx, tp), cache
 

@@ -469,9 +469,10 @@ def test_cli_chats_with_a_tokenizer(monkeypatch, capsys, tmp_path):
 # --tp alone is served (tests/test_torch_tp.py); under --tp the ranks
 # still refuse --dp, and the refusal reaches the caller. mixtral is served
 # (tests/test_torch_mixtral.py), but not over --tp 2 (expert parallelism),
-# which is refused before any rank starts
+# which is refused before any rank starts. --lora is served on one device
+# (tests/test_torch_lora.py), and refused with --tp 2 before any rank starts
 @pytest.mark.parametrize("argv", [["--tp", "2", "--dp", "2"], ["--dp", "2"],
-                                  ["--lora", "a=b"], ["--asym"],
+                                  ["--lora", "a=b", "--tp", "2"], ["--asym"],
                                   ["--no-int4-npair"],
                                   ["--model", "mixtral-8x7b", "--tp", "2"]])
 def test_cli_refuses_what_is_not_ported(monkeypatch, capsys, argv):

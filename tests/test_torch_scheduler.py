@@ -448,10 +448,11 @@ def test_page_table_snapshot_is_a_copy(tiny_engine):
 
 
 def test_submit_refuses_what_is_not_ported(tiny_engine):
-    """LoRA adapters are not ported and raise; penalties, logit_bias and
-    guided decoding are, and submit refuses only bad values of them."""
+    """An adapter on an engine without LoRA stacks raises JAX's ValueError
+    (engine.py:193-194); penalties, logit_bias and guided decoding are
+    ported, and submit refuses only bad values of them."""
     sched = t_sched.PagedScheduler(tiny_engine, GREEDY12, num_pages=4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no LoRA"):
         sched.submit([5, 6, 7], adapter="x")
     for kw in (dict(repetition_penalty=0.0),
                dict(logit_bias={tiny_engine.cfg.vocab_size: 1.0}),

@@ -512,8 +512,9 @@ class TestSpeculativeServing:
             srv.make_server(["--device", "cpu", "--port", "0",
                              "--speculative", "--paged"])
 
-    @pytest.mark.parametrize("flags", [["--lora", "a=/x"], ["--tp", "2"],
-                                       ["--dp", "2"]])
+    # --lora alone is served (tests/test_torch_lora.py), not over --tp 2
+    @pytest.mark.parametrize("flags", [["--lora", "a=/x", "--tp", "2"],
+                                       ["--tp", "2"], ["--dp", "2"]])
     def test_unported_flags_raise_at_startup(self, flags):
         with pytest.raises(NotImplementedError):
             srv.make_server(["--device", "cpu", "--port", "0"] + flags)
