@@ -266,9 +266,10 @@ def max_err(got, want):
 
 
 def qbytes(qt):
-    """Bytes of one layer's codes and scales."""
+    """Bytes of one layer's codes, scales and zero points."""
     n = qt.layer(0) if qt.stacked else qt
-    return n.q.numel() + n.scale.numel() * 4
+    z = 0 if n.zbias is None else n.zbias.numel() * 4
+    return n.q.numel() + n.scale.numel() * 4 + z
 
 
 # ------------------------------------------------------------------ phase 1
@@ -4846,7 +4847,9 @@ def first_layers(params, n):
     (views), with the same embedding, final norm and lm_head."""
     def cut(v):
         if isinstance(v, QTensor):
-            return dataclasses.replace(v, q=v.q[:n], scale=v.scale[:n])
+            return dataclasses.replace(
+                v, q=v.q[:n], scale=v.scale[:n],
+                zbias=None if v.zbias is None else v.zbias[:n])
         return v[:n]
     out = dict(params, layers={k: cut(v)
                                for k, v in params["layers"].items()})
@@ -5085,6 +5088,343 @@ def path_lora(params8):
     say(f"path (xi) took {time.perf_counter() - t0:.1f} s ({smi})")
 
 
+# ------------------------------------------------------------- path (xii)
+
+# the formats of quantize beyond symmetric int8 per channel and int4 on
+# the N-pair route: int8 in groups of 128 codes, zero points on int8 per
+# channel and in groups, and on int4 in groups of 128, 16 and 8; beside
+# them the symmetric or per-channel format each extends, timed in the
+# same call
+WF_QCFG = {
+    "int8": QCFG8,
+    "int8 g128": QuantConfig(weights="int8", group_size=128,
+                             quantize_embedding=True),
+    "int8 g128 asym": QuantConfig(weights="int8", group_size=128,
+                                  asymmetric=True, quantize_embedding=True),
+    "int8 asym": QuantConfig(weights="int8", asymmetric=True,
+                             quantize_embedding=True),
+    "int4 g128": QCFG4,
+    **{f"int4 g{gs}{' asym' if asym else ''}": QuantConfig(
+        weights="int4", group_size=gs, asymmetric=asym,
+        quantize_embedding=True)
+       for gs in (128, 16, 8) for asym in (False, True) if (gs, asym) != (
+           128, False)},
+}
+# phase 2: (new format, the format it extends)
+WF_PAIRS = (("int8 g128", "int8"), ("int8 g128 asym", "int8"),
+            ("int8 asym", "int8"), ("int4 g128 asym", "int4 g128"),
+            ("int4 g16 asym", "int4 g16"), ("int4 g8 asym", "int4 g8"))
+# the formats phase 2 also runs through K1's MMA branch and K8
+WF_TILED = ("int8", "int8 g128", "int8 asym", "int4 g128", "int4 g128 asym")
+# the slice's three configurations: (name, format, KV cache, int4 N-pair
+# route); (c) is int4 g = 128 under --no-int4-npair
+WF_SLICES = (("a", "int8 g128", "bf16", True),
+             ("b", "int4 g128 asym", "int8", True),
+             ("c", "int4 g128", "int8", False))
+WF_NEW = 32
+WF_LONG = 3000
+WF_GEN = GenerationConfig(max_new_tokens=WF_NEW, **GREEDY)
+WF_USED = ("K1", "K2", "K8", "K9", "KR")
+# with LLMI_LAYER_MEGA=1 a B = 1 decode step is K12 and its row write
+WF_USED_MEGA = ("K1", "K8", "K9", "K12", "RW", "KR")
+WF_FUSED = ("K6", "K7", "K12")        # never on zero points or split-half
+
+
+def wf_params(fmt, layers=None, npair=True, zspread=1.0):
+    """LLaMA-2-7B in format `fmt` (random codes), cut to `layers` layers,
+    served on the int4 route `npair`. Every layer weight's and lm_head's
+    scales are drawn per column and group, 0.02/qmax times U(0.5, 1.5),
+    and its zero points, where it has them, as U(-zspread, zspread) of
+    their scale: a kernel that reads another group's or column's scale or
+    zero point (or swaps two) disagrees with its plain version. Phase 2
+    (random rows into one kernel) takes zspread 4; the models of phases 3
+    and 4 take 1: at 4 the random 2-layer model is chaotic, a change of
+    one bf16 step to K1's outputs moving its logits by many times phase
+    3's tolerance, so that no parity could be decided on it."""
+    cfg = CFG if layers is None else dataclasses.replace(CFG,
+                                                         num_layers=layers)
+    params = llama.prepare_params(llama.init_params_quantized(
+        cfg, WF_QCFG[fmt], seed=SEED + 50, device=DEV), int4_npair=npair)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 53)
+
+    def redraw(w):
+        if not isinstance(w, QTensor):
+            return w
+        scale = w.scale * (0.5 + torch.rand(w.scale.shape, generator=g,
+                                            device=DEV))
+        if w.zbias is None:
+            return dataclasses.replace(w, scale=scale)
+        u = torch.rand(w.scale.shape, generator=g, device=DEV)
+        return dataclasses.replace(w, scale=scale,
+                                   zbias=scale * zspread * (2 * u - 1))
+    params["layers"] = {k: redraw(v) for k, v in params["layers"].items()}
+    params["lm_head"] = redraw(params["lm_head"])
+    torch.cuda.synchronize()
+    return cfg, params
+
+
+def wf_kernel_cases(gen):
+    """Phase 2: each new branch of K1, K8 and K12 against its plain version
+    at LLaMA-2-7B widths on 2 layers of random codes, and the format it
+    extends timed beside it: K1's GEMV at M = 1 on the four projections
+    (the new formats also at M = 4 and 8 on wqkv), its MMA branch at M =
+    128 and K8 on a 2048-row chunk on wqkv and w_down (WF_TILED), K12 on
+    int8 g = 128 and per channel at pos 191 over 512 slots. Returns
+    {(kernel, fmt): numbers}."""
+    out = {}
+    prologue = {"wqkv": True, "wo": False, "w_gateup": True,
+                "w_down": False}
+    new = {n for n, _ in WF_PAIRS}
+    for fmt in WF_QCFG:
+        _, params = wf_params(fmt, layers=2, zspread=4.0)
+        lay = params["layers"]
+        gemv = {n: k1_case(f"{n} {fmt}", lay[n], 1, prologue[n], gen, 2)
+                for n in PROJECTIONS}
+        if fmt in new:
+            for M in (4, 8):
+                gemv[f"wqkv M={M}"] = k1_case(f"wqkv {fmt}", lay["wqkv"], M,
+                                              True, gen, 2)
+        out[("gemv", fmt)] = gemv
+        if fmt in WF_TILED:
+            out[("mma", fmt)] = {n: k1_case(f"{n} {fmt}", lay[n], 128,
+                                            prologue[n], gen, 2)
+                                 for n in ("wqkv", "w_down")}
+            tot, err = k8_cases(params, gen, Ms=(CHUNK,),
+                                names=("wqkv", "w_down"))
+            out[("k8", fmt)] = dict(tot, err=err)
+        if fmt in ("int8", "int8 g128"):
+            out[("k12", fmt)] = k12_case(params, fmt, "bf16", 191, MAX_SEQ,
+                                         gen)
+        del params, lay
+        torch.cuda.empty_cache()
+    # each new branch's time over its base format's, measured in this run
+    for fmt, base in WF_PAIRS:
+        ratios = []
+        for kern in ("gemv", "mma", "k8", "k12"):
+            if (kern, fmt) in out and (kern, base) in out:
+                a, b = out[(kern, fmt)], out[(kern, base)]
+                if kern in ("gemv", "mma"):
+                    a, b = (sum(d[n]["ms"] for n in d if n in b)
+                            for d in (a, b))
+                else:
+                    a, b = a["ms"], b["ms"]
+                ratios.append(f"{kern} {a:.4f} / {b:.4f} ms = {a / b:.3f}x")
+        say(f"  {fmt} against {base}: " + "; ".join(ratios))
+    return out
+
+
+def wf_parity(slice_, fmt, kind, npair):
+    """Phase 3: 2 layers of the slice's model on the card, its kernels
+    against their plain versions on the same device (plain_kernels: the
+    CPU would take minutes a layer at these widths): a 128-row prefill
+    (two 64-token rows) and PARITY_STEPS teacher-forced decode steps over
+    512 slots, under phase_parity's tolerance; K6, K7 and K12 run only
+    where the format lets them."""
+    cfg, params = wf_params(fmt, layers=2, npair=npair)
+    B, T = 2, 64
+    gen = torch.Generator().manual_seed(SEED + 51)
+    ids = torch.randint(1, cfg.vocab_size, (B, T), generator=gen,
+                        dtype=torch.int32).to(DEV)
+    pos = torch.arange(T, dtype=torch.int32, device=DEV)[None].repeat(B, 1)
+
+    def run(toks):
+        """The logits of the prefill and the decode steps, teacher-forced
+        with `toks` (None: the run's own argmax), and the tokens fed."""
+        cache = kvcache.init_cache(cfg.num_layers, B, cfg.num_kv_heads,
+                                   MAX_SEQ, cfg.head_dim, KV_DTYPE[kind],
+                                   device=DEV)
+        logits = [llama.forward(cfg, params, ids, pos, cache)[0]]
+        fed = []
+        nxt = torch.full((B, 1), T, dtype=torch.int32, device=DEV)
+        for step in range(PARITY_STEPS):
+            tok = (logits[-1].argmax(-1).to(torch.int32)[:, None]
+                   if toks is None else toks[step])
+            fed.append(tok)
+            logits.append(llama.forward(cfg, params, tok, nxt, cache)[0])
+            nxt = nxt + 1
+        return logits, fed
+    with torch.no_grad():
+        with plain_kernels():
+            want, fed = run(None)
+        before = counts()
+        got, _ = run(fed)
+        d = {c: n - before[c] for c, n in counts().items()}
+    torch.cuda.synchronize()
+    scale = max(w.abs().max().item() for w in want)
+    errs = [max_err(g, w) for g, w in zip(got, want)]
+    tol = 4 * 2.0 ** -8 * scale
+    say(f"  ({slice_}) {fmt}, {kind} cache{'' if npair else ', split-half'}"
+        f": logits max err per step {['%.4f' % e for e in errs]} (tol "
+        f"{tol:.4f}, max |logit| {scale:.3f}); card launches "
+        f"{ {c: n for c, n in d.items() if n} }")
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"({slice_}) parity: non-finite logits")
+    check(max(errs) <= tol, f"({slice_}) parity: {max(errs)} > {tol}")
+    fused = WF_QCFG[fmt].weights == "int4" and npair and not (
+        WF_QCFG[fmt].asymmetric)
+    check(d["K1"] > 0 and (d["K6"] > 0) == fused and d["K7"] == 0
+          and d["K12"] == 0, f"({slice_}) parity: launches {d}")
+    del params
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def wf_generate(eng, slice_, prompt, long_prompt, mega, smi):
+    """Phase 4 on one engine: generate 128 + 32 and 3000 + 8 at B = 1
+    (mega: with LLMI_LAYER_MEGA=1) and where a B = 1 decode step's time
+    goes. Returns the launch tally of the two requests."""
+    tag = f"({slice_}){' mega' if mega else ''}"
+    with layer_mega(mega):
+        eng.generate([prompt[:8]], dataclasses.replace(WF_GEN,
+                                                       max_new_tokens=2))
+        torch.cuda.synchronize()
+        zero_counts()
+        short = eng.generate([prompt], WF_GEN)[0]
+        long = eng.generate([long_prompt], dataclasses.replace(
+            WF_GEN, max_new_tokens=8))[0]
+        torch.cuda.synchronize()
+        tally = counts()
+        tally["K1 MMA"] = k1.mma_launches
+        check(len(short.token_ids) == WF_NEW and len(long.token_ids) == 8,
+              f"{tag}: stream lengths")
+        cache = eng.new_cache(1)
+        tok = torch.tensor([[prompt[0]]], dtype=torch.int32, device=DEV)
+        pos = torch.full((1, 1), len(prompt), dtype=torch.int32, device=DEV)
+        last = torch.zeros((1,), dtype=torch.long, device=DEV)
+        step_profile(f"{tag} B = 1 decode step", lambda: llama.forward(
+            CFG, eng.params, tok, pos, cache, last_idx=last,
+            rope_tables=eng._rope))
+        del cache
+    say(f"  {tag} generate {len(prompt)} + {WF_NEW}: "
+        f"{short.decode_tokens_per_s:.1f} tok/s, TTFT "
+        f"{short.ttft_s * 1e3:.1f} ms; {WF_LONG} + 8: TTFT "
+        f"{long.ttft_s * 1e3:.1f} ms ({smi}); launches "
+        f"{ {c: n for c, n in tally.items() if n} }")
+    return tally
+
+
+def path_formats(gen):
+    """Path (xii): the weight formats of quantize on LLaMA-2-7B. Phase 2
+    holds each new branch of K1, K8 and K12 to its plain version and times
+    it beside the format it extends; phase 3 the 2-layer models of (a)
+    int8 g = 128 + bf16 KV, (b) asymmetric int4 g = 128 + int8 KV and (c)
+    int4 g = 128 on the split-half route + int8 KV; phase 4 serves them
+    at full depth. Returns the kernels line's entries."""
+    t0 = time.perf_counter()
+    smi = card_line()
+    say(f"path (xii): weight formats on LLaMA-2-7B; card: {smi}")
+    say("phase 2: the new branches of K1, K8 and K12 against their plain "
+        "versions, LLaMA-2-7B widths")
+    r = wf_kernel_cases(gen)
+    say("phase 3: 2-layer parity on the card, kernels vs plain versions")
+    err3 = {s: wf_parity(s, fmt, kind, npair)
+            for s, fmt, kind, npair in WF_SLICES}
+    say("phase 4: full-depth LLaMA-2-7B, random weights, greedy")
+    g = torch.Generator().manual_seed(SEED + 52)
+    prompt = torch.randint(1, CFG.vocab_size, (128,), generator=g).tolist()
+    long_prompt = torch.randint(1, CFG.vocab_size, (WF_LONG,),
+                                generator=g).tolist()
+    ecfg = EngineConfig(max_seq_len=LONG_SEQ, decode_chunk=8)
+    tallies = {}
+    for s, fmt, kind, npair in WF_SLICES:
+        _, params = wf_params(fmt, npair=npair)
+        eng = InferenceEngine(CFG, params, engine_cfg=ecfg,
+                              cache_dtype=KV_DTYPE[kind], device=DEV)
+        for mega in ((False, True) if s == "a" else (False,)):
+            key = s + (" mega" if mega else "")
+            tallies[key] = wf_generate(eng, s, prompt, long_prompt, mega,
+                                       smi)
+            got = tallies[key]
+            check(all(got[c] > 0
+                      for c in (WF_USED_MEGA if mega else WF_USED)),
+                  f"path (xii) ({key}): a kernel of the route never ran: "
+                  f"{got}")
+            check((got["K12"] > 0) == mega and got["K6"] == 0
+                  and got["K7"] == 0,
+                  f"path (xii) ({key}): fused routes {got}")
+        if s == "b":
+            # generate's stream with its top-2 logprobs, then the dense
+            # scheduler's four requests admitted one at a time (a 128-row
+            # prefill each, as generate's), each held to it; they may part
+            # at a near-tie within phase 3's tolerance (B = 4 against 1)
+            ref, _, top = lora_stream(eng, prompt, None, -1)
+            tie = max(2e-2, 4 * 2.0 ** -8 * top)
+            sched = scheduler.ContinuousBatchingScheduler(
+                eng, WF_GEN, slots=4)
+            sched.wave_admission = False
+            zero_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            reqs = [sched.submit(list(prompt), top_logprobs=2)
+                    for _ in range(4)]
+            while sched.step():
+                pass
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            got = counts()
+            tokens = sum(len(q.output_ids) for q in reqs)
+            c, t, _ = compare_streams(reqs, [ref] * 4, tol=tie, new=WF_NEW)
+            check(all(got[c_] == 0 for c_ in WF_FUSED),
+                  f"(b) dense scheduler: fused routes {got}")
+            say(f"  (b) dense scheduler, 4 slots: {tokens} tokens in "
+                f"{wall:.3f} s = {tokens / wall:.1f} tok/s; tokens equal "
+                f"to generate's {c}/{t} (near-tie gap {tie:.4f}); "
+                f"launches { {c_: n for c_, n in got.items() if n} }")
+            del sched
+        del eng, params
+        torch.cuda.empty_cache()
+
+    def gemv_total(fmt):
+        g_ = r[("gemv", fmt)]
+        t = {k: sum(g_[n][k] for n in PROJECTIONS)
+             for k in ("ms", "plain", "lib", "bound")}
+        t["by"] = "bytes"
+        return t, max(v["err"] for v in g_.values())
+
+    def mma_total(fmt):
+        m = r[("mma", fmt)]
+        t = {k: sum(m[n][k] for n in m) for k in ("ms", "plain", "lib",
+                                                  "bound")}
+        t["by"] = m["wqkv"]["by"]
+        return t, max(v["err"] for v in m.values())
+
+    def gemv_launches(key):
+        return tallies[key]["K1"] - tallies[key]["K1 MMA"]
+    # the kernels line holds the branches phase 4 served (a) and (b); the
+    # formats no configuration serves (int8 with zero points, int4 g16 and
+    # g8 with zero points) were held to their plain versions in phase 2
+    # and are in its log lines
+    layer = "one layer's (wqkv, wo, w_gateup, w_down) of LLaMA-2-7B"
+    kernels = []
+    for fmt, key, src in (("int8 g128", "a", "quant_matmul.cu"),
+                          ("int4 g128 asym", "b", "qmm4_gemv.cu")):
+        t, err = gemv_total(fmt)
+        kernels.append(entry(
+            f"K1 quant_matmul GEMV ({fmt})", src, "quant_matmul.py:496",
+            gemv_launches(key), err, t, 1, f"{layer} {fmt}, M=1"))
+    for fmt, key in (("int8 g128", "a"), ("int4 g128 asym", "b")):
+        t, err = mma_total(fmt)
+        kernels.append(entry(
+            f"K1 quant_matmul MMA branch ({fmt}, 8 < M <= 128)",
+            "quant_matmul_tiled.cu", "quant_matmul.py:496",
+            tallies[key]["K1 MMA"], err, t, 1,
+            f"LLaMA-2-7B {fmt} wqkv + w_down, M=128"))
+        k8 = r[("k8", fmt)]
+        kernels.append(entry(
+            f"K8 quant_matmul tiled prefill GEMM ({fmt})",
+            "quant_matmul_tiled.cu", "quant_matmul.py:379",
+            tallies[key]["K8"], k8["err"], k8, 1,
+            f"{L} x (wqkv, w_down) of a 2048-row chunk of LLaMA-2-7B {fmt}"))
+    k12r = r[("k12", "int8 g128")]
+    kernels.append(entry(
+        "K12 layer_fused (int8 g128 weights, bf16 cache)", "layer_fused.cu",
+        "layer_fused.py:353", tallies["a mega"]["K12"], k12r["err"], k12r,
+        L, "32 layers of one decode step at B=1, pos 191, S=512"))
+    say(f"  phase 3 max errors { {s: round(e, 5) for s, e in err3.items()} }")
+    say(f"path (xii) took {time.perf_counter() - t0:.1f} s ({smi})")
+    return kernels
+
+
 def main():
     t_start = time.perf_counter()
     phase_card()
@@ -5106,6 +5446,9 @@ def main():
     torch.cuda.empty_cache()
     path_lora(params8)
     say(f"path (xi) done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    kernels += path_formats(gen)
+    say(f"path (xii) done at {time.perf_counter() - t_start:.1f} s")
     del params8
     torch.cuda.empty_cache()
     kernels += path_tp(gen, shared["params"])

@@ -40,9 +40,14 @@ model over N tensor-parallel ranks from this one command, as the JAX CLI
 does: this process is rank 0 and keeps the REPL, ranks 1..N-1 are spawned
 (parallel.run_ranks; NCCL when every rank has a card of its own, else
 gloo), each line goes to every rank (broadcast_object), every rank runs
-it and rank 0 prints. --dp above 1, --lora with --tp above 1, --asym,
---no-int4-npair and --tp above 1 on a mixture-of-experts model (mixtral,
-DeepSeek: expert parallelism) are not ported and raise.
+it and rank 0 prints. --asym quantizes the weights with zero points,
+--quant int8 --group-size G in groups of G codes, and --no-int4-npair
+serves int4 weights on the JAX package's split-half route (the K1 chain
+in place of the fused layer kernels; llama-family models, as the JAX CLI
+passes it to llama's prepare_params alone). --dp above 1, --lora, --asym,
+grouped int8 or --no-int4-npair with --tp above 1, and --tp above 1 on a
+mixture-of-experts model (mixtral, DeepSeek: expert parallelism) are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -67,7 +72,8 @@ def build_engine(args, tp=None):
     refuse_unported(args)
     device = tp.device if tp is not None else resolve_device(args.device)
     lead = tp is None or tp.rank == 0
-    qcfg = C.QuantConfig(weights=args.quant, group_size=args.group_size)
+    qcfg = C.QuantConfig(weights=args.quant, group_size=args.group_size,
+                         asymmetric=args.asym)
     if args.checkpoint:
         cfg, params = checkpoint.load_hf_checkpoint(
             args.checkpoint, dtype=args.dtype, device=device)
@@ -94,7 +100,12 @@ def build_engine(args, tp=None):
     if pad or args.checkpoint:
         params = llama.pad_params_for_tp(params, cfg, args.tp)
         params = quantize(params, qcfg, row_shards=args.tp)
-    params = prepare(params, tp_size=args.tp)
+    if model is llama:
+        # the JAX CLI passes --no-int4-npair to llama's layout pass alone
+        params = prepare(params, tp_size=args.tp,
+                         int4_npair=args.int4_npair is not False)
+    else:
+        params = prepare(params, tp_size=args.tp)
     adapter_names = None
     if args.lora:
         # multi-LoRA serving (cli.py:95-126): requests pick adapters by
@@ -123,18 +134,24 @@ def build_engine(args, tp=None):
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for the flags whose machinery the port
-    lacks: --dp above 1, --lora with --tp above 1, --asym, --no-int4-npair."""
+    lacks: --dp above 1; --lora, --asym, grouped int8 (--quant int8
+    --group-size G) or --no-int4-npair with --tp above 1."""
+    tp = args.tp > 1
     for flag, on in (("--dp > 1", args.dp > 1),
-                     ("--lora with --tp > 1", bool(args.lora) and args.tp > 1),
-                     ("--asym", args.asym),
-                     ("--no-int4-npair", args.int4_npair is False)):
+                     ("--lora with --tp > 1", bool(args.lora) and tp),
+                     ("--asym with --tp > 1", args.asym and tp),
+                     ("grouped int8 with --tp > 1",
+                      tp and args.quant == "int8" and args.group_size > 0),
+                     ("--no-int4-npair with --tp > 1",
+                      tp and args.int4_npair is False)):
         if on:
             raise NotImplementedError(f"{flag} is not ported")
 
 
 def refuse_before_ranks(args) -> None:
     """Raise, before any rank is spawned, where --tp N cannot serve the
-    model: LoRA adapters (not ported over TP), a mixture-of-experts family
+    model: LoRA adapters or the weight formats of --asym, grouped int8
+    and --no-int4-npair (not ported over TP), a mixture-of-experts family
     (no expert parallelism) or widths that do not split over N
     (parallel.sharding.validate_tp)."""
     import json
@@ -142,7 +159,8 @@ def refuse_before_ranks(args) -> None:
     from llm_inference_tpu_torch import config as C
     from llm_inference_tpu_torch.parallel import sharding
     from llm_inference_tpu_torch.utils import checkpoint
-    if args.lora:
+    if (args.lora or args.asym or args.int4_npair is False
+            or (args.quant == "int8" and args.group_size > 0)):
         refuse_unported(args)
     if args.checkpoint:
         with open(os.path.join(args.checkpoint, "config.json")) as f:
@@ -240,8 +258,12 @@ def add_engine_args(ap: argparse.ArgumentParser) -> None:
                     help="accepted for the JAX CLI's sake: the port's int4 "
                          "layout is its only one")
     ap.add_argument("--no-int4-npair", dest="int4_npair",
-                    action="store_false", help="not ported")
-    ap.add_argument("--asym", action="store_true", help="not ported")
+                    action="store_false",
+                    help="int4 on the split-half route: the K1 chain, no "
+                         "fused layer kernels (one device)")
+    ap.add_argument("--asym", action="store_true",
+                    help="asymmetric (min/max, zero-point) weight "
+                         "quantization (one device)")
     ap.add_argument("--kv-cache", default="bf16",
                     choices=["bf16", "int8", "int4"])
     ap.add_argument("--lora", action="append", default=None,

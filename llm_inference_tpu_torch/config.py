@@ -333,10 +333,9 @@ def preset(name: str) -> ModelConfig:
 
 @dataclass(frozen=True)
 class QuantConfig:
-    """Weight quantization. The port serves int8 symmetric per-channel and
-    int4 symmetric (per-channel or grouped) weights; int8 grouped and
-    asymmetric weights raise NotImplementedError where they would be
-    used."""
+    """Weight quantization: int8 or int4, per-channel or grouped, symmetric
+    or asymmetric (zero points); the asymmetric and grouped int8 formats
+    on one device (tensor parallelism refuses them)."""
 
     # "none" | "int8" | "int4"  (weight-only)
     weights: str = "none"

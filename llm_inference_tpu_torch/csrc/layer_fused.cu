@@ -17,9 +17,11 @@
 //   act  = silu(g) * u,  (g | u) = rms_norm(x32') * gf . Wgate_up
 //   dn   = bf16(act . Wdown)
 // nothing rounded between phases except where named. The GEMVs dot bf16(x)
-// against int8 per-channel codes (the column scale on the float32 sum) or
-// float32 x against grouped int4 codes (bf16 hi + lo, each group's scale on
-// its partial), as the TPU kernel's two weight branches do.
+// against int8 codes (per channel: the column scale on the float32 sum;
+// in groups of 32k codes: each group's scale on its partial, the TPU
+// kernel's _gdots, layer_fused.py:81-99) or float32 x against grouped
+// int4 codes (bf16 hi + lo, each group's scale on its partial), as the TPU
+// kernel's two weight branches do.
 //
 // Bound on the H100 SXM (3.35 TB/s): the call must read the layer's weights
 // and scales and the live K and V rows once. LLaMA-2-7B, one layer:
@@ -59,7 +61,8 @@
 //   E  gate-up over x32' rstd gf (by K-tile beside the weights) + SwiGLU.
 //   -- grid barrier 4
 //   F  down over act.
-// Two kernels, by the weights' width; the cache's kind and G = 1 (LLaMA-2-
+// Three kernels, by the weights' format (int8 per channel, int8 grouped,
+// int4); the cache's kind and G = 1 (LLaMA-2-
 // 7B) or G <= 8 pick the attention phase's instantiation at run time, so
 // the GEMV phases are compiled twice, not eight times. Every function is
 // inlined: a called phase spilled its registers.
@@ -372,8 +375,9 @@ __device__ __forceinline__ void norm_row(const Args& a, const Smem& S) {
 
 // The GEMV phases' epilogues (0 qkv, 1 wo, 2 gate-up + SwiGLU, 3 down) at
 // M = 1: a column a thread of row 0, its sum the consumer warps' partials
-// in warp order, times the column's scale for int8.
-template <int WBITS>
+// in warp order, times the column's scale for int8 per channel (G8: int8
+// in groups, whose consumers took the scales).
+template <int WBITS, bool G8>
 struct Epi {
   const Args& a;
   const Smem& S;
@@ -394,7 +398,7 @@ struct Epi {
            i += kColGroups) {
         const int n = ua + i;
         float v = col_sum(S, rc, i, 0);
-        if constexpr (WBITS == 8) v *= __ldg(p.s + n);
+        if constexpr (WBITS == 8 && !G8) v *= __ldg(p.s + n);
         if (pi == 0) {
           a.qkv[n] = v;
         } else if (pi == 1) {
@@ -405,7 +409,7 @@ struct Epi {
           sq = fmaf(x, x, sq);
         } else if (pi == 2) {
           float u = col_sum(S, rc, p.ncp / 2 + i, 0);
-          if constexpr (WBITS == 8) u *= __ldg(p.s + p.up + n);
+          if constexpr (WBITS == 8 && !G8) u *= __ldg(p.s + p.up + n);
           a.act[n] = v * (1.f / (1.f + expf(-v))) * u;
         } else {
           a.dn[n] = __float2bfloat16(v);
@@ -418,10 +422,10 @@ struct Epi {
 // The consumers' phases in one loop of the two GEMV forms (named phases,
 // inlined four times, spilled a register): A qkv | barrier 1, B attention
 // | barrier 2, D wo | barrier 3, rstd | E gate-up | barrier 4, F down.
-template <int WBITS>
+template <int WBITS, bool G8>
 __device__ __forceinline__ void consume(const Args& a, const Smem& S) {
   Cursor cur;
-  const Epi<WBITS> epi{a, S};
+  const Epi<WBITS, G8> epi{a, S};
   norm_row(a, S);
 #pragma unroll 1
   for (int pi = 0; pi < 4; ++pi) {
@@ -437,22 +441,23 @@ __device__ __forceinline__ void consume(const Args& a, const Smem& S) {
       grid_barrier(a.gbar, S, 4);
     }
     if (pi == 2)
-      run_phase<-1, kFormNorm, WBITS, true>(a.r, pi, S, cur, epi);
+      run_phase<-1, kFormNorm, WBITS, true, G8>(a.r, pi, S, cur, epi);
     else
-      run_phase<-1, kFormF32, WBITS, true>(a.r, pi, S, cur, epi);
+      run_phase<-1, kFormF32, WBITS, true, G8>(a.r, pi, S, cur, epi);
   }
 }
 
-// WBITS: 8 (per channel) or 4 (grouped). The cache's kind and the query
-// heads a kv head pick the attention phase's instantiation at run time.
-template <int WBITS>
+// WBITS: 8 (per channel, or G8 in groups) or 4 (grouped). The cache's
+// kind and the query heads a kv head pick the attention phase's
+// instantiation at run time.
+template <int WBITS, bool G8>
 __global__ void __launch_bounds__(kThreads, 1)
     layer_fused_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(128) unsigned char sm[];
   const Smem S = smem_of(sm, a.r.pl);
   init_block(S, a.r.pl);
   __syncthreads();
-  if (!produce<0, 4, WBITS>(a.r, S)) consume<WBITS>(a, S);
+  if (!produce<0, 4, WBITS>(a.r, S)) consume<WBITS, G8>(a, S);
 }
 
 // The phases qkv | wo | gate-up | down of one layer's weights w*/s*
@@ -473,13 +478,13 @@ void set_layer(Args& a, const void* const (&w)[4], const void* const (&s)[4],
             4);
 }
 
-template <int WBITS>
+template <int WBITS, bool G8>
 int launch(Args& a, const void* const (&w)[4], const void* const (&s)[4],
            const int (&G)[4], const void* gf, float* scratch,
            size_t scratch_floats, cudaStream_t stream) {
   static int sms[kMaxDevices];
   int nblk = 0;
-  int code = card_blocks(layer_fused_kernel<WBITS>, sms, nblk);
+  int code = card_blocks(layer_fused_kernel<WBITS, G8>, sms, nblk);
   if (code) return code;
   const Layout L = layout(a.H, a.Hq, a.Hkv, a.I, nblk);
   if (scratch_floats < L.total) return (int)cudaErrorInvalidValue;
@@ -505,7 +510,7 @@ int launch(Args& a, const void* const (&w)[4], const void* const (&s)[4],
   if (!encode_plan(a.r.pl)) return (int)cudaErrorInvalidValue;
   void* args[] = {&a};
   cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)layer_fused_kernel<WBITS>, dim3(nblk), dim3(kThreads),
+      (const void*)layer_fused_kernel<WBITS, G8>, dim3(nblk), dim3(kThreads),
       args, a.r.pl.smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -521,9 +526,9 @@ int launch(Args& a, const void* const (&w)[4], const void* const (&s)[4],
 // for bf16); pos int32 [1] on the device; scratch a float32 buffer of
 // scratch_floats floats, at least layout()'s (zeros when allocated, left so
 // for the next launch: its counters); k_new/v_new bf16 [Hkv, D]. D = 128,
-// Hq / Hkv <= 8, H and I multiples of 32, wbits 8 (per channel, G* = 1) or
-// 4 (groups of a multiple of 32 codes, or of 8, or of 16 with K a multiple
-// of 64).
+// Hq / Hkv <= 8, H and I multiples of 32, wbits 8 (per channel, every G*
+// = 1, or every weight in groups of a multiple of 32 codes) or 4 (groups
+// of a multiple of 32 codes, or of 8, or of 16 with K a multiple of 64).
 extern "C" int layer_fused_launch(
     const void* h, const void* res, const void* ga, const void* gf,
     const void* cos, const void* sin, const void* wq, const void* sq,
@@ -537,9 +542,15 @@ extern "C" int layer_fused_launch(
       S < 1 || (wbits != 8 && wbits != 4) ||
       (ks == nullptr) != (vs == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (wbits == 4 ? !(groups_ok(H, Gq) && groups_ok(Hq * kD, Go) &&
-                     groups_ok(H, Gg) && groups_ok(I, Gd))
-                 : (Gq != 1 || Go != 1 || Gg != 1 || Gd != 1))
+  const bool g8 = wbits == 8 && Gq > 1;
+  if (wbits == 4 || g8
+          ? !(groups_ok(H, Gq) && groups_ok(Hq * kD, Go) &&
+              groups_ok(H, Gg) && groups_ok(I, Gd))
+          : (Gq != 1 || Go != 1 || Gg != 1 || Gd != 1))
+    return (int)cudaErrorInvalidValue;
+  // int8 groups: every weight grouped, in groups of a multiple of 32 codes
+  if (g8 && (Go < 2 || Gg < 2 || Gd < 2 || (H / Gq) % 32 ||
+             (Hq * kD / Go) % 32 || (H / Gg) % 32 || (I / Gd) % 32))
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.h = (const __nv_bfloat16*)h;
@@ -569,6 +580,7 @@ extern "C" int layer_fused_launch(
   float* f = (float*)scratch;
   const size_t n = (size_t)scratch_floats;
   cudaStream_t st = (cudaStream_t)stream;
-  if (wbits == 8) return launch<8>(a, w, s, G, gf, f, n, st);
-  return launch<4>(a, w, s, G, gf, f, n, st);
+  if (g8) return launch<8, true>(a, w, s, G, gf, f, n, st);
+  if (wbits == 8) return launch<8, false>(a, w, s, G, gf, f, n, st);
+  return launch<4, false>(a, w, s, G, gf, f, n, st);
 }

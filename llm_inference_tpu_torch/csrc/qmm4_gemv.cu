@@ -13,13 +13,17 @@
 //           entering the products as bf16(xg) + bf16(xg - bf16(xg)),
 //           about 16 bits of mantissa, not float32's 24
 //   rstd  = rsqrt(mean(x32^2) + eps)                       (1 without gamma)
-//   y     = bf16( rstd * sum_g scale[n][g] * (xg_g . code_g)[n] )
-// with the partial dots in float32. Groups of 32k codes take the codes as
-// bf16(136 + code) and 136 * sum(xg) of each 32-code chunk (the sum of the
-// bf16 hi and lo parts, float32) off the chunk's dot; groups of 16 or 8
-// widen each code exactly. quant_matmul_ref applies rstd to the rows
-// before the dots and keeps them float32: the two agree within K1's
-// tolerance, not in their bits.
+//   y     = bf16( rstd * sum_g scale[n][g] * (xg_g . code_g)[n]
+//                 + rstd * sum_g zbias[n][g] * sum(xg_g) )  (zero points)
+// with the partial dots in float32; zero points (the TPU kernel's z_ref,
+// quant_matmul.py:291) in groups of 32k codes, each segment's sum(xg) the
+// hi + lo sums of its chunks that the 136 offset takes; in groups of 16
+// or 8, each group's float32 sum(xg) in the ring's chunk_small (ZB).
+// Groups of 32k codes take the codes as bf16(136 + code) and 136 * sum(xg)
+// of each 32-code chunk (the sum of the bf16 hi and lo parts, float32) off
+// the chunk's dot; groups of 16 or 8 widen each code exactly.
+// quant_matmul_ref applies rstd to the rows before the dots and keeps them
+// float32: the two agree within K1's tolerance, not in their bits.
 // The codes of one layer are [N, K/2] bytes, two K-adjacent nibbles a byte
 // (ops/quantization.py), the scales float32 [N, G]; groups of a multiple
 // of 64 codes, or of 8, 16 or 32.
@@ -85,6 +89,7 @@ constexpr int kMinStages = 4;
 
 struct Args {
   Ring r;
+  const float* z;               // zero points [N, G] or null (symmetric)
   const __nv_bfloat16* x;       // [M, K]
   const __nv_bfloat16* res;     // [M, K] or null
   const __nv_bfloat16* gamma;   // [K] or null
@@ -241,8 +246,10 @@ __device__ __forceinline__ int div_by(int x, int n, int lg) {
   return lg >= 0 ? x >> lg : x / n;
 }
 
-// NT tiles of 16 columns a warp, NB blocks of 4 rows
-template <int NT, int NB>
+// NT tiles of 16 columns a warp, NB blocks of 4 rows; ZB: zero points,
+// sum(xg_g) z[n][g] of each segment (the hi + lo sums of its chunks) added
+// where its scale is
+template <int NT, int NB, bool ZB>
 __device__ __forceinline__ void consume32(const Args& a, const Smem& S) {
   const Ring& r = a.r;
   const Phase& p = r.pl.ph[0];
@@ -266,6 +273,7 @@ __device__ __forceinline__ void consume32(const Args& a, const Smem& S) {
     xs1[b] = xsum + min(4 * b + 2 * (t & 1) + 1, a.M - 1) * K32;
   }
   const float c136 = t < 2 ? 136.f : 0.f;
+  const float zt = t < 2 ? 1.f : 0.f;   // the hi lanes take a row's sum
   const int rc = r.pl.red_cols;
   int u0, u1;
   units_of(p, u0, u1);
@@ -294,6 +302,7 @@ __device__ __forceinline__ void consume32(const Args& a, const Smem& S) {
       const int cb = k0 >> 5;                 // the slot's first chunk
       const int q0 = div_by(cb + c, cpg, lg);
       int left = cpg * (q0 + 1) - (cb + c);
+      int gq = q0;                            // the segment's group
       const float* sp = reinterpret_cast<const float*>(base + p.off_sc) +
                         (q0 - div_by(cb, cpg, lg)) * p.ncp + col0;
       const uint8_t* cbase = base + col0 * kSlab + 4 * t;
@@ -327,7 +336,8 @@ __device__ __forceinline__ void consume32(const Args& a, const Smem& S) {
 #pragma unroll
       for (int b = 0; b < NB; ++b) s0[b] = s1[b] = 0.f;
       // chunk cc's products from (B, W); at a segment's end the group's
-      // scale on it, less 136 sum(x) off the hi
+      // scale on it, less 136 sum(x) off the hi (and with zero points
+      // sum(x) z[n][g] on the hi)
       auto product = [&](int cc, const uint32_t (&B)[NB][4],
                          const uint32_t (&W)[NT][2]) {
 #pragma unroll
@@ -366,9 +376,29 @@ __device__ __forceinline__ void consume32(const Args& a, const Smem& S) {
               d[i][b][0] = d[i][b][1] = d[i][b][2] = d[i][b][3] = 0.f;
             }
           }
+          if constexpr (ZB) {
+#pragma unroll
+            for (int i = 0; i < NT; ++i) {
+              // columns past N read a valid zero point, unused
+              const int n = ua + col0 + i * 16;
+              const float za = __ldg(a.z + (size_t)min(n, a.N - 1) * p.G +
+                                     gq);
+              const float zb = __ldg(a.z + (size_t)min(n + 8, a.N - 1) *
+                                     p.G + gq);
+#pragma unroll
+              for (int b = 0; b < NB; ++b) {
+                const float e0 = zt * s0[b], e1 = zt * s1[b];
+                acc[i][b][0] = fmaf(e0, za, acc[i][b][0]);
+                acc[i][b][1] = fmaf(e1, za, acc[i][b][1]);
+                acc[i][b][2] = fmaf(e0, zb, acc[i][b][2]);
+                acc[i][b][3] = fmaf(e1, zb, acc[i][b][3]);
+              }
+            }
+          }
 #pragma unroll
           for (int b = 0; b < NB; ++b) s0[b] = s1[b] = 0.f;
           sp += p.ncp;
+          ++gq;
           left = cpg;
         }
       };
@@ -452,28 +482,29 @@ struct Epi {
 // 4, 8, 12, 16 or 24, make_plan's tiles_of): NT of 16 columns a warp.
 // At M > 4 (NB = 2) batches hold at most 96 columns (kCapRows2): 6 tiles
 // of 16 a warp spilled there.
-template <int NB>
+template <int NB, bool ZB>
 __device__ __forceinline__ void consume_tiles(const Args& a, const Smem& S) {
   constexpr int kT = 2 * kTileWarps;   // 8-column tiles a 16-column one,
                                        // over the warps that split them
   const int n = a.r.pl.ph[0].ncp >> 3;
   if (n <= 4)
-    consume32<4 / kT, NB>(a, S);
+    consume32<4 / kT, NB, ZB>(a, S);
   else if (n <= 8)
-    consume32<8 / kT, NB>(a, S);
+    consume32<8 / kT, NB, ZB>(a, S);
   else if constexpr (NB == 2)
-    consume32<12 / kT, NB>(a, S);
+    consume32<12 / kT, NB, ZB>(a, S);
   else if (n <= 12)
-    consume32<12 / kT, NB>(a, S);
+    consume32<12 / kT, NB, ZB>(a, S);
   else if (n <= 16)
-    consume32<16 / kT, NB>(a, S);
+    consume32<16 / kT, NB, ZB>(a, S);
   else
-    consume32<24 / kT, NB>(a, S);
+    consume32<24 / kT, NB, ZB>(a, S);
 }
 
 // SMALL: groups of 16 or 8 codes (the ring's consumers on float32 rows);
-// else groups of 32k codes (consume32 on ready A fragments).
-template <bool SMALL>
+// else groups of 32k codes (consume32 on ready A fragments), ZB with zero
+// points.
+template <bool SMALL, bool ZB>
 __global__ void __launch_bounds__(kThreads, 1)
     qmm4_gemv(const __grid_constant__ Args a) {
   extern __shared__ __align__(128) unsigned char sm[];
@@ -490,11 +521,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   if constexpr (SMALL) {
     Cursor cur;
     const Epi epi{a, S};
-    run_phase<0, kFormF32, 4, true>(a.r, 0, S, cur, epi);
+    run_phase<0, kFormF32, 4, true, false, ZB>(a.r, 0, S, cur, epi);
   } else if (a.M <= 4) {
-    consume_tiles<1>(a, S);
+    consume_tiles<1, ZB>(a, S);
   } else {
-    consume_tiles<2>(a, S);
+    consume_tiles<2, ZB>(a, S);
   }
 }
 
@@ -542,15 +573,16 @@ bool shape_ok(int M, int K, int N, int G) {
   return gs % 64 == 0 || gs == 8 || gs == 16 || gs == 32;
 }
 
-template <bool SMALL>
+template <bool SMALL, bool ZB>
 int launch(Args& a, const void* w, const void* s, int G, cudaStream_t st) {
   static int sms[kMaxDevices];
   int nblk = 0;
-  int code = card_blocks(qmm4_gemv<SMALL>, sms, nblk);
+  int code = card_blocks(qmm4_gemv<SMALL, ZB>, sms, nblk);
   if (code) return code;
   a.r.M = a.M;
   code = make_gemv_plan(a.r.pl, w, s, a.M, a.K, a.N, G, nblk);
   if (code) return code;
+  a.r.pl.ph[0].z = a.z;
   if (!encode_plan(a.r.pl)) return (int)cudaErrorInvalidValue;
   set_masks(a.r);
   cudaLaunchAttribute attr;
@@ -563,7 +595,7 @@ int launch(Args& a, const void* w, const void* s, int G, cudaStream_t st) {
   cfg.stream = st;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, qmm4_gemv<SMALL>, a);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, qmm4_gemv<SMALL, ZB>, a);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -571,17 +603,19 @@ int launch(Args& a, const void* w, const void* s, int G, cudaStream_t st) {
 
 // x/res/out/xout bf16 row-major, gamma bf16 [K] or null (no norm), res and
 // xout may be null, all 16-byte aligned; w packed int4 codes [N, K/2]
-// (16-byte aligned) and scale float32 [N, G] of ONE layer (the caller
-// offsets the stacked pointers). Requires 1 <= M <= 8, M * K * 4 <= 200
-// KiB, K % 64 == 0, N % 64 == 0 and groups of K / G codes a multiple of
-// 64 or 8, 16 or 32; more rows take qmm_mma_launch
+// (16-byte aligned), scale float32 [N, G] and zbias (null: symmetric) in
+// its shape, of ONE layer (the caller offsets the stacked pointers).
+// Requires 1 <= M <= 8, M * K * 4 <= 200 KiB, K % 64 == 0, N % 64 == 0
+// and groups of K / G codes a multiple of 64 or 8, 16 or 32; more rows
+// take qmm_mma_launch
 // (quant_matmul_tiled.cu).
 extern "C" int qmm4_launch(const void* x, const void* res, const void* gamma,
-                           const void* w, const void* scale, void* out,
-                           void* xout, int M, int K, int N, int G, float eps,
-                           void* stream) {
+                           const void* w, const void* scale,
+                           const void* zbias, void* out, void* xout, int M,
+                           int K, int N, int G, float eps, void* stream) {
   if (!shape_ok(M, K, N, G)) return (int)cudaErrorInvalidValue;
   Args a{};
+  a.z = (const float*)zbias;
   a.x = (const __nv_bfloat16*)x;
   a.res = (const __nv_bfloat16*)res;
   a.gamma = (const __nv_bfloat16*)gamma;
@@ -591,9 +625,12 @@ extern "C" int qmm4_launch(const void* x, const void* res, const void* gamma,
   a.K = K;
   a.N = N;
   a.eps = eps;
+  cudaStream_t st = (cudaStream_t)stream;
   if ((K / G) % 32)
-    return launch<true>(a, w, scale, G, (cudaStream_t)stream);
-  return launch<false>(a, w, scale, G, (cudaStream_t)stream);
+    return zbias ? launch<true, true>(a, w, scale, G, st)
+                 : launch<true, false>(a, w, scale, G, st);
+  if (zbias) return launch<false, true>(a, w, scale, G, st);
+  return launch<false, false>(a, w, scale, G, st);
 }
 
 // The plan of a launch on nblk blocks, for the tests: out[0..9] = slots,

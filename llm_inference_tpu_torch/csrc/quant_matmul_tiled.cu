@@ -1,6 +1,6 @@
-// K8: the prefill GEMM for M > 128 rows, int8 per-channel or int4 grouped
-// weight-only quantized weights; its kernels also carry K1's MMA branch
-// (8 < M <= 128, below).
+// K8: the prefill GEMM for M > 128 rows, int8 (per channel or grouped) or
+// int4 grouped weight-only quantized weights, symmetric or with zero
+// points; its kernels also carry K1's MMA branch (8 < M <= 128, below).
 //
 // Replaces llm_inference_tpu/ops/pallas/quant_matmul.py:_quant_matmul_tiled
 // (_tiled_kernel). Same function and rounding points: the rows enter as
@@ -8,10 +8,15 @@
 // bf16 exactly (they are small integers), the products accumulate in
 // float32 and
 //   int8:  y[m][n] = bf16( scale[n] * sum_k x[m][k] * code[n][k] )
-//   int4:  y[m][n] = bf16( sum_g scale[n][g] * sum_{k in g} x[m][k] * code[n][k] )
+//   grouped (int4, int8 in groups of 64k codes):
+//          y[m][n] = bf16( sum_g scale[n][g] * sum_{k in g} x[m][k] * code[n][k] )
+// and with zero points (the TPU kernel's z_ref, :474-487) each group's
+// xsum[m][g] * zbias[n][g] (per channel xsum[m] * zbias[n] after the
+// scale), xsum the sums of the bf16 rows that the prologue pre-pass
+// writes once a call (qmm_prologue_launch), read by each group's fold.
 // Weight layout (ops/quantization.py): int8 codes [N][K], int4 codes
 // [N][K/2] (code 2j in the low nibble of byte j, 2j+1 in the high one),
-// scales float32 [N] or [N][G].
+// scales float32 [N] or [N][G], zero points in the scales' shape.
 //
 // Bound on the H100 SXM: operations. One 2048-row prefill chunk of
 // LLaMA-2-7B takes 2 x 2048 x 202.4M = 829 GFLOP per layer (wqkv, wo,
@@ -42,9 +47,11 @@
 //      8, minus 136 in one bf16x2 subtract), issues four m64nBMk16
 //      wgmmas, waits for them and frees the slot. The consumers are tied
 //      by no barrier: one widens while the other's products run;
-//    - int4 sums each group into `part` (the group's first wgmma
-//      overwrites it) and folds part * scale[n][g] into `acc` after the
-//      group's last step; the scales are loaded when the group starts.
+//    - grouped scales (int4, int8 in groups of 64k codes: GRP, the tile
+//      of 176 rows) sum each group into `part` (the group's first wgmma
+//      overwrites it) and fold part * scale[n][g] (and the zero points'
+//      term) into `acc` after the group's last step; the scales are
+//      loaded when the group starts.
 //    setmaxnreg moves registers from the producer (40) to the consumers
 //    (232): acc is 128 floats a thread for int8, acc + part 88 + 88 for
 //    int4. The epilogue scales (int8), swaps values between neighbouring
@@ -138,10 +145,12 @@ constexpr int kWgThreads = 384;     // producer warpgroup + 2 consumers
 constexpr int kWgTN = 128;          // weight rows (output columns) a block
 constexpr int kWgTK = 64;           // k a pipeline step
 
-template <bool INT4>
+// GRP: grouped scales (int4, or int8 in groups of 64k codes), each
+// group's sums in `part` folded into `acc`
+template <bool INT4, bool GRP>
 struct Wg {
-  static constexpr int BM = INT4 ? 176 : 256;      // output rows a block
-  static constexpr int STAGES = INT4 ? 8 : 5;
+  static constexpr int BM = GRP ? 176 : 256;       // output rows a block
+  static constexpr int STAGES = INT4 ? 8 : GRP ? 7 : 5;
   static constexpr int XB = BM * kWgTK * 2;        // x tile bytes
   static constexpr int WROW = INT4 ? kWgTK / 2 : kWgTK;
   static constexpr int WB = kWgTN * WROW;          // code tile bytes
@@ -214,14 +223,38 @@ __device__ __forceinline__ void widen4(uint32_t wtile, int r, int tg, int j,
   }
 }
 
-template <bool INT4>
+// The zero points' term of the accumulators acc[i] of rows m0 + 8j + 2tg
+// (+ 1) and weight rows `row` (+ 8): acc += xsum[m][g] * zbias[n][g]
+// (xsum [M][G], the rows' sums; rows past M read row M - 1's, unstored).
+template <int ND>
+__device__ __forceinline__ void zero_points(float (&acc)[ND],
+                                            const float* __restrict__ xsum,
+                                            const float* __restrict__ zbias,
+                                            size_t row, int m0, int tg,
+                                            int M, int G, int g) {
+  const float z0 = __ldg(zbias + row * G + g);
+  const float z1 = __ldg(zbias + (row + 8) * G + g);
+#pragma unroll
+  for (int j = 0; j < ND / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = min(m0 + 8 * j + 2 * tg + e, M - 1);
+      const float xs = __ldg(xsum + (size_t)m * G + g);
+      acc[4 * j + e] = fmaf(xs, z0, acc[4 * j + e]);
+      acc[4 * j + 2 + e] = fmaf(xs, z1, acc[4 * j + 2 + e]);
+    }
+}
+
+template <bool INT4, bool GRP>
 __global__ void __launch_bounds__(kWgThreads, 1)
 qmm_wgmma(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
           const __grid_constant__ CUtensorMap wmap,   // codes [N][K'] u8
           const float* __restrict__ scale,            // [N] or [N, G]
+          const float* __restrict__ zbias,            // as scale, or null
+          const float* __restrict__ xsum,             // [M, G] with zbias
           __nv_bfloat16* __restrict__ out,            // [M, N]
           int M, int K, int N, int G) {
-  using C = Wg<INT4>;
+  using C = Wg<INT4, GRP>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[C::STAGES], empty[C::STAGES];
   // the swizzled tiles start 1024-byte aligned: x slots, then code slots
@@ -265,16 +298,16 @@ qmm_wgmma(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
     const size_t row = rows_in ? (size_t)n0 + r : 0;
     constexpr int ND = C::BM / 2;               // accumulators a thread
     float acc[ND];
-    float part[INT4 ? ND : 1];
+    float part[GRP ? ND : 1];
 #pragma unroll
     for (int i = 0; i < ND; ++i) acc[i] = 0.f;
-    // int4: k steps a group, and the group's two row scales
-    const int spg = INT4 ? (K / G) / kWgTK : 1;
+    // grouped: k steps a group, and the group's two row scales
+    const int spg = GRP ? (K / G) / kWgTK : 1;
     float gs0 = 0.f, gs1 = 0.f;
 
     for (int kt = 0; kt < nk; ++kt) {
       const int s = kt % C::STAGES;
-      const bool first = INT4 && kt % spg == 0;
+      const bool first = GRP && kt % spg == 0;
       if (first) {
         const int g = kt / spg;
         gs0 = __ldg(scale + row * G + g);
@@ -291,44 +324,49 @@ qmm_wgmma(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
         const uint64_t desc = sm90::desc_k128(xs + 32u * ks);
-        if constexpr (INT4)
+        if constexpr (GRP)
           sm90::wgmma_rs(part, a[ks], desc, (first && ks == 0) ? 0 : 1);
         else
           sm90::wgmma_rs(acc, a[ks], desc, 1);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
-      if constexpr (INT4) {
+      if constexpr (GRP) {
         sm90::fence_regs(part);
       } else {
         sm90::fence_regs(acc);
       }
       sm90::mbar_arrive(&empty[s]);
-      if constexpr (INT4) {
+      if constexpr (GRP) {
         if ((kt + 1) % spg == 0) {              // the group is complete
 #pragma unroll
           for (int i = 0; i < ND; ++i)
             acc[i] = fmaf(part[i], (i & 2) ? gs1 : gs0, acc[i]);
+          if (zbias != nullptr)                 // its zero points
+            zero_points(acc, xsum, zbias, row, m0, tg, M, G, kt / spg);
           sm90::fence_regs(acc);                // done before part is reused
         }
       }
     }
 
     // epilogue: thread holds y[m][n] for n = n0 + r (+ 8) and m = m0 + 8j
-    // + 2tg (+ 1); lanes gr and gr ^ 1 trade so each stores a column pair
+    // + 2tg (+ 1); lanes gr and gr ^ 1 trade so each stores a column pair.
+    // Per channel the column scale, then the zero points' term
     float s0 = 1.f, s1 = 1.f;
-    if constexpr (!INT4) {
+    if constexpr (!GRP) {
       s0 = __ldg(scale + row);
       s1 = __ldg(scale + row + 8);
+#pragma unroll
+      for (int i = 0; i < ND; ++i) acc[i] *= (i & 2) ? s1 : s0;
+      if (zbias != nullptr) zero_points(acc, xsum, zbias, row, m0, tg, M, 1, 0);
     }
     const int odd = gr & 1;
 #pragma unroll
     for (int j = 0; j < C::BM / 8; ++j) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float sh = h ? s1 : s0;
-        const float v0 = acc[4 * j + 2 * h] * sh;       // row m, column n
-        const float v1 = acc[4 * j + 2 * h + 1] * sh;   // row m + 1
+        const float v0 = acc[4 * j + 2 * h];            // row m, column n
+        const float v1 = acc[4 * j + 2 * h + 1];        // row m + 1
         const float got = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
         const int mm = m0 + 8 * j + 2 * tg + odd;
         const int nn = n0 + r + 8 * h - odd;
@@ -418,11 +456,13 @@ __device__ __forceinline__ int sk_block(int u, int P, int total) {
 // first tile, 2b + 1 for its last), and the tile's last block to finish
 // (an acq_rel count in done[tile], zero between launches and left so)
 // adds the partials in block order: the same bits every launch.
-template <bool INT4, int BM, bool ODD>
+template <bool INT4, bool GRP, int BM, bool ODD>
 __global__ void __launch_bounds__(kWgThreads, 1)
 qmm_wgmma_sk(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
              const __grid_constant__ CUtensorMap wmap,   // codes [N][K'] u8
              const float* __restrict__ scale,            // [N] or [N, G]
+             const float* __restrict__ zbias,            // as scale, or null
+             const float* __restrict__ xsum,             // [M, G] with zbias
              __nv_bfloat16* __restrict__ out,            // [M, N]
              float* __restrict__ part,                   // [2 P][BM 128]
              int* __restrict__ done,                     // [tiles]
@@ -499,14 +539,18 @@ qmm_wgmma_sk(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
     const int r = 64 * c + 16 * warp + gr;      // rows r, r + 8 of the tile
     constexpr int ND = BM / 2;                  // accumulators a thread
     float acc[ND];
-    float grp[INT4 ? ND : 1];
+    float grp[GRP ? ND : 1];
     // The scales come from valid addresses for the rows past N and the
     // steps past K (whose sums are not stored, or are zero), so no branch
     // that differs between threads sits among the products (ptxas then
-    // serialises the wgmmas, C7520): a tile's row scales (int8) as it
-    // starts, a group's (int4) as the group starts.
+    // serialises the wgmmas, C7520): a tile's row scales (per channel) as
+    // it starts, a group's (grouped) as the group starts.
     float gs0 = 0.f, gs1 = 0.f;
+    int gcur = 0;                               // the group being summed
     int cnt = 0;
+    // the zero points read the prologue pre-pass's sums: its grid has
+    // ended and its writes are visible once this returns
+    if (zbias != nullptr) sm90::grid_dependency_wait();
     for (int u = lo; u < hi;) {
       const int t = u / units, n0 = t * kWgTN;
       const int ufirst = u;
@@ -515,10 +559,20 @@ qmm_wgmma_sk(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
       const bool rows_in = n0 + 64 * c < N;
       const size_t row = rows_in ? (size_t)n0 + r : 0;
       float s0 = 1.f, s1 = 1.f;
-      if constexpr (!INT4) {
+      if constexpr (!GRP) {
         s0 = __ldg(scale + row);
         s1 = __ldg(scale + row + 8);
       }
+      // a completed group's sums times its scales, then its zero points
+      auto fold_group = [&]() {
+        if constexpr (GRP) {
+          fold(acc, grp, gs0, gs1);
+          if (zbias != nullptr) {
+            zero_points(acc, xsum, zbias, row, 0, tg, M, G, gcur);
+            sm90::fence_regs(acc);
+          }
+        }
+      };
 #pragma unroll
       for (int i = 0; i < ND; ++i) acc[i] = 0.f;
       for (; u < uend; ++u) {
@@ -533,11 +587,11 @@ qmm_wgmma_sk(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
             const int kt = 2 * (q0 + j) + h;
             // a group starts at the slot's first step unless a group is an
             // odd number of steps (ODD)
-            const bool first = INT4 && (ODD || h == 0) && kt % spg == 0;
+            const bool first = GRP && (ODD || h == 0) && kt % spg == 0;
             if (first) {
-              const int g = min(kt / spg, G - 1);
-              gs0 = __ldg(scale + row * G + g);
-              gs1 = __ldg(scale + (row + 8) * G + g);
+              gcur = min(kt / spg, G - 1);
+              gs0 = __ldg(scale + row * G + gcur);
+              gs1 = __ldg(scale + (row + 8) * G + gcur);
             }
             if constexpr (INT4)
               widen4<C::WROW>(ws, r, tg, h, a[h]);
@@ -548,7 +602,7 @@ qmm_wgmma_sk(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
             for (int ks = 0; ks < 4; ++ks) {
               const uint64_t desc =
                   sm90::desc_k128(xs + h * C::XB1 + 32u * ks);
-              if constexpr (INT4)             // a group's first product
+              if constexpr (GRP)              // a group's first product
                 sm90::wgmma_rs(grp, a[h][ks], desc,    // overwrites grp
                                (first && ks == 0) ? 0 : 1);
               else
@@ -558,7 +612,7 @@ qmm_wgmma_sk(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
               sm90::wgmma_commit();
               sm90::wgmma_wait<0>();
               sm90::fence_regs(grp);
-              if ((kt + 1) % spg == 0) fold(acc, grp, gs0, gs1);
+              if ((kt + 1) % spg == 0) fold_group();
             }
           }
           if constexpr (!ODD) {
@@ -566,11 +620,10 @@ qmm_wgmma_sk(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
             sm90::wgmma_wait<0>();
           }
           fence_a(a);
-          if constexpr (INT4) {
+          if constexpr (GRP) {
             sm90::fence_regs(grp);
             // groups of an even number of steps end with a slot
-            if (!ODD && (2 * (q0 + j) + 2) % spg == 0)
-              fold(acc, grp, gs0, gs1);
+            if (!ODD && (2 * (q0 + j) + 2) % spg == 0) fold_group();
           } else {
             sm90::fence_regs(acc);
           }
@@ -619,14 +672,19 @@ qmm_wgmma_sk(const __grid_constant__ CUtensorMap xmap,   // x [M][K] bf16
       // the tile's output, as qmm_wgmma's epilogue, for rows below M and
       // weight rows below N
       if (!rows_in) continue;
+      if constexpr (!GRP) {
+#pragma unroll
+        for (int i = 0; i < ND; ++i) acc[i] *= (i & 2) ? s1 : s0;
+        if (zbias != nullptr)
+          zero_points(acc, xsum, zbias, row, 0, tg, M, 1, 0);
+      }
       const int odd = gr & 1;
 #pragma unroll
       for (int jj = 0; jj < BM / 8; ++jj) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float sh = h ? s1 : s0;
-          const float v0 = acc[4 * jj + 2 * h] * sh;
-          const float v1 = acc[4 * jj + 2 * h + 1] * sh;
+          const float v0 = acc[4 * jj + 2 * h];
+          const float v1 = acc[4 * jj + 2 * h + 1];
           const float got = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
           const int mm = 8 * jj + 2 * tg + odd;
           const int nn = n0 + r + 8 * h - odd;
@@ -647,12 +705,16 @@ constexpr int LDS = TK + 8;         // bf16 per shared row (80 bytes)
 
 // SUB: 0 for groups of 32 codes, else the group size (16 or 8). EDGE: N
 // is a multiple of 64 only, and the last tile's columns past N are
-// neither read nor stored.
+// neither read nor stored. zbias (null: symmetric) in the scales' shape
+// with xsum [M, G], the rows' sums (a pre-pass, qmm_prologue_launch):
+// each group's xsum[m][g] * zbias[n][g] joins its fold.
 template <int SUB, bool EDGE>
 __global__ void __launch_bounds__(kThreads, 1)
 qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
           const uint8_t* __restrict__ w,         // this layer's codes
           const float* __restrict__ scale,       // [N, G]
+          const float* __restrict__ zbias,       // [N, G] or null
+          const float* __restrict__ xsum,        // [M, G] with zbias
           __nv_bfloat16* __restrict__ out,       // [M, N]
           int M, int K, int N, int G) {
   __shared__ __align__(16) __nv_bfloat16 As[2][TM * LDS];
@@ -710,7 +772,8 @@ qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
     dst[1] = make_uint4(p[4], p[5], p[6], p[7]);
   };
 
-  // acc += part * (group g's column scales), then part = 0
+  // acc += part * (group g's column scales) (+ the group's zero points'
+  // term), then part = 0
   auto fold = [&](int g) {
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
@@ -726,6 +789,21 @@ qmm_tiled(const __nv_bfloat16* __restrict__ a,   // [M, K] bf16 rows
         acc[mi][ni][3] = fmaf(part[mi][ni][3], s1, acc[mi][ni][3]);
 #pragma unroll
         for (int c = 0; c < 4; ++c) part[mi][ni][c] = 0.f;
+      }
+      if (zbias != nullptr) {
+        const float z0 = __ldg(zbias + (size_t)col * G + g);
+        const float z1 = __ldg(zbias + (size_t)(col + 1) * G + g);
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          const int r0 = min(m0 + wm + mi * 16 + gr, M - 1);
+          const int r1 = min(m0 + wm + mi * 16 + gr + 8, M - 1);
+          const float x0 = __ldg(xsum + (size_t)r0 * G + g);
+          const float x1 = __ldg(xsum + (size_t)r1 * G + g);
+          acc[mi][ni][0] = fmaf(x0, z0, acc[mi][ni][0]);
+          acc[mi][ni][1] = fmaf(x0, z1, acc[mi][ni][1]);
+          acc[mi][ni][2] = fmaf(x1, z0, acc[mi][ni][2]);
+          acc[mi][ni][3] = fmaf(x1, z1, acc[mi][ni][3]);
+        }
       }
     }
   };
@@ -839,36 +917,47 @@ bool encode(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool INT4>
-int launch_wgmma(const void* a, const void* w, const void* scale, void* out,
-                 int M, int K, int N, int G, cudaStream_t st) {
-  using C = Wg<INT4>;
+// The weight's pointers a launch passes on: codes, scales, zero points
+// (null: symmetric) and the rows' sums they take.
+struct Wt {
+  const void* w;
+  const void* scale;
+  const void* zbias;
+  const void* xsum;
+};
+
+template <bool INT4, bool GRP>
+int launch_wgmma(const void* a, const Wt& wt, void* out, int M, int K, int N,
+                 int G, cudaStream_t st) {
+  using C = Wg<INT4, GRP>;
   CUtensorMap xmap, wmap;
   if (!encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, M, K, C::BM,
               kWgTK, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, N,
+      !encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wt.w, N,
               INT4 ? K / 2 : K, kWgTN, C::WROW,
               INT4 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_64B))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      qmm_wgmma<INT4>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      qmm_wgmma<INT4, GRP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((M + C::BM - 1) / C::BM, (N + kWgTN - 1) / kWgTN);
-  qmm_wgmma<INT4><<<grid, kWgThreads, C::SMEM, st>>>(
-      xmap, wmap, (const float*)scale, (__nv_bfloat16*)out, M, K, N, G);
+  qmm_wgmma<INT4, GRP><<<grid, kWgThreads, C::SMEM, st>>>(
+      xmap, wmap, (const float*)wt.scale, (const float*)wt.zbias,
+      (const float*)wt.xsum, (__nv_bfloat16*)out, M, K, N, G);
   return (int)cudaGetLastError();
 }
 
-template <bool INT4, int BM, bool ODD>
-int launch_sk(const void* a, const void* w, const void* scale, void* out,
-              void* part, void* done, int M, int K, int N, int G, int grid,
-              int spg, int units, int spu, int total, cudaStream_t st) {
+template <bool INT4, bool GRP, int BM, bool ODD>
+int launch_sk(const void* a, const Wt& wt, void* out, void* part, void* done,
+              int M, int K, int N, int G, int grid, int spg, int units,
+              int spu, int total, cudaStream_t st) {
   using C = Sk<INT4, BM>;
-  auto kernel = qmm_wgmma_sk<INT4, BM, ODD>;
+  auto kernel = qmm_wgmma_sk<INT4, GRP, BM, ODD>;
   CUtensorMap xmap, wmap;
   if (!encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, M, K, BM,
               kWgTK, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, N,
+      !encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wt.w, N,
               INT4 ? K / 2 : K, kWgTN, C::WROW,
               INT4 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B))
     return (int)cudaErrorInvalidValue;
@@ -896,63 +985,75 @@ int launch_sk(const void* a, const void* w, const void* scale, void* out,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kernel, xmap, wmap,
-                         (const float*)scale, (__nv_bfloat16*)out,
+                         (const float*)wt.scale, (const float*)wt.zbias,
+                         (const float*)wt.xsum, (__nv_bfloat16*)out,
                          (float*)part, (int*)done, M, N, G, spg, units, spu,
                          total);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-template <bool INT4, bool ODD>
-int launch_sk_rows(const void* a, const void* w, const void* scale,
-                   void* out, void* part, void* done, int M, int K, int N,
-                   int G, int bm, int grid, int spg, int units, int spu,
-                   int total, cudaStream_t st) {
+template <bool INT4, bool GRP, bool ODD>
+int launch_sk_rows(const void* a, const Wt& wt, void* out, void* part,
+                   void* done, int M, int K, int N, int G, int bm, int grid,
+                   int spg, int units, int spu, int total, cudaStream_t st) {
   switch (bm) {
     case 16:
-      return launch_sk<INT4, 16, ODD>(a, w, scale, out, part, done, M, K, N,
-                                      G, grid, spg, units, spu, total, st);
+      return launch_sk<INT4, GRP, 16, ODD>(a, wt, out, part, done, M, K, N,
+                                           G, grid, spg, units, spu, total,
+                                           st);
     case 32:
-      return launch_sk<INT4, 32, ODD>(a, w, scale, out, part, done, M, K, N,
-                                      G, grid, spg, units, spu, total, st);
+      return launch_sk<INT4, GRP, 32, ODD>(a, wt, out, part, done, M, K, N,
+                                           G, grid, spg, units, spu, total,
+                                           st);
     case 64:
-      return launch_sk<INT4, 64, ODD>(a, w, scale, out, part, done, M, K, N,
-                                      G, grid, spg, units, spu, total, st);
+      return launch_sk<INT4, GRP, 64, ODD>(a, wt, out, part, done, M, K, N,
+                                           G, grid, spg, units, spu, total,
+                                           st);
     case 128:
-      return launch_sk<INT4, 128, ODD>(a, w, scale, out, part, done, M, K,
-                                       N, G, grid, spg, units, spu, total,
-                                       st);
+      return launch_sk<INT4, GRP, 128, ODD>(a, wt, out, part, done, M, K,
+                                            N, G, grid, spg, units, spu,
+                                            total, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <bool EDGE>
-int launch_tiled(const void* a, const void* w, const void* scale, void* out,
-                 int M, int K, int N, int G, cudaStream_t st) {
+int launch_tiled(const void* a, const Wt& wt, void* out, int M, int K, int N,
+                 int G, cudaStream_t st) {
   dim3 grid((M + TM - 1) / TM, (N + TN - 1) / TN);
   const __nv_bfloat16* ap = (const __nv_bfloat16*)a;
-  const uint8_t* wp = (const uint8_t*)w;
-  const float* sp = (const float*)scale;
+  const uint8_t* wp = (const uint8_t*)wt.w;
+  const float* sp = (const float*)wt.scale;
+  const float* zp = (const float*)wt.zbias;
+  const float* xp = (const float*)wt.xsum;
   __nv_bfloat16* op = (__nv_bfloat16*)out;
   const int gsize = K / G;
   if (gsize == 8)
-    qmm_tiled<8, EDGE><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N,
-                                                  G);
+    qmm_tiled<8, EDGE><<<grid, kThreads, 0, st>>>(ap, wp, sp, zp, xp, op, M,
+                                                  K, N, G);
   else if (gsize == 16)
-    qmm_tiled<16, EDGE><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N,
-                                                   G);
+    qmm_tiled<16, EDGE><<<grid, kThreads, 0, st>>>(ap, wp, sp, zp, xp, op,
+                                                   M, K, N, G);
   else
-    qmm_tiled<0, EDGE><<<grid, kThreads, 0, st>>>(ap, wp, sp, op, M, K, N,
-                                                  G);
+    qmm_tiled<0, EDGE><<<grid, kThreads, 0, st>>>(ap, wp, sp, zp, xp, op, M,
+                                                  K, N, G);
   return (int)cudaGetLastError();
 }
 
 // qmm_tiled for groups of 8, 16 or 32 codes; N a multiple of 64
-int launch_small_groups(const void* a, const void* w, const void* scale,
-                        void* out, int M, int K, int N, int G,
-                        cudaStream_t st) {
-  return N % TN == 0
-             ? launch_tiled<false>(a, w, scale, out, M, K, N, G, st)
-             : launch_tiled<true>(a, w, scale, out, M, K, N, G, st);
+int launch_small_groups(const void* a, const Wt& wt, void* out, int M, int K,
+                        int N, int G, cudaStream_t st) {
+  return N % TN == 0 ? launch_tiled<false>(a, wt, out, M, K, N, G, st)
+                     : launch_tiled<true>(a, wt, out, M, K, N, G, st);
+}
+
+// int8 groups (G > 1) of a multiple of 64 codes, int4 groups of a multiple
+// of 64, or of 32, 16 or 8
+bool groups_ok(int K, int G, int bits) {
+  if (G < 1 || K % G != 0) return false;
+  const int gsize = K / G;
+  if (bits == 8) return G == 1 || gsize % kWgTK == 0;
+  return gsize % kWgTK == 0 || gsize == 32 || gsize == 16 || gsize == 8;
 }
 
 }  // namespace
@@ -961,53 +1062,61 @@ int launch_small_groups(const void* a, const void* w, const void* scale,
 // kernel (int8, int4 groups of a multiple of 64 codes), 0 the mma.sync
 // kernel (int4 groups of 8, 16 or 32 codes), -1 none (it would refuse).
 extern "C" int qmm_tiled_route(int K, int N, int G, int bits) {
-  if (K % kWgTK != 0 || N % 64 != 0 || (bits != 4 && bits != 8))
+  if (K % kWgTK != 0 || N % 64 != 0 || (bits != 4 && bits != 8) ||
+      !groups_ok(K, G, bits))
     return -1;
-  if (bits == 8) return 1;
-  const int gsize = G >= 1 && K % G == 0 ? K / G : 0;
-  if (gsize % kWgTK == 0 && gsize > 0) return 1;
-  return gsize == 32 || gsize == 16 || gsize == 8 ? 0 : -1;
+  return bits == 8 || (K / G) % kWgTK == 0 ? 1 : 0;
 }
 
 // a: bf16 rows [M, K]; w: ONE layer's codes (int8 [N, K] when bits == 8,
 // packed int4 [N, K/2] when bits == 4), 16-byte aligned; scale: float32
-// [N] (int8) or [N, G] (int4); out: bf16 [M, N]. Requires K % 64 == 0,
-// N % 64 == 0 and, for int4, groups of K / G codes a multiple of 64, or
-// 32, 16 or 8.
+// [N] (int8, G = 1) or [N, G]; zbias: null (symmetric) or zero points in
+// the scale's shape, with xsum float32 [M, G] the rows' sums in its groups
+// (qmm_prologue_launch, mode 0); out: bf16 [M, N]. Requires K % 64 == 0,
+// N % 64 == 0, int8 groups of a multiple of 64 codes and int4 groups of a
+// multiple of 64, or 32, 16 or 8.
 extern "C" int qmm_tiled_launch(const void* a, const void* w,
-                                const void* scale, void* out, int M, int K,
+                                const void* scale, const void* zbias,
+                                const void* xsum, void* out, int M, int K,
                                 int N, int G, int bits, void* stream) {
   const int route = qmm_tiled_route(K, N, G, bits);
-  if (M < 1 || route < 0) return (int)cudaErrorInvalidValue;
+  if (M < 1 || route < 0 || (zbias && !xsum))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (route == 1)
-    return bits == 8 ? launch_wgmma<false>(a, w, scale, out, M, K, N, G, st)
-                     : launch_wgmma<true>(a, w, scale, out, M, K, N, G, st);
-  return launch_small_groups(a, w, scale, out, M, K, N, G, st);
+  const Wt wt{w, scale, zbias, xsum};
+  if (route == 0) return launch_small_groups(a, wt, out, M, K, N, G, st);
+  if (bits == 4) return launch_wgmma<true, true>(a, wt, out, M, K, N, G, st);
+  if (G > 1) return launch_wgmma<false, true>(a, wt, out, M, K, N, G, st);
+  return launch_wgmma<false, false>(a, wt, out, M, K, N, G, st);
 }
 
 extern "C" int qmm_prologue_launch(const void* x, const void* res,
                                    const void* gamma, void* xn, void* xout,
-                                   int M, int K, float eps, void* stream);
+                                   void* xsum, int M, int K, int G, int mode,
+                                   float eps, void* stream);
 
 // K1's branch for 1 <= M <= 128 rows that the GEMV does not take
 // (quant_matmul.cu): the prologue pre-pass when there is one (gamma, res
 // or xout given: xn = bf16(rms_norm(x + res) * gamma), xout = bf16(x +
-// res); xn a bf16 [M, K] scratch), then the product on xn (else on x):
-// int8 and int4 groups of a multiple of 64 codes on qmm_wgmma_sk,
-// int4 groups of 8, 16 or 32 codes on qmm_tiled. plan: int64 {M, K, N, G,
-// bits, bm, grid, part, done, spg, units, spu, total}
-// (ops/kernels/quant_matmul.py, mma_plan): a row tile of bm rows (16, 32,
-// 64 or 128, at least M), `grid` persistent blocks over `total` units of
-// spu two-step slots, `units` a tile, spg k steps an int4 group; part
+// res); xn a bf16 [M, K] scratch; with zero points, zbias in the scale's
+// shape, also the rows' sums into xsum [M, G] in the sum_mode that
+// qmm_prologue_launch takes, a pass of their own when the rows have no
+// prologue), then the product on xn (else on x): int8 (per channel, or in
+// groups of a multiple of 64 codes) and int4 groups of a multiple of 64
+// codes on qmm_wgmma_sk, int4 groups of 8, 16 or 32 codes on qmm_tiled.
+// plan: int64 {M, K, N, G, bits, bm, grid, part, done, spg, units, spu,
+// total} (ops/kernels/quant_matmul.py, mma_plan): a row tile of bm rows
+// (16, 32, 64 or 128, at least M), `grid` persistent blocks over `total`
+// units of spu two-step slots, `units` a tile, spg k steps a group; part
 // float32 [2 grid][bm 128], done int32 [ceil(N / 128)] zeros, left so
 // (neither used by qmm_tiled). One array, kept by the caller per shape,
 // in place of thirteen arguments a call. Requires K % 64 == 0,
 // N % 64 == 0.
 extern "C" int qmm_mma_launch(const void* x, const void* res,
                               const void* gamma, void* xn, void* xout,
-                              const void* w, const void* scale, void* out,
-                              const long long* plan, float eps,
+                              const void* w, const void* scale,
+                              const void* zbias, void* xsum, void* out,
+                              const long long* plan, int sum_mode, float eps,
                               void* stream) {
   if (plan == nullptr) return (int)cudaErrorInvalidValue;
   const int M = (int)plan[0], K = (int)plan[1], N = (int)plan[2];
@@ -1018,39 +1127,50 @@ extern "C" int qmm_mma_launch(const void* x, const void* res,
   const int spg = (int)plan[9], units = (int)plan[10], spu = (int)plan[11];
   const int total = (int)plan[12];
   if (M < 1 || M > 128 || M > bm || K % kWgTK != 0 || N % 64 != 0 ||
-      (bits != 4 && bits != 8) || (bits == 4 && (G < 1 || K % G != 0)))
+      (bits != 4 && bits != 8) || !groups_ok(K, G, bits) ||
+      (zbias && !xsum))
     return (int)cudaErrorInvalidValue;
-  const int gsize = bits == 4 ? K / G : 0;
+  const bool grp = bits == 4 || G > 1;
+  const int gsize = K / G;
   const bool wg = bits == 8 || gsize % kWgTK == 0;
-  if (!wg && gsize != 8 && gsize != 16 && gsize != 32)
-    return (int)cudaErrorInvalidValue;
   // the plan covers the shape: every k step of every tile once
   if (wg && (part == nullptr || done == nullptr || spu < 1 || units < 1 ||
              grid < 1 || grid > total ||
              total != (N + kWgTN - 1) / kWgTN * units ||
              (long long)units * spu * 2 * kWgTK < K ||
              (long long)(units - 1) * spu * 2 * kWgTK >= K ||
-             (bits == 4 && spg * kWgTK != gsize)))
+             (grp && spg * kWgTK != gsize)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const void* a = x;
-  if (gamma || res || xout) {
-    const int e = qmm_prologue_launch(x, res, gamma, xn, xout, M, K, eps,
-                                      stream);
+  const bool pro = gamma || res || xout;
+  if (pro || zbias) {
+    const int e = qmm_prologue_launch(x, res, gamma, pro ? xn : nullptr,
+                                      xout, zbias ? xsum : nullptr, M, K,
+                                      G, sum_mode, eps, stream);
     if (e != 0) return e;
-    a = xn;
+    if (pro) a = xn;
   }
-  if (!wg) return launch_small_groups(a, w, scale, out, M, K, N, G, st);
-  if (bits == 8)
-    return launch_sk_rows<false, false>(a, w, scale, out, part, done, M, K,
-                                        N, G, bm, grid, 1, units, spu, total,
-                                        st);
+  const Wt wt{w, scale, zbias, xsum};
+  if (!wg) return launch_small_groups(a, wt, out, M, K, N, G, st);
+  if (!grp)
+    return launch_sk_rows<false, false, false>(a, wt, out, part, done, M, K,
+                                               N, G, bm, grid, 1, units, spu,
+                                               total, st);
   // groups of an odd number of k steps end inside a slot (a wait there)
-  if (spg % 2)
-    return launch_sk_rows<true, true>(a, w, scale, out, part, done, M, K, N,
-                                      G, bm, grid, spg, units, spu, total,
-                                      st);
-  return launch_sk_rows<true, false>(a, w, scale, out, part, done, M, K, N,
-                                     G, bm, grid, spg, units, spu, total,
-                                     st);
+  if (bits == 8)
+    return spg % 2
+               ? launch_sk_rows<false, true, true>(a, wt, out, part, done, M,
+                                                   K, N, G, bm, grid, spg,
+                                                   units, spu, total, st)
+               : launch_sk_rows<false, true, false>(a, wt, out, part, done,
+                                                    M, K, N, G, bm, grid, spg,
+                                                    units, spu, total, st);
+  return spg % 2
+             ? launch_sk_rows<true, true, true>(a, wt, out, part, done, M, K,
+                                                N, G, bm, grid, spg, units,
+                                                spu, total, st)
+             : launch_sk_rows<true, true, false>(a, wt, out, part, done, M,
+                                                 K, N, G, bm, grid, spg,
+                                                 units, spu, total, st);
 }

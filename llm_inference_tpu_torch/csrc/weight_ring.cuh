@@ -66,7 +66,10 @@
 //   subtraction leaves the code. Bytes 0 and 2 of a word make one register,
 //   1 and 3 (after a shift) the other: 7 instructions for 4 codes. The
 //   products add up in the mma's own float32 accumulator; the column's
-//   scale multiplies the sum in the epilogue.
+//   scale multiplies the sum in the epilogue. Grouped int8 (kVarI8G,
+//   groups of 32k codes, K12) takes each chunk's products in a fresh
+//   accumulator and folds them times the group's scale, the scales
+//   copied beside the codes as int4's groups of 32k codes are.
 //
 // Every sum (the consumer warps' partials, the partials of the squares) is
 // taken in a fixed order, so two calls on the same inputs give the same
@@ -123,7 +126,7 @@ constexpr int kFormBf16 = 0;   // bf16 rows
 constexpr int kFormNorm = 1;   // float32 rows x rstd x gamma
 constexpr int kFormF32 = 2;    // float32 rows
 // the codes: int4 in groups of 32k, 16 or 8 codes; int8 per channel
-constexpr int kVar32 = 0, kVar16 = 1, kVar8 = 2, kVarI8 = 3;
+constexpr int kVar32 = 0, kVar16 = 1, kVar8 = 2, kVarI8 = 3, kVarI8G = 4;
 
 struct Phase {
   CUtensorMap map;     // the codes as a 2-D uint8 tensor, boxes [ub][128]
@@ -131,6 +134,8 @@ struct Phase {
                        // tensor, boxes [ub][a stage unit's groups]
   const uint8_t* w;    // codes [N, K/2] (int4) or [N, K] (int8) of a layer
   const float* s;      // scales [N, G] (int4) or [N] (int8)
+  const float* z;      // zero points [N, G] (K1's int4 GEMV in groups of
+                       // 16 or 8, run's ZB) or null
   const void* src;     // activation rows [M, K]: bf16 (eb 2) or float32 (4)
   const __nv_bfloat16* gamma;   // a norm phase's [K]
   int units;           // columns, or gate/up pairs, cut over the blocks
@@ -152,7 +157,7 @@ struct Phase {
                        // up each) rounded up to 8
   int rows;            // rows a slab: ncp, or the tiles of the phase's
                        // instantiation (run_phase) when more
-  int var;             // kVar32, kVar16, kVar8 or kVarI8
+  int var;             // kVar32, kVar16, kVar8, kVarI8 or kVarI8G
   int off_sc, off_act, off_gam, ap;   // slot offsets, act row pitch
                                       // (eb == 0: Smem::xs's, set by the
                                       // kernel after make_plan; 0 at M = 1)
@@ -194,7 +199,7 @@ inline int kt_groups(const Phase& p, int kt) { return (kt - 1) / p.gs + 2; }
 // made every copy a sector of its own, a lane a group made the address
 // arithmetic a column's.)
 inline int scale_bytes(const Phase& p, int kt) {
-  if (p.bits != 4) return 0;
+  if (p.bits != 4) return p.G > 1 ? kt_groups(p, kt) * p.ncp * 4 : 0;
   if (p.gs % 32 == 0) return kt_groups(p, kt) * p.ncp * 4;
   return kt / kStageCodes * p.ncp * p.bg * 4;
 }
@@ -248,11 +253,12 @@ inline int make_plan(Plan& pl, int M, int nblk, int xs_bytes, int extra) {
     if (p.ub < 1) p.ub = 1;
     p.cols = p.ub * per;
     p.ncp = round_up(p.ub, 8) * per;
-    p.var = p.bits == 8 ? kVarI8
-                        : p.gs % 32 == 0 ? kVar32 : (p.gs == 16 ? kVar16 : kVar8);
+    p.var = p.bits == 8        ? (p.G > 1 ? kVarI8G : kVarI8)
+            : p.gs % 32 == 0 ? kVar32
+                             : (p.gs == 16 ? kVar16 : kVar8);
     p.bg = kStageCodes / p.gs;
     // every tile an instantiation reads lies in the slab (unread rows)
-    const bool wide = p.var == kVar32 || p.var == kVarI8;
+    const bool wide = p.var == kVar32 || p.var == kVarI8 || p.var == kVarI8G;
     p.rows = wide && tiles_of(p.ncp / 8) * 8 > p.ncp ? tiles_of(p.ncp / 8) * 8
                                                      : p.ncp;
     const int sz = slot_bytes(p, p.qw > 1 ? p.qw : 1, Mp);
@@ -612,10 +618,10 @@ __device__ __forceinline__ void produce_weights(const Ring& r,
     const int slot = s % R;
     if (s >= R) sm90::mbar_wait(S.empty + slot, ((s / R) & 1) ^ 1);
     unsigned char* base = S.ring + (size_t)slot * r.pl.slot;
-    if constexpr (BITS == 4) {
+    if (BITS == 4 || p.var == kVarI8G) {
       const int cols = nu * (p.pairs ? 2 : 1);
       const int g0 = k0 / p.gs, ng = (k0 + kts - 1) / p.gs - g0 + 1;
-      if (p.var == kVar32) {
+      if (p.var == kVar32 || p.var == kVarI8G) {
         // [group][shared-memory row]: a lane's columns, group by group
         float* sc = reinterpret_cast<float*>(base + p.off_sc);
         for (int c = lane; c < cols; c += 32) {
@@ -798,14 +804,20 @@ __device__ __forceinline__ void chunks32(const unsigned char* base,
 
 // The same chunk in groups of 16 (kVar16) or 8 (kVar8) codes: the four
 // lanes of a column share each word, lane t taking nibbles t and t + 4,
-// with the activations at k = 32c + t + 4j.
-template <int FORM, int VAR, int NCT>
+// with the activations at k = 32c + t + 4j. ZB (zero points): each
+// group's sum of the row, the four lanes' parts summed over the quad,
+// times z[n][grp] of each of the lane's two columns, where zc is the
+// batch's first column's zero points (p.z + ua * G), last its last
+// column and zg the chunk's first group.
+template <int FORM, int VAR, int NCT, bool ZB = false>
 __device__ __forceinline__ void chunk_small(const unsigned char* base,
                                             const Phase& p,
                                             const uint8_t* xrow, float rs,
                                             int c, int nct, uint32_t mask,
                                             uint32_t bias, int g, int t,
-                                            float (&acc)[NCT][2]) {
+                                            float (&acc)[NCT][2],
+                                            const float* zc = nullptr,
+                                            int last = 0, int zg = 0) {
   float v[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -822,6 +834,20 @@ __device__ __forceinline__ void chunk_small(const unsigned char* base,
   uint32_t hi[4], lo[4];   // word w: k = 32c + 8w + t and + 4
 #pragma unroll
   for (int w = 0; w < 4; ++w) split2(v[2 * w], v[2 * w + 1], hi[w], lo[w]);
+  // ZB: the row's sum over each of the chunk's groups (16: words 2h and
+  // 2h + 1; 8: word w), in a fixed order
+  constexpr int kGroups = VAR == kVar16 ? 2 : 4;
+  float xs[kGroups];
+  if constexpr (ZB) {
+#pragma unroll
+    for (int q = 0; q < kGroups; ++q) {
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8 / kGroups; ++j) sum += v[q * (8 / kGroups) + j];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      xs[q] = sum + __shfl_xor_sync(0xffffffffu, sum, 2);
+    }
+  }
   // the scales of the chunk's groups for columns 2t and 2t + 1 of a tile:
   // row r's of 256-code unit c / 8 at 16-byte unit v ^ (r & 7) of its
   // 128-byte row (g = 8; v = c & 7, the chunk's 4 groups), or at byte 8h
@@ -879,6 +905,16 @@ __device__ __forceinline__ void chunk_small(const unsigned char* base,
         acc[ct][1] = fmaf(e[1] + e[3], s2b.y, acc[ct][1]);
       }
     }
+    if constexpr (ZB) {
+      // columns past the batch read its last column's zero points, unused
+      const float* za = zc + (size_t)min(cc * 8 + 2 * t, last) * p.G + zg;
+      const float* zb = zc + (size_t)min(cc * 8 + 2 * t + 1, last) * p.G + zg;
+#pragma unroll
+      for (int q = 0; q < kGroups; ++q) {
+        acc[ct][0] = fmaf(xs[q], __ldg(za + q), acc[ct][0]);
+        acc[ct][1] = fmaf(xs[q], __ldg(zb + q), acc[ct][1]);
+      }
+    }
   }
 }
 
@@ -887,11 +923,13 @@ __device__ __forceinline__ void chunk_small(const unsigned char* base,
 // the rows rounded to bf16 at those k (the mma's k pairs (2t, 2t + 1) and
 // (2t + 8, 2t + 9) are the word's bytes (0, 2) and (1, 3)). The products
 // add up in acc, the mma's own accumulator (rows 8-15 of A are zero).
-template <int FORM, int NCT>
+// GRP (kVarI8G): the chunk's products in a fresh accumulator, folded
+// times the scales of its group grp (within the stage) from the slot.
+template <int FORM, int NCT, bool GRP = false>
 __device__ __forceinline__ void chunk8(const unsigned char* base,
                                        const Phase& p, const uint8_t* xrow,
-                                       float rs, int c, const Ring& r, int g,
-                                       int t, float (&acc)[NCT][2]) {
+                                       float rs, int c, int grp, const Ring& r,
+                                       int g, int t, float (&acc)[NCT][2]) {
   const float4 x0 =
       *reinterpret_cast<const float4*>(xrow + (32 * c + 4 * t) * 4);
   const float4 x1 =
@@ -923,11 +961,19 @@ __device__ __forceinline__ void chunk8(const unsigned char* base,
     uint32_t b0, b1, b2, b3;
     widen8(w0, r, b0, b1);
     widen8(w1, r, b2, b3);
-    float d[4] = {acc[ct][0], acc[ct][1], 0.f, 0.f};
+    float d[4] = {GRP ? 0.f : acc[ct][0], GRP ? 0.f : acc[ct][1], 0.f, 0.f};
     mma::mma_16816(d, A0, b0, b1);
     mma::mma_16816(d, A1, b2, b3);
-    acc[ct][0] = d[0];
-    acc[ct][1] = d[1];
+    if constexpr (GRP) {
+      const float2 sv = *reinterpret_cast<const float2*>(
+          reinterpret_cast<const float*>(base + p.off_sc) + grp * p.ncp +
+          2 * t + ct * 8);
+      acc[ct][0] = fmaf(d[0], sv.x, acc[ct][0]);
+      acc[ct][1] = fmaf(d[1], sv.y, acc[ct][1]);
+    } else {
+      acc[ct][0] = d[0];
+      acc[ct][1] = d[1];
+    }
   }
 }
 
@@ -977,7 +1023,8 @@ struct Cursor {
 // an indexed parameter load held in a register, and K6 spilled; K12's
 // four phases in one loop of two instantiations spill nothing, its four
 // named ones one register.)
-template <int PI, int FORM, int VAR, int NCT, bool XS, class Epi>
+template <int PI, int FORM, int VAR, int NCT, bool XS, class Epi,
+          bool ZB = false>
 __device__ __forceinline__ void run(const Ring& r, int pi, const Smem& S,
                                     Cursor& cur, const Epi& epi) {
   const Phase& p = r.pl.ph[PI < 0 ? pi : PI];
@@ -1036,9 +1083,27 @@ __device__ __forceinline__ void run(const Ring& r, int pi, const Smem& S,
             chunks32<FORM, NCT, 1>(base, p, xrow, rs, c, gg, mask, bias, g,
                                    t, acc);
           }
-        } else if constexpr (VAR == kVarI8) {
+        } else if constexpr (VAR == kVarI8 || VAR == kVarI8G) {
+          // grouped: chunk c's group within the stage (groups of 32k)
+          int grp = (k0 % p.gs + 32 * c) / p.gs;
+          int off = (k0 % p.gs + 32 * c) - grp * p.gs;
+          for (; c < c_hi; ++c) {
+            chunk8<FORM, NCT, VAR == kVarI8G>(base, p, xrow, rs, c, grp, r,
+                                              g, t, acc);
+            if constexpr (VAR == kVarI8G) {
+              off += 32;
+              if (off == p.gs) {
+                off = 0;
+                ++grp;
+              }
+            }
+          }
+        } else if constexpr (ZB) {
+          const float* zc = p.z + (size_t)ua * p.G;
           for (; c < c_hi; ++c)
-            chunk8<FORM, NCT>(base, p, xrow, rs, c, r, g, t, acc);
+            chunk_small<FORM, VAR, NCT, true>(base, p, xrow, rs, c, nct, mask,
+                                              bias, g, t, acc, zc, nu - 1,
+                                              (k0 + 32 * c) / p.gs);
         } else {
           for (; c < c_hi; ++c)
             chunk_small<FORM, VAR, NCT>(base, p, xrow, rs, c, nct, mask,
@@ -1069,19 +1134,24 @@ __device__ __forceinline__ void run(const Ring& r, int pi, const Smem& S,
 // or 8 codes 8 or 16 (at most 128 columns a batch: 24 tiles spilled at
 // the 168 registers ten warps leave a thread); int8 (at most 96 columns)
 // 4, 8 or 12. (Inlined: a called phase spilled its registers in K12.)
-template <int PI, int FORM, int BITS, bool XS = false, class Epi>
+// G8: int8 in groups (kVarI8G; a kernel of its own, so that per-channel
+// int8 keeps its registers). ZB: int4 groups of 16 or 8 with zero points
+// (Phase::z; K1's GEMV alone).
+template <int PI, int FORM, int BITS, bool XS = false, bool G8 = false,
+          bool ZB = false, class Epi>
 __device__ __forceinline__ void run_phase(const Ring& r, int pi,
                                           const Smem& S, Cursor& cur,
                                           const Epi& epi) {
   const Phase& p = r.pl.ph[PI < 0 ? pi : PI];
   const int n = p.ncp >> 3;
   if constexpr (BITS == 8) {
+    constexpr int V = G8 ? kVarI8G : kVarI8;
     if (n <= 4)
-      run<PI, FORM, kVarI8, 4, XS>(r, pi, S, cur, epi);
+      run<PI, FORM, V, 4, XS>(r, pi, S, cur, epi);
     else if (n <= 8)
-      run<PI, FORM, kVarI8, 8, XS>(r, pi, S, cur, epi);
+      run<PI, FORM, V, 8, XS>(r, pi, S, cur, epi);
     else
-      run<PI, FORM, kVarI8, 12, XS>(r, pi, S, cur, epi);
+      run<PI, FORM, V, 12, XS>(r, pi, S, cur, epi);
   } else if (p.var == kVar32) {
     if (n <= 4)
       run<PI, FORM, kVar32, 4, XS>(r, pi, S, cur, epi);
@@ -1095,14 +1165,14 @@ __device__ __forceinline__ void run_phase(const Ring& r, int pi,
       run<PI, FORM, kVar32, 24, XS>(r, pi, S, cur, epi);
   } else if (p.var == kVar16) {
     if (n <= 8)
-      run<PI, FORM, kVar16, 8, XS>(r, pi, S, cur, epi);
+      run<PI, FORM, kVar16, 8, XS, Epi, ZB>(r, pi, S, cur, epi);
     else
-      run<PI, FORM, kVar16, 16, XS>(r, pi, S, cur, epi);
+      run<PI, FORM, kVar16, 16, XS, Epi, ZB>(r, pi, S, cur, epi);
   } else {
     if (n <= 8)
-      run<PI, FORM, kVar8, 8, XS>(r, pi, S, cur, epi);
+      run<PI, FORM, kVar8, 8, XS, Epi, ZB>(r, pi, S, cur, epi);
     else
-      run<PI, FORM, kVar8, 16, XS>(r, pi, S, cur, epi);
+      run<PI, FORM, kVar8, 16, XS, Epi, ZB>(r, pi, S, cur, epi);
   }
 }
 

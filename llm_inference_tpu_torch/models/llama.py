@@ -26,10 +26,11 @@ for prefills that flash_attention.supports takes, else the plain `attend`
 is plain indexing into the pool and attention is K10a/K10b at decode, K11
 for a chunk over earlier pages (paged_history), the plain `attend` over
 the fresh rows for a first chunk, else a dense gather of the pages and
-the plain `attend`. The layer tail is K6, one launch, for grouped int4
-weights at M ≤ 32 rows (llama.py:802-816), else wo then K7 (the FFN
-block in one launch, where ffn_fused takes the case), else the matmul
-chain
+the plain `attend`. The layer tail is K6, one launch, for grouped symmetric
+int4 weights on the N-pair route at M ≤ 32 rows (llama.py:802-816; not
+on zero points or under prepare_params(int4_npair=False)), else wo then K7
+(the FFN block in one launch, where ffn_fused takes the case), else the
+matmul chain
 
     wo → gate-up (norm + residual fused) → SwiGLU → down
 
@@ -70,6 +71,7 @@ Weight dict layout (dense tensors or QTensor):
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Dict, Optional, Tuple
 
@@ -159,8 +161,11 @@ def _bias_and_qk_norm(cfg: ModelConfig, layers, dtype, device) -> None:
 def _stack_quantize(w: torch.Tensor, qcfg: QuantConfig) -> QTensor:
     bits = {"int8": 8, "int4": 4}[qcfg.weights]
     qts = [quantize(m, bits, qcfg.group_size, qcfg.asymmetric) for m in w]
-    return QTensor(q=torch.stack([t.q for t in qts]),
-                   scale=torch.stack([t.scale for t in qts]), bits=bits)
+    z = qts[0].zbias
+    return dataclasses.replace(
+        qts[0], q=torch.stack([t.q for t in qts]),
+        scale=torch.stack([t.scale for t in qts]),
+        zbias=None if z is None else torch.stack([t.zbias for t in qts]))
 
 
 # vocabulary rows of the embedding table quantized at a time for a tied
@@ -217,39 +222,52 @@ def quantize_params(params: Params, qcfg: QuantConfig,
     return out
 
 
+def code_drawer(qcfg: QuantConfig, g: torch.Generator, device):
+    """f(K, N, lead) → a QTensor stack [*lead, ...] of random [K, N]
+    weights drawn as codes, as the JAX package's qrnd (llama.py:449-467):
+    random bytes, so int8 codes are uniform in [-128, 127] and int4 codes
+    (two nibbles per byte) in [-8, 7]; every scale 0.02/qmax, per column
+    (int8 per channel [*lead, 1, N]) or per group and column ([*lead, N,
+    G]); with qcfg.asymmetric every zero point half a scale."""
+    bits = {"int8": 8, "int4": 4}[qcfg.weights]
+    scale_val = 0.02 / (2 ** (bits - 1) - 1)
+
+    def qrnd(K, N, lead):
+        q = torch.randint(-128, 128, (*lead, N, K * bits // 8), generator=g,
+                          dtype=torch.int8, device=device)
+        gs = qcfg.group_size
+        groups = K // gs if 0 < gs < K else 1
+        grouped = bits == 4 or groups > 1
+        sshape = (*lead, N, groups) if grouped else (*lead, 1, N)
+        scale = torch.full(sshape, scale_val, dtype=torch.float32,
+                           device=device)
+        zbias = (torch.full(sshape, scale_val * 0.5, dtype=torch.float32,
+                            device=device) if qcfg.asymmetric else None)
+        return QTensor(q=q, scale=scale, bits=bits, zbias=zbias,
+                       grouped=grouped)
+    return qrnd
+
+
 def init_params_quantized(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
                           dtype=None, device=None) -> Params:
     """Random quantized weights drawn directly as codes on the device — a
-    dense copy of the model never exists. As the JAX package's dummy
-    weights: random bytes, so int8 codes are uniform in [-128, 127] and
-    int4 codes (two nibbles per byte) in [-8, 7], every scale 0.02/qmax
-    (per column, or per group and column for grouped int4). Zero qkv
-    biases and unit q/k norms where the config has them; a tied model
-    with qcfg.quantize_embedding gets its lm_head quantized from the
-    random table (quantize_tied_head)."""
+    dense copy of the model never exists (code_drawer: random bytes,
+    every scale 0.02/qmax, zero points half a scale where qcfg is
+    asymmetric). Zero qkv biases and unit q/k norms where the config has
+    them; a tied model with qcfg.quantize_embedding gets its lm_head
+    quantized from the random table (quantize_tied_head)."""
     if not qcfg.enabled:
         return init_params(cfg, seed, dtype, device)
-    bits = {"int8": 8, "int4": 4}[qcfg.weights]
-    if qcfg.asymmetric or (bits == 8 and qcfg.group_size > 0):
-        raise NotImplementedError("only symmetric int8 per-channel and int4 "
-                                  "weights are ported")
     device = resolve_device(device)
     dtype = dtype or act_dtype(cfg)
     g = _generator(seed, device)
     H, L = cfg.hidden_size, cfg.num_layers
     I, V = cfg.intermediate_size, cfg.vocab_size
     D, Hq, Hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    scale_val = 0.02 / (2 ** (bits - 1) - 1)
+    draw = code_drawer(qcfg, g, device)
 
     def qrnd(K, N, lead=(L,)):
-        q = torch.randint(-128, 128, (*lead, N, K * bits // 8), generator=g,
-                          dtype=torch.int8, device=device)
-        gs = qcfg.group_size
-        groups = K // gs if 0 < gs < K else 1
-        sshape = (*lead, 1, N) if bits == 8 else (*lead, N, groups)
-        scale = torch.full(sshape, scale_val, dtype=torch.float32,
-                           device=device)
-        return QTensor(q=q, scale=scale, bits=bits)
+        return draw(K, N, lead)
 
     layers = {
         "attn_norm": torch.ones((L, H), dtype=dtype, device=device),
@@ -276,13 +294,16 @@ def init_params_quantized(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
 
 def _column_slice(w, s: int, n: int):
     """Output-column block s of n of a dense weight [..., N] or a QTensor
-    (codes [.., N, K'], scales [.., 1, N] or [.., N, G])."""
+    (codes [.., N, K'], scales and zero points [.., 1, N] or [.., N,
+    G])."""
     if isinstance(w, QTensor):
         N = w.out_features
-        sdim = -2 if w.bits == 4 else -1
-        return QTensor(q=w.q.narrow(-2, s * N // n, N // n),
-                       scale=w.scale.narrow(sdim, s * N // n, N // n),
-                       bits=w.bits)
+
+        def cut(t, dim):
+            return None if t is None else t.narrow(dim, s * N // n, N // n)
+        return dataclasses.replace(w, q=cut(w.q, -2),
+                                   scale=cut(w.scale, w.col_axis),
+                                   zbias=cut(w.zbias, w.col_axis))
     N = w.shape[-1]
     return w.narrow(-1, s * N // n, N // n)
 
@@ -365,18 +386,30 @@ def pad_params_for_tp(params: Params, cfg: ModelConfig,
     return out
 
 
-def prepare_params(params: Params, tp_size: int = 1) -> Params:
+# the parameters' mark of the split-half int4 route (prepare_params)
+SPLIT_HALF = "int4_split_half"
+
+
+def prepare_params(params: Params, tp_size: int = 1,
+                   int4_npair: bool = True) -> Params:
     """Serving layout: qkv and gate-up fused, interleaved per shard at
     tp_size (the JAX package's prepare_params without its TPU column
-    blocking)."""
-    return fuse_params(params, tp_size)
+    blocking). The port has one int4 layout; int4_npair=False sets
+    params[SPLIT_HALF], the JAX package's split-half route for int4
+    weights (llama.py:342-359, block_params :206): the same K1 and K8,
+    but never K6, K7 or K12, which take N-pair int4 alone
+    (quant_matmul.py:692-696, layer_fused.py:343-344)."""
+    out = fuse_params(params, tp_size)
+    if not int4_npair:
+        out[SPLIT_HALF] = True
+    return out
 
 
 def params_to(params: Params, device) -> Params:
     """A copy of the parameter dict with every tensor on `device`."""
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
-    return params.to(device)
+    return params.to(device) if hasattr(params, "to") else params
 
 
 def _from_numpy(a, device) -> torch.Tensor:
@@ -392,17 +425,53 @@ def _from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def qtensor_from_numpy(node: dict, device) -> QTensor:
+    """One quantized weight of the bridge ({"q", "scale", "bits"} and
+    maybe "zbias", "block_rows"; params_from_numpy) as the port's
+    QTensor on `device`."""
+    q = _from_numpy(node["q"], device).to(torch.int8)
+    scale = _from_numpy(node["scale"], device).to(torch.float32)
+    zbias = node.get("zbias")
+    if zbias is not None:
+        zbias = _from_numpy(zbias, device).to(torch.float32)
+        if zbias.shape != scale.shape:
+            raise ValueError(f"zbias {tuple(zbias.shape)} is not in "
+                             f"the scales' shape "
+                             f"{tuple(scale.shape)}")
+    bits = int(node.get("bits", 8))
+    if bits == 4:
+        return from_split_half(q, scale,
+                               int(node.get("block_rows", 0)), zbias)
+    K, N = q.shape[-2:]
+    G = scale.shape[-2]
+    if bits != 8 or scale.shape[-1] != N or K % G:
+        raise ValueError(f"bits {bits}, scales {tuple(scale.shape)} "
+                         f"for codes {tuple(q.shape)}")
+    if G == 1:                       # per channel: [..., 1, N]
+        return QTensor(q=q.transpose(-1, -2).contiguous(),
+                       scale=scale, zbias=zbias)
+
+    def lay(t):                      # grouped: [..., N, G]
+        return (None if t is None
+                else t.transpose(-1, -2).contiguous())
+    return QTensor(q=q.transpose(-1, -2).contiguous(),
+                   scale=lay(scale), zbias=lay(zbias), grouped=True)
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Params:
     """The weight bridge: the JAX package's parameters as nested dicts of
     numpy arrays → the port's parameters on `device`.
 
     A quantized weight is a dict {"q", "scale", "bits"} (the JAX QTensor
     after quantization.from_blocked): int8 codes [..., K, N] row-major
-    with float32 scales [..., 1, N], or (bits 4) split-half packed int4
-    codes [..., K/2, N] with float32 scales [..., G, N], in pack blocks of
-    "block_rows" packed rows (absent or 0: one block; in a block, row r
-    sits in the low nibble and row r + block_rows in the high one). The codes are re-laid into the
-    port's transposed layouts (ops/quantization.py); every other leaf is
+    with float32 scales [..., G, N] (G = 1 per channel, else groups of
+    K / G codes), or (bits 4) split-half packed int4 codes [..., K/2, N]
+    with float32 scales [..., G, N], in pack blocks of "block_rows" packed
+    rows (absent or 0: one block; in a block, row r sits in the low nibble
+    and row r + block_rows in the high one); an asymmetric weight adds
+    "zbias", float32 zero points in the scales' shape. The codes are
+    re-laid into the port's transposed layouts (ops/quantization.py);
+    every other leaf is
     an array: norms, qkv biases (bq/bk/bv, or bqkv), q_norm/k_norm,
     gemma's post_attn_norm/post_ffn_norm. Fused keys (wqkv, w_gateup)
     pass through as they are; a tied model has no lm_head, or the
@@ -417,18 +486,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Params:
 
     def conv(node):
         if isinstance(node, dict) and "q" in node and "scale" in node:
-            q = _from_numpy(node["q"], device).to(torch.int8)
-            scale = _from_numpy(node["scale"], device).to(torch.float32)
-            bits = int(node.get("bits", 8))
-            if bits == 4:
-                return from_split_half(q, scale,
-                                       int(node.get("block_rows", 0)))
-            if bits != 8 or scale.shape[-2:] != (1, q.shape[-1]):
-                raise NotImplementedError(
-                    f"bits {bits}, scales {tuple(scale.shape)} for codes "
-                    f"{tuple(q.shape)}: only int8 per-channel and int4 are "
-                    "ported")
-            return QTensor(q=q.transpose(-1, -2).contiguous(), scale=scale)
+            return qtensor_from_numpy(node, device)
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         return _from_numpy(node, device)
@@ -661,13 +719,14 @@ def _sharded_embedding_lookup(table, ids, tp: Optional[TPGroup]):
 
 
 def _layer_pair(cfg, layers, l, h, d, cache, positions, write_offsets, mask,
-                route, cos, sin, mega=False, tp=None):
+                route, cos, sin, mega=False, tp=None, fuse=True):
     """Pair-carry layer: returns (h2, delta) with the residual stream
     h2 and this layer's down-projection output, which the next layer's
     wqkv prologue adds. With `mega` the whole layer is K12 (layer_route);
     else the tail is K6 where it takes the case (never under TP), then
     K7 after the wo product (summed across ranks under TP), then the K1
-    chain (llama.py:802-842)."""
+    chain (llama.py:802-842); without `fuse` (the split-half int4 route)
+    the K1 chain alone."""
     if mega:
         return layer_fused.layer_decode_fused(cfg, h, d, layers, cache, l,
                                               positions, cos, sin)
@@ -682,7 +741,7 @@ def _layer_pair(cfg, layers, l, h, d, cache, positions, write_offsets, mask,
     attn2d = _attend_block(cfg, l, q, k, v, cache, positions, write_offsets,
                            mask, route, (cos, sin) if fused else None)
     gamma = layers["ffn_norm"][l]
-    if tp is None:
+    if tp is None and fuse:
         tail = qm.layer_tail_fused(h, attn2d, layers["wo"],
                                    layers["w_gateup"], layers["w_down"],
                                    gamma, eps, l)
@@ -691,7 +750,7 @@ def _layer_pair(cfg, layers, l, h, d, cache, positions, write_offsets, mask,
             return h2, down_out
     attn_out = _psum(matmul(attn2d, layers["wo"], layer=l), tp)
     ffn = qm.ffn_fused(h, attn_out, gamma, eps, layers["w_gateup"],
-                       layers["w_down"], l)
+                       layers["w_down"], l) if fuse else None
     if ffn is not None:
         down_out, h2 = ffn
         return h2, _psum(down_out, tp)
@@ -841,11 +900,13 @@ def forward(cfg: ModelConfig, params: Params, ids: torch.Tensor,
     if (lora_stacks is None and isinstance(layers.get("wqkv"), QTensor)
             and isinstance(layers.get("w_gateup"), QTensor)):
         d = torch.zeros_like(h)
-        mega = layer_route(cfg, layers, B, T, cache, tp) == "mega"
+        # split-half int4 (prepare_params) takes none of K6, K7 and K12
+        fuse = not (params.get(SPLIT_HALF) and layers["wqkv"].bits == 4)
+        mega = fuse and layer_route(cfg, layers, B, T, cache, tp) == "mega"
         for l in range(L):
             h, d = _layer_pair(cfg, layers, l, h, d, cache, positions,
                                write_offsets, mask, route, cos, sin, mega,
-                               tp)
+                               tp, fuse)
         h = h + d
     else:
         for l in range(L):

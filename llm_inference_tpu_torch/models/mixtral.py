@@ -92,14 +92,11 @@ def init_params_quantized(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
     """Random quantized weights drawn directly as codes on the device
     (mixtral.py:47-128): a dense bf16 copy of Mixtral-8x7B would need 93
     GB. As llama.init_params_quantized: random bytes as codes, every scale
-    0.02/qmax; the attention weights stacked [L, ...], the experts [L·E,
-    ...]; router, embed and lm_head dense."""
+    0.02/qmax (zero points half a scale where qcfg is asymmetric); the
+    attention weights stacked [L, ...], the experts [L·E, ...]; router,
+    embed and lm_head dense."""
     if not qcfg.enabled:
         return init_params(cfg, seed, dtype, device)
-    bits = {"int8": 8, "int4": 4}[qcfg.weights]
-    if qcfg.asymmetric or (bits == 8 and qcfg.group_size > 0):
-        raise NotImplementedError("only symmetric int8 per-channel and int4 "
-                                  "weights are ported")
     device = resolve_device(device)
     dtype = dtype or llama.act_dtype(cfg)
     g = llama._generator(seed, device)
@@ -128,20 +125,13 @@ def init_params_quantized(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
 
 def code_drawer(qcfg: QuantConfig, g: torch.Generator, device):
     """f(n, K, N) → a QTensor stack of n random [K, N] weights drawn as
-    codes: random bytes, every scale 0.02/qmax (per column, or per group
-    and column for grouped int4), as the JAX package's qrnd."""
-    bits = {"int8": 8, "int4": 4}[qcfg.weights]
-    scale_val = 0.02 / (2 ** (bits - 1) - 1)
+    codes (llama.code_drawer: random bytes, every scale 0.02/qmax, zero
+    points half a scale where qcfg is asymmetric), as the JAX package's
+    qrnd."""
+    draw = llama.code_drawer(qcfg, g, device)
 
     def qrnd(n, K, N):
-        q = torch.randint(-128, 128, (n, N, K * bits // 8), generator=g,
-                          dtype=torch.int8, device=device)
-        gs = qcfg.group_size
-        groups = K // gs if 0 < gs < K else 1
-        sshape = (n, 1, N) if bits == 8 else (n, N, groups)
-        return QTensor(q=q, scale=torch.full(sshape, scale_val,
-                                             dtype=torch.float32,
-                                             device=device), bits=bits)
+        return draw(K, N, (n,))
     return qrnd
 
 

@@ -37,12 +37,12 @@ _LL = ctypes.c_longlong
 # kind); layer_tail_plan and qmm4_gemv_plan write K6/K7's and K1 int4
 # GEMV's ring plans into an int array
 SIGNATURES = {
-    "qmm_launch": [_P] * 7 + [_I] * 3 + [_F, _P],
-    "qmm4_launch": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "qmm_launch": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "qmm4_launch": [_P] * 8 + [_I] * 4 + [_F, _P],
     "qmm4_gemv_plan": [_I] * 5 + [_P],
-    "qmm_mma_launch": [_P] * 9 + [_F, _P],
-    "qmm_prologue_launch": [_P] * 5 + [_I, _I, _F, _P],
-    "qmm_tiled_launch": [_P] * 4 + [_I] * 5 + [_P],
+    "qmm_mma_launch": [_P] * 11 + [_I, _F, _P],
+    "qmm_prologue_launch": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "qmm_tiled_launch": [_P] * 6 + [_I] * 5 + [_P],
     "qmm_tiled_route": [_I] * 4,
     "layer_tail_launch": [_P] * 13 + [_I] * 7 + [_F, _P],
     "ffn_fused_launch": [_P] * 10 + [_I] * 5 + [_F, _P],

@@ -20,8 +20,9 @@ The megakernel states its own math, not the split path's:
 
 with nothing rounded between the phases but where named. The GEMVs
 follow the TPU kernel's two weight branches: int8 per-channel codes dot
-bf16 rows and take the column scale on the float32 sum; grouped int4
-codes dot float32 rows, each group's scale on its partial dot.
+bf16 rows and take the column scale on the float32 sum (int8 in groups:
+each group's scale on its partial dot); grouped int4 codes dot float32
+rows, each group's scale on its partial dot.
 
 `layer_decode_fused` returns None where the TPU package's function does
 (`supports`), and the caller runs the split path: a route, not a
@@ -42,7 +43,7 @@ import torch
 from llm_inference_tpu_torch.ops import kvcache
 from llm_inference_tpu_torch.ops.kernels import kv_write
 from llm_inference_tpu_torch.ops.kernels.quant_matmul import (
-    _aligned, _check_weight, _grouped_dot, small_groups_ok)
+    _aligned, _check_weight, _fuse_ok, _grouped_dot, small_groups_ok)
 from llm_inference_tpu_torch.ops.quantization import QTensor, quantize_kv
 
 NEG_INF = -1e30
@@ -92,8 +93,10 @@ def supports(cfg, h_shape, layers, cache) -> bool:
     return None, in the port's terms. B = T = 1; a dense bf16 or int8
     KVCache of one sequence whose length is a multiple of 128; D = 128;
     no sliding window, logit softcap, qk-norm or qkv bias; the four fused
-    weights stacked QTensors of one width: int8 per-channel, or int4 in
-    groups of at least 8 codes that divide K (and D, for wo)."""
+    weights stacked QTensors of one format without zero points: int8
+    per-channel, int8 in groups of a multiple of 32 codes, or int4 on the
+    N-pair route in groups of at least 8 codes that divide K (and D, for
+    wo)."""
     B, T, H = h_shape
     if B != 1 or T != 1:
         return False
@@ -107,7 +110,8 @@ def supports(cfg, h_shape, layers, cache) -> bool:
     if S % 128 or cache.k.shape[1] != 1:
         return False
     ws = [layers.get(k) for k in WEIGHTS]
-    if not all(isinstance(w, QTensor) and w.stacked for w in ws):
+    # no zero points, int4 on the N-pair route alone (layer_fused.py:338-345)
+    if not all(_fuse_ok(w) and w.stacked for w in ws):
         return False
     bits = ws[0].bits
     if bits not in (4, 8) or any(w.bits != bits for w in ws):
@@ -127,16 +131,24 @@ def supports(cfg, h_shape, layers, cache) -> bool:
             continue
         if w.group_size < 8 or w.in_features % w.group_size:
             return False
+    if bits == 8 and any(w.grouped for w in ws):
+        # int8 in groups (layer_fused.py:85-99): every weight grouped, in
+        # groups of a multiple of 32 codes (the kernel's 32-code chunks)
+        if not all(w.grouped and w.group_size % 32 == 0 for w in ws):
+            return False
     return wo.groups == 1 or _D % wo.group_size == 0
 
 
 def _gemv(x32, qt: QTensor):
     """x32 [1, K] float32 → [1, N] float32 through one layer's weight as
     the megakernel's GEMVs: int8 dots the bf16-rounded row and takes the
-    column scale on the sum; int4 dots the float32 row group by group."""
+    column scale on the sum (grouped: each group's scale on its partial
+    dot); int4 dots the float32 row group by group."""
     if qt.bits == 4:
         return _grouped_dot(x32, qt)
     xb = x32.to(torch.bfloat16).to(torch.float32)
+    if qt.grouped:
+        return _grouped_dot(xb, qt)
     return (xb @ qt.q.to(torch.float32).T) * qt.scale.reshape(-1)
 
 
@@ -239,6 +251,11 @@ def layer_kernel(cfg, h, residual, layers, cache, layer: int, positions,
         if bits == 4 and not small_groups_ok(w.group_size, 32):
             raise ValueError(f"K12 needs int4 groups of a multiple of 32 "
                              f"codes, or of 8 or 16, got {w.group_size}")
+        if bits == 8 and (w.grouped != ws[0].grouped
+                          or w.grouped and w.group_size % 32):
+            raise ValueError(f"K12 needs int8 weights all per channel or all "
+                             f"in groups of a multiple of 32 codes, got "
+                             f"{w.group_size}")
         if w.q.data_ptr() % 16:
             raise ValueError("K12 needs 16-byte aligned codes (the copy "
                              "engine reads them)")

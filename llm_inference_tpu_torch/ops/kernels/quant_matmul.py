@@ -2,23 +2,28 @@
 its tiled prefill GEMM above 128 rows, K6: the fused decode layer tail,
 and K7: the fused FFN block of a tensor-parallel layer (counterparts of
 `llm_inference_tpu/ops/pallas/quant_matmul.py: quant_matmul`, its blocked
-GEMV kernel (int8 per-channel and int4 N-pair grouped branches),
-`_quant_matmul_tiled`, `layer_tail_fused` and `ffn_fused`).
+GEMV kernel (int8 per-channel and grouped, int4 grouped, each with or
+without zero points), `_quant_matmul_tiled`, `layer_tail_fused` and
+`ffn_fused`).
 
 K1:  y = rms_norm(x (+ residual), gamma, eps) @ dequant(W[layer])
 
 with the TPU kernel's rounding points: x enters as bf16, the prologue runs
 in float32 and x_out = x + residual is stored as bf16. int8: the normed
 rows are rounded to bf16 for the dot and the per-column scale hits the
-float32 sum. int4: the normed rows stay float32 (the N-pair branch's dot
-is a float32 dot, quant_matmul.py:183, 251) and each group's scale hits
-that group's partial dot, y = Σ_g s[n, g] · (x_g · codes_g)_n. y is bf16
-(then the caller's dtype).
+float32 sum (grouped: each group's scale hits its partial dot). int4: the
+normed rows stay float32 (the N-pair branch's dot is a float32 dot,
+quant_matmul.py:183, 251) and each group's scale hits that group's
+partial dot, y = Σ_g s[n, g] · (x_g · codes_g)_n. Zero points (z_ref)
+add Σ_g sum(x_g) · zbias[n, g]: sums of the float32 rows for int8 per
+channel and int4, of each group's bf16 rows for grouped int8
+(quant_matmul.py:309-323). y is bf16 (then the caller's dtype).
 
 K8 (M > 128 rows, quant_matmul.py:954-1007): the prologue runs before the
 GEMM in the caller's dtype (the TPU package's jnp prologue), then the GEMM
 dots bf16 rows against the codes: int8 takes its column scale on the
-float32 sum, int4 each group's scale on that group's partial dot.
+float32 sum, grouped weights each group's scale on that group's partial
+dot, and zero points the sums of the bf16 rows (quant_matmul.py:474-487).
 
 K6:  (down_out, h2) = layer_tail_fused(h, attn, wo, w_gateup, w_down, ...)
 
@@ -29,7 +34,8 @@ K6:  (down_out, h2) = layer_tail_fused(h, attn, wo, w_gateup, w_down, ...)
     y      = bf16(act · w_down)
 
 nothing rounded between the phases. It takes M ≤ 32 rows and stacked
-grouped int4 weights, else returns None and the caller runs the K1 chain.
+grouped symmetric int4 weights on the N-pair route, else returns None and
+the caller runs the K1 chain.
 
 K7:  (down_out, h2) = ffn_fused(x, residual, gamma, eps, w_gateup, w_down)
 
@@ -115,28 +121,53 @@ def _layer(qt: QTensor, layer) -> QTensor:
 
 
 def _grouped_dot(x32, qt: QTensor):
-    """Σ_g s[n, g] · (x_g · codes_g)_n in float32, one (unstacked) int4
-    weight: x32 [M, K] float32 → [M, N] float32, the groups summed in
+    """Σ_g s[n, g] · (x_g · codes_g)_n (+ sum(x_g) · zbias[n, g] for an
+    asymmetric weight) in float32, one (unstacked) weight with grouped
+    scales: x32 [M, K] float32 → [M, N] float32, the groups summed in
     order (as the TPU kernels do), one [M, N] product at a time."""
     c = codes(qt)                                                # [N, K]
     N, K = c.shape
     gs = K // qt.groups
     y = x32.new_zeros((x32.shape[0], N))
     for g in range(qt.groups):
-        part = x32[:, g * gs:(g + 1) * gs] @ c[:, g * gs:(g + 1) * gs].T.to(
-            torch.float32)
-        y += part * qt.scale[:, g]
+        xg = x32[:, g * gs:(g + 1) * gs]
+        y += (xg @ c[:, g * gs:(g + 1) * gs].T.to(torch.float32)
+              ) * qt.scale[:, g]
+        if qt.zbias is not None:
+            y += xg.sum(-1, keepdim=True) * qt.zbias[:, g]
+    return y
+
+
+def _channel_dot(xb, qt: QTensor, xsum=None):
+    """bf16 rows xb [M, K] against one int8 per-channel weight: the column
+    scale on the float32 sum, then sum(x) · zbias for an asymmetric one
+    (xsum [M, 1]: the float32 sum of the rows the caller names, else
+    xb's)."""
+    y = (xb.to(torch.float32) @ qt.q.to(torch.float32).T) * qt.scale.reshape(
+        -1)
+    if qt.zbias is not None:
+        if xsum is None:
+            xsum = xb.to(torch.float32).sum(-1, keepdim=True)
+        y = y + xsum * qt.zbias.reshape(-1)
     return y
 
 
 def quant_matmul_ref(x, qt: QTensor, layer=None, *, norm_gamma=None,
                      norm_eps: float = 1e-5, residual=None,
                      want_x_out: bool = False):
-    """Plain version of `quant_matmul` (same arguments and results)."""
+    """Plain version of `quant_matmul` (same arguments and results).
+
+    Its rounding points are the TPU kernels': up to 128 rows int8 dots the
+    bf16-rounded rows (per group for grouped scales) and int4 the float32
+    rows; an asymmetric weight's sum(x) · zbias takes the float32 rows
+    before their rounding for int8 per-channel and int4, each group's bf16
+    rows for grouped int8 (quant_matmul.py:309-323). Above 128 rows (K8)
+    every dot and every sum takes the bf16 rows the prologue leaves."""
     f32, bf16 = torch.float32, torch.bfloat16
     lead, M, K = _rows(x)
     fused = norm_gamma is not None or residual is not None
     x_full = None
+    xsum = None
     if M > _MAX_M:
         # the TPU package's prefill path: prologue outside the kernel, in
         # the caller's dtype, then the bf16 dot
@@ -159,16 +190,19 @@ def quant_matmul_ref(x, qt: QTensor, layer=None, *, norm_gamma=None,
                 var = torch.mean(x32 * x32, dim=-1, keepdim=True)
                 x32 = x32 * torch.rsqrt(var + norm_eps)
                 x32 = x32 * norm_gamma.to(f32)
+            xsum = x32.sum(-1, keepdim=True)
             # int8 dots bf16 rows; the int4 branch keeps them float32
             xn = x32 if qt.bits == 4 else x32.to(bf16)
         else:
             xn = x2
     w = _layer(qt, layer)
     if qt.bits == 4:
-        y = _grouped_dot(xn.to(f32), w).to(bf16)
+        y = _grouped_dot(xn.to(f32), w)
+    elif w.grouped:
+        y = _grouped_dot(xn.to(bf16).to(f32), w)
     else:
-        y = ((xn.to(f32) @ w.q.to(f32).T) * w.scale.reshape(-1)).to(bf16)
-    y = y.reshape(*lead, -1).to(x.dtype)
+        y = _channel_dot(xn, w, xsum)
+    y = y.to(bf16).reshape(*lead, -1).to(x.dtype)
     if not want_x_out:
         return y
     if x_full is None:
@@ -177,11 +211,16 @@ def quant_matmul_ref(x, qt: QTensor, layer=None, *, norm_gamma=None,
 
 
 def _check_weight(qt: QTensor, what: str):
+    z = qt.zbias
     if (qt.q.dtype != torch.int8 or not qt.q.is_contiguous()
             or qt.scale.dtype != torch.float32
-            or not qt.scale.is_contiguous()):
+            or not qt.scale.is_contiguous()
+            or (z is not None and (z.dtype != torch.float32
+                                   or not z.is_contiguous()
+                                   or z.shape != qt.scale.shape))):
         raise ValueError(f"{what} takes contiguous int8 codes [.., N, K'] "
-                         "and float32 scales (models.llama.prepare_params)")
+                         "and float32 scales (and zero points in their "
+                         "shape; models.llama.prepare_params)")
 
 
 def small_groups_ok(group_size: int, multiple: int) -> bool:
@@ -206,10 +245,11 @@ class MmaPlan(NamedTuple):
 def mma_plan(M: int, K: int, N: int, groups: int, bits: int,
              sms: int) -> MmaPlan:
     """The plan of K1's MMA branch (csrc/quant_matmul_tiled.cu,
-    qmm_wgmma_sk) for M rows on a card of `sms` SMs, int8 or int4 groups
-    of a multiple of 64 codes; the kernel takes every count from it. The
-    work is tiles x units (a ring slot of two 64-deep k steps; for int4
-    the slots of one group, or of two groups of an odd number of steps),
+    qmm_wgmma_sk) for M rows on a card of `sms` SMs, int8 (per-channel,
+    or groups of a multiple of 64 codes) or int4 groups of a multiple of
+    64 codes; the kernel takes every count from it. The work is tiles x
+    units (a ring slot of two 64-deep k steps; for grouped scales the
+    slots of one group, or of two groups of an odd number of steps),
     cut into `grid` ranges of whole units that differ by at most one unit:
     one persistent block an SM, or one a unit where there are fewer units
     than SMs. A tile two or more blocks share is summed through the
@@ -218,7 +258,7 @@ def mma_plan(M: int, K: int, N: int, groups: int, bits: int,
     tiles = -(-N // _TILE_N)
     slots = -(-K // (2 * _TILE_K))
     spg = spu = 1
-    if bits == 4:
+    if bits == 4 or groups > 1:
         spg = K // groups // _TILE_K
         spu = spg // 2 if spg % 2 == 0 else spg
     units = -(-slots // spu)
@@ -275,7 +315,10 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
 
     x: [..., K]; qt: one weight or a stack over layers with `layer` (a
     Python int) selecting the slice. Returns y [..., N] in x.dtype, and
-    with want_x_out also x + residual (the new residual stream)."""
+    with want_x_out also x + residual (the new residual stream). Every
+    format of quantize runs on the card: int8 per-channel or in groups of
+    a multiple of 64 codes, int4 as small_groups_ok says, with or without
+    zero points."""
     if not x.is_cuda:
         return quant_matmul_ref(x, qt, layer, norm_gamma=norm_gamma,
                                 norm_eps=norm_eps, residual=residual,
@@ -288,6 +331,7 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
     what = "K8" if tiled else "K1"
     _check_weight(qt, what)
     int4 = qt.bits == 4
+    G = qt.groups
     if tiled:
         # N a multiple of 64: the last band of 128 weight rows may hold 64
         if (K % _TILE_K or N % 64
@@ -303,6 +347,10 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
                          f"of a multiple of 64 codes, or of 8, 16 or 32, got "
                          f"K={K} N={N} bits={qt.bits} group_size="
                          f"{qt.group_size}")
+    if not int4 and G > 1 and qt.group_size % _TILE_K:
+        raise ValueError(f"{what} needs int8 groups of a multiple of "
+                         f"{_TILE_K} codes, got {qt.group_size}")
+    asym = qt.zbias is not None
     bf16 = torch.bfloat16
     for name, t in (("residual", residual), ("norm_gamma", norm_gamma)):
         if t is not None and t.dtype != bf16:
@@ -319,6 +367,10 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
     mma = M > _GEMV_MAX_M or M * K * (4 if int4 else 2) > _GEMV_MAX_SMEM
     xn = (torch.empty((M, K), dtype=bf16, device=x.device)
           if fused and mma else None)
+    # the MMA and tiled paths' sums of the rows for the zero points, one a
+    # row and group, made by their pre-pass
+    xsum = (torch.empty((M, G), dtype=torch.float32, device=x.device)
+            if asym and mma else None)
     li = 0 if layer is None else int(layer)
     if not qt.stacked and li:
         raise ValueError("layer given for an unstacked weight")
@@ -326,35 +378,44 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
             None if gam is None else gam.data_ptr())
     xn_ptr = None if xn is None else xn.data_ptr()
     xo_ptr = None if x_out is None else x_out.data_ptr()
+    xs_ptr = None if xsum is None else xsum.data_ptr()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    G = qt.groups
     w_ptr = qt.q.data_ptr() + li * N * (K // 2 if int4 else K)
     s_ptr = qt.scale.data_ptr() + li * N * G * 4
+    z_ptr = None if not asym else qt.zbias.data_ptr() + li * N * G * 4
     if tiled:
         # the TPU package's prefill path: the prologue runs before the
-        # GEMM (one pre-pass, as its jnp prologue), the GEMM on bf16 rows
+        # GEMM (one pre-pass, as its jnp prologue), the GEMM on bf16 rows;
+        # zero points take the pass's sums of the bf16 rows
         a = x2
-        if fused:
+        if fused or asym:
             _build.check(_build.lib().qmm_prologue_launch(
-                *ptrs, xn_ptr, xo_ptr, M, K, float(norm_eps), stream),
-                "quant_matmul prologue")
-            a = xn
+                *ptrs, xn_ptr, xo_ptr, xs_ptr, M, K, G, 0, float(norm_eps),
+                stream), "quant_matmul prologue")
+            if fused:
+                a = xn
         _build.check(_build.lib().qmm_tiled_launch(
-            a.data_ptr(), w_ptr, s_ptr, out.data_ptr(), M, K, N, G, qt.bits,
-            stream), "quant_matmul tiled")
+            a.data_ptr(), w_ptr, s_ptr, z_ptr, xs_ptr, out.data_ptr(), M, K,
+            N, G, qt.bits, stream), "quant_matmul tiled")
         tiled_launches += 1
     else:
         if mma:
-            # the prologue pre-pass (when fused), then the product on
-            # wgmma with a row tile fitted to M (csrc/quant_matmul_tiled.cu),
-            # whose TMA reads the rows from a 16-byte aligned address
+            # the prologue pre-pass (when fused, or for the zero points'
+            # sums), then the product on wgmma with a row tile fitted to M
+            # (csrc/quant_matmul_tiled.cu), whose TMA reads the rows from
+            # a 16-byte aligned address
             if not fused and ptrs[0] % 16:
                 x2 = x2.clone()
                 ptrs = (x2.data_ptr(),) + ptrs[1:]
+            # the zero points' sums (sum_mode): of the float32 rows before
+            # their rounding for int8 per channel and int4 (1), of each
+            # group's bf16 rows for grouped int8 (0), as K1's TPU body
             code = _build.lib().qmm_mma_launch(
-                *ptrs, xn_ptr, xo_ptr, w_ptr, s_ptr, out.data_ptr(),
+                *ptrs, xn_ptr, xo_ptr, w_ptr, s_ptr, z_ptr, xs_ptr,
+                out.data_ptr(),
                 _mma_launch_plan(x.device, M, K, N, G, qt.bits),
-                float(norm_eps), stream)
+                0 if qt.bits == 8 and qt.grouped else 1, float(norm_eps),
+                stream)
         elif int4:
             # the rows are read 16 bytes at a time, the codes by TMA
             if w_ptr % 16:
@@ -363,13 +424,13 @@ def quant_matmul(x, qt: QTensor, layer=None, *, norm_gamma=None,
                             for t in (x2, res, gam))
             ptrs = tuple(None if t is None else t.data_ptr()
                          for t in (x2, res, gam))
-            code = _build.lib().qmm4_launch(*ptrs, w_ptr, s_ptr,
+            code = _build.lib().qmm4_launch(*ptrs, w_ptr, s_ptr, z_ptr,
                                             out.data_ptr(), xo_ptr, M, K,
                                             N, G, float(norm_eps), stream)
         else:
-            code = _build.lib().qmm_launch(*ptrs, w_ptr, s_ptr,
+            code = _build.lib().qmm_launch(*ptrs, w_ptr, s_ptr, z_ptr,
                                            out.data_ptr(), xo_ptr, M, K,
-                                           N, float(norm_eps), stream)
+                                           N, G, float(norm_eps), stream)
         _build.check(code, "quant_matmul")
         launches += 1
         mma_launches += mma
@@ -425,10 +486,19 @@ def _check_tail_weight(qt: QTensor, what: str):
                          "engine reads them)")
 
 
+def _fuse_ok(qt) -> bool:
+    """The weights K6, K7 and K12 may take at all: the TPU package keeps
+    zero points off them (quant_matmul.py:692-696, layer_fused.py:338-345;
+    its split-half int4 route, which they do not take either, is the
+    forward's choice: models/llama.prepare_params)."""
+    return isinstance(qt, QTensor) and qt.zbias is None
+
+
 def _tail_ok(qt, K: int) -> bool:
     """The TPU package's _npair_ok_for_fuse (quant_matmul.py:692-696):
-    stacked grouped symmetric int4 with K input rows."""
-    return (isinstance(qt, QTensor) and qt.bits == 4 and qt.stacked
+    stacked grouped symmetric int4 on the N-pair route with K input
+    rows."""
+    return (_fuse_ok(qt) and qt.bits == 4 and qt.stacked
             and qt.groups > 1 and qt.in_features == K)
 
 
@@ -524,13 +594,14 @@ def layer_tail_fused(h, attn2d, wo: QTensor, gu: QTensor, dn: QTensor,
 def _ffn_shapes(x, gu, dn):
     """(M, K, I) when K7 takes the case, else None (the JAX package's
     acceptance conditions, quant_matmul.py:806-826): at most 32 rows,
-    stacked grouped symmetric int4 gate-up and down weights of K and I
-    input rows, groups of at least 8 codes that divide the rows."""
+    stacked grouped symmetric int4 gate-up and down weights on the N-pair
+    route of K and I input rows, groups of at least 8 codes that divide
+    the rows."""
     _, M, K = _rows(x)
     if M > _TAIL_MAX_M:
         return None
     for qt in (gu, dn):
-        if not (isinstance(qt, QTensor) and qt.bits == 4 and qt.stacked
+        if not (_fuse_ok(qt) and qt.bits == 4 and qt.stacked
                 and qt.groups > 1):
             return None
     I = gu.out_features // 2

@@ -25,6 +25,8 @@ and the full parameters can be dropped.
 
 from __future__ import annotations
 
+import dataclasses
+
 from llm_inference_tpu_torch.config import ModelConfig
 from llm_inference_tpu_torch.ops.quantization import QTensor
 
@@ -66,7 +68,15 @@ def _slice(t, dim: int, rank: int, size: int, what: str):
     return t.narrow(dim, rank * (n // size), n // size).contiguous()
 
 
+# the refusal of the weight formats tensor parallelism does not take yet
+FORMATS_NOT_PORTED = ("zero points (--asym) and grouped int8 weights over "
+                      "tensor parallelism are not ported yet (ROADMAP.md "
+                      "queue 1, item 10)")
+
+
 def _shard_qtensor(name: str, qt: QTensor, rank: int, size: int) -> QTensor:
+    if qt.zbias is not None or (qt.bits == 8 and qt.grouped):
+        raise NotImplementedError(f"{name}: {FORMATS_NOT_PORTED}")
     if name in _ROW_SHARDED:
         G = qt.groups
         scale = qt.scale
@@ -77,13 +87,12 @@ def _shard_qtensor(name: str, qt: QTensor, rank: int, size: int) -> QTensor:
                     f"a row-sharded weight — pick a group_size giving a "
                     f"tp-divisible group count")
             scale = _slice(scale, -1, rank, size, name)
-        return QTensor(q=_slice(qt.q, -1, rank, size, name), scale=scale,
-                       bits=qt.bits)
+        return dataclasses.replace(qt, q=_slice(qt.q, -1, rank, size, name),
+                                   scale=scale)
     # column-sharded: output columns are the codes' rows
-    sdim = -2 if qt.bits == 4 else -1
-    return QTensor(q=_slice(qt.q, -2, rank, size, name),
-                   scale=_slice(qt.scale, sdim, rank, size, name),
-                   bits=qt.bits)
+    return dataclasses.replace(
+        qt, q=_slice(qt.q, -2, rank, size, name),
+        scale=_slice(qt.scale, qt.col_axis, rank, size, name))
 
 
 def _shard_leaf(name: str, leaf, rank: int, size: int):

@@ -356,7 +356,8 @@ def k8(blib, gen):
                 code = lib.qmm_tiled_launch(
                     x.data_ptr(), qt.q.data_ptr() + (i % 2) * wb,
                     qt.scale.data_ptr() + (i % 2) * N * qt.groups * 4,
-                    out.data_ptr(), M, K, N, qt.groups, bits, st)
+                    None, None, out.data_ptr(), M, K, N, qt.groups, bits,
+                    st)
                 if code:
                     raise RuntimeError(f"qmm_tiled_launch: {code}")
             b, n = turns(lambda i: call(blib, i),

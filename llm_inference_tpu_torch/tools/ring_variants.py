@@ -216,7 +216,7 @@ def k1_cases(kernel, libs, gen):
                     x.data_ptr(), None if res is None else res.data_ptr(),
                     None if gam is None else gam.data_ptr(),
                     qt.q.data_ptr() + li * N * K // 2,
-                    qt.scale.data_ptr() + li * N * qt.groups * 4,
+                    qt.scale.data_ptr() + li * N * qt.groups * 4, None,
                     out.data_ptr(), None if xo is None else xo.data_ptr(),
                     M, K, N, qt.groups, 1e-5, st)
                 if code:

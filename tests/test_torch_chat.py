@@ -469,12 +469,30 @@ def test_cli_chats_with_a_tokenizer(monkeypatch, capsys, tmp_path):
 # --tp alone is served (tests/test_torch_tp.py); under --tp the ranks
 # still refuse --dp, and the refusal reaches the caller. mixtral is served
 # (tests/test_torch_mixtral.py), but not over --tp 2 (expert parallelism),
-# which is refused before any rank starts. --lora is served on one device
-# (tests/test_torch_lora.py), and refused with --tp 2 before any rank starts
+# which is refused before any rank starts. --lora, --asym and
+# --no-int4-npair are served on one device (tests/test_torch_lora.py,
+# test_cli_serves_weight_formats below), and refused with --tp 2 before
+# any rank starts
 @pytest.mark.parametrize("argv", [["--tp", "2", "--dp", "2"], ["--dp", "2"],
-                                  ["--lora", "a=b", "--tp", "2"], ["--asym"],
-                                  ["--no-int4-npair"],
+                                  ["--lora", "a=b", "--tp", "2"],
+                                  ["--asym", "--tp", "2"],
+                                  ["--no-int4-npair", "--tp", "2"],
                                   ["--model", "mixtral-8x7b", "--tp", "2"]])
 def test_cli_refuses_what_is_not_ported(monkeypatch, capsys, argv):
     with pytest.raises(NotImplementedError, match="not ported"):
         _run_cli(monkeypatch, capsys, ["--device", "cpu"] + argv, ["exit"])
+
+
+@pytest.mark.parametrize("argv", [["--quant", "int4", "--group-size", "32",
+                                   "--asym"],
+                                  ["--quant", "int4", "--group-size", "32",
+                                   "--no-int4-npair"]])
+def test_cli_serves_weight_formats(monkeypatch, capsys, argv):
+    # asymmetric int4 and the split-half int4 route chat on one device
+    out = _run_cli(monkeypatch, capsys,
+                   ["--device", "cpu", "--greedy", "--max-new-tokens", "4",
+                    "--max-seq-len", "128"] + argv, ["hello", "exit"])
+    ids = [json.loads(line.split("ids> ", 1)[1])
+           for line in out.splitlines() if "ids> " in line]
+    assert len(ids) == 1 and len(ids[0]) == 4
+    assert out.rstrip().endswith("bye.")

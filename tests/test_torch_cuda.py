@@ -346,6 +346,86 @@ def test_k1_prefill_launches_repeat_bit_identical(cuda, bits, M):
     assert not t_qm._mma_done[x.device].any()
 
 
+def _format_weight(g, bits, N, K, gsize, asym, L=2):
+    """A random stacked weight of one of quantize's formats: random codes,
+    scales of the right order for a unit-variance output (int8 per
+    channel [L, 1, N], grouped [L, N, G]), and with asym zero points of a
+    few steps of the scale either way."""
+    if bits == 4:
+        qt = _int4_weight(g, L, N, K, gsize or K)
+    else:
+        G = K // gsize if gsize else 1
+        shape = (L, N, G) if G > 1 else (L, 1, N)
+        qt = QTensor(q=torch.randint(-128, 128, (L, N, K), generator=g,
+                                     dtype=torch.int8),
+                     scale=torch.rand(shape, generator=g) * 1e-3 + 1e-5,
+                     grouped=G > 1)
+    if asym:
+        qt = dataclasses.replace(qt, zbias=(torch.rand(
+            qt.scale.shape, generator=g) - 0.5) * 8 * qt.scale)
+    return qt
+
+
+# (bits, group size (0: per channel), zero points): grouped int8, int8
+# and int4 with zero points; groups of an odd number of 64-deep k steps
+# (64), and the int4 groups of 32 (the GEMV's consume32, the mma.sync
+# kernel above 8 rows), 16 and 8 (the GEMV's ring consumers, the mma.sync
+# kernel above 8 rows)
+_FORMATS = [(8, 128, False), (8, 128, True), (8, 64, True), (8, 0, True),
+            (4, 128, True), (4, 64, True), (4, 0, True), (4, 32, True),
+            (4, 16, True), (4, 8, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,gsize,asym", _FORMATS)
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 128, 300])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_k1_k8_weight_formats_cuda_match_plain(cuda, bits, gsize, asym, M,
+                                               prologue):
+    # K1's GEMVs (M <= 8), its MMA branch (16, 128) and K8 (300 rows) on
+    # every format of quantize, against the plain version on the CPU
+    g = torch.Generator().manual_seed(500 + bits + gsize + asym + M)
+    K, N = 4096, 1024
+    qt = _format_weight(g, bits, N, K, gsize, asym)
+    x = torch.randn((M, K), generator=g).to(BF16)
+    kw = {}
+    if prologue:
+        kw = dict(norm_gamma=(1 + 0.1 * torch.randn((K,), generator=g)
+                              ).to(BF16),
+                  residual=torch.randn((M, K), generator=g).to(BF16),
+                  want_x_out=True)
+    want = t_qm.quant_matmul(x, qt, 1, **kw)
+    got = t_qm.quant_matmul(x.to(cuda), qt.to(cuda), 1, **_to(kw, cuda))
+    torch.cuda.synchronize()
+    if prologue:
+        (want, want_x), (got, got_x) = want, got
+        assert torch.equal(got_x.cpu(), want_x)
+    # as test_k1_cuda_matches_plain: one bf16 step of the largest output
+    err = (got.cpu().float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,gsize,asym", [(8, 128, True), (4, 128, True),
+                                             (8, 0, True), (4, 16, True),
+                                             (4, 8, True)])
+@pytest.mark.parametrize("M", [1, 8, 128])
+def test_k1_weight_formats_repeat_bit_identical(cuda, bits, gsize, asym, M):
+    # the zero points' sums and terms in a fixed order: two launches give
+    # the same bits, and the MMA branch's tile counters are left at zero
+    g = torch.Generator().manual_seed(600 + bits + M)
+    K, N = 11008, 4096
+    qt = _format_weight(g, bits, N, K, gsize, asym).to(cuda)
+    x = torch.randn((M, K), generator=g).to(BF16).to(cuda)
+    gamma = (1 + 0.1 * torch.randn((K,), generator=g)).to(BF16).to(cuda)
+    y1 = t_qm.quant_matmul(x, qt, 1, norm_gamma=gamma)
+    y2 = t_qm.quant_matmul(x, qt, 1, norm_gamma=gamma)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.isfinite(y1.float()).all()
+    if x.device in t_qm._mma_done:
+        assert not t_qm._mma_done[x.device].any()
+
+
 @pytest.mark.cuda
 def test_k1_mma_failed_launch_raises(cuda):
     import ctypes
@@ -362,8 +442,8 @@ def test_k1_mma_failed_launch_raises(cuda):
         plan = (ctypes.c_int64 * 13)(M, 4096, 1024, 1, 8, bm, grid,
                                      part.data_ptr(), done.data_ptr(), 1,
                                      units, 1, 8 * units)
-        code = lib.qmm_mma_launch(*([None] * 8), ctypes.addressof(plan),
-                                  1e-5, None)
+        code = lib.qmm_mma_launch(*([None] * 10), ctypes.addressof(plan),
+                                  0, 1e-5, None)
         with pytest.raises(RuntimeError, match="quant_matmul"):
             _build.check(code, "quant_matmul")
 
@@ -1190,9 +1270,10 @@ _MEGA_WIDTHS = {"small": (1024, 2816, 8), "7b": (4096, 11008, 32),
 
 
 def _mega_layer(g, bits, kv, Hkv, S, pos, gsize=128, width="small"):
-    """A 2-layer model's layer dict (random quantized weights, int4 in
-    groups of gsize codes, random bf16 norms), a random cache of one
-    sequence and the RoPE rows at pos."""
+    """A 2-layer model's layer dict (random quantized weights: bits
+    "int8" per channel, "int8g" int8 and "int4" int4 in groups of gsize
+    codes; random bf16 norms), a random cache of one sequence and the
+    RoPE rows at pos."""
     from llm_inference_tpu_torch.config import QuantConfig, tiny_llama
     from llm_inference_tpu_torch.models import llama
     from llm_inference_tpu_torch.ops import kvcache
@@ -1200,8 +1281,8 @@ def _mega_layer(g, bits, kv, Hkv, S, pos, gsize=128, width="small"):
     cfg = tiny_llama(hidden_size=H, intermediate_size=I, num_heads=Hq,
                      num_kv_heads=Hkv, head_dim=128, vocab_size=256,
                      dtype="bfloat16", max_position_embeddings=4096)
-    qcfg = QuantConfig(weights=bits,
-                       group_size=gsize if bits == "int4" else 0)
+    qcfg = QuantConfig(weights=bits[:4],
+                       group_size=0 if bits == "int8" else gsize)
     params = llama.prepare_params(llama.init_params_quantized(
         cfg, qcfg, seed=5, device="cpu"))
     layers = params["layers"]
@@ -1254,13 +1335,16 @@ def _mega_inputs(bits, kv, Hkv, S, pos, gsize=128, width="small"):
     # G = 8 (one kv head), the kernel's kMaxG
     ("int4", "int8", 1, 512, 191), ("int8", "bf16", 1, 1024, 700),
     # the last slot of the cache: every slot but one is history
-    ("int4", "bf16", 4, 512, 511)])
+    ("int4", "bf16", 4, 512, 511),
+    # int8 in groups of 128 codes
+    ("int8g", "bf16", 8, 512, 191), ("int8g", "int8", 2, 1024, 900)])
 def test_k12_cuda_matches_plain(cuda, bits, kv, Hkv, S, pos, gsize=128):
     _k12_case(bits, kv, Hkv, S, pos, gsize, "small")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits,kv", [("int8", "bf16"), ("int4", "int8")])
+@pytest.mark.parametrize("bits,kv", [("int8", "bf16"), ("int4", "int8"),
+                                     ("int8g", "bf16")])
 def test_k12_7b_width_cuda_matches_plain(cuda, bits, kv):
     # LLaMA-2-7B widths: on 132 SMs the int8 gate-up phase's 84 pairs a
     # block take two ring batches
@@ -1298,7 +1382,8 @@ def _k12_case(bits, kv, Hkv, S, pos, gsize, width):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits,kv", [("int8", "bf16"), ("int8", "int8"),
-                                     ("int4", "int8"), ("int4", "bf16")])
+                                     ("int4", "int8"), ("int4", "bf16"),
+                                     ("int8g", "bf16")])
 def test_k12_launches_repeat_bit_identical(cuda, bits, kv):
     # every sum is taken in a fixed order (no float atomics; the merge
     # takes the shares in share order): two launches on the same inputs
@@ -1581,6 +1666,9 @@ def test_k8_routes(cuda):
     # a last band of 64 weight rows (phi3's 32064, gemma3's 262208)
     assert route(K, N + 64, 1, 8) == 1
     assert route(K, N + 64, K // 128, 4) == 1
+    # int8 in groups of a multiple of 64 codes: the wgmma kernel
+    assert route(K, N, K // 128, 8) == 1 and route(K, N, K // 64, 8) == 1
+    assert route(K, N, K // 32, 8) == -1
 
 
 @pytest.mark.cuda

@@ -108,11 +108,13 @@ def _rope_rows(cfg, S, pos):
     return cos[pos][None, None], sin[pos][None, None]
 
 
-# the four (weights, KV) cases; the last two cross a 128-slot block
+# the (weights, KV) cases; the int8 cache's cross a 128-slot block; the
+# last is int8 in groups of 128 codes
 CASES = [("int8", 0, "bf16", 4, 128, 9),
          ("int8", 0, "int8", 2, 256, 130),
          ("int4", 64, "bf16", 2, 128, 9),
-         ("int4", 64, "int8", 4, 256, 131)]
+         ("int4", 64, "int8", 4, 256, 131),
+         ("int8", 128, "int8", 2, 256, 130)]
 
 
 @pytest.mark.parametrize("bits,gs,kv,kv_heads,S,pos", CASES)

@@ -152,9 +152,19 @@ def test_init_params_quantized_serves(models):
     logits, _ = llama.forward(cfg, prep, ids, ids, c)
     assert logits.shape == (1, cfg.vocab_size)
     assert torch.isfinite(logits).all()
-    with pytest.raises(NotImplementedError):       # asymmetric: not ported
-        llama.init_params_quantized(cfg, QuantConfig(
-            weights="int4", group_size=128, asymmetric=True), device="cpu")
+    # asymmetric int4: zero points drawn beside the scales (half a scale,
+    # as the JAX package's dummy weights), served through the same forward
+    pa = llama.init_params_quantized(cfg, QuantConfig(
+        weights="int4", group_size=32, asymmetric=True), seed=3,
+        device="cpu")
+    wq = pa["layers"]["wq"]
+    assert wq.zbias is not None and wq.zbias.shape == wq.scale.shape
+    assert torch.equal(wq.zbias, wq.scale * 0.5)
+    c = kvcache.init_cache(cfg.num_layers, 1, cfg.num_kv_heads, S,
+                           cfg.head_dim, torch.bfloat16, device="cpu")
+    logits, _ = llama.forward(cfg, llama.prepare_params(pa), ids, ids, c)
+    assert logits.shape == (1, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
 
 
 def test_params_from_numpy_bf16_bits():

@@ -122,9 +122,33 @@ def test_int4_dequantize_and_qmatmul_ref_match_jax(group_size):
                                 dict(group_size=32),
                                 dict(asymmetric=True)])
 def test_quantize_unported_formats_raise(kw):
-    w = torch.zeros((64, 16))
-    with pytest.raises(NotImplementedError):
-        quantization.quantize(w, **{"bits": 8, **kw})
+    # the three formats this test once saw refused (asymmetric int4,
+    # grouped int8, asymmetric int8) are served: codes, scales and zero
+    # points bit-identical to JAX quantize, and dequantize equal to its
+    rng = _rng(31)
+    # skewed columns, where the zero points matter
+    w = (rng.standard_normal((64, 16)) * 0.05 + rng.uniform(
+        -0.1, 0.1, (1, 16))).astype(np.float32)
+    kw = {"bits": 8, **kw}
+    jq = j_quant.quantize(jnp.asarray(w), kw["bits"],
+                          kw.get("group_size", 0),
+                          asymmetric=kw.get("asymmetric", False))
+    tq = quantization.quantize(torch.from_numpy(w), **kw)
+    jcodes = (jq.q if kw["bits"] == 8
+              else j_quant._unpack_int4(jq.q, jq.block_rows))
+    np.testing.assert_array_equal(quantization.codes(tq).T.numpy(),
+                                  np.asarray(jcodes))
+    lay = (lambda t: t.T) if tq.grouped else (lambda t: t)
+    np.testing.assert_array_equal(lay(tq.scale).numpy(),
+                                  np.asarray(jq.scale))
+    if kw.get("asymmetric"):
+        np.testing.assert_array_equal(lay(tq.zbias).numpy(),
+                                      np.asarray(jq.zbias))
+    else:
+        assert tq.zbias is None and jq.zbias is None
+    np.testing.assert_array_equal(
+        quantization.dequantize(tq).numpy(),
+        np.asarray(j_quant.dequantize(jq, jnp.float32)))
 
 
 # ------------------------------------------------------------------- norms

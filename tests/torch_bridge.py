@@ -3,10 +3,11 @@ KV caches and arrays to the PyTorch port through numpy.
 
 JAX QTensors become {"q", "scale", "bits"} (un-blocked with
 quantization.from_blocked): int8 row-major codes [..., K, N] with float32
-scales [..., 1, N], or split-half packed int4 codes [..., K/2, N] with
-float32 scales [..., G, N] and "block_rows", the packed rows of a pack
-block (one block, or one per rank of quantize_params(row_shards=)) — the
-form
+scales [..., G, N] (G = 1 per channel), or split-half packed int4 codes
+[..., K/2, N] with float32 scales [..., G, N] and "block_rows", the packed
+rows of a pack block (one block, or one per rank of
+quantize_params(row_shards=)); an asymmetric weight adds "zbias" in the
+scales' shape — the form
 `llm_inference_tpu_torch.models.llama.params_from_numpy` takes. A JAX
 KVCache (bf16, int8, or packed int4 codes with slot-major float32 scales)
 becomes the port's KVCache in the same layout (`cache_to_torch`), and a
@@ -27,14 +28,10 @@ def to_numpy_tree(params):
     """JAX params pytree → nested dicts of numpy arrays."""
     if isinstance(params, QTensor):
         qt = from_blocked(params)
-        int8_ok = qt.bits == 8 and qt.scale.shape[-2] == 1
-        int4_ok = (qt.bits == 4 and qt.q.shape[-2]
-                   % (qt.block_rows or qt.q.shape[-2]) == 0)
-        if qt.zbias is not None or not (int8_ok or int4_ok):
-            raise NotImplementedError("the port takes symmetric int8 "
-                                      "per-channel and int4 weights")
         out = {"q": np.asarray(qt.q), "scale": np.asarray(qt.scale),
                "bits": qt.bits}
+        if qt.zbias is not None:
+            out["zbias"] = np.asarray(qt.zbias)
         if qt.bits == 4:
             out["block_rows"] = qt.block_rows or qt.q.shape[-2]
         return out
